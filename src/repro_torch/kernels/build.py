@@ -1,0 +1,165 @@
+"""Build and load the CUDA kernels of this package.
+
+The sources under ``csrc/`` have a plain C interface and include nothing of
+PyTorch, so ``nvcc`` compiles each in a few seconds. At first use every
+``*.cu`` file is compiled for ``sm_90a`` to an object file (one ``nvcc``
+process per source, all started together), the objects are linked into one
+shared library, and the library is loaded with :mod:`ctypes`. The library's
+name carries a hash of the sources and the flags, so an edited source is
+rebuilt and a stale library is never loaded.
+
+The build directory is ``build/`` at the root of the checkout (or
+``$REPRO_TORCH_BUILD_DIR``). A failed build raises; nothing here falls back
+to another implementation.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib: Optional[ctypes.CDLL] = None
+#: seconds nvcc took when this process built the library (0.0 if it never
+#: had to: the library was already there)
+build_seconds: float = 0.0
+
+
+class KernelCompileError(RuntimeError):
+    """nvcc is missing, or it refused a source."""
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    # src/repro_torch/kernels/build.py -> the checkout's root
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root:
+            candidates.append(os.path.join(root, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelCompileError(
+        "nvcc not found (looked on PATH, $CUDA_HOME, $CUDA_PATH and "
+        "/usr/local/cuda): the CUDA kernels of repro_torch cannot be built "
+        "on this host")
+
+
+def _digest(srcs: List[Path]) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return build_dir() / f"librepro_torch_kernels_{_digest(sources())}.so"
+
+
+def build() -> Path:
+    """Compile and link the kernels if their library is not there yet;
+    returns the library's path."""
+    global build_seconds
+    srcs = sources()
+    if not srcs:
+        raise KernelCompileError(f"no CUDA sources under {CSRC}")
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    bdir = build_dir()
+    bdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tag = out.stem.rsplit("_", 1)[-1]
+    objs = [bdir / f"{s.stem}_{tag}.o" for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    log, failed = [], []
+    for s, p in zip(srcs, procs):
+        text, _ = p.communicate()
+        log.append(f"== nvcc {s.name} (exit {p.returncode})\n{text}")
+        if p.returncode != 0:
+            failed.append(s.name)
+    (bdir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise KernelCompileError(
+            f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise KernelCompileError(f"linking {out.name} failed:\n{link.stdout}")
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def build_log() -> str:
+    """What ``nvcc -Xptxas -v`` said in the last build (registers, shared
+    memory and spills of every kernel)."""
+    path = build_dir() / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built at first use. Sets the argument
+    types of every exported function: a pointer or a stream passed without
+    them would be cut to 32 bits."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.repro_vai_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+        lib.repro_vai_f32.restype = i32
+        lib.repro_membw_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64,
+                                        i64, ptr]
+        lib.repro_membw_f32.restype = i32
+        lib.repro_error_string.argtypes = [i32]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_launch(code: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if code != 0:
+        msg = load_library().repro_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
+
+
+def sass(function_substring: str) -> str:
+    """Disassembly (``cuobjdump -sass``) of the kernels whose name contains
+    ``function_substring`` — to check what the compiler made of a loop."""
+    lib = build()
+    tool = shutil.which("cuobjdump") or str(
+        Path(find_nvcc()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          check=True).stdout
+    chunks = text.split("\t\tFunction : ")
+    return "\n".join("Function : " + c for c in chunks[1:]
+                     if function_substring in c.split("\n", 1)[0])

@@ -1,0 +1,72 @@
+"""The port stands alone: a fresh interpreter imports every module of
+``repro_torch`` and ``chip_smoke`` and ends with neither ``jax`` nor the
+reference package ``repro`` loaded."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+def test_fresh_interpreter_imports_no_jax_and_no_reference():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT])
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
+    assert int(lines["MODULES"]) >= 20
+    assert lines["BAD"] == "[]"
+
+
+def _sources():
+    import repro_torch
+    pkg = os.path.dirname(repro_torch.__file__)
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_line_imports_jax_or_the_reference():
+    offenders = []
+    for path in _sources():
+        for i, line in enumerate(open(path), 1):
+            s = line.strip()
+            if s.startswith(("import ", "from ")) and any(
+                    tok in s.split()[1].split(".")[:1]
+                    for tok in ("jax", "jaxlib", "repro")):
+                offenders.append(f"{path}:{i}: {s}")
+    assert offenders == []
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "no CUDA device" in out.stderr
