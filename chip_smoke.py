@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-Builds the two CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then drives the port's main
-path once at full size through the entry points a user would call:
+Builds the three CUDA kernels from the sources in this checkout, holds each
+against its plain PyTorch version on the card, tunes the flash-attention
+tiles, then drives the port's two paths once at full size through the entry
+points a user would call:
 
-    VAI / membw kernels timed by the wall-clock harness
-      -> tune -> calibrate -> "calibrated:<kernel>" response tables
+    the paper's pipeline: VAI / membw kernels timed by the wall-clock
+      harness -> tune -> calibrate -> "calibrated:<kernel>" response tables
       -> one day of Frontier-sized fleet telemetry decomposed on the card
       -> fleet projection (paper Table V and the 8.5 % / 1438 MWh headline)
+    the serving path: qwen2.5-14b at full width and depth in bf16 (random
+      weights from a seeded generator) -> ServeEngine.generate on 4 greedy
+      requests -> serve() on 8 Poisson-arriving requests through a slot pool
+      metered by an energy-aware EnergySession; prefill attention runs the
+      flash kernel, and the same prompt served through the plain attention
+      route must give the same greedy tokens wherever the logits' top-2
+      margin exceeds the difference between the two routes
 
 Run it with no arguments from the root of the checkout:
 
@@ -41,12 +49,15 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM datasheet
 FP32_FMA_FLOPS = 66.9e12       # 132 SMs x 128 lanes x 2 x 1.98 GHz
 FP32_ADD_OPS = FP32_FMA_FLOPS / 2
+BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor-core peak
 L2_BYTES = 50e6
 
 VAI_CHECK_LOOPSIZES = (0, 1, 8, 64, 1024)
 VAI_TOL = 2e-4                 # FMA rounds once, mul-then-add twice
 MEMBW_RTOL, MEMBW_ATOL = 1e-5, 1e-4     # the order of the sum differs
 MEMBW_TOL_SHAPES = ((4, 64, 9), (8, 32, 16), (2, 256, 5))
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVE_ARCH = "qwen2.5-14b"     # the reference serve CLI's default --arch
 
 
 def emit(**obj) -> None:
@@ -411,11 +422,380 @@ def main_path(device, sizes: dict) -> dict:
     return report
 
 
+# ------------------------------------------------------- flash attention
+def attention_entries(Sq: int, Skv: int, causal: bool) -> int:
+    """Score entries one (batch, head) of attention needs: every (q, kv)
+    pair, or under the top-left causal mask the keys 0..qpos of each query
+    row, sum of min(qpos + 1, Skv)."""
+    if not causal:
+        return Sq * Skv
+    if Sq <= Skv:
+        return Sq * (Sq + 1) // 2
+    return Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
+
+
+def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, itemsize, causal):
+    """Least time for one call: bytes (q, k, v read once, o written once)
+    over the HBM rate against the flops the function needs (2 D for q.k and
+    2 D for p.v per unmasked score entry) over the peak of the inputs'
+    type."""
+    flops = 2.0 * B * Hq * attention_entries(Sq, Skv, causal) * (2 * D)
+    byts = itemsize * D * (2 * B * Sq * Hq + 2 * B * Skv * Hkv)
+    peak = FP32_FMA_FLOPS if itemsize == 4 else BF16_TENSOR_FLOPS
+    by_bytes = byts / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / peak * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", flops, byts)
+
+
+def check_flash(device, timer: Timer, sizes: dict) -> dict:
+    """The flash-attention kernel against its plain version on the card: at
+    the tuning space's shape (f32), at the served model's prefill shape
+    (bf16, GQA), with Sq != Skv (causal, top-left aligned) and non-causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device=device)
+    g.manual_seed(13)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.float32).to(dtype)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    bh, seq, hd = sizes["flash_space"]
+    mseq, mhq, mhkv, mhd = sizes["flash_model"]
+    # (name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, block_q, block_k)
+    cases = [
+        ("space_f32", bh, seq, seq, 1, 1, hd, f32, True, 64, 64),
+        ("model_prefill_bf16", 1, mseq, mseq, mhq, mhkv, mhd, bf16, True,
+         *attn.flash_tiles(bf16, mseq, mseq)),
+        ("sq_ne_skv_f32", 2, seq // 4, seq // 2, 8, 2, hd, f32, True, 64,
+         128),
+        ("noncausal_f32", 2, seq // 2, seq // 2, 4, 4, hd // 2, f32, False,
+         32, 64),
+        # stablelm-12b's head dim
+        ("head_dim_160_bf16", 1, seq // 4, seq // 4, 4, 1, 160, bf16, True,
+         128, 128),
+    ]
+    rows = []
+    for name, B, Sq, Skv, Hq, Hkv, D, dt, causal, bq, bk in cases:
+        q = rnd((B, Sq, Hq, D), dt)
+        k = rnd((B, Skv, Hkv, D), dt)
+        v = rnd((B, Skv, Hkv, D), dt)
+        got = fa.flash_attention_bshd(q, k, v, causal=causal, block_q=bq,
+                                      block_k=bk)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        block_q=bq, block_k=bk)
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dt]
+        check(err <= tol and bool(torch.isfinite(got).all()),
+              f"flash_attention[{name}] differs from its plain version by "
+              f"{err} (tolerance {tol})")
+        row = {"case": name, "q": list(q.shape), "kv": list(k.shape),
+               "dtype": str(dt).replace("torch.", ""), "causal": causal,
+               "blocks": [bq, bk], "max_abs_err": err, "tolerance": tol}
+        if name in ("space_f32", "model_prefill_bf16"):
+            bound, by, flops, byts = flash_bound_ms(
+                B, Hq, Hkv, Sq, Skv, D, q.element_size(), causal)
+            ms = timer(lambda: fa.flash_attention_bshd(
+                q, k, v, causal=causal, block_q=bq, block_k=bk), reps=10)
+            plain_ms = timer(lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal, block_q=bq, block_k=bk), reps=3)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv),
+                reps=10)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, bound_by=by, tflops=flops / ms / 1e9,
+                       gbytes_s=byts / ms / 1e6)
+            if device.type == "cuda":
+                # every instantiated tile that fits, at this shape: what
+                # the model's FLASH_TILES are chosen from
+                row["ms_by_tile"] = {
+                    f"{tq}x{tk}": timer(lambda: fa.flash_attention_bshd(
+                        q, k, v, causal=causal, block_q=tq, block_k=tk),
+                        reps=10)
+                    for tq in fa.BLOCK_Q_OPTIONS for tk in fa.BLOCK_K_OPTIONS
+                    if fa.unsupported(q.element_size(), D, D, tq, tk) is None}
+        rows.append(row)
+        del q, k, v, got, want
+    # the model's dispatch: a causal f32 prefill on the card goes to the
+    # kernel at the f32 tiles, like the bf16 one the serve phase runs
+    q = rnd((1, seq // 4, 8, hd), f32)
+    k, v = rnd((1, seq // 4, 2, hd), f32), rnd((1, seq // 4, 2, hd), f32)
+    before = ops.launch_counts()["flash_attention"]
+    got = attn.chunked_attention(q, k, v)
+    launched = ops.launch_counts()["flash_attention"] - before
+    want = attn.chunked_attention(q, k, v, impl="plain")
+    err = float((got - want).abs().max())
+    check(err <= FLASH_TOL[f32], f"chunked_attention f32 kernel route "
+          f"differs from the plain route by {err}")
+    check(launched == (1 if device.type == "cuda" else 0),
+          f"a causal f32 prefill on {device} made {launched} kernel launches")
+    rows.append({"case": "model_dispatch_f32", "q": list(q.shape),
+                 "kv": list(k.shape), "dtype": "float32", "causal": True,
+                 "blocks": list(attn.flash_tiles(f32, seq // 4, seq // 4)),
+                 "launches": launched, "max_abs_err": err,
+                 "tolerance": FLASH_TOL[f32]})
+    main = rows[1]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:60",
+        "shape": f"q {main['q']}, k/v {main['kv']} bf16, causal, blocks "
+                 f"{main['blocks']} (the served model's prefill)",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "tolerance": "2e-5 f32, 2e-2 bf16, against the plain version",
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library": "F.scaled_dot_product_attention(is_causal, enable_gqa) "
+                   "on [B, H, S, D] copies (yardstick only)",
+        "cases": rows}
+
+
+def tune_flash(device, sizes: dict) -> dict:
+    """tune() over the flash-attention tiles with the wall-clock harness,
+    every candidate validated against the oracle, then calibrate()."""
+    import repro_torch.core.hardware as hw
+    from repro_torch.tuning import (SPACES, FlashAttentionSpace, PerfParams,
+                                    WallClockBackend, calibrate, tune)
+    chip = hw.H100_SXM
+    if device.type == "cuda":
+        space = SPACES["flash_attention"](chip, device)
+    else:
+        bh, seq, hd = sizes["flash_space"]
+        space = FlashAttentionSpace(batch_heads=bh, seq_q=seq, head_dim=hd,
+                                    chip=chip, device=device)
+    backend = WallClockBackend(chip, perf=PerfParams.ideal(), repeats=5,
+                               device=device)
+    result = tune(space, backend=backend, validate=True)
+    meas = result.measurement
+    check(max(meas.validation_err) <= space.tol,
+          "a flash_attention candidate is outside 2e-5 of kernels.ref")
+    cal = calibrate(meas, kind="freq")
+    fast, green = result.best("time"), result.best("energy")
+    space.release()
+    return {
+        "shape": [space.batch_heads, space.seq_q, space.head_dim],
+        "candidates": [c.label for c in meas.candidates],
+        "pruned": [[dict(c), why] for c, why in space.enumerate_all()[1]],
+        "wall_ms": {c.label: w * 1e3
+                    for c, w in zip(meas.candidates, backend.wall_s)},
+        "validation_max_abs_err": max(meas.validation_err),
+        "best_time": repr(fast), "best_energy": repr(green),
+        "calibration_fit_rms_pct": cal.fit_rms_pct}
+
+
+# ---------------------------------------------------------- serving path
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_path(device, sizes: dict):
+    """The serving path at full width and depth; returns the report, the
+    config and the parameters (for the end-to-end check)."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch.core.hardware as hw
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.power import EnergySession
+    from repro_torch.serving import (ContinuousEngine, Request, ServeEngine,
+                                     poisson_arrivals, serve)
+    cfg = get_config(SERVE_ARCH)
+    if sizes["serve_reduced"]:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    rt = Runtime()
+    max_len, new = sizes["serve_max_len"], sizes["serve_new_tokens"]
+    lo, hi = sizes["serve_prompt_lens"]
+    report = {"arch": cfg.name, "dtype": cfg.dtype,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+              "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+              "max_len": max_len, "new_tokens": new}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    params = model_mod.init_params(cfg, rt, gen, device=device)
+    _sync(device)
+    report["init_s"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    report["params"] = n_params
+    report["param_count_config"] = cfg.param_count()
+    rng = np.random.default_rng(0)
+    V = cfg.vocab_size
+
+    def requests(n):
+        return [Request(rng.integers(0, V, int(L), dtype=np.int32),
+                        max_new_tokens=new)
+                for L in rng.integers(lo, hi + 1, n)]
+
+    ops.reset_launch_counts()
+    # -- ServeEngine.generate: 4 greedy requests (the continuous route) ----
+    gen_sess = EnergySession(policy="energy-aware", chip=hw.H100_SXM,
+                             device=device)
+    engine = ServeEngine(cfg, rt, params, max_len=max_len, session=gen_sess)
+    reqs4 = requests(4)
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs4)
+    _sync(device)
+    report["generate"] = {
+        "prompt_lens": [len(r.prompt) for r in reqs4],
+        "wall_s": time.perf_counter() - t0,
+        "tokens": [o.tolist()[:8] for o in outs],
+        "session": gen_sess.summary()}
+    check(all(o.shape == (new,) and o.min() >= 0 and o.max() < V
+              for o in outs), "generate returned malformed tokens")
+    del engine
+    # -- serve(): 8 Poisson-arriving requests through a 4-slot pool -------
+    sess = EnergySession(policy="energy-aware", chip=hw.H100_SXM,
+                         device=device)
+    ceng = ContinuousEngine(cfg, rt, params, max_slots=4, max_len=max_len,
+                            session=sess)
+    reqs8 = requests(8)
+    arrivals = poisson_arrivals(8, rate_per_step=0.25, seed=0)
+    rep = serve(ceng, reqs8, arrivals=arrivals)
+    _sync(device)
+    check(len(rep.outputs) == 8 and all(
+        o.shape == (new,) and o.min() >= 0 and o.max() < V
+        for o in rep.outputs), "serve() returned malformed outputs")
+    check(rep.n_prefills == 8, "serve() did not prefill every request")
+    counts = ops.launch_counts()
+    report["serve"] = {
+        "prompt_lens": [len(r.prompt) for r in reqs8],
+        "arrivals": [float(a) for a in arrivals],
+        "wall_s": rep.wall_s, "decode_steps": rep.n_steps,
+        "tokens_out": rep.tokens_out, "tokens_per_s": rep.tokens_per_s,
+        "occupancy_mean": rep.occupancy_mean, "queue_peak": rep.queue_peak,
+        "session": sess.summary(), "phase_report": sess.phase_report()}
+
+    # -- per-phase timing on the warm pool: prefill of the longest prompt,
+    #    then decode steps with every slot busy ---------------------------
+    long_req = Request(rng.integers(0, V, hi, dtype=np.int32),
+                       max_new_tokens=new)
+    times, pfs = [], []
+    for _ in range(4):
+        _sync(device)
+        t0 = time.perf_counter()
+        pfs.append(ceng.prefill(long_req))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    prefill_s = statistics.median(times)
+    for slot, pf in enumerate(pfs):
+        ceng.insert(pf, slot)
+    n_steps = sizes["serve_decode_steps"]
+    ceng.generate_step()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ceng.generate_step()
+    _sync(device)
+    decode_s = (time.perf_counter() - t0) / n_steps
+    report["timing"] = {
+        "prefill_tokens": hi, "prefill_page": ceng._bucket(hi),
+        "prefill_ms": prefill_s * 1e3,
+        "prefill_tokens_per_s": hi / prefill_s,
+        "decode_slots": ceng.max_slots, "decode_ms_per_step": decode_s * 1e3,
+        "decode_tokens_per_s": ceng.max_slots / decode_s}
+    if device.type == "cuda":
+        report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del ceng, pfs
+    return report, counts, cfg, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
+    """One prompt through prefill + greedy decode on both attention routes.
+    Both routes decode alike; they differ in prefill attention, kernel or
+    plain. Tokens must agree at every step whose plain-route top-2 margin
+    exceeds the routes' logit difference, up to the first step where it
+    does not (after that the two contexts may part)."""
+    import numpy as np
+
+    from repro_torch.models import decode as decode_mod
+    from repro_torch.models.transformer import Runtime
+    rng = np.random.default_rng(7)
+    S, steps = sizes["e2e_prompt_len"], sizes["e2e_steps"]
+    V = cfg.vocab_size
+    toks = torch.from_numpy(rng.integers(0, V, (1, S), dtype=np.int32)).to(
+        device)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        rt = Runtime(attn_impl=impl)
+        logits, state = decode_mod.prefill(cfg, rt, params,
+                                           {"tokens": toks}, S + steps)
+        seq_logits, seq_toks = [], []
+        for i in range(steps):
+            lg = logits[0, 0, :V].float()
+            tok = int(torch.argmax(lg))
+            seq_logits.append(lg)
+            seq_toks.append(tok)
+            logits, state = decode_mod.decode_step(
+                cfg, rt, params,
+                torch.tensor([[tok]], dtype=torch.int32, device=device),
+                torch.tensor(S + i, dtype=torch.int32, device=device),
+                state)
+        runs[impl] = (seq_logits, seq_toks)
+        del state
+    (lk, tk), (lp, tp) = runs["kernel"], runs["plain"]
+    diffs, margins, compared = [], [], 0
+    for i in range(steps):
+        diff = float((lk[i] - lp[i]).abs().max())
+        top2 = torch.topk(lp[i], 2).values
+        margin = float(top2[0] - top2[1])
+        diffs.append(diff)
+        margins.append(margin)
+        if margin <= diff:
+            break
+        check(tk[i] == tp[i],
+              f"greedy token {i} differs between the kernel and the plain "
+              f"route ({tk[i]} vs {tp[i]}) though the margin {margin} "
+              f"exceeds the logit difference {diff}")
+        compared += 1
+    return {"prompt_len": S, "steps": steps,
+            "prefill_logits_max_abs_diff": diffs[0],
+            "step_logit_diffs": diffs, "plain_top2_margins": margins,
+            "tokens_compared": compared, "kernel_tokens": tk,
+            "plain_tokens": tp}
+
+
 FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             membw_big_rows=2 ** 21, membw_iters=64,          # 1 GiB
-            fleet_rows=9408 * 8, fleet_samples=5760)
+            fleet_rows=9408 * 8, fleet_samples=5760,
+            # flash: (batch*heads, seq, head dim) of SPACES; the served
+            # model's prefill (seq, q heads, kv heads, head dim)
+            flash_space=(4, 1024, 128), flash_model=(1024, 40, 8, 128),
+            serve_reduced=False,
+            serve_max_len=2048, serve_new_tokens=32,
+            serve_prompt_lens=(100, 1000), serve_decode_steps=16,
+            e2e_prompt_len=512, e2e_steps=8)
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
-           membw_iters=8, fleet_rows=64, fleet_samples=300)
+           membw_iters=8, fleet_rows=64, fleet_samples=300,
+           flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
+           serve_reduced=True,
+           serve_max_len=256, serve_new_tokens=6,
+           serve_prompt_lens=(10, 100), serve_decode_steps=2,
+           e2e_prompt_len=32, e2e_steps=3)
 
 
 def main() -> int:
@@ -459,6 +839,8 @@ def main() -> int:
              vai_fma_kernel_ffma_in_sass=ffma)
 
     timer = Timer(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     kernels = [
         check_vai(device, sizes["vai_elems"], timer,
                   time_loopsizes=(0, 8, 1024, 8192)
@@ -467,20 +849,41 @@ def main() -> int:
                     sizes["membw_big_rows"], sizes["membw_iters"], timer)]
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    kernels.append(check_flash(device, timer, sizes))
+    emit(phase="flash_attention_check", cases=kernels[-1]["cases"])
 
+    ops.reset_launch_counts()
+    emit(phase="flash_attention_tuning", **tune_flash(device, sizes),
+         launches=ops.launch_counts()["flash_attention"])
+
+    # each path runs with the counts set to 0 just before it and read just
+    # after; launches made by the checks above do not count
     ops.reset_launch_counts()
     report = main_path(device, sizes)
     counts = ops.launch_counts()
     emit(phase="main_path", **report)
-    emit(phase="launches", **counts)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    serve_report, serve_counts, cfg, params = serve_path(device, sizes)
+    emit(phase="serve", **serve_report)
+    e2e = end_to_end_check(device, cfg, params, sizes)
+    emit(phase="serve_kernel_vs_plain", **e2e)
+    del params
+
+    launches = {"vai": counts["vai"], "membw": counts["membw"],
+                "flash_attention": serve_counts["flash_attention"]}
+    emit(phase="launches", **launches)
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = launches[k["name"]]
 
     if device.type != "cuda":
         emit(ok=False, rehearsal=True, note="CPU rehearsal: nothing measured")
         return 3
-    for name, n in counts.items():
-        check(n > 0, f"the main path never launched the {name} kernel")
+    check(counts["vai"] > 0 and counts["membw"] > 0,
+          f"the main path did not launch both of its kernels: {counts}")
+    check(serve_counts["flash_attention"] > 0,
+          "the serving path never launched the flash_attention kernel")
     torch.cuda.synchronize()
     emit(kernels=kernels)
     print(smi, flush=True)

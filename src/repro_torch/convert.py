@@ -1,14 +1,17 @@
 """State carried across from the reference package.
 
-The pipeline has no weights; what crosses between the two packages is state:
-profile batches, measurement grids, response tables and calibration caches.
-The reference hands them over as numpy arrays, plain dicts and JSON — this
-module never imports it — and the functions here build this package's
+What crosses between the two packages: profile batches, measurement grids,
+response tables and calibration caches, and a model's parameters and decode
+state. The reference hands them over as numpy arrays, plain dicts and JSON —
+this module never imports it — and the functions here build this package's
 objects from them (and hand them back the same way).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch import DEFAULT_DEVICE, as_device, f64
 from repro_torch.core.hardware import CHIPS
@@ -81,3 +84,41 @@ def calibration_from_doc(doc: Dict, device=DEFAULT_DEVICE
 def calibration_to_doc(result: CalibrationResult) -> Dict:
     """The schema-1 document :func:`save_calibration` writes."""
     return _result_to_doc(result)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy array (bf16 ones included, as ``ml_dtypes`` gives them) as a
+    tensor of the same dtype on ``device``."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _unstack(tree: Mapping, i: int, device) -> Dict:
+    return {k: (_unstack(v, i, device) if isinstance(v, Mapping)
+                else _tensor(np.asarray(v)[i], device))
+            for k, v in tree.items()}
+
+
+def params_from_jax(tree: Mapping, cfg, device=DEFAULT_DEVICE) -> Dict:
+    """The port's parameters from the reference's ``init_params`` tree of a
+    dense config, given as numpy arrays: ``emb``, ``ln_f``, ``unemb`` as
+    they are, and ``layers`` — arrays stacked over the layers on axis 0 —
+    as a list of per-layer dicts."""
+    from repro_torch.models.transformer import check_family
+    check_family(cfg)
+    dev = as_device(device)
+    out = {k: _tensor(v, dev) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_unstack(tree["layers"], i, dev)
+                     for i in range(cfg.n_layers)]
+    return out
+
+
+def decode_state_from_jax(state: Mapping, device=DEFAULT_DEVICE) -> Dict:
+    """The port's decode state (``{"layers": {"k", "v"}}``, stacked over
+    the layers) from the reference's, given as numpy arrays."""
+    dev = as_device(device)
+    return {"layers": {k: _tensor(v, dev)
+                       for k, v in state["layers"].items()}}

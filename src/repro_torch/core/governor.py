@@ -10,14 +10,41 @@ nominal.
 This is the scalar (python float) form;
 :meth:`repro_torch.power.surface.TransferSurface.sweep_decisions` is the
 same accept/reject sequence over a tensor batch.
+
+Actuation is behind ``PowerActuator``: ``SimulatedActuator`` records the
+requested frequencies and lets the power model supply their consequences
+(clocks cannot be set from an unprivileged process on the card's host);
+deployments implement ``apply(freq_mhz)`` as their platform call.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Protocol
 
-from repro_torch.core.hardware import Mode
+from repro_torch.core.hardware import ChipSpec, H100_SXM, Mode
 from repro_torch.core.power_model import ChipModel, StepProfile
+
+
+class PowerActuator(Protocol):
+    def apply(self, freq_mhz: int) -> None: ...
+    def current_mhz(self) -> int: ...
+
+
+class SimulatedActuator:
+    """Records requested frequencies and lets the power model supply the
+    (time, power) consequences."""
+
+    def __init__(self, chip: ChipSpec = H100_SXM):
+        self.chip = chip
+        self._freq = chip.f_nominal_mhz
+        self.history: List[int] = []
+
+    def apply(self, freq_mhz: int) -> None:
+        self._freq = int(freq_mhz)
+        self.history.append(self._freq)
+
+    def current_mhz(self) -> int:
+        return self._freq
 
 
 @dataclass

@@ -2,11 +2,13 @@
 
 PyTorch runs eagerly, so these are plain pass-throughs (the reference's
 versions exist to jit their kernels); they are kept so that callers find
-``ops.vai_op`` / ``ops.membw_op`` where the reference has them."""
+``ops.vai_op`` / ``ops.membw_op`` / ``ops.flash_attention_op`` where the
+reference has them."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import membw as mb
 from repro_torch.kernels import vai as vai_mod
 
@@ -19,11 +21,24 @@ def membw_op(x, *, n_chunks: int, n_iters: int):
     return mb.membw(x, n_chunks=n_chunks, n_iters=n_iters)
 
 
+def flash_attention_op(q, k, v, *, causal: bool = True,
+                       block_q: int = fa.DEFAULT_BLOCK_Q,
+                       block_k: int = fa.DEFAULT_BLOCK_K,
+                       scale: Optional[float] = None):
+    """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D/Dv] -> [B, Sq, Hq, Dv].
+    GQA by indexing kv head ``h // (Hq // Hkv)``; nothing is repeated or
+    transposed."""
+    return fa.flash_attention_bshd(q, k, v, causal=causal, scale=scale,
+                                   block_q=block_q, block_k=block_k)
+
+
 def launch_counts() -> Dict[str, int]:
     """How often each wrapper has launched its CUDA kernel so far."""
-    return {"vai": vai_mod.LAUNCHES, "membw": mb.LAUNCHES}
+    return {"vai": vai_mod.LAUNCHES, "membw": mb.LAUNCHES,
+            "flash_attention": fa.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     vai_mod.LAUNCHES = 0
     mb.LAUNCHES = 0
+    fa.LAUNCHES = 0

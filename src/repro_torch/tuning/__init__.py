@@ -4,8 +4,9 @@ The bridge between the kernel tier and the power tier, in four layers:
 
 * :mod:`repro_torch.tuning.space` — per-kernel config-space enumerators
   with pruning by the card's own rules (thread-block step, grid
-  divisibility) and oracle validation against
-  :mod:`repro_torch.kernels.ref` (bit-for-bit for VAI/membw);
+  divisibility, instantiated tiles and shared memory) and oracle
+  validation against :mod:`repro_torch.kernels.ref` (bit-for-bit for
+  VAI/membw, 2e-5 for flash attention);
 * :mod:`repro_torch.tuning.harness` — times surviving candidates across a
   frequency sweep: :class:`WallClockBackend` with CUDA events on the card,
   :class:`SimulatedBackend` as a deterministic
@@ -26,8 +27,9 @@ Quick start::
     fast = result.best("time")        # classic autotuner pick
     green = result.best("energy")     # usually a different cell
 """
-from repro_torch.tuning.space import (Candidate, KernelSpace, MembwSpace,
-                                      PerfParams, VaiSpace, ValidationError)
+from repro_torch.tuning.space import (Candidate, FlashAttentionSpace,
+                                      KernelSpace, MembwSpace, PerfParams,
+                                      VaiSpace, ValidationError)
 from repro_torch.tuning.harness import (Measurement, SimulatedBackend,
                                         WallClockBackend, default_freq_fracs)
 from repro_torch.tuning.calibrate import (SPACES, CalibrationResult,
@@ -40,7 +42,7 @@ from repro_torch.tuning.tuner import (STEP_TIME, TunedCell, TuningResult, tune)
 __all__ = [
     # space
     "Candidate", "KernelSpace", "PerfParams", "ValidationError",
-    "VaiSpace", "MembwSpace",
+    "VaiSpace", "MembwSpace", "FlashAttentionSpace",
     # harness
     "Measurement", "SimulatedBackend", "WallClockBackend",
     "default_freq_fracs",

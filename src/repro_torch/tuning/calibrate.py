@@ -41,7 +41,8 @@ from repro_torch.core.hardware import ChipSpec, H100_SXM
 from repro_torch.core.power_model import ChipModel
 from repro_torch.core.projection import ResponseTables
 from repro_torch.tuning.harness import Measurement, SimulatedBackend
-from repro_torch.tuning.space import Config, MembwSpace, VaiSpace
+from repro_torch.tuning.space import (Config, FlashAttentionSpace,
+                                      MembwSpace, VaiSpace)
 
 #: Kernel name -> default config-space factory for the zero-setup
 #: ``calibrated_tables`` pipeline. VAI spans the roofline ridge
@@ -54,6 +55,10 @@ SPACES = {
     "membw": lambda chip, device=DEFAULT_DEVICE: MembwSpace(
         total_rows=1 << 14, n_iters=64,
         n_chunks_options=(1, 2, 4, 8, 16, 32), chip=chip, device=device),
+    "flash_attention": lambda chip, device=DEFAULT_DEVICE: FlashAttentionSpace(
+        batch_heads=4, seq_q=1024, head_dim=128,
+        block_q_options=(32, 64, 128), block_k_options=(64, 128), chip=chip,
+        device=device),
 }
 
 _SCHEMA = 1

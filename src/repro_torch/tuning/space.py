@@ -4,15 +4,18 @@ Each CUDA kernel of the package gets a :class:`KernelSpace` that (1)
 enumerates its launch knobs, (2) prunes candidates that cannot run well on
 the card *before* anything is timed — a thread block of 256 threads moving
 128-bit vectors covers 8 rows of 128 floats per step, so row counts that are
-not multiples of 8 leave threads idle; the grid must divide the rows — and
-(3) validates every surviving candidate against the closed-form oracles in
+not multiples of 8 leave threads idle; the grid must divide the rows; flash
+attention's tiles must be instantiated and fit in shared memory — and (3)
+validates every surviving candidate against the oracles in
 :mod:`repro_torch.kernels.ref` before it is allowed into the measurement
 harness.
 
 Validation contract: the VAI and membw spaces draw small *integer-valued*
 float32 inputs, so every product and partial sum is exactly representable
 and the kernel's output must equal the oracle **bit-for-bit**
-(``max_abs_err == 0.0``), whatever order it sums in.
+(``max_abs_err == 0.0``), whatever order it sums in. Flash attention's
+blocked online softmax reassociates the reduction, so its gate is the
+pinned tolerance ``2e-5`` on normal f32 inputs instead.
 
 Each space also carries the *analytic* cost of a candidate —
 :class:`Candidate` records the pass's flops, its modeled HBM traffic, the
@@ -416,6 +419,130 @@ class MembwSpace(KernelSpace):
         chunk_rows = self.total_rows // candidate.get("n_chunks")
         eff = perf.efficiency(chunk_rows)
         compute_s = (candidate.flops / vector_peak / eff
+                     + candidate.grid_steps * perf.launch_overhead_s)
+        return StepProfile(compute_s=compute_s,
+                           memory_s=candidate.hbm_bytes / model.spec.hbm_bw)
+
+
+# ---------------------------------------------------------------------------
+# flash attention — block_q x block_k over the online-softmax kernel
+# ---------------------------------------------------------------------------
+class FlashAttentionSpace(KernelSpace):
+    """:func:`repro_torch.kernels.flash_attention.flash_attention` — knobs
+    ``block_q`` / ``block_k``, the kernel's tiles.
+
+    The reference prunes blocks that are not multiples of the TPU's 128-wide
+    matrix unit and blocks whose q/k/v/o blocks and scratch overflow VMEM.
+    The card's rules replace both, read from
+    ``flash_attention.unsupported``: a tile must be one the kernel is
+    instantiated for (``BLOCK_Q_OPTIONS`` x ``BLOCK_K_OPTIONS``, at a head
+    dim in ``HEAD_DIMS``), its shared memory (the Q, K and V tiles, S/P and
+    the row statistics; ``flash_attention.smem_bytes``) must fit in the
+    227 KB a block can have; and ``min(block, S)`` must divide the sequence.
+
+    The analytic cost describes what the kernel does. Causal attention
+    skips the kv tiles that lie wholly above a q tile's diagonal (exact:
+    they contribute ``exp(-1e30 - m) = 0``), so flops count only the
+    (q tile, kv tile) pairs the kernel visits, ``2 * (D + Dv)`` a score
+    entry, where the reference counts the full rectangle. Traffic: q and o
+    move once, K and V once per visited pair, in the inputs' itemsize.
+    ``vmem_bytes`` is the block's shared memory; ``grid_steps`` the visited
+    tile pairs, the counterpart of the reference's grid steps.
+    """
+
+    kernel = "flash_attention"
+    exact = False
+    tol = 2e-5                     # f32 contract of tests/test_kernels.py
+
+    def __init__(self, batch_heads: int = 4, seq_q: int = 1024,
+                 seq_kv: Optional[int] = None, head_dim: int = 128,
+                 value_dim: Optional[int] = None, causal: bool = True,
+                 block_q_options: Sequence[int] = (32, 64, 128),
+                 block_k_options: Sequence[int] = (64, 128),
+                 chip: ChipSpec = H100_SXM,
+                 vmem_limit_bytes: Optional[int] = None, seed: int = 0,
+                 device=DEFAULT_DEVICE):
+        super().__init__(chip, vmem_limit_bytes, device)
+        self.batch_heads = _check_positive_int("batch_heads", batch_heads)
+        self.seq_q = _check_positive_int("seq_q", seq_q)
+        self.seq_kv = self.seq_q if seq_kv is None \
+            else _check_positive_int("seq_kv", seq_kv)
+        self.head_dim = _check_positive_int("head_dim", head_dim)
+        self.value_dim = self.head_dim if value_dim is None \
+            else _check_positive_int("value_dim", value_dim)
+        self.causal = bool(causal)
+        self.block_q_options = tuple(int(b) for b in block_q_options)
+        self.block_k_options = tuple(int(b) for b in block_k_options)
+        self.seed = seed
+        self.itemsize = 4                          # f32 inputs
+        self._qkv = None
+
+    def _raw_configs(self):
+        return [(("block_k", bk), ("block_q", bq))
+                for bq in self.block_q_options
+                for bk in self.block_k_options]
+
+    def _prune(self, config: Config) -> Optional[str]:
+        from repro_torch.kernels import flash_attention as fa
+        cfg = dict(config)
+        bq, bk = cfg["block_q"], cfg["block_k"]
+        why = fa.unsupported(self.itemsize, self.head_dim, self.value_dim,
+                             bq, bk)
+        if why is not None:
+            return why
+        if self.seq_q % min(bq, self.seq_q):
+            return f"indivisible (seq_q {self.seq_q} % block_q {bq})"
+        if self.seq_kv % min(bk, self.seq_kv):
+            return f"indivisible (seq_kv {self.seq_kv} % block_k {bk})"
+        return None
+
+    def _candidate(self, config: Config) -> Candidate:
+        from repro_torch.kernels import flash_attention as fa
+        cfg = dict(config)
+        bq, bk = cfg["block_q"], cfg["block_k"]
+        bh, sq = self.batch_heads, self.seq_q
+        d, dv, it = self.head_dim, self.value_dim, self.itemsize
+        entries, kv_rows, pairs = fa.flash_attention_work(
+            sq, self.seq_kv, causal=self.causal, block_q=bq, block_k=bk)
+        return Candidate(
+            kernel=self.kernel, config=config,
+            flops=2.0 * bh * entries * (d + dv),
+            hbm_bytes=float(it * bh * (sq * d + sq * dv + kv_rows * (d + dv))),
+            vmem_bytes=fa.smem_bytes(it, d, bq, bk),
+            grid_steps=bh * pairs)
+
+    def _get_qkv(self):
+        if self._qkv is None:
+            g = self._generator(self.seed)
+            self._qkv = tuple(
+                torch.randn(shape, generator=g, device=self.device,
+                            dtype=torch.float32)
+                for shape in ((self.batch_heads, self.seq_q, self.head_dim),
+                              (self.batch_heads, self.seq_kv, self.head_dim),
+                              (self.batch_heads, self.seq_kv,
+                               self.value_dim)))
+        return self._qkv
+
+    def release(self) -> None:
+        self._qkv = None
+
+    def _run(self, candidate: Candidate):
+        from repro_torch.kernels.flash_attention import flash_attention
+        q, k, v = self._get_qkv()
+        return flash_attention(q, k, v, causal=self.causal,
+                               block_q=candidate.get("block_q"),
+                               block_k=candidate.get("block_k"))
+
+    def _reference(self, candidate: Candidate):
+        from repro_torch.kernels import ref
+        q, k, v = self._get_qkv()
+        return ref.attention_ref(q, k, v, causal=self.causal)
+
+    def profile(self, candidate: Candidate, model: ChipModel,
+                perf: PerfParams) -> StepProfile:
+        cfg = candidate.config_dict
+        eff = perf.efficiency(cfg["block_q"], cfg["block_k"])
+        compute_s = (candidate.flops / model.spec.peak_flops / eff
                      + candidate.grid_steps * perf.launch_overhead_s)
         return StepProfile(compute_s=compute_s,
                            memory_s=candidate.hbm_bytes / model.spec.hbm_bw)

@@ -70,3 +70,35 @@ def test_chip_smoke_fails_without_a_card():
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
     assert "no CUDA device" in out.stderr
+
+
+SERVING_SLICE = (
+    "repro_torch.configs.base", "repro_torch.configs.qwen2_5_14b",
+    "repro_torch.core.roofline", "repro_torch.core.telemetry",
+    "repro_torch.core.governor", "repro_torch.kernels.flash_attention",
+    "repro_torch.models", "repro_torch.models.common",
+    "repro_torch.models.attention", "repro_torch.models.transformer",
+    "repro_torch.models.model", "repro_torch.models.decode",
+    "repro_torch.power.policies", "repro_torch.power.session",
+    "repro_torch.serving", "repro_torch.serving.engine",
+    "repro_torch.serving.scheduler", "repro_torch.launch.serve",
+    "repro_torch.tuning.space", "repro_torch.convert")
+
+
+def test_serving_slice_modules_import_no_jax_and_no_reference():
+    """The modules of the serving path, one after the other in a fresh
+    interpreter, each checked right after its own import."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    probe = ("import importlib, sys\n"
+             f"for m in {SERVING_SLICE!r}:\n"
+             "    importlib.import_module(m)\n"
+             "    bad = sorted(n for n in sys.modules if n.split('.')[0]\n"
+             "                 in ('jax', 'jaxlib', 'repro'))\n"
+             "    print(m, bad)\n")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert [l.split()[0] for l in lines] == list(SERVING_SLICE)
+    assert all(l.endswith(" []") for l in lines), lines

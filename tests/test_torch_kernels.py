@@ -176,7 +176,8 @@ def test_launch_counters_count_only_launches():
     t = torch.ones((128, 128))
     ops.vai_op(t, t, t, loopsize=2)
     ops.membw_op(t, n_chunks=1, n_iters=2)
-    assert ops.launch_counts() == {"vai": 0, "membw": 0}
+    assert ops.launch_counts() == {"vai": 0, "membw": 0,
+                                   "flash_attention": 0}
 
 
 def test_build_raises_where_there_is_no_compiler(monkeypatch, tmp_path):
@@ -191,7 +192,8 @@ def test_build_raises_where_there_is_no_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_lib", None)
     with pytest.raises(build.KernelCompileError, match="nvcc not found"):
         build.load_library()
-    assert [s.name for s in build.sources()] == ["membw.cu", "vai.cu"]
+    assert [s.name for s in build.sources()] == [
+        "flash_attention.cu", "membw.cu", "vai.cu"]
 
 
 @pytest.mark.parametrize("chunk_rows,n_iters", [

@@ -87,7 +87,8 @@ def test_benchmarks_validate_and_measure(both):
     assert mm.validation_err == rm.validation_err == (0.0,) * 6
     assert np.array_equal(mm.time_s.numpy(), rm.time_s)
     # CPU tensors take the plain versions: no kernel was launched
-    assert ops.launch_counts() == {"vai": 0, "membw": 0}
+    assert ops.launch_counts() == {"vai": 0, "membw": 0,
+                                   "flash_attention": 0}
 
 
 def test_sweep_rows(both):

@@ -271,7 +271,8 @@ def test_calibrate_matches_reference(chip, kind):
 
 
 def test_calibrated_tables_registry_and_default_pipeline():
-    assert sorted(calibrate_mod.SPACES) == ["membw", "vai"]
+    assert sorted(calibrate_mod.SPACES) == ["flash_attention", "membw",
+                                           "vai"]
     for kernel in ("vai", "membw"):
         tables = calibrated_tables(kernel, device="cpu")
         assert tables.kind == "freq"
@@ -286,7 +287,7 @@ def test_calibrated_tables_registry_and_default_pipeline():
             _close(tables.vai[k], rtables.vai[k], rtol=1e-11)
             _close(tables.mb[k], rtables.mb[k], rtol=1e-11)
     with pytest.raises(ValueError, match="unknown kernel"):
-        calibrated_tables("flash_attention", device="cpu")
+        calibrated_tables("softmax", device="cpu")
     space, _ = _spaces("mi250x-gcd")
     cal = calibrate(SimulatedBackend("mi250x-gcd", device="cpu")
                     .measure(space), kind="power")
@@ -373,3 +374,118 @@ def test_convert_measurement_and_tables(chip):
     for got, want in zip(convert.profile_array_to_numpy(pa),
                          (rpa.compute_s, rpa.memory_s, rpa.collective_s)):
         assert np.array_equal(got, want)
+
+
+# ------------------------------------------------------------ flash attention
+def _flash_spaces(causal=True, **kw):
+    from repro_torch.tuning import FlashAttentionSpace
+    args = dict(batch_heads=2, seq_q=256, head_dim=64, causal=causal)
+    args.update(kw)
+    return (FlashAttentionSpace(chip=H100_SXM, device="cpu", **args),
+            ref_tuning.FlashAttentionSpace(chip=_ref_chip("h100-sxm"),
+                                           **args))
+
+
+def test_flash_space_enumerates_the_reference_lattice():
+    space, ref = _flash_spaces(block_q_options=(32, 64, 128, 256),
+                               block_k_options=(64, 128, 256))
+    assert space._raw_configs() == ref._raw_configs()
+    kept = [c.config_dict for c in space.candidates()]
+    assert kept == [dict(block_k=k, block_q=q) for q in (32, 64, 128)
+                    for k in (64, 128)]
+
+
+def test_flash_space_rules_of_the_card():
+    """Tiles the kernel is not instantiated for, tiles whose shared memory
+    overflows the 227 KB of a block, and tiles that do not divide the
+    sequence are pruned, each with its reason."""
+    from repro_torch.kernels import flash_attention as fa
+    space, _ = _flash_spaces(seq_q=192, head_dim=128,
+                             block_q_options=(16, 64, 128),
+                             block_k_options=(64, 128, 512))
+    pruned = {(dict(c)["block_q"], dict(c)["block_k"]): why
+              for c, why in space.enumerate_all()[1]}
+    assert "not-instantiated" in pruned[(16, 64)]
+    assert "not-instantiated" in pruned[(64, 512)]
+    assert "indivisible" in pruned[(128, 64)]            # 192 % 128
+    assert "indivisible" in pruned[(64, 128)]            # 192 % 128 (kv)
+    kept = [c.config_dict for c in space.candidates()]
+    assert kept == [dict(block_k=64, block_q=64)]
+    big, _ = _flash_spaces(seq_q=256, head_dim=128, block_q_options=(128,),
+                           block_k_options=(128,))
+    (cfg, why), = big.enumerate_all()[1]
+    assert "smem-overflow" in why
+    assert fa.smem_bytes(4, 128, 128, 128) > fa.SMEM_LIMIT_BYTES
+    odd, _ = _flash_spaces(head_dim=96)
+    assert not odd.candidates()
+    assert all("head dims" in why for _, why in odd.enumerate_all()[1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_candidate_costs(causal):
+    """Non-causal: the reference's cost model exactly. Causal: only the
+    (q tile, kv tile) pairs the kernel visits — the diagonal tiles in full,
+    the tiles above them not at all."""
+    space, ref = _flash_spaces(causal=causal, block_q_options=(128,),
+                               block_k_options=(128,))
+    (c,), (r,) = space.candidates(), ref.candidates()
+    bh, s, d = 2, 256, 64
+    if causal:
+        # q tile 0 visits kv tile 0; q tile 1 visits kv tiles 0 and 1
+        pairs, entries = 3, 3 * 128 * 128
+        assert c.flops == 2.0 * bh * entries * (2 * d) < r.flops
+        assert c.hbm_bytes == 4.0 * bh * (2 * s * d + 3 * 128 * 2 * d)
+        assert c.grid_steps == bh * pairs
+    else:
+        assert (c.flops, c.hbm_bytes, c.grid_steps) == \
+            (r.flops, r.hbm_bytes, r.grid_steps)
+    from repro_torch.kernels import flash_attention as fa
+    assert c.vmem_bytes == fa.smem_bytes(4, d, 128, 128)
+
+
+def test_flash_tune_under_the_simulated_backend():
+    """tune() validates every candidate's plain version against the oracle
+    (2e-5) and picks from the simulated grid; the profiles follow the
+    reference's formula on the port's costs."""
+    space, _ = _flash_spaces()
+    backend = SimulatedBackend(H100_SXM, device="cpu")
+    result = tune(space, backend, validate=True)
+    meas = result.measurement
+    assert meas.kernel == "flash_attention"
+    assert len(meas.validation_err) == len(space.candidates())
+    assert max(meas.validation_err) <= space.tol
+    fast, green = result.best("time"), result.best("energy")
+    assert green.energy_j <= fast.energy_j
+    model = ChipModel(H100_SXM)
+    for c in space.candidates():
+        prof = space.profile(c, model, PerfParams())
+        eff = PerfParams().efficiency(c.get("block_q"), c.get("block_k"))
+        assert prof.compute_s == (c.flops / H100_SXM.peak_flops / eff
+                                  + c.grid_steps * 2e-6)
+        assert prof.memory_s == c.hbm_bytes / H100_SXM.hbm_bw
+    cal = calibrate(meas)
+    assert set(cal.tables.vai) == set(cal.tables.mb)
+
+
+def test_flash_validation_catches_a_wrong_kernel(monkeypatch):
+    space, _ = _flash_spaces()
+    c = space.candidates()[0]
+    assert space.validate(c) <= space.tol
+    monkeypatch.setattr(space, "_run", lambda cand: space._reference(
+        cand) + 1e-3)
+    with pytest.raises(ValidationError, match="tolerance"):
+        space.validate(c)
+
+
+def test_spaces_registry_matches_the_reference():
+    from repro_torch.tuning import SPACES
+    assert set(SPACES) == set(ref_tuning.SPACES)
+    space = SPACES["flash_attention"](H100_SXM, "cpu")
+    assert (space.batch_heads, space.seq_q, space.head_dim) == (4, 1024, 128)
+    assert [c.label for c in space.candidates()] == [
+        "block_k=64,block_q=32", "block_k=128,block_q=32",
+        "block_k=64,block_q=64", "block_k=128,block_q=64",
+        "block_k=64,block_q=128"]
+    tables = calibrated_tables("flash_attention", chip=H100_SXM,
+                               device="cpu")
+    assert tables.vai and tables.mb
