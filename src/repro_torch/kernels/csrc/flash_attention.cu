@@ -1,8 +1,11 @@
-// Flash attention, forward — blocked online-softmax attention for Hopper.
+// Flash attention, forward — blocked online-softmax attention for Hopper,
+// f32 inputs on the CUDA cores; the C entry point of both paths.
 //
 // Replaces: src/repro/kernels/flash_attention.py, functions `_flash_kernel` /
 // `flash_attention` (the Pallas kernel of the reference package), and the
-// GQA expansion of its wrapper `ops.flash_attention_op`.
+// GQA expansion of its wrapper `ops.flash_attention_op`. bf16 inputs go to
+// the tensor-core kernel of flash_attention_sm90.cu
+// (`repro_flash_attention_sm90`); this file holds the f32 kernel.
 //
 // What it computes, per (batch, q head) and query row:
 //   s = (q . k^T) * scale            (f32 products and sums)
@@ -24,8 +27,8 @@
 // padded by one 32-bit word so that the 16 threads of a half-warp that read
 // 16 different K rows at one column hit 16 different banks. Tiles past the
 // end of the sequence are masked (rows past Sq are not stored, kv columns
-// past Skv get no weight), so a tile larger than the sequence runs the same
-// arithmetic as a smaller block would.
+// past Skv get no weight), so a tile larger than the sequence, or a ragged
+// last tile, runs the same arithmetic as a smaller block would.
 //
 // Causal attention skips the kv tiles that lie wholly above the diagonal of
 // the q tile. Every score in them is masked, so they would add
@@ -34,24 +37,19 @@
 //
 // Numerics: f32 inputs are multiplied and summed in f32 on the CUDA cores
 // (fmaf; no TF32, no tensor cores), which the f32 contract of 2e-5 needs.
-// bf16 inputs are read as bf16 and converted to f32 before every product,
-// so they take the same path with exact products; p stays in f32 (the
-// reference rounds p to bf16 before p.v; the bf16 contract is 2e-2).
 //
 // What bounds it on this card: operations. At head dim 128 a (64 x 64) tile
 // pair does 2 * 64 * 64 * 256 flops on 2 * 64 * 128 elements of K and V, so
 // device memory is far from the limit; the CUDA cores are, and within them
 // the shared-memory reads of the inner products (one Q and one K value read
 // per four to sixteen FMAs, by tile). Larger tiles read shared memory less
-// often per FMA; the f32 (128 x 128) tile does not fit in 227 KB. Tensor
-// cores (mma.sync / wgmma) and TMA copies are the next step for bf16.
+// often per FMA; the f32 (128 x 128) tile does not fit in 227 KB.
 //
 // block_q and block_k are template parameters: every (block_q, block_k)
 // pair in {32, 64, 128} x {64, 128} is instantiated, for head dims 64, 128
-// and 160 and for f32 and bf16; a tile whose shared memory exceeds 227 KB
-// fails at launch. The wrapper's `unsupported` states the same rules and
-// refuses anything else before it launches.
-#include <cuda_bf16.h>
+// and 160; a tile whose shared memory exceeds 227 KB fails at launch. The
+// wrapper's `unsupported` states the same rules and refuses anything else
+// before it launches.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -66,19 +64,12 @@ constexpr float kNegInf = -1e30f;  // the reference's mask value
 constexpr size_t kSmemLimit = 232448;  // 227 KB: the most a block can have
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
 }
 
 // Shared memory of one block: Q and K tiles with padded rows, the V tile,
@@ -325,12 +316,23 @@ int by_head_dim(int d, int block_q, int block_k, const void* q,
 
 }  // namespace
 
+// flash_attention_sm90.cu: the bf16 path, same arguments
+int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
+                               void* o, int batch, int hq, int hkv, int sq,
+                               int skv, int d, long long q_sb, long long q_ss,
+                               long long q_sh, long long k_sb, long long k_ss,
+                               long long k_sh, long long v_sb, long long v_ss,
+                               long long v_sh, long long o_sb, long long o_ss,
+                               long long o_sh, int causal, float scale,
+                               int block_q, int block_k, cudaStream_t stream);
+
 // q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], o [B, Sq, Hq, D], each given
 // by its base pointer and its (batch, seq, head) strides in elements; the
-// last dim is contiguous. dtype 0 = float32, 1 = bfloat16. Hq is a multiple
-// of Hkv. Launches on `stream`, does not synchronise, returns
-// cudaGetLastError() (or cudaErrorInvalidValue for shapes, tiles or types
-// that are not instantiated).
+// last dim is contiguous. dtype 0 = float32 (this file's kernel), 1 =
+// bfloat16 (the tensor-core kernel). Hq is a multiple of Hkv. Launches on
+// `stream`, does not synchronise, returns cudaGetLastError() (or
+// cudaErrorInvalidValue for shapes, tiles or types that are not
+// instantiated).
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o,
     int batch, int hq, int hkv, int sq, int skv, int d,
@@ -343,13 +345,15 @@ extern "C" int repro_flash_attention(
       skv <= 0 || batch > 65535 || hq > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return repro_flash_attention_sm90(
+        q, k, v, o, batch, hq, hkv, sq, skv, d, q_sb, q_ss, q_sh, k_sb, k_ss,
+        k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, scale, block_q,
+        block_k, s);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p{hq, hkv, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal != 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_head_dim<float>(d, block_q, block_k, q, k, v, o, p, batch, s);
-  if (dtype == 1)
-    return by_head_dim<__nv_bfloat16>(d, block_q, block_k, q, k, v, o, p,
-                                      batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim<float>(d, block_q, block_k, q, k, v, o, p, batch, s);
 }

@@ -9,19 +9,23 @@ with GQA (``Hq`` a multiple of ``Hkv``); the kernel indexes kv head
 ``h // (Hq // Hkv)`` instead of repeating K and V.
 
 A CPU tensor goes to :func:`flash_attention_plain` — the same blocked online
-softmax in plain PyTorch, f32 arithmetic throughout, skipping the kv blocks
+softmax in plain PyTorch, f32 arithmetic with p rounded to v's dtype for
+p.v as in the kernels (``round_p``), skipping the kv blocks
 that the causal mask covers wholly (exact: they add ``exp(-1e30 - m) = 0``).
 It also takes query offsets, local windows and kv masks, and is the model's
-plain attention route. Any other tensor goes to the hand-written kernel in
-``csrc/flash_attention.cu``, or the call raises.
+plain attention route. Any other tensor goes to a hand-written kernel, or
+the call raises: f32 to the CUDA-core kernel of ``csrc/flash_attention.cu``,
+bf16 to the tensor-core kernel of ``csrc/flash_attention_sm90.cu`` (wgmma
+fed by TMA copies), both behind the C entry point ``repro_flash_attention``.
 
-``block_q`` / ``block_k`` are the kernel's tiles. As in the reference,
-``min(block, S)`` must divide the sequence (``ValueError`` otherwise). What
-the kernel is built for — the tiles in :data:`BLOCK_Q_OPTIONS` x
-:data:`BLOCK_K_OPTIONS`, head dims :data:`HEAD_DIMS` with ``Dv == D``, and
-the shared memory a block may have — is stated once, in
-:func:`unsupported`; a tile longer than the sequence runs with its tail
-masked.
+``block_q`` / ``block_k`` are the kernel's tiles. The ``[B, S, H, D]`` form
+takes any sequence lengths: a ragged last tile runs masked. The
+reference-signature :func:`flash_attention` keeps the reference's rule that
+``min(block, S)`` divides the sequence (``ValueError`` otherwise). What
+the kernels are built for — the tiles of :func:`tile_options` by dtype, head
+dims :data:`HEAD_DIMS` with ``Dv == D``, and the shared memory a block may
+have — is stated once, in :func:`unsupported`; a tile longer than the
+sequence runs with its tail masked.
 """
 from __future__ import annotations
 
@@ -32,9 +36,16 @@ import torch
 
 NEG_INF = -1e30
 
+#: f32 tiles (the CUDA-core kernel)
 BLOCK_Q_OPTIONS = (32, 64, 128)
 BLOCK_K_OPTIONS = (64, 128)
+#: bf16 tiles (the tensor-core kernel): 64 query rows a consumer warpgroup
+BF16_BLOCK_Q_OPTIONS = (64, 128)
+BF16_BLOCK_K_OPTIONS = (64, 128)
 HEAD_DIMS = (64, 128, 160)
+#: stages of the bf16 kernel's K/V ring: three where they fit in shared
+#: memory, else two (``SmemSm90::kStages`` in the source)
+BF16_MAX_STAGES = 3
 DEFAULT_BLOCK_Q = 64
 DEFAULT_BLOCK_K = 64
 #: shared memory one thread block may use on an H100 (227 KB)
@@ -46,12 +57,41 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
 
 
+def tile_options(itemsize: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``(block_q options, block_k options)`` the kernel of this element
+    size is instantiated for: bf16 (2 bytes) or f32 (4)."""
+    if itemsize == 2:
+        return BF16_BLOCK_Q_OPTIONS, BF16_BLOCK_K_OPTIONS
+    return BLOCK_Q_OPTIONS, BLOCK_K_OPTIONS
+
+
+def _bf16_smem(head_dim: int, block_q: int, block_k: int,
+               stages: int) -> int:
+    return (2 * head_dim * (block_q + 2 * stages * block_k)
+            + 8 * (2 * stages + 1) + 1024)
+
+
+def bf16_stages(head_dim: int, block_q: int, block_k: int) -> int:
+    """Stages of the bf16 kernel's K/V ring at these tiles: three where
+    they fit in a block's shared memory, else two."""
+    fits = _bf16_smem(head_dim, block_q, block_k,
+                      BF16_MAX_STAGES) <= SMEM_LIMIT_BYTES
+    return BF16_MAX_STAGES if fits else 2
+
+
 def smem_bytes(itemsize: int, head_dim: int, block_q: int,
                block_k: int) -> int:
-    """Shared memory of one thread block of the kernel (the ``Smem``
-    formula of ``csrc/flash_attention.cu``): Q and K tiles with rows padded
-    by one 32-bit word, the V tile, S/P in f32 with rows padded by one, and
-    three f32 row statistics."""
+    """Shared memory of one thread block of the kernel.
+
+    f32 (the ``Smem`` formula of ``csrc/flash_attention.cu``): Q and K tiles
+    with rows padded by one 32-bit word, the V tile, S/P in f32 with rows
+    padded by one, and three f32 row statistics. bf16 (``SmemSm90`` of
+    ``csrc/flash_attention_sm90.cu``): the Q tile, :func:`bf16_stages` K and
+    V tiles, ``2 * stages + 1`` 8-byte mbarriers and 1024 bytes of slack
+    that align the swizzled tiles."""
+    if itemsize == 2:
+        return _bf16_smem(head_dim, block_q, block_k,
+                          bf16_stages(head_dim, block_q, block_k))
     pitch = head_dim + 4 // itemsize
     return (itemsize * (block_q * pitch + block_k * pitch
                         + block_k * head_dim)
@@ -90,7 +130,8 @@ def _positive(name: str, value) -> int:
 
 def _check_bshd(q, k, v, block_q, block_k) -> Tuple[int, int]:
     """Shapes, dtypes and blocks of the ``[B, S, H, D]`` form; returns the
-    clamped blocks ``(min(block_q, Sq), min(block_k, Skv))``."""
+    clamped blocks ``(min(block_q, Sq), min(block_k, Skv))``. Any lengths
+    are taken: a ragged last block runs masked."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
             f"q, k, v must be [B, S, H, D]; got {tuple(q.shape)}, "
@@ -109,14 +150,8 @@ def _check_bshd(q, k, v, block_q, block_k) -> Tuple[int, int]:
                          f"{k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
-    bq = min(_positive("block_q", block_q), Sq)
-    bk = min(_positive("block_k", block_k), k.shape[1])
-    if Sq % bq or k.shape[1] % bk:
-        raise ValueError(
-            f"blocks do not tile the sequences: Sq {Sq} % block_q {bq} = "
-            f"{Sq % bq}, Skv {k.shape[1]} % block_k {bk} = "
-            f"{k.shape[1] % bk}")
-    return bq, bk
+    return (min(_positive("block_q", block_q), Sq),
+            min(_positive("block_k", block_k), k.shape[1]))
 
 
 def _block_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -141,12 +176,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           block_k: int = DEFAULT_BLOCK_K,
                           q_offset: Union[int, torch.Tensor] = 0,
                           window: int = 0,
-                          kv_valid_len: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          kv_valid_len: Optional[torch.Tensor] = None,
+                          round_p: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch, on any device: q ``[B, Sq,
     Hq, D]``, k/v ``[B, Skv, Hkv, D/Dv]`` -> ``[B, Sq, Hq, Dv]`` in v's
     dtype, f32 products and accumulation, blocks of ``block_q`` x
     ``block_k`` (a ragged last block is fine).
+
+    ``round_p=True`` rounds p to v's dtype as the operand of p.v, as the
+    kernels and the reference kernel do (``p.astype(v.dtype)``); ``l``
+    stays the sum of the f32 p. The model's plain route keeps p in f32, as
+    the reference model's chunked path does.
 
     Beyond the kernel's case it takes ``q_offset`` (absolute position of
     ``q[0]``), a local ``window`` (keys ``kpos > qpos - window``) and
@@ -186,6 +226,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
+            if round_p:
+                p = p.to(v.dtype).float()
             acc = acc * corr[..., None] + torch.einsum(
                 "bhgqk,bkhd->bhgqd", p, vf[:, k0:k0 + cols])
             m = m_new
@@ -203,13 +245,16 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
                 block_k: int) -> Optional[str]:
     """Why the kernel is not built for these head dims and tiles, or
     ``None`` when it is: the one statement of what ``csrc/flash_attention.cu``
-    instantiates, read by the wrapper and by the tuning space's prune."""
+    (f32, ``itemsize`` 4) and ``csrc/flash_attention_sm90.cu`` (bf16,
+    ``itemsize`` 2) instantiate, read by the wrapper and by the tuning
+    space's prune."""
     if head_dim not in HEAD_DIMS or value_dim != head_dim:
         return (f"not-instantiated (head dims {HEAD_DIMS} with Dv == D; got "
                 f"D {head_dim}, Dv {value_dim})")
-    if block_q not in BLOCK_Q_OPTIONS or block_k not in BLOCK_K_OPTIONS:
-        return (f"not-instantiated (the kernel is built for block_q in "
-                f"{BLOCK_Q_OPTIONS}, block_k in {BLOCK_K_OPTIONS}; got "
+    q_opts, k_opts = tile_options(itemsize)
+    if block_q not in q_opts or block_k not in k_opts:
+        return (f"not-instantiated (the {itemsize}-byte kernel is built for "
+                f"block_q in {q_opts}, block_k in {k_opts}; got "
                 f"({block_q}, {block_k}))")
     smem = smem_bytes(itemsize, head_dim, block_q, block_k)
     if smem > SMEM_LIMIT_BYTES:
@@ -217,6 +262,18 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
                 f"of shared memory at {itemsize}-byte elements, head dim "
                 f"{head_dim}; a block has {SMEM_LIMIT_BYTES} B)")
     return None
+
+
+def tma_strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """``t``'s strides (elements) with those of dims of size 1 replaced by
+    the stride the dim would have in a contiguous tensor: such a dim is only
+    ever indexed at 0, and its stride may be anything, which a TMA tensor
+    map would refuse."""
+    out, step = [], 1
+    for size, stride in reversed(list(zip(t.shape, t.stride()))):
+        out.append(step if size == 1 else stride)
+        step = size * (step if size == 1 else stride)
+    return tuple(reversed(out))
 
 
 def _refusal(q, k, v, block_q: int, block_k: int) -> Optional[str]:
@@ -233,6 +290,17 @@ def _refusal(q, k, v, block_q: int, block_k: int) -> Optional[str]:
         return why
     if any(t.stride(3) != 1 for t in (q, k, v)):
         return "the last dim of q, k and v must be contiguous"
+    if q.dtype == torch.bfloat16:
+        # TMA: a 16-byte aligned base and strides that are multiples of 16
+        # bytes
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                return (f"the bf16 kernel's TMA copies need 16-byte aligned "
+                        f"tensors; {name} starts at {t.data_ptr():#x}")
+            if any(s * t.element_size() % 16 for s in tma_strides(t)[:3]):
+                return (f"the bf16 kernel's TMA copies need strides that are "
+                        f"multiples of 16 bytes; {name} has strides "
+                        f"{t.stride()}")
     return None
 
 
@@ -253,7 +321,7 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
         code = lib.repro_flash_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *tma_strides(q)[:3], *tma_strides(k)[:3], *tma_strides(v)[:3],
             *out.stride()[:3], int(bool(causal)), scale, block_q, block_k,
             stream)
     build.check_launch(code, f"flash_attention(q {tuple(q.shape)}, "
@@ -274,7 +342,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bq, bk = _check_bshd(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     block_q=bq, block_k=bk)
+                                     block_q=bq, block_k=bk, round_p=True)
     return _launch(q, k, v, causal, _scale(scale, q.shape[-1]), block_q,
                    block_k)
 
@@ -292,8 +360,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: ``[BH, Sq, D]``, k/v: ``[BH, Skv, D/Dv]`` -> ``[BH, Sq, Dv]``.
 
     Batch and heads are folded into the leading dim, as in the reference
-    (GQA lives in :func:`flash_attention_bshd`)."""
-    out = flash_attention_bshd(_as_bshd(q, "q"), _as_bshd(k, "k"),
-                               _as_bshd(v, "v"), causal=causal, scale=scale,
+    (GQA lives in :func:`flash_attention_bshd`). As in the reference,
+    ``min(block, S)`` must divide the sequence (``ValueError``
+    otherwise)."""
+    q4, k4, v4 = _as_bshd(q, "q"), _as_bshd(k, "k"), _as_bshd(v, "v")
+    bq, bk = _check_bshd(q4, k4, v4, block_q, block_k)
+    Sq, Skv = q.shape[1], k.shape[1]
+    if Sq % bq or Skv % bk:
+        raise ValueError(
+            f"blocks do not tile the sequences: Sq {Sq} % block_q {bq} = "
+            f"{Sq % bq}, Skv {Skv} % block_k {bk} = {Skv % bk}")
+    out = flash_attention_bshd(q4, k4, v4, causal=causal, scale=scale,
                                block_q=block_q, block_k=block_k)
     return out[:, :, 0]

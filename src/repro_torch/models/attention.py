@@ -6,8 +6,9 @@ caches for decode.
 card — CUDA tensors, causal, no window, offset 0, no kv mask — is the case
 the hand-written flash kernel computes, the same function with the same
 outputs: it goes to :func:`repro_torch.kernels.ops.flash_attention_op` with
-the tiles :func:`flash_tiles` picks, and what the kernel is not built for
-(a head dim, a dtype, a length no instantiated tile divides) raises there.
+the tiles :func:`flash_tiles` picks, for any sequence length (a ragged last
+tile runs masked), and what the kernel is not built for (a head dim, a
+dtype) raises there.
 Every other case (CPU tensors, windows, query offsets, kv masks) takes the
 plain blocked online softmax,
 :func:`repro_torch.kernels.flash_attention.flash_attention_plain`.
@@ -29,10 +30,11 @@ from repro_torch.models.common import ParamMaker, apply_rope
 NEG_INF = -1e30
 
 #: the flash kernel's tiles on the model's prefill path, by dtype: for bf16
-#: the fastest instantiated tile at the served model's prefill shape, for
+#: the fastest tile of the tensor-core kernel at the served model's prefill
+#: shape (and at head dim 160, where 128 x 128 keeps only two stages), for
 #: f32 the tuner's fastest at the SPACES shape, both on the H100 (PERF.md);
 #: f32 at (128, 128) does not fit in shared memory
-FLASH_TILES = {torch.bfloat16: (128, 128), torch.float32: (32, 128)}
+FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 128)}
 
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -48,23 +50,12 @@ def _pick_chunk(n: int, pref: int) -> int:
     return max(c, 1)
 
 
-def flash_tiles(dtype: torch.dtype, seq_q: int,
-                seq_kv: int) -> Tuple[int, int]:
-    """The kernel's ``(block_q, block_k)`` for a prefill of ``dtype``: the
-    largest instantiated tile up to :data:`FLASH_TILES`' whose
-    ``min(tile, S)`` divides the sequence (prefill pages are powers of two,
-    so the preferred tile always does); where none does, the preferred
-    tile, which the wrapper refuses with a ``ValueError``."""
-    pref_q, pref_k = FLASH_TILES.get(dtype, (fa.DEFAULT_BLOCK_Q,
-                                             fa.DEFAULT_BLOCK_K))
-
-    def pick(pref, options, n):
-        for b in sorted((b for b in options if b <= pref), reverse=True):
-            if n % min(b, n) == 0:
-                return b
-        return pref
-    return (pick(pref_q, fa.BLOCK_Q_OPTIONS, seq_q),
-            pick(pref_k, fa.BLOCK_K_OPTIONS, seq_kv))
+def flash_tiles(dtype: torch.dtype) -> Tuple[int, int]:
+    """The kernel's ``(block_q, block_k)`` for a prefill of ``dtype``, at
+    every length: the kernel masks a ragged last tile (and a tile longer
+    than the sequence). A dtype the kernel does not take gets the default
+    tiles, and the kernel's wrapper refuses it."""
+    return FLASH_TILES.get(dtype, (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K))
 
 
 def _on_card(q: torch.Tensor) -> bool:
@@ -108,7 +99,7 @@ def chunked_attention(
     if impl == "kernel" and _kernel_case(q, causal, q_offset, kv_valid_len,
                                          window):
         from repro_torch.kernels import ops
-        bq, bk = flash_tiles(q.dtype, Sq, Skv)
+        bq, bk = flash_tiles(q.dtype)
         return ops.flash_attention_op(q, k, v, causal=True, block_q=bq,
                                       block_k=bk, scale=scale)
     return fa.flash_attention_plain(

@@ -4,15 +4,18 @@ tests/test_kernels.py runs it, and against both packages' oracles; the
 wrapper's argument checks, its dispatch, the kernel's work count and the
 model's dispatch of prefill attention.
 
-The CUDA kernel itself runs only on a card; ``chip_smoke.py`` holds it
-against this plain version there.
+The CUDA kernels themselves run only on a card; ``chip_smoke.py`` holds
+them against this plain version there.
 
 Tolerances (the reference's own, tests/test_kernels.py): 2e-5 for f32 —
 the blocked online softmax sums in another order than the naive oracle —
-and 2e-2 for bf16, where the reference kernel rounds p to bf16 before p.v
-and the port keeps it in f32. bf16 inputs are made in f32 with numpy and
-rounded by each package to bf16 (both round to nearest even, so both see
-the same values)."""
+and 2e-2 for bf16, where the model's plain route keeps p in f32 and the
+kernels round it to bf16 before p.v. The kernels' plain version rounds p
+as they and the reference kernel do, and is held to the reference kernel
+within ``2e-3 + 1e-2 * |want|`` (one bf16 step of the output is at most
+2**-7 of it). bf16 inputs are made in f32 with numpy and rounded by each
+package to bf16 (both round to nearest even, so both see the same
+values)."""
 import jax  # noqa: F401  (the reference's kernel; JAX stays on the CPU)
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,9 @@ from repro_torch.models import attention as attn
 from repro_torch.tuning import FlashAttentionSpace
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: (atol, rtol) of the bf16 plain version, p rounded, against the
+#: reference kernel
+BF16_ROUNDED_P_TOL = (2e-3, 1e-2)
 
 
 def _normal(seed, *shape):
@@ -79,6 +85,35 @@ def test_flash_op_matches_reference_kernel(Sq, Skv, Hq, Hkv, D, bq, bk,
     np.testing.assert_allclose(
         _f32(got), _f32(oracle.reshape(2, Hq, Sq, D).permute(0, 2, 1, 3)),
         rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Hq,Hkv,D,bq,bk", [
+    (256, 4, 2, 64, 128, 64),
+    (128, 2, 1, 128, 64, 64),
+    (512, 2, 2, 64, 256, 256),
+])
+def test_bf16_plain_rounds_p_as_the_reference_kernel(Sq, Hq, Hkv, D, bq, bk):
+    """With p rounded to bf16 for p.v (``round_p``, what the CPU op runs)
+    the plain version is the reference kernel's arithmetic, up to sum
+    order: within ``2e-3 + 1e-2 * |want|``, where the route that keeps p in
+    f32 differs by a bf16 step of the output and more."""
+    arrays = [_normal(Sq + i, 2, Sq, h, D)
+              for i, h in enumerate((Hq, Hkv, Hkv))]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, "bfloat16") for x in arrays)
+    want = _f32(ref_ops.flash_attention_op(jq, jk, jv, causal=True,
+                                           block_q=bq, block_k=bk))
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True, block_q=bq,
+                                   block_k=bk, round_p=True)
+    atol, rtol = BF16_ROUNDED_P_TOL
+    np.testing.assert_allclose(_f32(got), want, rtol=rtol, atol=atol)
+    np.testing.assert_array_equal(
+        _f32(ops.flash_attention_op(tq, tk, tv, causal=True, block_q=bq,
+                                    block_k=bk)), _f32(got))
+    # rounding p is a no-op on f32 inputs
+    f32 = [torch.from_numpy(x) for x in arrays]
+    assert torch.equal(
+        fa.flash_attention_plain(*f32, block_q=bq, block_k=bk, round_p=True),
+        fa.flash_attention_plain(*f32, block_q=bq, block_k=bk))
 
 
 def test_flash_noncausal_matches_reference_kernel():
@@ -185,14 +220,22 @@ def test_plain_causal_skip_is_exact(q_offset, window):
     (4, 128, 128, 32, 128, None),            # the model's f32 tile
     (2, 128, 128, 128, 128, None),           # the model's bf16 tile
     (2, 160, 160, 128, 128, None),           # stablelm-12b's head dim
+    (2, 64, 64, 64, 64, None),               # one consumer warpgroup
     (4, 128, 128, 128, 128, "smem-overflow"),
     (4, 96, 96, 64, 64, "not-instantiated"),
     (4, 128, 64, 64, 64, "not-instantiated"),
     (4, 64, 64, 16, 64, "not-instantiated"),
+    (2, 128, 128, 32, 64, "not-instantiated"),   # bf16: 64 rows a warpgroup
+    (2, 128, 128, 128, 256, "not-instantiated"),
 ])
 def test_support_rules(itemsize, D, Dv, bq, bk, why):
     got = fa.unsupported(itemsize, D, Dv, bq, bk)
     assert got is None if why is None else why in got
+    q_opts, k_opts = fa.tile_options(itemsize)
+    assert (got is None) == (D in fa.HEAD_DIMS and Dv == D and bq in q_opts
+                             and bk in k_opts
+                             and fa.smem_bytes(itemsize, D, bq, bk)
+                             <= fa.SMEM_LIMIT_BYTES)
 
 
 @pytest.mark.parametrize("Sq,Skv,bq,bk", [(256, 256, 64, 64),
@@ -224,7 +267,18 @@ def test_shared_memory_formula():
     #                    + (64 x 65 + 3 x 64) x 4
     assert fa.smem_bytes(4, 128, 64, 64) == 116224
     assert fa.smem_bytes(4, 128, 128, 128) > fa.SMEM_LIMIT_BYTES
-    assert fa.smem_bytes(2, 128, 128, 128) <= fa.SMEM_LIMIT_BYTES
+    # bf16, head dim 128: Q 128 x 128 x 2 + 3 stages x (K + V) 128 x 128 x 2
+    #                     + 7 mbarriers x 8 + 1024 alignment slack
+    assert fa.bf16_stages(128, 128, 128) == 3
+    assert fa.smem_bytes(2, 128, 128, 128) == 32768 + 6 * 32768 + 56 + 1024
+    # head dim 160 is the limit: at the largest bf16 tile a third stage
+    # would need 288800 B, so the ring keeps two (205864 B)
+    assert fa.bf16_stages(160, 128, 128) == 2
+    assert fa.smem_bytes(2, 160, 128, 128) == 205864 <= fa.SMEM_LIMIT_BYTES
+    assert fa.bf16_stages(160, 128, 64) == 3
+    assert all(fa.smem_bytes(2, D, bq, bk) <= fa.SMEM_LIMIT_BYTES
+               for D in fa.HEAD_DIMS for bq in fa.BF16_BLOCK_Q_OPTIONS
+               for bk in fa.BF16_BLOCK_K_OPTIONS)
 
 
 def test_noncausal_cost_equals_the_reference_space():
@@ -247,8 +301,9 @@ def test_noncausal_cost_equals_the_reference_space():
 @pytest.fixture
 def recorded(monkeypatch):
     """Pretend the CPU is the card, and record the op's calls: the stand-in
-    refuses what the kernel refuses (``unsupported`` and the block checks)
-    and computes the plain version."""
+    refuses what the kernel refuses (``unsupported`` and the shape checks;
+    any length is taken, a ragged last tile runs masked) and computes the
+    kernel's plain version (p rounded to v's dtype for p.v)."""
     calls = []
     monkeypatch.setattr(attn, "_on_card", lambda q: True)
 
@@ -262,7 +317,7 @@ def recorded(monkeypatch):
         return fa.flash_attention_plain(q, k, v, causal=kw["causal"],
                                         scale=kw["scale"],
                                         block_q=kw["block_q"],
-                                        block_k=kw["block_k"])
+                                        block_k=kw["block_k"], round_p=True)
     monkeypatch.setattr(ops, "flash_attention_op", op)
     return calls
 
@@ -280,7 +335,7 @@ def test_prefill_case_goes_to_the_kernel_and_others_do_not(recorded):
     out = attn.chunked_attention(q, *kv)
     assert len(recorded) == 1 and recorded[0]["causal"] is True
     assert (recorded[0]["block_q"], recorded[0]["block_k"]) == \
-        attn.flash_tiles(torch.float32, 64, 64)
+        attn.flash_tiles(torch.float32)
     plain = attn.chunked_attention(q, *kv, impl="plain", q_chunk=16,
                                    kv_chunk=32)
     np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=2e-5,
@@ -311,22 +366,65 @@ def test_causal_prefill_on_the_card_reaches_the_kernel_op(recorded, dtype,
     np.testing.assert_allclose(_f32(out), _f32(plain), rtol=tol, atol=tol)
 
 
-def test_a_length_no_tile_divides_raises_on_the_card(recorded):
-    q = torch.zeros((1, 300, 2, 128))
-    with pytest.raises(ValueError, match="tile"):
-        attn.chunked_attention(q, q, q)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [300, 1000])
+def test_a_ragged_prefill_reaches_the_kernel_op(recorded, dtype, S):
+    """A causal prefill whose length no tile divides (the lock-step route's
+    longest prompt) reaches ``ops.flash_attention_op`` once, at the dtype's
+    tiles, and equals the plain route."""
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(_normal(S, 1, S, 4, 64)).to(dt)
+    k, v = (torch.from_numpy(_normal(S + 1 + i, 1, S, 2, 64)).to(dt)
+            for i in range(2))
+    out = attn.chunked_attention(q, k, v)
+    (kw,) = recorded
+    assert kw["causal"] is True
+    assert (kw["block_q"], kw["block_k"]) == attn.FLASH_TILES[dt]
+    assert S % kw["block_q"] and S % kw["block_k"]
+    plain = attn.chunked_attention(q, k, v, impl="plain")
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_f32(out), _f32(plain), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype,S,tiles", [
-    (torch.bfloat16, 1024, (128, 128)),
-    (torch.bfloat16, 16, (128, 128)),        # min(tile, S) = S divides
-    (torch.bfloat16, 192, (64, 64)),
-    (torch.float32, 1024, (32, 128)),
-    (torch.float32, 96, (32, 128)),
-    (torch.float32, 300, (32, 128)),         # none divides: the preference
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_plain_matches_the_reference_chunked_path(causal):
+    """The plain version at the bf16 kernel's tiles, over 300 query rows
+    (two full tiles and a ragged one) with GQA, against the reference
+    model's chunked ``_flash`` path on the CPU."""
+    from repro.models import attention as ref_attn
+    q_np = _normal(81, 2, 300, 4, 32)
+    k_np, v_np = (_normal(82 + i, 2, 300, 2, 32) for i in range(2))
+    want = ref_attn.chunked_attention(*(jnp.asarray(x)
+                                        for x in (q_np, k_np, v_np)),
+                                      causal=causal)
+    bq, bk = attn.FLASH_TILES[torch.bfloat16]
+    got = fa.flash_attention_plain(*(torch.from_numpy(x)
+                                     for x in (q_np, k_np, v_np)),
+                                   causal=causal, block_q=bq, block_k=bk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,S", [
+    (torch.bfloat16, 1024),
+    (torch.bfloat16, 16),                    # a tile longer than the prompt
+    (torch.bfloat16, 1000),                  # ragged: the kernel masks it
+    (torch.float32, 1024),
+    (torch.float32, 96),
+    (torch.float32, 300),
 ])
-def test_flash_tiles(dtype, S, tiles):
-    assert attn.flash_tiles(dtype, S, S) == tiles
+def test_flash_tiles(recorded, dtype, S):
+    """A prefill of every length reaches the op at the dtype's preferred
+    tile, one the kernel is built for."""
+    tiles = attn.flash_tiles(dtype)
+    assert tiles == attn.FLASH_TILES[dtype]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert fa.unsupported(itemsize, 128, 128, *tiles) is None
+    q, k, v = (torch.from_numpy(_normal(S + i, 1, S, 1, 64)).to(dtype)
+               for i in range(3))
+    attn.chunked_attention(q, k, v)
+    (kw,) = recorded
+    assert (kw["block_q"], kw["block_k"]) == tiles
 
 
 def test_cpu_tensors_never_reach_the_kernel():

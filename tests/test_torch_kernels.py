@@ -193,7 +193,8 @@ def test_build_raises_where_there_is_no_compiler(monkeypatch, tmp_path):
     with pytest.raises(build.KernelCompileError, match="nvcc not found"):
         build.load_library()
     assert [s.name for s in build.sources()] == [
-        "flash_attention.cu", "membw.cu", "vai.cu"]
+        "flash_attention.cu", "flash_attention_sm90.cu", "membw.cu",
+        "vai.cu"]
 
 
 @pytest.mark.parametrize("chunk_rows,n_iters", [

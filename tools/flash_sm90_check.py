@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""What the compiler made of the bf16 tensor-core flash-attention kernel,
+and its tiles at two more shapes.
+
+Builds the kernels, prints what ``ptxas`` said about the bf16 kernel
+(registers, spills, setmaxnreg), its SASS counts of tensor-core products
+(HGMMA) and TMA loads (UTMALDG) and the highest register each
+instantiation uses. Then, at the lock-step route's ragged prefill (q
+``[1,1000,40,128]``) and at head dim 160 (q ``[1,1024,32,160]``), holds
+every tile against the plain version and times it beside
+``F.scaled_dot_product_attention``, with ``chip_smoke.py``'s timer and
+tolerance (``chip_smoke.py`` checks every other case). One JSON line per
+result; exit 1 if a tile is outside the tolerance.
+
+    python3 tools/flash_sm90_check.py
+
+Needs one CUDA device and ``nvcc``.
+"""
+from __future__ import annotations
+
+import os
+import re
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, ".."))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("flash_sm90_check: no CUDA device", file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    build.load_library()
+    log = build.build_log()
+    part = log[log.find("flash_attention_sm90"):]
+    cs.emit(phase="ptxas", nvcc_seconds=build.build_seconds,
+            lines=[ln for ln in part.splitlines()[:80]
+                   if re.search(r"flash_fwd_sm90|registers|spill|setmaxnreg|"
+                                r"warning|error", ln)])
+    text = build.sass("flash_fwd_sm90")
+    regs = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        used = [int(r) for r in re.findall(r"\bR(\d+)\b", chunk)]
+        regs[re.sub(r".*kernelIL", "", name)[:40]] = max(used, default=-1)
+    cs.emit(phase="sass", hgmma=text.count("HGMMA"),
+            utmaldg=text.count("UTMALDG"), highest_register=regs)
+
+    dev = torch.device("cuda", 0)
+    timer = cs.Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    bad = 0
+    for S, Hq, Hkv, D in ((1000, 40, 8, 128), (1024, 32, 8, 160)):
+        q, k, v = rnd(1, S, Hq, D), rnd(1, S, Hkv, D), rnd(1, S, Hkv, D)
+        ms, share = {}, {}
+        for bq in fa.BF16_BLOCK_Q_OPTIONS:
+            for bk in fa.BF16_BLOCK_K_OPTIONS:
+                tile = f"{bq}x{bk}"
+                got = fa.flash_attention_bshd(q, k, v, causal=True,
+                                              block_q=bq, block_k=bk)
+                want = fa.flash_attention_plain(q, k, v, causal=True,
+                                                block_q=bq, block_k=bk,
+                                                round_p=True)
+                _, share[tile] = cs.flash_error(got, want)
+                bad += share[tile] > 1.0
+                ms[tile] = timer(lambda: fa.flash_attention_bshd(
+                    q, k, v, causal=True, block_q=bq, block_k=bk),
+                    reps=20, queued=True)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20,
+            queued=True)
+        cs.emit(phase="tiles", shape=f"q [1,{S},{Hq},{D}], k/v [1,{S},{Hkv},"
+                f"{D}] bf16 causal", ms_by_tile=ms, sdpa_ms=sdpa,
+                share_of_limit_by_tile=share,
+                tolerance=cs.flash_tolerance(torch.bfloat16),
+                device=torch.cuda.get_device_name(0))
+    cs.emit(phase="done", tiles_outside_tolerance=bad)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
