@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-Builds the three CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, tunes the flash-attention
-tiles, then drives the port's two paths once at full size through the entry
-points a user would call:
+Builds the four CUDA kernels from the sources in this checkout (vai, membw,
+and flash attention in f32 and in bf16), holds each against its plain
+PyTorch version on the card, tunes the f32 flash-attention tiles and runs
+the model's f32 prefill route through the f32 kernel, then drives the
+port's two paths once at full size through the entry points a user would
+call:
 
     the paper's pipeline: VAI / membw kernels timed by the wall-clock
       harness -> tune -> calibrate -> "calibrated:<kernel>" response tables
@@ -52,6 +54,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM datasheet
 FP32_FMA_FLOPS = 66.9e12       # 132 SMs x 128 lanes x 2 x 1.98 GHz
 FP32_ADD_OPS = FP32_FMA_FLOPS / 2
 BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor-core peak
+TF32_TENSOR_FLOPS = 495e12     # dense TF32 tensor-core peak
 L2_BYTES = 50e6
 
 VAI_CHECK_LOOPSIZES = (0, 1, 8, 64, 1024)
@@ -455,15 +458,39 @@ def attention_entries(Sq: int, Skv: int, causal: bool) -> int:
 def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, itemsize, causal):
     """Least time for one call: bytes (q, k, v read once, o written once)
     over the HBM rate against the flops the function needs (2 D for q.k and
-    2 D for p.v per unmasked score entry) over the peak of the inputs'
-    type."""
+    2 D for p.v per unmasked score entry) over the rate of the tensor-core
+    products the kernel does them with: bf16 at the bf16 peak; f32 as
+    3xTF32, three TF32 products for each f32 one, at the TF32 peak."""
     flops = 2.0 * B * Hq * attention_entries(Sq, Skv, causal) * (2 * D)
     byts = itemsize * D * (2 * B * Sq * Hq + 2 * B * Skv * Hkv)
-    peak = FP32_FMA_FLOPS if itemsize == 4 else BF16_TENSOR_FLOPS
     by_bytes = byts / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / peak * 1e3
+    by_ops = (3 * flops / TF32_TENSOR_FLOPS if itemsize == 4 else
+              flops / BF16_TENSOR_FLOPS) * 1e3
     return (max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations", flops, byts)
+
+
+def ptxas_facts(log: str, kernel: str) -> dict:
+    """Registers and spill bytes ``ptxas -v`` gave each instantiation of
+    ``kernel`` (a template over head dim, block_q and block_k), keyed
+    ``D<d>_<block_q>x<block_k>``."""
+    import re
+    facts, name = {}, None
+    for line in log.splitlines():
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line:
+            name = f"D{m[1]}_{m[2]}x{m[3]}" if m else None
+            if name:
+                facts[name] = {}
+        elif name and "spill stores" in line:
+            st = re.search(r"(\d+) bytes spill stores", line)
+            ld = re.search(r"(\d+) bytes spill loads", line)
+            facts[name].update(spill_stores=int(st[1]), spill_loads=int(ld[1]))
+        elif name and "Used" in line and "registers" in line:
+            facts[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+            name = None
+    return facts
 
 
 def flash_error(got: torch.Tensor, want: torch.Tensor):
@@ -483,16 +510,18 @@ def flash_tolerance(dtype: torch.dtype) -> str:
 
 def check_flash(device, timer: Timer, sizes: dict) -> dict:
     """The flash-attention kernels against their plain version on the card:
-    f32 (CUDA cores) at the tuning space's shape, with Sq != Skv (causal,
-    top-left aligned) and non-causal; bf16 (tensor cores) at the served
-    model's prefill shape (GQA), at the lock-step route's ragged prompt
-    length, at a prompt shorter than one tile, with Sq != Skv both ways,
-    non-causal over a ragged kv length, with K zero (P.V alone), and at
-    head dims 64 and 160 (whole and ragged). Every instantiated tile is
-    checked and timed at the two timed shapes."""
+    f32 (3xTF32 on mma.sync) at the tuning space's shape, with Sq != Skv
+    both ways (causal, top-left aligned), non-causal, at head dims 64 and
+    160 (whole and ragged), at the ragged length 1000 (two tiles) and at a
+    prompt shorter than one tile; bf16 (wgmma) at the served model's
+    prefill shape (GQA), at the lock-step route's ragged prompt length, at
+    a prompt shorter than one tile, with Sq != Skv both ways, non-causal
+    over a ragged kv length, with K zero (P.V alone), and at head dims 64
+    and 160 (whole and ragged). Every instantiated tile is checked and
+    timed at the two timed shapes. Returns the kernels-line entries of the
+    bf16 and the f32 kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.models import attention as attn
     g = torch.Generator(device=device)
     g.manual_seed(13)
@@ -506,15 +535,35 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     mseq, mhq, mhkv, mhd = sizes["flash_model"]
     ragged = sizes["flash_ragged"]
     tiles = attn.flash_tiles(bf16)
+    tiles_f32 = attn.flash_tiles(f32)
     # (name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, block_q, block_k)
     cases = [
-        ("space_f32", bh, seq, seq, 1, 1, hd, f32, True, 64, 64),
+        ("space_f32", bh, seq, seq, 1, 1, hd, f32, True, *tiles_f32),
         ("model_prefill_bf16", 1, mseq, mseq, mhq, mhkv, mhd, bf16, True,
          *tiles),
         ("sq_ne_skv_f32", 2, seq // 4, seq // 2, 8, 2, hd, f32, True, 64,
          128),
-        ("noncausal_f32", 2, seq // 2, seq // 2, 4, 4, hd // 2, f32, False,
+        # an odd number of q tiles: non-causal, the last cluster has a
+        # spare block; causal (Sq > Skv), the middle tile is split between
+        # the two blocks of its cluster
+        ("noncausal_f32", 2, seq // 2 - 40, seq // 2, 4, 4, hd // 2, f32,
+         False, 32, 64),
+        ("sq_gt_skv_f32", 1, ragged // 3, ragged // 5, 4, 2, hd, f32, True,
          32, 64),
+        # the only f32 tile of 128 x 128 rows that fits: head dim 64
+        ("head_dim_64_f32", 1, seq // 4, seq // 4, 4, 1, 64, f32, True, 128,
+         128),
+        ("head_dim_160_f32", 1, seq // 4, seq // 4, 4, 1, 160, f32, True,
+         32, 128),
+        # the lock-step route's longest prompt: no tile divides it
+        ("ragged_f32", 1, ragged, ragged, 5, 1, hd, f32, True, *tiles_f32),
+        ("ragged_64x128_f32", 1, ragged, ragged, mhq, mhkv, mhd, f32, True,
+         64, 128),
+        ("head_dim_160_ragged_f32", 1, 250, 250, 2, 2, 160, f32, True, 64,
+         64),
+        # a prompt shorter than one tile: the copies past the sequence are
+        # zero-filled
+        ("short_prompt_f32", 1, 16, 16, 4, 4, hd, f32, True, *tiles_f32),
         # stablelm-12b's head dim
         ("head_dim_160_bf16", 1, seq // 4, seq // 4, 4, 1, 160, bf16, True,
          128, 128),
@@ -605,45 +654,43 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
                        share_of_limit_by_tile=share_by_tile)
         rows.append(row)
         del q, k, v, got, want
-    # the model's dispatch: a causal f32 prefill on the card goes to the
-    # kernel at the f32 tiles, like the bf16 one the serve phase runs
-    q = rnd((1, seq // 4, 8, hd), f32)
-    k, v = rnd((1, seq // 4, 2, hd), f32), rnd((1, seq // 4, 2, hd), f32)
-    before = ops.launch_counts()["flash_attention"]
-    got = attn.chunked_attention(q, k, v)
-    launched = ops.launch_counts()["flash_attention"] - before
-    want = attn.chunked_attention(q, k, v, impl="plain")
-    err, share = flash_error(got, want)
-    check(share <= 1.0, f"chunked_attention f32 kernel route differs from "
-          f"the plain route by {err}")
-    check(launched == (1 if device.type == "cuda" else 0),
-          f"a causal f32 prefill on {device} made {launched} kernel launches")
-    rows.append({"case": "model_dispatch_f32", "q": list(q.shape),
-                 "kv": list(k.shape), "dtype": "float32", "causal": True,
-                 "blocks": list(attn.flash_tiles(f32)),
-                 "launches": launched, "max_abs_err": err,
-                 "share_of_limit": share, "tolerance": flash_tolerance(f32)})
-    main = rows[1]
-    return {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-        "source_f32": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:60",
-        "shape": f"q {main['q']}, k/v {main['kv']} bf16, causal, blocks "
-                 f"{main['blocks']} (the served model's prefill)",
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "share_of_limit": max(r["share_of_limit"] for r in rows),
-        "tolerance": f"{flash_tolerance(f32)} f32, {flash_tolerance(bf16)} "
-                     f"bf16, against the plain version (p rounded to bf16 "
-                     f"for p.v, as in the kernels)",
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "library": "F.scaled_dot_product_attention(is_causal, enable_gqa) "
-                   "on [B, H, S, D] copies (yardstick only)",
-        "timing": "CUDA events around each launch, queued behind a sleep "
-                  "kernel so the wrapper's host work is not timed",
-        "cases": rows}
+    library = ("F.scaled_dot_product_attention(is_causal, enable_gqa) on "
+               "[B, H, S, D] copies (yardstick only)")
+    timing = ("CUDA events around each launch, queued behind a sleep kernel "
+              "so the wrapper's host work is not timed")
+    entries = []
+    for dt, source in ((bf16, "flash_attention_sm90.cu"),
+                       (f32, "flash_attention.cu")):
+        mine = [r for r in rows if r["dtype"] == str(dt).replace("torch.",
+                                                                 "")]
+        main = next(r for r in mine if "ms" in r)
+        entry = {
+            "name": "flash_attention" if dt == bf16 else
+                    "flash_attention_f32",
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:60",
+            "shape": f"q {main['q']}, k/v {main['kv']} "
+                     f"{main['dtype']}, causal, blocks {main['blocks']} "
+                     + ("(the served model's prefill)" if dt == bf16 else
+                        "(the tuning space's shape, the model's f32 tiles)"),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "share_of_limit": max(r["share_of_limit"] for r in mine),
+            "tolerance": f"{flash_tolerance(dt)} against the plain version"
+                         + (" (p rounded to bf16 for p.v, as in the kernel)"
+                            if dt == bf16 else ""),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "library": library,
+            "timing": timing}
+        if dt == f32:
+            entry.update(
+                bound="max(bytes / 3.35 TB/s, 3 x flops / 495 TFLOP/s): "
+                      "the products run as 3xTF32 on the tensor cores",
+                ms_best_tile=min(main["ms_by_tile"].values()))
+        entries.append(entry)
+    entries[0]["cases"] = rows
+    return entries
 
 
 def tune_flash(device, sizes: dict) -> dict:
@@ -677,6 +724,30 @@ def tune_flash(device, sizes: dict) -> dict:
         "validation_max_abs_err": max(meas.validation_err),
         "best_time": repr(fast), "best_energy": repr(green),
         "calibration_fit_rms_pct": cal.fit_rms_pct}
+
+
+def model_prefill_f32(device, sizes: dict) -> dict:
+    """The model's f32 prefill route: a causal f32 ``chunked_attention`` at
+    the served model's heads and the lock-step route's longest prompt. On
+    the card it goes to the f32 kernel at the model's f32 tiles; its output
+    is held against the plain route's."""
+    from repro_torch.models import attention as attn
+    seq, hq, hkv, hd = sizes["flash_model"]
+    S = sizes["flash_ragged"]
+    g = torch.Generator(device=device)
+    g.manual_seed(14)
+    q = torch.randn((1, S, hq, hd), generator=g, device=device)
+    k = torch.randn((1, S, hkv, hd), generator=g, device=device)
+    v = torch.randn((1, S, hkv, hd), generator=g, device=device)
+    got = attn.chunked_attention(q, k, v)
+    want = attn.chunked_attention(q, k, v, impl="plain")
+    err, share = flash_error(got, want)
+    check(share <= 1.0, f"chunked_attention f32 kernel route differs from "
+          f"the plain route by {err}")
+    return {"q": list(q.shape), "kv": list(k.shape), "dtype": "float32",
+            "causal": True, "blocks": list(attn.flash_tiles(torch.float32)),
+            "max_abs_err": err, "share_of_limit": share,
+            "tolerance": flash_tolerance(torch.float32)}
 
 
 # ---------------------------------------------------------- serving path
@@ -943,11 +1014,13 @@ def main() -> int:
              cuda=torch.version.cuda, python=sys.version.split()[0])
         t0 = time.perf_counter()
         build.load_library()
-        # what the compiler made of two loops: the vai kernel's FMAs, and
-        # the bf16 flash kernel's tensor-core products (HGMMA) and TMA loads
+        # what the compiler made of three loops: the vai kernel's FMAs, the
+        # f32 flash kernel's TF32 tensor-core products (HMMA), and the bf16
+        # flash kernel's tensor-core products (HGMMA) and TMA loads
         # (UTMALDG)
         counts = {"vai_fma_kernel_ffma_in_sass": ("vai_fma_kernel",
                                                   "FFMA"),
+                  "flash_f32_hmma_in_sass": ("flash_fwd_f32", "HMMA"),
                   "flash_bf16_hgmma_in_sass": ("flash_fwd_sm90", "HGMMA"),
                   "flash_bf16_utmaldg_in_sass": ("flash_fwd_sm90",
                                                  "UTMALDG")}
@@ -962,10 +1035,14 @@ def main() -> int:
         print(build.build_log(), file=sys.stderr)
         emit(phase="build", setup_seconds=time.perf_counter() - t0,
              nvcc_seconds=build.build_seconds,
-             library=os.path.relpath(build.library_path(), HERE), **in_sass)
+             library=os.path.relpath(build.library_path(), HERE), **in_sass,
+             flash_f32_ptxas=ptxas_facts(build.build_log(),
+                                         "flash_fwd_f32_kernel"))
         check(bool(in_sass["flash_bf16_hgmma_in_sass"])
               and bool(in_sass["flash_bf16_utmaldg_in_sass"]),
               f"the bf16 flash kernel shows no HGMMA or UTMALDG: {in_sass}")
+        check(bool(in_sass["flash_f32_hmma_in_sass"]),
+              f"the f32 flash kernel shows no HMMA: {in_sass}")
 
     timer = Timer(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -978,15 +1055,22 @@ def main() -> int:
                     sizes["membw_big_rows"], sizes["membw_iters"], timer)]
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    kernels.append(check_flash(device, timer, sizes))
-    emit(phase="flash_attention_check", cases=kernels[-1]["cases"])
-
-    ops.reset_launch_counts()
-    emit(phase="flash_attention_tuning", **tune_flash(device, sizes),
-         launches=ops.launch_counts()["flash_attention"])
+    kernels.extend(check_flash(device, timer, sizes))
+    emit(phase="flash_attention_check", cases=kernels[-2]["cases"])
 
     # each path runs with the counts set to 0 just before it and read just
-    # after; launches made by the checks above do not count
+    # after; launches made by the checks above do not count. The f32
+    # kernel's path: tune() + calibrate() over its tiles, then the model's
+    # f32 prefill (the plain route it is held against launches nothing)
+    ops.reset_launch_counts()
+    tuning = tune_flash(device, sizes)
+    tuning_launches = ops.launch_counts()["flash_attention"]
+    emit(phase="flash_attention_tuning", **tuning, launches=tuning_launches)
+    ops.reset_launch_counts()
+    dispatch = model_prefill_f32(device, sizes)
+    dispatch_f32 = ops.launch_counts()["flash_attention"]
+    emit(phase="model_dispatch_f32", **dispatch, launches=dispatch_f32)
+
     ops.reset_launch_counts()
     report = main_path(device, sizes)
     counts = ops.launch_counts()
@@ -1002,9 +1086,12 @@ def main() -> int:
     del params
 
     launches = {"vai": counts["vai"], "membw": counts["membw"],
-                "flash_attention": serve_counts["flash_attention"]}
+                "flash_attention": serve_counts["flash_attention"],
+                "flash_attention_f32": tuning_launches + dispatch_f32}
     emit(phase="launches", **launches,
-         flash_attention_sampled_generate=sampled_launches)
+         flash_attention_sampled_generate=sampled_launches,
+         flash_attention_f32_tuning=tuning_launches,
+         flash_attention_f32_model_dispatch=dispatch_f32)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
@@ -1015,6 +1102,9 @@ def main() -> int:
           f"the main path did not launch both of its kernels: {counts}")
     check(serve_counts["flash_attention"] > 0,
           "the serving path never launched the flash_attention kernel")
+    check(tuning_launches > 0 and dispatch_f32 == 1,
+          f"the f32 path launched the f32 flash kernel {tuning_launches} "
+          f"times in tuning and {dispatch_f32} in the model's dispatch")
     torch.cuda.synchronize()
     emit(kernels=kernels)
     print(smi, flush=True)

@@ -118,6 +118,26 @@ def build() -> Path:
     return out
 
 
+def build_probe(src: Path) -> Path:
+    """Compile one stand-alone source (a measurement probe kept outside
+    ``csrc/``) with the kernels' flags into its own shared library in the
+    build directory; returns its path. Rebuilt only when the source or the
+    flags change."""
+    out = build_dir() / f"lib{src.stem}_{_digest([src])}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    run = subprocess.run(
+        [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    if run.returncode != 0:
+        raise KernelCompileError(f"nvcc failed on {src.name}:\n{run.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
 def build_log() -> str:
     """What ``nvcc -Xptxas -v`` said in the last build (registers, shared
     memory and spills of every kernel)."""

@@ -14,9 +14,11 @@ p.v as in the kernels (``round_p``), skipping the kv blocks
 that the causal mask covers wholly (exact: they add ``exp(-1e30 - m) = 0``).
 It also takes query offsets, local windows and kv masks, and is the model's
 plain attention route. Any other tensor goes to a hand-written kernel, or
-the call raises: f32 to the CUDA-core kernel of ``csrc/flash_attention.cu``,
-bf16 to the tensor-core kernel of ``csrc/flash_attention_sm90.cu`` (wgmma
-fed by TMA copies), both behind the C entry point ``repro_flash_attention``.
+the call raises: f32 to the tensor-core kernel of ``csrc/flash_attention.cu``
+(3xTF32 products on ``mma.sync``, K/V through a ring of ``cp.async``
+copies), bf16 to the tensor-core kernel of ``csrc/flash_attention_sm90.cu``
+(wgmma fed by TMA copies), both behind the C entry point
+``repro_flash_attention``.
 
 ``block_q`` / ``block_k`` are the kernel's tiles. The ``[B, S, H, D]`` form
 takes any sequence lengths: a ragged last tile runs masked. The
@@ -36,7 +38,8 @@ import torch
 
 NEG_INF = -1e30
 
-#: f32 tiles (the CUDA-core kernel)
+#: f32 tiles (the 3xTF32 kernel): 8 warps over BQ / 16 row groups of 16
+#: rows and 128 / BQ kv splits
 BLOCK_Q_OPTIONS = (32, 64, 128)
 BLOCK_K_OPTIONS = (64, 128)
 #: bf16 tiles (the tensor-core kernel): 64 query rows a consumer warpgroup
@@ -83,19 +86,20 @@ def smem_bytes(itemsize: int, head_dim: int, block_q: int,
                block_k: int) -> int:
     """Shared memory of one thread block of the kernel.
 
-    f32 (the ``Smem`` formula of ``csrc/flash_attention.cu``): Q and K tiles
-    with rows padded by one 32-bit word, the V tile, S/P in f32 with rows
-    padded by one, and three f32 row statistics. bf16 (``SmemSm90`` of
+    f32 (``TilesF32`` of ``csrc/flash_attention.cu``): Q split into Q_big
+    and Q_small (stored as the mma's A fragments), the K slot in rows of
+    ``D + 16`` floats and the V slot in rows of ``D + 4`` (the pitches that
+    keep the fragment loads free of bank conflicts); the merge of the kv
+    splits reuses the same bytes. bf16
+    (``SmemSm90`` of
     ``csrc/flash_attention_sm90.cu``): the Q tile, :func:`bf16_stages` K and
     V tiles, ``2 * stages + 1`` 8-byte mbarriers and 1024 bytes of slack
     that align the swizzled tiles."""
     if itemsize == 2:
         return _bf16_smem(head_dim, block_q, block_k,
                           bf16_stages(head_dim, block_q, block_k))
-    pitch = head_dim + 4 // itemsize
-    return (itemsize * (block_q * pitch + block_k * pitch
-                        + block_k * head_dim)
-            + 4 * (block_q * (block_k + 1) + 3 * block_q))
+    return itemsize * (2 * block_q * head_dim + block_k * (head_dim + 16)
+                       + block_k * (head_dim + 4))
 
 
 def flash_attention_work(seq_q: int, seq_kv: int, *, causal: bool,
@@ -290,17 +294,17 @@ def _refusal(q, k, v, block_q: int, block_k: int) -> Optional[str]:
         return why
     if any(t.stride(3) != 1 for t in (q, k, v)):
         return "the last dim of q, k and v must be contiguous"
-    if q.dtype == torch.bfloat16:
-        # TMA: a 16-byte aligned base and strides that are multiples of 16
-        # bytes
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                return (f"the bf16 kernel's TMA copies need 16-byte aligned "
-                        f"tensors; {name} starts at {t.data_ptr():#x}")
-            if any(s * t.element_size() % 16 for s in tma_strides(t)[:3]):
-                return (f"the bf16 kernel's TMA copies need strides that are "
-                        f"multiples of 16 bytes; {name} has strides "
-                        f"{t.stride()}")
+    # 16-byte copies (TMA for bf16, cp.async and 16-byte loads for f32): a
+    # 16-byte aligned base and strides that are multiples of 16 bytes
+    copies = "TMA" if q.dtype == torch.bfloat16 else "cp.async"
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            return (f"the kernel's 16-byte {copies} copies need 16-byte "
+                    f"aligned tensors; {name} starts at {t.data_ptr():#x}")
+        if any(s * t.element_size() % 16 for s in tma_strides(t)[:3]):
+            return (f"the kernel's 16-byte {copies} copies need strides that "
+                    f"are multiples of 16 bytes; {name} has strides "
+                    f"{t.stride()}")
     return None
 
 

@@ -30,11 +30,12 @@ from repro_torch.models.common import ParamMaker, apply_rope
 NEG_INF = -1e30
 
 #: the flash kernel's tiles on the model's prefill path, by dtype: for bf16
-#: the fastest tile of the tensor-core kernel at the served model's prefill
-#: shape (and at head dim 160, where 128 x 128 keeps only two stages), for
-#: f32 the tuner's fastest at the SPACES shape, both on the H100 (PERF.md);
-#: f32 at (128, 128) does not fit in shared memory
-FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 128)}
+#: the fastest tile of the wgmma kernel at the served model's prefill shape
+#: (and at head dim 160, where 128 x 128 keeps only two stages), for f32 the
+#: fastest tile of the 3xTF32 kernel at the SPACES shape, both on the H100
+#: (PERF.md); the f32 tile also fits at head dim 160, where Q split in two
+#: leaves room for 32 x 64, 32 x 128 and 64 x 64 only
+FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 64)}
 
 IntOrTensor = Union[int, torch.Tensor]
 

@@ -436,8 +436,8 @@ class FlashAttentionSpace(KernelSpace):
     The card's rules replace both, read from
     ``flash_attention.unsupported``: a tile must be one the kernel is
     instantiated for (``BLOCK_Q_OPTIONS`` x ``BLOCK_K_OPTIONS``, at a head
-    dim in ``HEAD_DIMS``), its shared memory (the Q, K and V tiles, S/P and
-    the row statistics; ``flash_attention.smem_bytes``) must fit in the
+    dim in ``HEAD_DIMS``), its shared memory (Q split into two TF32 parts
+    and the K and V slots; ``flash_attention.smem_bytes``) must fit in the
     227 KB a block can have; and ``min(block, S)`` must divide the sequence.
 
     The analytic cost describes what the kernel does. Causal attention

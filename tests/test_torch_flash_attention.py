@@ -148,6 +148,132 @@ def test_flash_causal_sq_ne_skv_is_top_left_aligned(Sq, Skv, bq, bk, dtype):
                                rtol=tol, atol=tol)
 
 
+# ---------------------------------------------------------------------------
+# the f32 kernel's arithmetic: 3xTF32 products (emulated on the CPU)
+# ---------------------------------------------------------------------------
+def _tf32(x) -> np.ndarray:
+    """``cvt.rna.tf32.f32`` on the CPU: f32 rounded to TF32's 10 explicit
+    mantissa bits, to nearest with ties away from zero (add half of the 13
+    dropped bits to the magnitude, then clear them)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+
+
+def _split(x: np.ndarray):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _matmul_3xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b as the f32 kernel forms it: both operands split into TF32
+    big + small, ``a_small b_big + a_big b_small + a_big b_big`` (small
+    terms first, small . small dropped), products exact and sums in f32."""
+    a_big, a_small = _split(a)
+    b_big, b_small = _split(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _matmul_tf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b from one TF32 product of the rounded operands."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _blocked_attention(q, k, v, *, causal: bool, block_k: int, matmul):
+    """q ``[BH, Sq, D]``, k/v ``[BH, Skv, D]`` f32 -> ``[BH, Sq, D]``: the
+    online softmax over kv tiles of ``block_k`` (a ragged last tile is
+    shorter), top-left causal mask filled with -1e30, both products by
+    ``matmul``; everything else in f32."""
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    scale = np.float32(D ** -0.5)
+    qpos = np.arange(Sq)[:, None]
+    m = np.full((BH, Sq), -1e30, np.float32)
+    l = np.zeros((BH, Sq), np.float32)
+    acc = np.zeros((BH, Sq, D), np.float32)
+    for k0 in range(0, Skv, block_k):
+        kc, vc = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        s = matmul(q, kc.transpose(0, 2, 1)) * scale
+        if causal:
+            kpos = np.arange(k0, k0 + kc.shape[1])[None, :]
+            s = np.where(kpos <= qpos, s, np.float32(-1e30))
+        m_new = np.maximum(m, s.max(-1))
+        p = np.exp(s - m_new[..., None])
+        corr = np.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + matmul(p, vc)
+        m = m_new
+    return acc / np.maximum(l, np.float32(1e-30))[..., None]
+
+
+def test_tf32_rounding_ties_and_signs():
+    one = 0x3F800000
+    x = np.array([one | 0x1000, one | 0xFFF, one | 0x1001, one | 0x2000,
+                  one | 0x3000, 0x3FFFFFFF, 0, 0x80000000],
+                 np.uint32).view(np.float32)
+    want = np.array([one + 0x2000, one, one + 0x2000, one + 0x2000,
+                     one + 0x4000, 0x40000000, 0, 0x80000000],
+                    np.uint32).view(np.float32)
+    got = _tf32(x)
+    # a tie (half of the dropped bits) rounds away from zero, in both signs;
+    # a carry reaches the exponent; zeros keep their sign
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(_tf32(-x).view(np.uint32),
+                                  (-want).view(np.uint32))
+    r = _normal(5, 4096) * np.float32(1e3)
+    big, small = _split(r)
+    assert not (big.view(np.uint32) & 0x1FFF).any()
+    assert not (small.view(np.uint32) & 0x1FFF).any()
+    assert np.all(np.abs(r - big) <= np.abs(r) * 2.0 ** -11)
+    # big + small is x to about 2^-22 of it
+    assert np.all(np.abs(r - (big + small)) <= np.abs(r) * 2.0 ** -21)
+
+
+#: (BH, Sq, Skv, D, causal, block_k of the emulation, block of the
+#: reference kernel)
+_TF32_CASES = {
+    "spaces_reduced": (2, 256, 256, 128, True, 128, 128),
+    "sq_ne_skv": (2, 128, 256, 64, True, 64, 64),
+    "noncausal": (2, 128, 128, 64, False, 64, 64),
+    "head_dim_160": (1, 128, 128, 160, True, 64, 64),
+    "ragged_300": (1, 300, 300, 64, True, 64, 100),
+}
+
+
+def _tf32_case(name):
+    BH, Sq, Skv, D, causal, bk, ref_block = _TF32_CASES[name]
+    seed = sum(map(ord, name))
+    q = _normal(seed, BH, Sq, D)
+    k, v = (_normal(seed + i, BH, Skv, D) for i in (1, 2))
+    want = np.asarray(ref_fa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=ref_block, block_k=ref_block))
+    return (q, k, v), causal, bk, want
+
+
+@pytest.mark.parametrize("name", sorted(_TF32_CASES))
+def test_3xtf32_attention_meets_the_reference_kernel(name):
+    """The f32 kernel's products, 3xTF32 over f32 sums, in the kernel's
+    blocked online softmax, meet the reference Pallas kernel (interpret
+    mode) within the f32 contract of 2e-5."""
+    qkv, causal, bk, want = _tf32_case(name)
+    got = _blocked_attention(*qkv, causal=causal, block_k=bk,
+                             matmul=_matmul_3xtf32)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", sorted(_TF32_CASES))
+def test_single_tf32_product_misses_the_contract(name):
+    """Why the split is there: with one TF32 product for each of Q K^T and
+    P V, the same blocked attention on the same inputs errs by more than
+    2e-5."""
+    qkv, causal, bk, want = _tf32_case(name)
+    got = _blocked_attention(*qkv, causal=causal, block_k=bk,
+                             matmul=_matmul_tf32)
+    assert np.abs(got - want).max() > 2e-5
+
+
 def test_port_oracle_matches_reference_oracle():
     q, k, v = (_normal(90 + i, 2, 64, 32) for i in range(3))
     for causal in (True, False):
@@ -222,6 +348,10 @@ def test_plain_causal_skip_is_exact(q_offset, window):
     (2, 160, 160, 128, 128, None),           # stablelm-12b's head dim
     (2, 64, 64, 64, 64, None),               # one consumer warpgroup
     (4, 128, 128, 128, 128, "smem-overflow"),
+    (4, 160, 160, 32, 128, None),            # D = 160 at 32 rows
+    (4, 160, 160, 64, 128, "smem-overflow"),  # Q split in two does not fit
+    (4, 160, 160, 128, 64, "smem-overflow"),
+    (4, 64, 64, 128, 128, None),
     (4, 96, 96, 64, 64, "not-instantiated"),
     (4, 128, 64, 64, 64, "not-instantiated"),
     (4, 64, 64, 16, 64, "not-instantiated"),
@@ -263,10 +393,24 @@ def test_work_count_is_what_the_kernel_visits(Sq, Skv, bq, bk):
 
 
 def test_shared_memory_formula():
-    # f32, head dim 128: (64 x 129 + 64 x 129 + 64 x 128) x 4
-    #                    + (64 x 65 + 3 x 64) x 4
-    assert fa.smem_bytes(4, 128, 64, 64) == 116224
+    # f32, head dim 128: Q_big and Q_small 32 x 128 each, K in rows of
+    # 128 + 16 floats, V in rows of 128 + 4:
+    # (2 x 32 x 128 + 128 x 144 + 128 x 132) x 4
+    assert fa.smem_bytes(4, 128, 32, 128) == 174080
+    assert fa.smem_bytes(4, 128, 64, 64) == 136192
     assert fa.smem_bytes(4, 128, 128, 128) > fa.SMEM_LIMIT_BYTES
+    # what the kernels' tuning space keeps at head dim 128: every tile but
+    # 128 x 128, the largest at 206848 and 201728 B
+    assert fa.smem_bytes(4, 128, 64, 128) == 206848
+    assert fa.smem_bytes(4, 128, 128, 64) == 201728
+    # head dim 160: Q split in two leaves room for 32 x 128 and 64 x 64 only
+    assert fa.smem_bytes(4, 160, 32, 128) == 215040 <= fa.SMEM_LIMIT_BYTES
+    assert fa.smem_bytes(4, 160, 64, 64) == 168960
+    assert fa.smem_bytes(4, 160, 64, 128) > fa.SMEM_LIMIT_BYTES
+    assert fa.smem_bytes(4, 160, 128, 64) > fa.SMEM_LIMIT_BYTES
+    # head dim 64: every f32 tile fits
+    assert all(fa.smem_bytes(4, 64, bq, bk) <= fa.SMEM_LIMIT_BYTES
+               for bq in fa.BLOCK_Q_OPTIONS for bk in fa.BLOCK_K_OPTIONS)
     # bf16, head dim 128: Q 128 x 128 x 2 + 3 stages x (K + V) 128 x 128 x 2
     #                     + 7 mbarriers x 8 + 1024 alignment slack
     assert fa.bf16_stages(128, 128, 128) == 3

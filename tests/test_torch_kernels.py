@@ -192,6 +192,10 @@ def test_build_raises_where_there_is_no_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_lib", None)
     with pytest.raises(build.KernelCompileError, match="nvcc not found"):
         build.load_library()
+    probe = tmp_path / "probe.cu"
+    probe.write_text("// a stand-alone probe\n")
+    with pytest.raises(build.KernelCompileError, match="nvcc not found"):
+        build.build_probe(probe)
     assert [s.name for s in build.sources()] == [
         "flash_attention.cu", "flash_attention_sm90.cu", "membw.cu",
         "vai.cu"]

@@ -37,7 +37,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
-    if "flash_fwd" in low:  # flash_fwd_kernel (f32), flash_fwd_sm90_kernel
+    if "flash_fwd" in low:  # flash_fwd_f32_kernel, flash_fwd_sm90_kernel
         return "flash_attention"
     if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "cublas", "sm90_")):
