@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -59,6 +60,14 @@ L2_BYTES = 50e6
 
 VAI_CHECK_LOOPSIZES = (0, 1, 8, 64, 1024)
 VAI_TOL = 2e-4                 # FMA rounds once, mul-then-add twice
+#: loopsizes at which the vai kernel is timed, each in turns with the
+#: library call for VAI_ROUNDS rounds: the copy, the main case, and the
+#: operations-bound end
+VAI_TIME_LOOPSIZES = (0, 8, 256, 1024, 8192)
+VAI_ROUNDS = 3
+#: the vai FMA kernel's instantiations (threads x float4s a thread): the
+#: bytes end and the operations end
+VAI_SHAPES = ("1024x4", "512x2")
 MEMBW_RTOL, MEMBW_ATOL = 1e-5, 1e-4     # the order of the sum differs
 MEMBW_TOL_SHAPES = ((4, 64, 9), (8, 32, 16), (2, 256, 5))
 #: (atol, rtol) of a flash kernel against its plain version, which rounds
@@ -138,6 +147,17 @@ def clocks_under_load(fn, launches: int = 8) -> str:
 
 
 # --------------------------------------------------------------- phase 3
+def vai_sass_banks(build) -> dict:
+    """``build.ffma_bank_counts`` of each instantiation of the vai FMA
+    kernel, keyed by its shape (threads x float4s a thread)."""
+    shapes = {}
+    for chunk in build.sass("vai_fma_kernel").split("Function : ")[1:]:
+        m = re.search(r"vai_fma_kernelILi(\d+)ELi(\d+)E", chunk)
+        shapes[f"{m.group(1)}x{m.group(2)}" if m else "?"] = (
+            build.ffma_bank_counts(chunk))
+    return shapes
+
+
 def vai_bound_ms(n_elems: int, loopsize: int):
     from repro_torch.kernels import vai_flops_bytes
     flops, byts = vai_flops_bytes(n_elems, loopsize)
@@ -177,14 +197,25 @@ def check_vai(device, n_elems: int, timer: Timer, time_loopsizes) -> dict:
     cases = []
     for L in time_loopsizes:
         bound, by, flops, byts = vai_bound_ms(n_elems, L)
-        ms = timer(lambda: vai_mod.vai(a, b, c, loopsize=L))
+        sides = {"kernel": lambda: vai_mod.vai(a, b, c, loopsize=L),
+                 "library": (lambda: b.clone()) if L == 0 else
+                 (lambda: torch.addcmul(c, a, b, value=float(L)))}
+        turns = {"kernel": [], "library": []}
+        for r in range(VAI_ROUNDS):
+            for side in (("kernel", "library") if r % 2 == 0
+                         else ("library", "kernel")):
+                turns[side].append(timer(sides[side]))
+        ms = statistics.median(turns["kernel"])
         plain_ms = timer(lambda: vai_mod.vai_plain(a, b, c, loopsize=L),
                          reps=3) if L <= 64 else None
-        lib_ms = timer((lambda: b.clone()) if L == 0 else
-                       (lambda: torch.addcmul(c, a, b, value=float(L))))
         cases.append({
-            "loopsize": L, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "loopsize": L, "ms": ms,
+            "ms_min_max": [min(turns["kernel"]), max(turns["kernel"])],
+            "plain_ms": plain_ms,
+            "library_ms": statistics.median(turns["library"]),
+            "library_ms_min_max": [min(turns["library"]),
+                                   max(turns["library"])],
+            "bound_ms": bound, "bound_by": by,
             "gbytes_s": byts / ms / 1e6, "tflops": flops / ms / 1e9})
     main = next(c for c in cases if c["loopsize"] == 8)
     # where the kernel is bound by operations: is the clock what holds it?
@@ -204,6 +235,8 @@ def check_vai(device, n_elems: int, timer: Timer, time_loopsizes) -> dict:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "library": "torch.addcmul(c, a, b, value=loopsize); b.clone() at 0",
+        "timing": f"median of {VAI_ROUNDS} rounds in turns with the library "
+                  f"call (each round the median of 5 launches)",
         "clocks_under_load": {"loopsize": heavy, "sm_clock_power": under_load},
         "cases": cases}
 
@@ -281,6 +314,27 @@ def check_membw(device, small_rows: int, big_rows: int, n_iters: int,
                    "for i < n_iters: the probe's n_iters chunk reads, one "
                    "torch.sum each",
         "cases": cases}
+
+
+def vai_main_path_loss(wall_ms: dict, launches_by_shape: dict,
+                       n_elems: int) -> dict:
+    """What the vai launches of the main path cost beyond their bound, by
+    loopsize: ``launches_by_shape`` maps ``(loopsize, block_rows)`` to the
+    wrapper's launch count, ``wall_ms`` the harness's label
+    ``"block_rows=B,loopsize=L"`` to its measured milliseconds."""
+    by_l = {}
+    for (L, br), n in sorted(launches_by_shape.items()):
+        ms = wall_ms[f"block_rows={br},loopsize={L}"]
+        bound = vai_bound_ms(n_elems, L)[0]
+        row = by_l.setdefault(str(L), {"launches": 0, "ms_total": 0.0,
+                                       "loss_ms": 0.0})
+        row["launches"] += n
+        row["ms_total"] += n * ms
+        row["loss_ms"] += n * (ms - bound)
+    return {"by_loopsize": by_l,
+            "launches": sum(r["launches"] for r in by_l.values()),
+            "seconds": sum(r["ms_total"] for r in by_l.values()) / 1e3,
+            "loss_seconds": sum(r["loss_ms"] for r in by_l.values()) / 1e3}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1004,6 +1058,7 @@ def main() -> int:
         device, sizes = torch.device("cuda", 0), FULL
 
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import vai as vai_mod
 
     smi = None
     if device.type == "cuda":
@@ -1025,17 +1080,20 @@ def main() -> int:
                   "flash_bf16_utmaldg_in_sass": ("flash_fwd_sm90",
                                                  "UTMALDG")}
         in_sass = dict.fromkeys(counts)
+        vai_banks = {}
         try:
             for key, (kernel, op) in counts.items():
                 text = build.sass(kernel)
                 in_sass[key] = text.count(op)
                 (build.build_dir() / f"{kernel}.sass").write_text(text)
+            vai_banks = vai_sass_banks(build)
         except (OSError, subprocess.CalledProcessError) as exc:
             print(f"chip_smoke: cuobjdump not usable: {exc}", file=sys.stderr)
         print(build.build_log(), file=sys.stderr)
         emit(phase="build", setup_seconds=time.perf_counter() - t0,
              nvcc_seconds=build.build_seconds,
              library=os.path.relpath(build.library_path(), HERE), **in_sass,
+             vai_fma_kernel_sass=vai_banks,
              flash_f32_ptxas=ptxas_facts(build.build_log(),
                                          "flash_fwd_f32_kernel"))
         check(bool(in_sass["flash_bf16_hgmma_in_sass"])
@@ -1043,13 +1101,18 @@ def main() -> int:
               f"the bf16 flash kernel shows no HGMMA or UTMALDG: {in_sass}")
         check(bool(in_sass["flash_f32_hmma_in_sass"]),
               f"the f32 flash kernel shows no HMMA: {in_sass}")
+        check(set(vai_banks) == set(VAI_SHAPES) and all(
+            v["ffma"] > 0 and v["fmul"] == v["fadd"] == 0
+            for v in vai_banks.values()),
+              f"a vai FMA kernel shows no FFMA, or FMUL / FADD (a folded "
+              f"chain): {vai_banks}")
 
     timer = Timer(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = [
         check_vai(device, sizes["vai_elems"], timer,
-                  time_loopsizes=(0, 8, 1024, 8192)
+                  time_loopsizes=VAI_TIME_LOOPSIZES
                   if device.type == "cuda" else (0, 8)),
         check_membw(device, sizes["membw_small_rows"],
                     sizes["membw_big_rows"], sizes["membw_iters"], timer)]
@@ -1074,6 +1137,9 @@ def main() -> int:
     ops.reset_launch_counts()
     report = main_path(device, sizes)
     counts = ops.launch_counts()
+    report["vai"]["main_path_cost"] = vai_main_path_loss(
+        report["vai"]["wall_ms"], vai_mod.LAUNCHES_BY_SHAPE,
+        sizes["vai_elems"])
     emit(phase="main_path", **report)
     if device.type == "cuda":
         torch.cuda.empty_cache()

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -122,7 +123,8 @@ def build_probe(src: Path) -> Path:
     """Compile one stand-alone source (a measurement probe kept outside
     ``csrc/``) with the kernels' flags into its own shared library in the
     build directory; returns its path. Rebuilt only when the source or the
-    flags change."""
+    flags change. What ``nvcc -Xptxas -v`` said is kept beside it, in a
+    ``.log`` of the same name."""
     out = build_dir() / f"lib{src.stem}_{_digest([src])}.so"
     if out.exists():
         return out
@@ -134,6 +136,7 @@ def build_probe(src: Path) -> Path:
         text=True)
     if run.returncode != 0:
         raise KernelCompileError(f"nvcc failed on {src.name}:\n{run.stdout}")
+    out.with_suffix(".log").write_text(run.stdout)
     os.replace(tmp, out)
     return out
 
@@ -175,10 +178,11 @@ def check_launch(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
 
 
-def sass(function_substring: str) -> str:
+def sass(function_substring: str, library: Optional[Path] = None) -> str:
     """Disassembly (``cuobjdump -sass``) of the kernels whose name contains
-    ``function_substring`` — to check what the compiler made of a loop."""
-    lib = build()
+    ``function_substring`` — to check what the compiler made of a loop.
+    ``library`` is the kernels' library by default, or a probe's."""
+    lib = build() if library is None else library
     tool = shutil.which("cuobjdump") or str(
         Path(find_nvcc()).parent / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], stdout=subprocess.PIPE,
@@ -187,3 +191,40 @@ def sass(function_substring: str) -> str:
     chunks = text.split("\t\tFunction : ")
     return "\n".join("Function : " + c for c in chunks[1:]
                      if function_substring in c.split("\n", 1)[0])
+
+
+_OPCODE = re.compile(r"^\s*(?:/\*[0-9a-f]+\*/)?\s*(?:@!?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s+([^;]*);")
+_REGISTER = re.compile(r"-?\|?R(\d+)\|?(\.reuse)?")
+
+
+def ffma_bank_counts(sass_text: str) -> dict:
+    """What the fp32 FMAs of a SASS listing read: ``ffma`` FFMAs in all,
+    ``same_bank`` of them whose three distinct source registers have one
+    index parity (one bank of the register file, if it has two banks by
+    parity as the microbenchmark studies of Volta and Turing found),
+    ``reuse`` of them with a source marked ``.reuse`` (kept in the operand
+    reuse cache for the next instruction), and ``fmul`` / ``fadd``: a chain
+    of FMAs folded by the compiler would show as these. Constants,
+    immediates, ``RZ`` and uniform registers are not register-file
+    reads."""
+    counts = dict(ffma=0, same_bank=0, reuse=0, fmul=0, fadd=0)
+    for line in sass_text.splitlines():
+        m = _OPCODE.match(line)
+        if m is None:
+            continue
+        op = m.group(1)
+        if op in ("FMUL", "FADD"):
+            counts[op.lower()] += 1
+        if op != "FFMA":
+            continue
+        counts["ffma"] += 1
+        sources = [o.strip() for o in m.group(3).split(",")][1:4]
+        regs = [_REGISTER.fullmatch(o) for o in sources]
+        if any(r and r.group(2) for r in regs):
+            counts["reuse"] += 1
+        distinct = {int(r.group(1)) for r in regs if r}
+        if (len(distinct) == 3 and all(r for r in regs)
+                and len({i % 2 for i in distinct}) == 1):
+            counts["same_bank"] += 1
+    return counts

@@ -2,9 +2,10 @@
 // for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention.py, functions `_flash_kernel` /
-// `flash_attention`, for bf16 inputs. f32 inputs keep the CUDA-core kernel of
-// flash_attention.cu, whose C entry point `repro_flash_attention` sends bf16
-// calls to `repro_flash_attention_sm90` below.
+// `flash_attention`, for bf16 inputs. f32 inputs go to the 3xTF32
+// tensor-core kernel (mma.sync) of flash_attention.cu, whose C entry point
+// `repro_flash_attention` sends bf16 calls to `repro_flash_attention_sm90`
+// below.
 //
 // What it computes, per (batch, q head) and query row, as the reference:
 //   s = (q . k^T) * scale     (bf16 products, f32 sums, on the tensor cores)

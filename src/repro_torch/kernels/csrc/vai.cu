@@ -3,78 +3,123 @@
 // Replaces: src/repro/kernels/vai.py, functions `_vai_kernel` / `vai` (the
 // Pallas kernel of the reference package).
 //
-// What it computes: per element z = c; repeat `loopsize` times z = a*b + z;
-// out = z. loopsize == 0 is the stream copy out = b, which reads b only
-// (8 bytes per element instead of 16).
+// What it computes: per element z = c; repeat `loopsize` times z = a*b + z
+// (one fmaf a step, each on the result of the one before, so the chain is
+// never folded into c + loopsize*a*b); out = z. loopsize == 0 is the stream
+// copy out = b, which reads b only (8 bytes per element, not 16). The
+// arithmetic is that of the reference step for step, so the bits are those
+// of the plain version on every input.
 //
 // What bounds it on this card: bytes for small loopsize (16 B per element
-// against 2*loopsize flops; the fp32 FMA pipes overtake the memory at about
-// loopsize 160), operations above that. Nothing is reused, so there is
-// nothing to keep in shared memory: the design is one pass through
-// registers. Each thread loads one float4 of a, b and c with 128-bit loads
-// (a warp reads 512 contiguous bytes of each array), runs the dependent FMA
-// chain on its four components in registers, and stores one float4.
-// `block_rows` is the number of 128-float rows one thread block owns: the
-// grid is rows / block_rows blocks of 256 threads, and a block walks its
-// block_rows * 32 float4s with a block-stride loop (a multiple of 8 rows
-// gives every thread the same number of float4s).
+// against 2*loopsize flops), operations from loopsize 128 on (at the rate
+// the chain reaches, below).
 //
-// `loopsize` is a runtime argument: the sweep walks 0 .. 8192 and a
-// template per value would rebuild for each. The chain is written with
-// fmaf() — one rounding per step, never a separate multiply and add — and
-// each step depends on the one before, so the compiler cannot fold the loop
-// into c + loopsize*a*b. The four components of a float4 are independent
-// chains, which is what hides the FMA latency.
-//
-// SASS (nvcc 12.8, -O3, sm_90a; chip_smoke.py prints the count and PERF.md
-// names the run that read it): the loop over `loopsize` is unrolled 16 times
-// and its body is 64 FFMA (16 steps x 4 components) and nothing else but the
-// counter and the branch; the remainder (loopsize % 16) is a straight run of
-// 15 steps x 4 FFMA with an exit after each step. 124 FFMA in the kernel,
-// no FMUL or FADD: the chain is not folded.
-//
-// Measured on an H100 SXM at 700 W: the operations-bound end settles at
-// about two thirds of the card's fp32 FMA rate at a steady 1980 MHz. A
-// deeper unroll, more float4s a thread, another block size or running the
-// four chains one after the other do not raise it; the same loop with two
-// distinct register operands an FMA (a*a + z) runs at 95 % of the rate. The
-// limit is the register file's operand bandwidth for three-source FFMAs,
-// and a*b + z has three by definition (tools/vai_fma_order.py times the
-// variants; PERF.md has the numbers).
+// Design. One block takes one tile of `block_rows` rows; each thread loads
+// Depth float4s of a, b and c (128-bit loads through the read-only path)
+// before it uses the first, runs the chain on them in registers and stores
+// Depth float4s; the block walks its tile in steps of Threads * Depth
+// float4s. Nothing is reused, so nothing is kept in shared memory. The shape
+// depends on what binds. tools/vai_check.py times each design in turns with
+// the library call and the PR 11 kernel (256 threads, one float4 each);
+// PERF.md names the run. On an H100 SXM at 700 W:
+// - the bytes end (loopsize < kOpsFrom) and the copy: 1024-thread blocks,
+//   4 float4s of each array in flight a thread (196 KB a block, one block an
+//   SM). Fewer, fatter blocks finish each tile sooner, so the tiles in
+//   flight at once are fewer and the last, partial wave is shorter. At
+//   loopsize 8 it is level with torch.addcmul at 128 and 256 rows a tile
+//   (0.1-0.3 % behind) and 2 % faster than the PR 11 kernel; the copy is
+//   0.7-1.5 % behind b.clone() (cudaMemcpy) and 1-2 % faster than the PR 11
+//   kernel. Both fall behind the library call as the tile grows (2-4 % at
+//   1024 rows): a tile is the unit a block takes. Against this design,
+//   streaming cache hints (.cs loads and stores) were 3-5 % slower, a
+//   persistent wave walking the tiles 2-4 %, TMA bulk-copy rings 1-5 %.
+// - the operations end (loopsize >= kOpsFrom): 512-thread blocks with 2
+//   float4s a thread (8 independent chains, 32 registers, 2048 threads an
+//   SM), the chain unrolled to 64 FFMA a trip: 42.7-43.8 TFLOP/s at
+//   loopsize 8192 (by block_rows), 1 % faster than the PR 11 kernel (2-12 %
+//   at loopsize 1024). That
+//   is two thirds of the fp32 FMA rate, as for every arrangement tried: an
+//   FFMA that reads three distinct registers issues at two thirds of the
+//   rate whatever their register banks. Placing b's components in the other
+//   bank (by index parity, or by aligned register pair) left the rate at
+//   43.3 TFLOP/s, while a*a + z (two distinct registers) runs at 63.4
+//   (tools/vai_fma_order.py). Only the operand reuse cache could serve a
+//   third operand, and no two independent steps of this chain share one.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kVecPerRow = 32;  // a row is 128 floats = 32 float4
-constexpr int kUnroll = 16;  // steps of the FMA chain per loop trip
+constexpr int kOpsFrom = 128;   // loopsize from which operations bind
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void step(float4& z, const float4& x,
+                                     const float4& y) {
+  z.x = fmaf(x.x, y.x, z.x);
+  z.y = fmaf(x.y, y.y, z.y);
+  z.z = fmaf(x.z, y.z, z.z);
+  z.w = fmaf(x.w, y.w, z.w);
+}
+
+template <int Threads, int Depth>
+__global__ void __launch_bounds__(Threads)
 vai_fma_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
                const float4* __restrict__ c, float4* __restrict__ out,
-               long long vec_per_block, int loopsize) {
-  const long long base = static_cast<long long>(blockIdx.x) * vec_per_block;
-  for (long long i = threadIdx.x; i < vec_per_block; i += kThreads) {
-    const float4 x = a[base + i];
-    const float4 y = b[base + i];
-    float4 z = c[base + i];
+               long long tiles, long long vec_per_tile, int loopsize) {
+  constexpr long long kSpan = static_cast<long long>(Depth) * Threads;
+  constexpr int kUnroll = 16 / Depth;  // 64 FFMA a trip of the chain
+  // t runs once (the grid has a block a tile); the body, this loop
+  // included, is the one tools/vai_stream.cu times as reg_kernel, so the
+  // two compile alike
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * vec_per_tile;
+    for (long long i0 = threadIdx.x; i0 < vec_per_tile; i0 += kSpan) {
+      float4 x[Depth], y[Depth], z[Depth];
+#pragma unroll
+      for (int d = 0; d < Depth; ++d) {
+        const long long i = i0 + d * Threads;
+        if (i < vec_per_tile) {
+          x[d] = __ldg(a + base + i);
+          y[d] = __ldg(b + base + i);
+          z[d] = __ldg(c + base + i);
+        } else {
+          x[d] = y[d] = z[d] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
 #pragma unroll kUnroll
-    for (int k = 0; k < loopsize; ++k) {
-      z.x = fmaf(x.x, y.x, z.x);
-      z.y = fmaf(x.y, y.y, z.y);
-      z.z = fmaf(x.z, y.z, z.z);
-      z.w = fmaf(x.w, y.w, z.w);
+      for (int k = 0; k < loopsize; ++k) {
+#pragma unroll
+        for (int d = 0; d < Depth; ++d) step(z[d], x[d], y[d]);
+      }
+#pragma unroll
+      for (int d = 0; d < Depth; ++d) {
+        const long long i = i0 + d * Threads;
+        if (i < vec_per_tile) __stwb(out + base + i, z[d]);
+      }
     }
-    out[base + i] = z;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int Threads, int Depth>
+__global__ void __launch_bounds__(Threads)
 vai_copy_kernel(const float4* __restrict__ b, float4* __restrict__ out,
-                long long vec_per_block) {
-  const long long base = static_cast<long long>(blockIdx.x) * vec_per_block;
-  for (long long i = threadIdx.x; i < vec_per_block; i += kThreads) {
-    out[base + i] = b[base + i];
+                long long tiles, long long vec_per_tile) {
+  constexpr long long kSpan = static_cast<long long>(Depth) * Threads;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * vec_per_tile;
+    for (long long i0 = threadIdx.x; i0 < vec_per_tile; i0 += kSpan) {
+      float4 v[Depth];
+#pragma unroll
+      for (int d = 0; d < Depth; ++d) {
+        const long long i = i0 + d * Threads;
+        v[d] = i < vec_per_tile ? __ldg(b + base + i)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int d = 0; d < Depth; ++d) {
+        const long long i = i0 + d * Threads;
+        if (i < vec_per_tile) __stwb(out + base + i, v[d]);
+      }
+    }
   }
 }
 
@@ -86,22 +131,26 @@ vai_copy_kernel(const float4* __restrict__ b, float4* __restrict__ out,
 extern "C" int repro_vai_f32(const void* a, const void* b, const void* c,
                              void* out, long long rows, long long block_rows,
                              int loopsize, void* stream) {
-  const long long grid = rows / block_rows;
-  if (grid <= 0 || grid > 2147483647LL || grid * block_rows != rows ||
+  const long long tiles = block_rows > 0 ? rows / block_rows : 0;
+  if (tiles <= 0 || tiles > 2147483647LL || tiles * block_rows != rows ||
       loopsize < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long vec_per_block = block_rows * kVecPerRow;
+  const unsigned grid = static_cast<unsigned>(tiles);
+  const long long vpt = block_rows * kVecPerRow;
+  const float4* pa = static_cast<const float4*>(a);
+  const float4* pb = static_cast<const float4*>(b);
+  const float4* pc = static_cast<const float4*>(c);
+  float4* po = static_cast<float4*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (loopsize == 0) {
-    vai_copy_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        static_cast<const float4*>(b), static_cast<float4*>(out),
-        vec_per_block);
+    vai_copy_kernel<1024, 4><<<grid, 1024, 0, s>>>(pb, po, tiles, vpt);
+  } else if (loopsize < kOpsFrom) {
+    vai_fma_kernel<1024, 4><<<grid, 1024, 0, s>>>(pa, pb, pc, po, tiles, vpt,
+                                                  loopsize);
   } else {
-    vai_fma_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        static_cast<const float4*>(a), static_cast<const float4*>(b),
-        static_cast<const float4*>(c), static_cast<float4*>(out),
-        vec_per_block, loopsize);
+    vai_fma_kernel<512, 2><<<grid, 512, 0, s>>>(pa, pb, pc, po, tiles, vpt,
+                                                loopsize);
   }
   return static_cast<int>(cudaGetLastError());
 }

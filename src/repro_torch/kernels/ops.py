@@ -40,5 +40,6 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     vai_mod.LAUNCHES = 0
+    vai_mod.LAUNCHES_BY_SHAPE.clear()
     mb.LAUNCHES = 0
     fa.LAUNCHES = 0

@@ -13,6 +13,7 @@ frequency and power caps.
 """
 from __future__ import annotations
 
+import collections
 import operator
 
 import torch
@@ -22,6 +23,8 @@ DEFAULT_BLOCK_ROWS = 256
 
 #: kernel launches made by :func:`vai` (only where it launches, nowhere else)
 LAUNCHES = 0
+#: the same launches by ``(loopsize, block_rows)``
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 
 def _check_args(a, b, c, loopsize, block_rows):
@@ -92,6 +95,7 @@ def _launch(a, b, c, loopsize: int, block_rows: int) -> torch.Tensor:
     build.check_launch(code, f"vai(loopsize={loopsize}, "
                              f"block_rows={block_rows})")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(loopsize, block_rows)] += 1
     return out
 
 

@@ -178,6 +178,10 @@ def test_launch_counters_count_only_launches():
     ops.membw_op(t, n_chunks=1, n_iters=2)
     assert ops.launch_counts() == {"vai": 0, "membw": 0,
                                    "flash_attention": 0}
+    assert not vai_mod.LAUNCHES_BY_SHAPE
+    vai_mod.LAUNCHES_BY_SHAPE[(8, 256)] += 3
+    ops.reset_launch_counts()
+    assert not vai_mod.LAUNCHES_BY_SHAPE
 
 
 def test_build_raises_where_there_is_no_compiler(monkeypatch, tmp_path):
@@ -211,3 +215,102 @@ def test_membw_slicing_covers_the_chunk(chunk_rows, n_iters):
     assert n_slices * rows_per_slice >= chunk_rows
     assert (n_slices - 1) * rows_per_slice < chunk_rows
     assert mb.slicing(chunk_rows, n_iters) == (rows_per_slice, n_slices)
+
+
+def _sass(*instructions):
+    """Lines as ``cuobjdump -sass`` prints them: offset, instruction, and
+    the encoding on the same line."""
+    return "\n".join(
+        f"        /*{16 * i:04x}*/                   {ins} ;"
+        f"                  /* 0x000fe2000000000{i % 10} */"
+        for i, ins in enumerate(instructions))
+
+
+@pytest.mark.parametrize("instructions,want", [
+    # three sources of one parity (a*b + z from three load quads)
+    (["FFMA R12, R4, R8, R12"], dict(ffma=1, same_bank=1)),
+    (["FFMA R13, R5, R9, R13"], dict(ffma=1, same_bank=1)),
+    # mixed parity: b rotated by one component
+    (["FFMA R12, R4, R9, R12", "FFMA R13, R5, R10, R13"],
+     dict(ffma=2, same_bank=0)),
+    # a*a + z reads two distinct registers
+    (["FFMA R12, R4, R4, R12"], dict(ffma=1, same_bank=0)),
+    # negated, absolute and predicated operands still read the bank
+    (["@!P0 FFMA R12, -R6, |R10|, R14", "FFMA.FTZ R1, -|R3|, R5, R7"],
+     dict(ffma=2, same_bank=2)),
+    # .reuse is counted, and the parity is still read off the index
+    (["FFMA R12, R4.reuse, R8, R12", "FFMA R14, R4, R9, R14"],
+     dict(ffma=2, same_bank=1, reuse=1)),
+    # constants, immediates, RZ and uniform registers are no bank reads
+    (["FFMA R12, R4, c[0x0][0x160], R12", "FFMA R12, R4, 1.5, R12",
+      "FFMA R12, R4, RZ, R12", "FFMA R12, R4, UR6, R12"],
+     dict(ffma=4, same_bank=0)),
+    # other instructions are not FFMAs; FMUL and FADD are counted apart
+    (["IADD3 R2, R4, R6, R8", "LDG.E.128 R4, desc[UR4][R2.64]",
+      "FMUL R2, R4, R6", "FADD.FTZ R2, R4, R6", "HFMA2 R2, R4, R6, R8",
+      "DFMA R2, R4, R6, R8"],
+     dict(ffma=0, fmul=1, fadd=1)),
+])
+def test_ffma_bank_counts_on_hand_written_sass(instructions, want):
+    got = build.ffma_bank_counts(_sass(*instructions))
+    assert got == {**dict(ffma=0, same_bank=0, reuse=0, fmul=0, fadd=0),
+                   **want}
+
+
+def test_ffma_bank_counts_ignore_headers_and_empty_text():
+    assert build.ffma_bank_counts("") == dict(ffma=0, same_bank=0, reuse=0,
+                                              fmul=0, fadd=0)
+    text = ("Function : _ZN12_GLOBAL__N_114vai_fma_kernelILi4ELb1EEEvPK6\n"
+            ".headerflags @\"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n"
+            + _sass("FFMA R12, R4, R8, R12", "EXIT", "BRA 0x70"))
+    assert build.ffma_bank_counts(text)["same_bank"] == 1
+
+
+@pytest.mark.parametrize("rows,block_rows,legal", [
+    (256, 8, True), (256, 128, True), (256, 256, True), (256, 1024, True),
+    (512, 64, True), (24, 3, True), (256, 96, False), (256, 0, False),
+    (256, -8, False), (200, 128, False)])
+def test_vai_block_rows_rules(rows, block_rows, legal):
+    """A ``block_rows`` that (after clamping to ``rows``) divides the row
+    count takes the plain version on the CPU, bit for bit; any other is a
+    ``ValueError`` before anything runs."""
+    a, b, c = (torch.from_numpy(_ints(40 + i, 5, rows, 128))
+               for i in range(3))
+    if not legal:
+        with pytest.raises(ValueError, match="block_rows"):
+            vai_mod.vai(a, b, c, loopsize=2, block_rows=block_rows)
+        return
+    got = vai_mod.vai(a, b, c, loopsize=2, block_rows=block_rows)
+    assert torch.equal(got, vai_mod.vai_plain(a, b, c, loopsize=2))
+    assert torch.equal(got, c + 2 * a * b)
+
+
+@pytest.mark.parametrize("shapes", [
+    {},
+    {(8, 256): 1},
+    # the main path: tune() launches each candidate 5 times, run_sweep()
+    # each unique loopsize once at the default block_rows
+    {**{(L, br): 5 * (2 if L == 0 else 1)
+        for L in (0, 1, 8, 256, 8192) for br in (128, 256, 512, 1024)},
+     **{(L, 256): 5 * (2 if L == 0 else 1) + 1 for L in (0, 1, 8, 256, 8192)}},
+])
+def test_vai_main_path_loss_against_a_direct_count(shapes):
+    """chip_smoke's cost of the main path's vai launches: launches, time and
+    time beyond the bound, summed by loopsize, against the sums taken launch
+    by launch."""
+    import chip_smoke
+    n_elems = 1 << 28
+    wall = {f"block_rows={br},loopsize={L}": 0.5 + 0.013 * L + 1e-4 * br
+            for L in (0, 1, 8, 256, 8192) for br in (128, 256, 512, 1024)}
+    got = chip_smoke.vai_main_path_loss(wall, shapes, n_elems)
+    launches = [(L, br) for (L, br), n in shapes.items() for _ in range(n)]
+    assert got["launches"] == len(launches)
+    assert got["seconds"] == pytest.approx(sum(
+        wall[f"block_rows={br},loopsize={L}"] for L, br in launches) / 1e3)
+    assert got["loss_seconds"] == pytest.approx(sum(
+        wall[f"block_rows={br},loopsize={L}"]
+        - chip_smoke.vai_bound_ms(n_elems, L)[0] for L, br in launches) / 1e3)
+    for L in {L for L, _ in launches}:
+        row = got["by_loopsize"][str(L)]
+        assert row["launches"] == sum(1 for l, _ in launches if l == L)
+    assert set(got["by_loopsize"]) == {str(L) for L, _ in launches}

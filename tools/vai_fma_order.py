@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Time three orderings of the VAI kernel's FMA chain on the card.
+"""Time orderings and register placements of the VAI kernel's FMA chain.
 
-The VAI kernel of ``repro_torch`` reaches about two thirds of an H100's fp32
-FMA rate where it is bound by operations. This script builds
-``tools/vai_fma_order.cu`` (the kernel's loop in three orderings, and once
-with two register operands an FMA instead of three, at two unroll depths) with ``nvcc`` into ``build/``, checks that the orderings agree
-bit for bit, and prints one JSON line per (unroll, ordering) with the time
-and the achieved TFLOP/s at each loopsize, then the card's SM clock and
-power draw sampled while the kernel runs. Needs one CUDA device:
+Builds ``tools/vai_fma_order.cu`` (the chain of the PR 11 kernel in ten
+variants, described in that file) with the kernels' ``nvcc`` flags into
+``build/`` (``kernels/build.py:build_probe``), checks that every variant
+with the kernel's arithmetic equals variant A bit for bit, and prints one
+JSON line per variant: what its FFMAs read by the SASS
+(``build.ffma_bank_counts``: FFMAs, those whose three source registers sit
+in one register bank, those with a ``.reuse`` operand), its time and
+TFLOP/s at each loopsize, and the card's SM clock and power draw while it
+runs at loopsize 8192. Then the same SASS counts of the shipped kernel's
+``vai_fma_kernel`` instantiations, and the card's name and power limit.
+The variants run first to last, then last to first, so a drift of the card
+shows. Needs one CUDA device:
 
     python3 tools/vai_fma_order.py
 """
@@ -18,6 +23,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -28,9 +34,14 @@ import torch  # noqa: E402
 ROWS = 2 ** 21                  # 2**28 elements, the main path's size
 BLOCK_ROWS = 256
 LOOPSIZES = (8, 64, 160, 1024, 8192)
-ORDERS = ("together", "one_after_the_other", "two_steps_each",
-          "together_two_operands")
-SAME_ARITHMETIC = (0, 1, 2)     # the last ordering computes a*a + z
+VARIANTS = ("A", "B", "C", "D", "E", "Fb", "Fc", "P", "R1", "R2")
+OTHER_ARITHMETIC = {"D"}        # a*a + z: timed, not compared
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, text=True, check=True).stdout.strip()
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -53,64 +64,61 @@ def main() -> int:
         print("vai_fma_order: needs a CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
-    nvcc = build.find_nvcc()
-    out_dir = os.path.join(ROOT, "build", "vai_fma_order")
-    os.makedirs(out_dir, exist_ok=True)
-    smi = ["nvidia-smi", "--format=csv,noheader"]
-    print(subprocess.run(smi + ["--query-gpu=name,power.limit"],
-                         capture_output=True, text=True).stdout.strip())
+    so = build.build_probe(Path(HERE) / "vai_fma_order.cu")
+    lib = ctypes.CDLL(str(so))
+    ptr = ctypes.c_void_p
+    lib.vai_order.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr,
+                              ctypes.c_longlong, ctypes.c_longlong,
+                              ctypes.c_int, ptr]
+    lib.vai_order.restype = ctypes.c_int
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     a, b, c = (torch.randn((ROWS, 128), generator=g, device="cuda")
                for _ in range(3))
     out = torch.empty_like(c)
-    ptr = ctypes.c_void_p
-    for unroll in (8, 16):
-        so = os.path.join(out_dir, f"libvai_order_u{unroll}.so")
-        subprocess.run(
-            [nvcc, *build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-             "-fPIC", f"-DCHAIN_UNROLL={unroll}", "-shared", "-o", so,
-             os.path.join(HERE, "vai_fma_order.cu")], check=True)
-        lib = ctypes.CDLL(so)
-        lib.vai_order.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr,
-                                  ctypes.c_longlong, ctypes.c_longlong,
-                                  ctypes.c_int, ptr]
-        lib.vai_order.restype = ctypes.c_int
 
-        def launch(order: int, loopsize: int) -> None:
-            code = lib.vai_order(
-                order, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                out.data_ptr(), ROWS, BLOCK_ROWS, loopsize,
-                torch.cuda.current_stream().cuda_stream)
-            if code:
-                raise RuntimeError(f"launch failed with CUDA error {code}")
+    def launch(v: int, loopsize: int) -> None:
+        code = lib.vai_order(v, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                             out.data_ptr(), ROWS, BLOCK_ROWS, loopsize,
+                             torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"launch failed with CUDA error {code}")
 
-        want = {}
-        # first, second, third, then back: a drift of the card would show
-        for order in (0, 1, 2, 3, 3, 2, 1, 0):
-            cells = {}
-            for loopsize in LOOPSIZES:
-                ms = time_ms(lambda: launch(order, loopsize))
-                torch.cuda.synchronize()
-                if order not in SAME_ARITHMETIC:
-                    pass
-                elif loopsize not in want:
-                    want[loopsize] = out.clone()
-                elif not torch.equal(out, want[loopsize]):
-                    raise SystemExit(
-                        f"ordering {ORDERS[order]} differs at {loopsize}")
-                cells[str(loopsize)] = {
-                    "ms": ms,
-                    "tflops": 2 * loopsize * ROWS * 128 / ms / 1e9}
-            print(json.dumps({"unroll": unroll, "order": ORDERS[order],
-                              "by_loopsize": cells}), flush=True)
-    for _ in range(10):                 # about a second of queued work
-        launch(0, 8192)
-    under_load = subprocess.run(
-        smi + ["--query-gpu=clocks.sm,power.draw"], capture_output=True,
-        text=True).stdout.strip()
-    torch.cuda.synchronize()
-    print(json.dumps({"under_load": under_load}))
+    want = {}
+    order = list(range(len(VARIANTS)))
+    for v in order + order[::-1]:
+        name = VARIANTS[v]
+        text = build.sass(f"vai_order_kernelILi{v}E", library=so)
+        (build.build_dir() / f"vai_order_{name}.sass").write_text(text)
+        cells = {}
+        for loopsize in LOOPSIZES:
+            ms = time_ms(lambda: launch(v, loopsize))
+            torch.cuda.synchronize()
+            if name in OTHER_ARITHMETIC:
+                pass
+            elif loopsize not in want:
+                want[loopsize] = out.clone()
+            elif not torch.equal(out, want[loopsize]):
+                raise SystemExit(f"variant {name} differs from A at "
+                                 f"loopsize {loopsize}")
+            cells[str(loopsize)] = {
+                "ms": ms, "tflops": 2 * loopsize * ROWS * 128 / ms / 1e9}
+        for _ in range(8):              # about a second of queued work
+            launch(v, 8192)
+        under_load = smi("clocks.sm,power.draw")
+        torch.cuda.synchronize()
+        print(json.dumps({"variant": name,
+                          "sass": build.ffma_bank_counts(text),
+                          "by_loopsize": cells,
+                          "sm_clock_power_under_load": under_load}),
+              flush=True)
+    shipped = build.sass("vai_fma_kernel")
+    (build.build_dir() / "vai_fma_kernel.sass").write_text(shipped)
+    print(json.dumps({"shipped_vai_fma_kernel": {
+        chunk.split("\n", 1)[0].split("vai_fma_kernel", 1)[1][:12]:
+        build.ffma_bank_counts(chunk)
+        for chunk in shipped.split("Function : ")[1:]}}))
+    print(smi("name,power.limit"))
     return 0
 
 
