@@ -12,6 +12,11 @@ call:
       harness -> tune -> calibrate -> "calibrated:<kernel>" response tables
       -> one day of Frontier-sized fleet telemetry decomposed on the card
       -> fleet projection (paper Table V and the 8.5 % / 1438 MWh headline)
+      -> 1500 synthetic jobs on the card: a Study over three response
+      surfaces ("measured", "calibrated:vai", "h100-sxm") on Table V's caps
+      and the per-class schedule, bootstrap and jackknife intervals on every
+      cell, and validate_main's bootstrap leg; the same Study on CPU tensors
+      must agree within rtol 1e-12
     the serving path: qwen2.5-14b at full width and depth in bf16 (random
       weights from a seeded generator) -> ServeEngine.generate on 4 greedy
       requests -> serve() on 8 Poisson-arriving requests through a slot pool
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -77,6 +83,11 @@ FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-3, 1e-2)}
 #: about 25 ms at the card's clock: time for the host to queue a timed run
 QUEUE_SLEEP_CYCLES = 50_000_000
 SERVE_ARCH = "qwen2.5-14b"     # the reference serve CLI's default --arch
+#: the job leg: the response surfaces of its Study, its bootstrap count and
+#: the tolerance of the card against the host
+JOB_TABLES = ("measured", "calibrated:vai", "h100-sxm")
+JOB_N_BOOT = 2000
+JOB_RTOL = 1e-12
 SAMPLED_TEMPERATURE = 0.7
 
 
@@ -491,10 +502,148 @@ def main_path(device, sizes: dict) -> dict:
               f"headline {name} = {got:.3f}, paper {want} +- {tol}")
     check(projection.validate_main(device=device) == 0,
           "validate_main failed")
+    ci = projection.headline_bootstrap_ci(device=device)
+    check(ci.n == 1500 and 8.5 in ci,
+          f"the headline bootstrap interval misses 8.5: {ci}")
     report["table_v_max_abs_err"] = errs
     report["headline_900mhz"] = head_row.to_dict()
+    report["headline_bootstrap_ci"] = {"lo": ci.lo, "hi": ci.hi,
+                                       "point": ci.value, "n": ci.n}
+
+    # -- the job layer: 1500 jobs through Study and its intervals ---------
+    jobs_report, jobs_raw = jobs_study(device, sizes["jobs"], cal)
+    report["jobs"] = jobs_report
     report["seconds"] = time.perf_counter() - t_start
-    return report
+    return report, jobs_raw
+
+
+def jobs_study(device, n_jobs: int, cal):
+    """The job layer at the headline leg's class mix: ``n_jobs`` synthetic
+    jobs on ``device``, one Study over :data:`JOB_TABLES` on Table V's caps
+    plus the per-class schedule (``cap=None``), bootstrap and jackknife
+    intervals of ``savings_dt0_pct`` on every cell, and the fleet's job
+    report. The ``"calibrated:vai"`` cells evaluate on the H100 and must
+    resolve to ``cal``, the calibration this run registered from its own
+    vai launches. Returns the report and the raw results."""
+    import numpy as np
+
+    import repro_torch.core.hardware as hw
+    from repro_torch.power import (FleetAnalysis, Scenario, Study, Workload,
+                                   resolve_tables)
+    from repro_torch.power.jobs import HEADLINE_CLASS_MIX
+    check(resolve_tables("calibrated:vai", chip=hw.H100_SXM, device=device)
+          is cal.tables, "calibrated:vai does not resolve to this run's "
+          "registered calibration")
+    secs = {}
+    t0 = time.perf_counter()
+    w = Workload.synthetic_jobs(n_jobs, seed=0, class_mix=HEADLINE_CLASS_MIX,
+                                device=device)
+    _sync(device)
+    secs["synthesis_host"] = time.perf_counter() - t0
+    table = w.fleet().jobs
+    check(table.powers.device.type == device.type
+          and table.powers.dtype == torch.float64
+          and table.mask.device.type == device.type, "job table misplaced")
+
+    t0 = time.perf_counter()
+    w.fleet().per_job()
+    w.fleet().decompose()
+    _sync(device)
+    secs["decompose"] = time.perf_counter() - t0
+
+    caps = sorted(hw.PAPER_TABLE_V_FREQ, reverse=True) + [None]
+    cells = [Scenario(w, cap=c, tables=t,
+                      chip=hw.H100_SXM if t.startswith("calibrated") else None)
+             for t in JOB_TABLES for c in caps]
+    t0 = time.perf_counter()
+    res = Study(scenarios=cells).run()
+    _sync(device)
+    secs["study"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    boot = res.confidence("savings_dt0_pct", n_boot=JOB_N_BOOT)
+    _sync(device)
+    secs["bootstrap"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jack = res.confidence("savings_dt0_pct", method="jackknife")
+    _sync(device)
+    secs["jackknife"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = FleetAnalysis.from_jobs(table).job_report()
+    secs["job_report"] = time.perf_counter() - t0
+    # one bootstrap draw alone (host numpy): the part of a cell's interval
+    # that never reaches the card
+    t0 = time.perf_counter()
+    np.random.default_rng(0).multinomial(n_jobs, np.full(n_jobs, 1.0 / n_jobs),
+                                         size=JOB_N_BOOT)
+    secs["one_bootstrap_draw_host"] = time.perf_counter() - t0
+
+    check(len(res) == len(JOB_TABLES) * len(caps), "Study lost cells")
+    for c, b, j in zip(res, boot, jack):
+        check(all(math.isfinite(getattr(c, k)) for k in
+                  ("savings_pct", "dt_pct", "savings_dt0_pct")),
+              f"a job cell is not finite: {c.to_dict()}")
+        for ci in (b, j):
+            check(ci.n == n_jobs and ci.lo <= ci.value <= ci.hi
+                  and abs(ci.value - c.savings_dt0_pct)
+                  <= 1e-9 * max(1.0, abs(ci.value)),
+                  f"a job cell's interval is off: {ci} for {c.to_dict()}")
+    cal_cells = res.filter(tables=cal.tables.source)
+    check(len(cal_cells) == len(caps)
+          and all(c.chip == hw.H100_SXM.name for c in cal_cells),
+          "the calibrated cells did not evaluate on the H100's tables")
+    sched = res.filter(tables="mi250x-table-iii", cell="schedule")[0]
+    check(sched.detail.to_dict() == rep.to_dict(),
+          "the Study's schedule cell differs from FleetAnalysis.job_report")
+
+    report = {
+        "n_jobs": n_jobs, "table_shape": list(table.powers.shape),
+        "table_bytes": table.powers.numel() * 8 + table.mask.numel(),
+        "samples": int(table.lengths.sum()), "seconds": secs,
+        "cells": [{"tables": c.tables, "chip": c.chip,
+                   "cap": c.to_dict()["cap"], "cell": c.cell,
+                   "savings_pct": c.savings_pct, "dt_pct": c.dt_pct,
+                   "savings_dt0_pct": c.savings_dt0_pct,
+                   "bootstrap_ci": [b.lo, b.hi], "jackknife_ci": [j.lo, j.hi],
+                   "class_caps": None if c.cell != "schedule" else
+                   {r.job_class: r.cap for r in c.detail.classes}}
+                  for c, b, j in zip(res, boot, jack)],
+        "job_report": rep.to_dict()}
+    return report, {"cells": res, "bootstrap": boot, "jackknife": jack,
+                    "cal": cal}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def jobs_card_vs_host(card: dict, n_jobs: int, cal) -> dict:
+    """The job leg's Study run again on CPU tensors: every cell's savings,
+    dT and both intervals within :data:`JOB_RTOL` of the card's, with equal
+    class picks, caps and dT=0 verdicts."""
+    _, host = jobs_study(torch.device("cpu"), n_jobs, cal)
+    worst = 0.0
+    for c, h in zip(card["cells"], host["cells"]):
+        check((c.tables, c.chip, c.cap, c.cell) == (h.tables, h.chip, h.cap,
+                                                    h.cell),
+              "card and host cells are not the same grid")
+        for k in ("savings_pct", "dt_pct", "savings_dt0_pct", "savings_mwh"):
+            worst = max(worst, _rel(getattr(c, k), getattr(h, k)))
+        if c.cell == "schedule":
+            check([(r.job_class, r.n_jobs, r.cap, r.meets_dt0)
+                   for r in c.detail.classes]
+                  == [(r.job_class, r.n_jobs, r.cap, r.meets_dt0)
+                      for r in h.detail.classes],
+                  f"class picks differ between card and host: "
+                  f"{c.detail.to_dict()} / {h.detail.to_dict()}")
+    for key in ("bootstrap", "jackknife"):
+        for c, h in zip(card[key], host[key]):
+            check(c.n == h.n, f"{key} resampled different job counts")
+            for k in ("value", "lo", "hi"):
+                worst = max(worst, _rel(getattr(c, k), getattr(h, k)))
+    check(worst <= JOB_RTOL,
+          f"the job Study on the card differs from the host by rtol {worst}")
+    return {"cells": len(card["cells"]), "max_rel_diff": worst,
+            "rtol": JOB_RTOL}
 
 
 # ------------------------------------------------------- flash attention
@@ -1022,7 +1171,7 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
 
 FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             membw_big_rows=2 ** 21, membw_iters=64,          # 1 GiB
-            fleet_rows=9408 * 8, fleet_samples=5760,
+            fleet_rows=9408 * 8, fleet_samples=5760, jobs=1500,
             # flash: (batch*heads, seq, head dim) of SPACES; the served
             # model's prefill (seq, q heads, kv heads, head dim)
             flash_space=(4, 1024, 128), flash_model=(1024, 40, 8, 128),
@@ -1032,7 +1181,7 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             serve_prompt_lens=(100, 1000), serve_decode_steps=16,
             e2e_prompt_len=512, e2e_steps=8)
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
-           membw_iters=8, fleet_rows=64, fleet_samples=300,
+           membw_iters=8, fleet_rows=64, fleet_samples=300, jobs=300,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
            flash_ragged=61,
            serve_reduced=True,
@@ -1135,12 +1284,14 @@ def main() -> int:
     emit(phase="model_dispatch_f32", **dispatch, launches=dispatch_f32)
 
     ops.reset_launch_counts()
-    report = main_path(device, sizes)
+    report, jobs_raw = main_path(device, sizes)
     counts = ops.launch_counts()
     report["vai"]["main_path_cost"] = vai_main_path_loss(
         report["vai"]["wall_ms"], vai_mod.LAUNCHES_BY_SHAPE,
         sizes["vai_elems"])
     emit(phase="main_path", **report)
+    emit(phase="main_path_jobs_card_vs_host",
+         **jobs_card_vs_host(jobs_raw, sizes["jobs"], jobs_raw["cal"]))
     if device.type == "cuda":
         torch.cuda.empty_cache()
 

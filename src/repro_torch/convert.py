@@ -1,10 +1,11 @@
 """State carried across from the reference package.
 
 What crosses between the two packages: profile batches, measurement grids,
-response tables and calibration caches, and a model's parameters and decode
-state. The reference hands them over as numpy arrays, plain dicts and JSON —
-this module never imports it — and the functions here build this package's
-objects from them (and hand them back the same way).
+response tables and calibration caches, job traces, and a model's
+parameters and decode state. The reference hands them over as numpy arrays,
+plain dicts and JSON — this module never imports it — and the functions
+here build this package's objects from them (and hand them back the same
+way).
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, as_device, f64
-from repro_torch.core.hardware import CHIPS
+from repro_torch.core.hardware import CHIPS, MI250X_GCD, ChipSpec
 from repro_torch.core.projection import ResponseTables
+from repro_torch.power.jobs import JobTable, JobTrace
 from repro_torch.power.surface import ProfileArray
 from repro_torch.tuning.calibrate import (CalibrationResult, _result_to_doc,
                                           result_from_doc)
@@ -72,6 +74,33 @@ def response_tables(vai: Mapping, mb: Mapping, kind: str = "freq",
         return {int(k): tuple(float(x) for x in v) for k, v in col.items()}
     return ResponseTables(vai=column(vai), mb=column(mb), kind=kind,
                           source=source)
+
+
+def job_table_from_arrays(powers: Sequence, job_ids: Sequence[str],
+                          sample_interval_s: float = 15.0,
+                          arch: Optional[Sequence[str]] = None,
+                          num_nodes: Optional[Sequence[int]] = None,
+                          begin_time: Optional[Sequence[float]] = None,
+                          intent_class: Optional[Sequence[str]] = None,
+                          chip: ChipSpec = MI250X_GCD,
+                          device=DEFAULT_DEVICE) -> JobTable:
+    """A :class:`JobTable` on ``device`` from the reference's job traces
+    given as plain data: one 1-D numpy array of powers per job, the job ids,
+    and the optional per-job ``arch`` / ``num_nodes`` / ``begin_time`` /
+    ``intent_class`` columns."""
+    n = len(powers)
+
+    def col(xs, default):
+        return [default] * n if xs is None else list(xs)
+    traces = [JobTrace(job_id=str(j), powers=np.asarray(p, dtype=np.float64),
+                       sample_interval_s=sample_interval_s, arch=str(a),
+                       num_nodes=int(nn), begin_time=float(b),
+                       intent_class=str(c))
+              for p, j, a, nn, b, c in zip(
+                  powers, job_ids, col(arch, ""), col(num_nodes, 1),
+                  col(begin_time, 0.0), col(intent_class, ""))]
+    return JobTable(traces, chip=chip, sample_interval_s=sample_interval_s,
+                    device=device)
 
 
 def calibration_from_doc(doc: Dict, device=DEFAULT_DEVICE

@@ -2,15 +2,17 @@
 power channel (paper §III-A).
 
 Per-step samples are aggregated into fixed windows (the paper's 2 s -> 15 s
-pre-aggregation) so memory stays bounded at fleet scale. A copy of the
-reference's store (host Python and numpy, like the reference); the spill to
-``.npz`` files and the job log arrive with ``power.stream`` (ROADMAP queue A
-item 3).
+pre-aggregation) so memory stays bounded at fleet scale; a job log carries
+the scheduler metadata (job id, science domain, node count) that the paper
+joins against for domain-level analysis. A copy of the reference's store and
+log (host Python and numpy, like the reference); the spill to ``.npz`` files
+arrives with ``power.stream`` (ROADMAP queue A item 2).
 """
 from __future__ import annotations
 
 import collections
 import json
+import time
 from dataclasses import asdict, dataclass, field
 from typing import Deque, Dict, List, Optional
 
@@ -38,6 +40,27 @@ class WindowAggregate:
     samples: int
     mode_hist: Dict[int, int] = field(default_factory=dict)
     job_id: str = "job0"
+
+
+@dataclass
+class JobRecord:
+    """Scheduler-log metadata (paper Table II (b))."""
+    job_id: str
+    project_id: str          # prefix = science domain
+    num_nodes: int
+    begin_time: float
+    end_time: float = 0.0
+
+    @property
+    def science_domain(self) -> str:
+        return self.project_id.split("_")[0]
+
+    def size_class(self) -> str:
+        from repro_torch.core.hardware import JOB_SIZE_CLASSES
+        for name, (lo, hi, _) in JOB_SIZE_CLASSES.items():
+            if lo <= self.num_nodes <= hi:
+                return name
+        return "E"
 
 
 class TelemetryStore:
@@ -127,3 +150,21 @@ class TelemetryStore:
             d["mode_hist"] = {int(k): v for k, v in d["mode_hist"].items()}
             st.windows.append(WindowAggregate(**d))
         return st
+
+
+class JobLog:
+    def __init__(self) -> None:
+        self.jobs: Dict[str, JobRecord] = {}
+
+    def start(self, job: JobRecord) -> None:
+        self.jobs[job.job_id] = job
+
+    def end(self, job_id: str, t: Optional[float] = None) -> None:
+        if job_id in self.jobs:
+            self.jobs[job_id].end_time = t if t is not None else time.time()
+
+    def by_domain(self) -> Dict[str, List[JobRecord]]:
+        out: Dict[str, List[JobRecord]] = {}
+        for j in self.jobs.values():
+            out.setdefault(j.science_domain, []).append(j)
+        return out

@@ -15,7 +15,7 @@ plain blocked online softmax,
 
 Decode writes each new K/V row into the cache in place (``index_copy_`` /
 index assignment on the cache tensors) and returns the same tensors.
-MLA and cross-attention are ROADMAP queue A item 1's remaining families.
+MLA and cross-attention are ROADMAP queue A item 4's remaining families.
 """
 from __future__ import annotations
 
@@ -117,7 +117,7 @@ def attention_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
     if cross:
         raise NotImplementedError(
             "cross-attention (vlm / enc-dec families) is ROADMAP queue A "
-            "item 1's remaining work")
+            "item 4's remaining work")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
     p = {

@@ -3,7 +3,7 @@
 The reference scans over layer parameters stacked on a leading axis; here
 the layers are a Python list of per-layer parameter dicts and the trunk is a
 loop over them. The other families (MoE, MLA, SSM, hybrid RG-LRU, VLM,
-enc-dec) are ROADMAP queue A item 1's remaining work and raise
+enc-dec) are ROADMAP queue A item 4's remaining work and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -36,7 +36,7 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.use_mla:
         what = "MLA attention" if cfg.use_mla else f"the {cfg.family!r} family"
         raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP queue A item 1: MoE, MLA, "
+            f"{what} is not ported yet (ROADMAP queue A item 4: MoE, MLA, "
             f"SSM, hybrid, VLM and enc-dec families); the port serves dense "
             f"models")
 

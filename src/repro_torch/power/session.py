@@ -9,8 +9,9 @@
 ``observe`` asks the policy for a :class:`Decision`, applies it through the
 actuator, and records the resulting sample — the single write path into
 telemetry. ``observe_many`` records a batch of steps with one vectorized
-policy pass on the session's ``device``. The reference's ``fleet()``
-accessor arrives with ``power.fleet`` (ROADMAP queue A item 2).
+policy pass on the session's ``device``; ``fleet()`` hands the recorded
+telemetry to :class:`~repro_torch.power.fleet.FleetAnalysis` on the same
+device, classified against the session's own chip.
 """
 from __future__ import annotations
 
@@ -156,6 +157,16 @@ class EnergySession:
         self.telemetry.flush()
 
     # ------------------------------------------------------------ analysis
+    def fleet(self):
+        """This session's telemetry as a
+        :class:`repro_torch.power.FleetAnalysis` on the session's device,
+        classified against *this* chip's power envelope (building it by hand
+        via ``FleetAnalysis.from_store`` defaults to the paper's MI250X
+        bands)."""
+        from repro_torch.power.fleet import FleetAnalysis
+        return FleetAnalysis.from_store(self.telemetry, chip=self.chip.spec,
+                                        device=self.device)
+
     def total_energy_j(self) -> float:
         return self.telemetry.total_energy_j()
 

@@ -285,7 +285,7 @@ class ServeEngine:
         if extra_batch is not None:
             raise NotImplementedError(
                 "the extra_batch frontend route (vlm / enc-dec frontends) "
-                "is ROADMAP queue A item 1's remaining work")
+                "is ROADMAP queue A item 4's remaining work")
         if self.cfg.family in SLOT_FAMILIES and temperature <= 0.0:
             return self._generate_continuous(requests, seed)
         return self.generate_blocking(requests, temperature, seed)

@@ -251,11 +251,12 @@ def test_validate_against_paper(kind):
 
 
 def test_validate_main_says_what_it_left_out(capsys):
+    """Nothing is left out any more: all three legs run and pass."""
     assert projection.validate_main(device="cpu") == 0
     out = capsys.readouterr().out
-    assert "headline bootstrap 95% CI: LEFT OUT" in out
+    assert "LEFT OUT" not in out and "not run" not in out
+    assert "headline bootstrap 95% CI [7.88, 9.06]" in out
     assert "1438.25" in out and "paper validation ok" in out
-    assert "bootstrap leg not run" in out
 
 
 # --------------------------------------------------------------------- sweep

@@ -150,7 +150,7 @@ def test_init_params_has_the_reference_layout(arch):
 def test_families_still_to_port_raise(family_arch):
     cfg = dataclasses.replace(get_config(family_arch).reduced(),
                               dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
         model.init_params(cfg, Runtime(), device="cpu")
     with pytest.raises(NotImplementedError):
         decode.init_decode_state(cfg, Runtime(), 1, 8, device="cpu")
