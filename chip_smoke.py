@@ -17,6 +17,14 @@ call:
       and the per-class schedule, bootstrap and jackknife intervals on every
       cell, and validate_main's bootstrap leg; the same Study on CPU tensors
       must agree within rtol 1e-12
+    the stream and the broker: the same day of fleet telemetry streamed in
+      2**22-sample shards through StreamingTelemetry (bit for bit with
+      decompose, histogram counts exact), the 1500-job table as a stream
+      (bit for bit with decompose_batch), four counterfactual replays of it
+      and replay at 2**23 / 2**24 samples (peak memory flat in the trace
+      length); the 12-cell broker x budget Study of 1500 jobs and the
+      50k-job greedy broker run; each replay and the broker Study again on
+      CPU tensors, within rtol 1e-12
     the serving path: qwen2.5-14b at full width and depth in bf16 (random
       weights from a seeded generator) -> ServeEngine.generate on 4 greedy
       requests -> serve() on 8 Poisson-arriving requests through a slot pool
@@ -89,6 +97,24 @@ JOB_TABLES = ("measured", "calibrated:vai", "h100-sxm")
 JOB_N_BOOT = 2000
 JOB_RTOL = 1e-12
 SAMPLED_TEMPERATURE = 0.7
+#: the stream leg: the replays of examples/streaming_replay.py (label,
+#: evaluation chip, policy, knobs), all recorded on the MI250X GCD; the
+#: tolerance of their card run against the host's
+REPLAY_SCENARIOS = (
+    ("energy-aware", "mi250x-gcd", "energy-aware", {}),
+    ("energy-aware dT<=10%", "mi250x-gcd", "energy-aware",
+     {"slowdown_budget": 0.10}),
+    ("power-cap 400 W", "mi250x-gcd", "power-cap", {"cap_w": 400.0}),
+    ("energy-aware dT<=10% on tpu-v5e", "tpu-v5e", "energy-aware",
+     {"slowdown_budget": 0.10}),
+)
+STREAM_RTOL = 1e-12
+#: the broker leg: the grid of examples/power_broker.py and the run of
+#: benchmarks/bench_broker.py
+BROKERS = ("uniform", "greedy", "class-schedule", "oracle")
+BROKER_BUDGETS_MW = (0.6, 1.0, 1.6)
+BROKER_N_NODES = 10_000
+BROKER_BENCH = dict(budget_mw=2.0, arrival_gap_s=130.0)
 
 
 def emit(**obj) -> None:
@@ -609,7 +635,7 @@ def jobs_study(device, n_jobs: int, cal):
                   for c, b, j in zip(res, boot, jack)],
         "job_report": rep.to_dict()}
     return report, {"cells": res, "bootstrap": boot, "jackknife": jack,
-                    "cal": cal}
+                    "cal": cal, "table": table}
 
 
 def _rel(a: float, b: float) -> float:
@@ -644,6 +670,250 @@ def jobs_card_vs_host(card: dict, n_jobs: int, cal) -> dict:
           f"the job Study on the card differs from the host by rtol {worst}")
     return {"cells": len(card["cells"]), "max_rel_diff": worst,
             "rtol": JOB_RTOL}
+
+
+# ------------------------------------------------------- stream / broker
+def _measured(device, fn):
+    """``fn()`` timed on the host clock around a synchronise, with the
+    device's peak allocation over the call (absolute, and above what was
+    allocated before it); no memory figures on the CPU rehearsal."""
+    _sync(device)
+    base = peak = None
+    if device.type == "cuda":
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    secs = time.perf_counter() - t0
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+    return out, {"seconds": secs,
+                 "peak_bytes": peak,
+                 "peak_above_start_bytes": None if peak is None
+                 else peak - base}
+
+
+def _replay_rows(rep) -> list:
+    return [(r.job_id, r.n_samples, r.energy_rec_j, r.energy_base_j,
+             r.energy_new_j, r.time_rec_s, r.time_new_s) for r in rep.jobs]
+
+
+def stream_phase(device, sizes: dict, table) -> dict:
+    """The out-of-core stream and counterfactual replay on the card: the
+    Frontier-day fleet folded shard by shard against the one-shot
+    decomposition (bit for bit, histogram counts exact), the job table's
+    stream against its batch decomposition and job report, the replays of
+    examples/streaming_replay.py against the same replays on CPU tensors,
+    and replay at scale with its peak memory."""
+    from repro_torch.core import modal
+    from repro_torch.power import (FleetAnalysis, JobTable,
+                                   StreamingTelemetry, iter_array, replay)
+    report = {}
+    n_rows, n_cols = sizes["fleet_rows"], sizes["fleet_samples"]
+    flat = modal.synth_fleet_powers(n_rows * n_cols, seed=0, device=device)
+    _sync(device)
+    shard = sizes["stream_shard"]
+
+    # -- fleet scope at the Frontier-day size ------------------------------
+    st, fold = _measured(device, lambda: StreamingTelemetry(
+        track_jobs=False).extend(iter_array(flat, chunk=shard)))
+    got = st.decomposition()
+    want, one_shot = _measured(device, lambda: modal.decompose(flat))
+    check(st.n_samples == flat.numel(), "the stream lost samples")
+    for key in ("hours_pct", "energy_mwh", "total_energy_mwh"):
+        check(getattr(got, key) == getattr(want, key),
+              f"streamed {key} differs from decompose: "
+              f"{getattr(got, key)} / {getattr(want, key)}")
+    (c_want, h_want), hist = _measured(device, lambda: modal.power_histogram(
+        flat, bins=st.bins, max_w=st.max_w))
+    counts = torch.histc(torch.clamp(flat, max=st.max_w), bins=st.bins,
+                         min=0.0, max=st.max_w).to(torch.int64)
+    c_got, h_got = st.histogram()
+    check(torch.equal(st.hist_counts(), counts)
+          and int(counts.sum()) == flat.numel(),
+          "streamed histogram counts differ from power_histogram's")
+    check(torch.equal(h_got, h_want) and torch.equal(c_got, c_want),
+          "streamed histogram density differs from power_histogram's")
+    report["fleet"] = {
+        "samples": flat.numel(), "bytes": flat.numel() * 8,
+        "shard_samples": shard, "shards": -(-flat.numel() // shard),
+        "stream": fold, "decompose": one_shot, "power_histogram": hist,
+        "bit_for_bit": True, "histogram_counts_equal": True,
+        "total_energy_mwh": got.total_energy_mwh}
+
+    # -- per-job scope: the job leg's table as a stream --------------------
+    jshard = sizes["stream_job_shard"]
+    fa, per_job = _measured(device, lambda: FleetAnalysis.from_stream(
+        table.to_stream(samples_per_shard=jshard)))
+    batch = table.decompose()
+    streamed = fa.per_job()
+    for key in ("hours_pct", "energy_mwh", "total_energy_mwh", "n_samples"):
+        check(torch.equal(getattr(streamed, key), getattr(batch, key)),
+              f"streamed per-job {key} differs from decompose_batch")
+    check(fa.job_report().to_dict()
+          == FleetAnalysis.from_jobs(table).job_report().to_dict(),
+          "the streamed job report differs from the in-memory one")
+    n_samples = int(table.lengths.sum())
+    report["jobs"] = {"n_jobs": len(table), "samples": n_samples,
+                      "shard_samples": jshard,
+                      "shards": -(-n_samples // jshard),
+                      "from_stream": per_job, "bit_for_bit": True,
+                      "job_report_equal": True}
+
+    # -- replay, card against host -----------------------------------------
+    host_table = JobTable(table.traces, chip=table.chip,
+                          sample_interval_s=table.sample_interval_s,
+                          device="cpu")
+    worst = 0.0
+    scenarios = []
+    for label, target, policy, knobs in REPLAY_SCENARIOS:
+        rep, timing = _measured(device, lambda: replay(
+            table.to_stream(samples_per_shard=jshard), policy, chip=target,
+            record_chip="mi250x-gcd", **knobs))
+        host, host_timing = _measured(torch.device("cpu"), lambda: replay(
+            host_table.to_stream(samples_per_shard=jshard), policy,
+            chip=target, record_chip="mi250x-gcd", **knobs))
+        check(rep.n_samples == host.n_samples == n_samples,
+              f"replay {label}: sample counts differ")
+        a, b = _replay_rows(rep), _replay_rows(host)
+        check([r[:2] for r in a] == [r[:2] for r in b],
+              f"replay {label}: job order or n_samples differ")
+        for k in ("energy_rec_j", "energy_base_j", "energy_new_j",
+                  "time_rec_s", "time_new_s"):
+            worst = max(worst, _rel(getattr(rep, k), getattr(host, k)))
+        for ra, rb in zip(a, b):
+            worst = max([worst] + [_rel(x, y) for x, y in
+                                   zip(ra[2:], rb[2:])])
+        scenarios.append({
+            "scenario": label, "chip": target, "savings_pct":
+            rep.savings_pct, "dt_pct": rep.dt_pct,
+            "model_bias_pct": rep.model_bias_pct,
+            "card": timing, "host_seconds": host_timing["seconds"]})
+    check(worst <= STREAM_RTOL,
+          f"replay on the card differs from the host by rtol {worst}")
+    report["replay"] = {"scenarios": scenarios, "max_rel_diff": worst,
+                        "rtol": STREAM_RTOL}
+
+    # -- replay at scale: time and the O(shard) memory contract -------------
+    rshard = sizes["replay_shard"]
+    scale = []
+    for n in (rshard,) + tuple(sizes["replay_sizes"]):
+        rep, m = _measured(device, lambda: replay(
+            iter_array(flat[:n], chunk=rshard), "energy-aware",
+            chip="mi250x-gcd"))
+        check(rep.n_samples == n and math.isfinite(rep.savings_pct),
+              f"replay of {n} samples is off: {rep.n_samples}")
+        scale.append({"samples": n, **m,
+                      "samples_per_s": n / m["seconds"],
+                      "savings_pct": rep.savings_pct})
+    if device.type == "cuda":
+        one, small, big = (r["peak_above_start_bytes"] for r in scale)
+        check(big - small <= one,
+              f"replay memory grows with the trace: {small} B at "
+              f"{scale[1]['samples']} samples, {big} B at "
+              f"{scale[2]['samples']}, one shard {one} B")
+    report["replay_at_scale"] = {"shard_samples": rshard, "runs": scale}
+    del flat, st, fa
+    return report
+
+
+def _broker_outcome(rep) -> tuple:
+    return (rep.broker, rep.budget_mw, rep.n_events, rep.n_scaled_events,
+            rep.makespan_s, rep.throughput_jobs_per_h, rep.mean_wait_s,
+            rep.budget_exceeded)
+
+
+def broker_phase(device, sizes: dict) -> dict:
+    """The online broker on the card: the Study grid of
+    examples/power_broker.py against the same Study on CPU tensors, and the
+    run of benchmarks/bench_broker.py at its size on the card and on the
+    host, side by side."""
+    from repro_torch.power import (ClusterTrace, Study, Workload,
+                                   class_cap_report, simulate_cluster)
+    from repro_torch.power.jobs import default_caps
+    report = {}
+    results, secs = {}, {}
+    for dev in (device, torch.device("cpu")):
+        w = Workload.synthetic_jobs(sizes["broker_jobs"], seed=0,
+                                    device=dev)
+        study = Study(workloads=[w], brokers=list(BROKERS),
+                      budgets_mw=list(BROKER_BUDGETS_MW),
+                      n_nodes=BROKER_N_NODES, kind="power")
+        results[dev.type], m = _measured(dev, study.run)
+        secs[dev.type] = m["seconds"]
+    card, host = results[device.type], results["cpu"]
+    check(len(card) == len(BROKERS) * len(BROKER_BUDGETS_MW),
+          "the broker Study lost cells")
+    worst = 0.0
+    for c, h in zip(card, host):
+        check(_broker_outcome(c.detail) == _broker_outcome(h.detail),
+              f"broker cell differs between card and host: "
+              f"{_broker_outcome(c.detail)} / {_broker_outcome(h.detail)}")
+        check(c.detail.offline or not c.detail.budget_exceeded,
+              f"an online broker exceeded its budget: {c.detail}")
+        for k in ("savings_pct", "savings_mwh"):
+            worst = max(worst, _rel(getattr(c.detail, k),
+                                    getattr(h.detail, k)))
+        worst = max([worst] + [_rel(a, b) for a, b in zip(
+            c.detail.bin_energy_mwh, h.detail.bin_energy_mwh)])
+    check(worst <= STREAM_RTOL,
+          f"the broker Study on the card differs from the host by rtol "
+          f"{worst}")
+    trace = card[0].scenario.workload.cluster_trace()
+    bound = class_cap_report(trace.decomp, caps=default_caps("power"),
+                             kind="power")
+    for c in card.filter(policy="oracle"):
+        check(c.detail.savings_mwh == bound.total_savings_mwh,
+              "the oracle's savings differ from class_cap_report's")
+    front = card.pareto()
+    report["study"] = {
+        "n_jobs": sizes["broker_jobs"], "cells": len(card),
+        "seconds": secs, "max_rel_diff": worst, "rtol": STREAM_RTOL,
+        "class_cap_report_savings_mwh": bound.total_savings_mwh,
+        "cells_detail": [{
+            "broker": c.policy, "budget_mw": c.budget_mw,
+            "n_events": c.detail.n_events, "n_ticks": c.detail.n_ticks,
+            "makespan_s": c.detail.makespan_s,
+            "throughput_jobs_per_h": c.throughput_jobs_per_h,
+            "mean_wait_s": c.detail.mean_wait_s,
+            "savings_pct": c.savings_pct,
+            "budget_exceeded": c.detail.budget_exceeded}
+            for c in card],
+        "pareto": [{"broker": c.policy, "budget_mw": c.budget_mw,
+                    "throughput_jobs_per_h": c.throughput_jobs_per_h,
+                    "savings_pct": c.savings_pct} for c in front]}
+
+    bench = {}
+    for dev in (device, torch.device("cpu")):
+        trace, built = _measured(dev, lambda: ClusterTrace.synthetic(
+            sizes["broker_bench_jobs"], seed=0,
+            arrival_gap_s=BROKER_BENCH["arrival_gap_s"], device=dev))
+        rep, m = _measured(dev, lambda: simulate_cluster(
+            trace, "greedy", BROKER_BENCH["budget_mw"],
+            n_nodes=BROKER_N_NODES, kind="power"))
+        check(rep.n_jobs == sizes["broker_bench_jobs"]
+              and not rep.budget_exceeded,
+              f"the bench_broker run on {dev.type} is off: {rep}")
+        bench[dev.type] = {
+            "trace_seconds": built["seconds"], "seconds": m["seconds"],
+            "n_events": rep.n_events, "n_ticks": rep.n_ticks,
+            "seconds_per_tick": m["seconds"] / max(rep.n_ticks, 1),
+            "savings_pct": rep.savings_pct,
+            "makespan_s": rep.makespan_s,
+            "peak_alloc_mw": rep.peak_alloc_w / 1e6,
+            "budget_exceeded": rep.budget_exceeded,
+            "peak_bytes": m["peak_bytes"]}
+    a, b = bench[device.type], bench["cpu"]
+    check((a["n_events"], a["n_ticks"], a["makespan_s"])
+          == (b["n_events"], b["n_ticks"], b["makespan_s"]),
+          "the bench_broker run differs between card and host")
+    bench["faster_side"] = device.type if a["seconds"] < b["seconds"] \
+        else "cpu"
+    report["bench_broker"] = {"n_jobs": sizes["broker_bench_jobs"],
+                              "broker": "greedy", **BROKER_BENCH,
+                              "n_nodes": BROKER_N_NODES, **bench}
+    return report
 
 
 # ------------------------------------------------------- flash attention
@@ -1172,6 +1442,12 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
 FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             membw_big_rows=2 ** 21, membw_iters=64,          # 1 GiB
             fleet_rows=9408 * 8, fleet_samples=5760, jobs=1500,
+            # stream / broker: shard sizes of the fleet-day fold, the job
+            # stream and the replay at scale; the broker grid's and the
+            # broker benchmark's job counts
+            stream_shard=2 ** 22, stream_job_shard=65536,
+            replay_shard=2 ** 20, replay_sizes=(2 ** 23, 2 ** 24),
+            broker_jobs=1500, broker_bench_jobs=50_000,
             # flash: (batch*heads, seq, head dim) of SPACES; the served
             # model's prefill (seq, q heads, kv heads, head dim)
             flash_space=(4, 1024, 128), flash_model=(1024, 40, 8, 128),
@@ -1182,6 +1458,9 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             e2e_prompt_len=512, e2e_steps=8)
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            membw_iters=8, fleet_rows=64, fleet_samples=300, jobs=300,
+           stream_shard=2 ** 12, stream_job_shard=4096,
+           replay_shard=2 ** 10, replay_sizes=(2 ** 13, 2 ** 14),
+           broker_jobs=120, broker_bench_jobs=2000,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
            flash_ragged=61,
            serve_reduced=True,
@@ -1294,6 +1573,10 @@ def main() -> int:
          **jobs_card_vs_host(jobs_raw, sizes["jobs"], jobs_raw["cal"]))
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    emit(phase="stream", **stream_phase(device, sizes, jobs_raw["table"]))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    emit(phase="broker", **broker_phase(device, sizes))
 
     serve_report, serve_counts, sampled_launches, cfg, params = serve_path(
         device, sizes)

@@ -3,13 +3,16 @@
 Given per-GPU power samples, build the power histogram (paper Fig. 8),
 detect its local maxima (the per-domain "zones of operation", Fig. 9), and
 decompose hours/energy into the paper's four modes (Table IV). Everything
-is a float64 tensor program on the device the samples lie on.
+is a float64 tensor program on the device the samples lie on, except the
+last step of a chunk-associative sum: its per-segment sums fold in
+sequence on the host (:func:`fold_segments`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, as_device, f64
@@ -133,17 +136,33 @@ def _segment_sums(seg: torch.Tensor) -> torch.Tensor:
         + ((acc[..., 4] + acc[..., 5]) + (acc[..., 6] + acc[..., 7]))
 
 
+def fold_segments(seg, carry: Optional[np.ndarray] = None) -> np.ndarray:
+    """Fold segment sums (last axis) strictly left to right, from ``carry``
+    when given: ``((carry + s0) + s1) + ...``. One copy of the segment sums
+    to the host and one ``np.cumsum``, which adds in sequence, so the fold
+    costs no device launch per segment and its order is the same on every
+    device. Returns the host totals (float64, the leading shape of
+    ``seg``)."""
+    host = seg.detach().to("cpu").numpy() if isinstance(seg, torch.Tensor) \
+        else np.asarray(seg, dtype=np.float64)
+    if carry is not None:
+        host = np.concatenate([np.asarray(carry, dtype=np.float64)[..., None],
+                               host], axis=-1)
+    return np.cumsum(host, axis=-1)[..., -1]
+
+
 def stream_sum(x, axis: int = -1, device=None) -> torch.Tensor:
     """Deterministic *chunk-associative* summation along ``axis``.
 
     The axis is cut into fixed :data:`STREAM_SEGMENT`-element segments
     aligned to its start (the last one zero-padded), each segment is
     reduced in the fixed order of :func:`_segment_sums`, and the segment
-    sums combine strictly left to right in an explicit fold. A streaming
-    consumer that buffers samples into the same aligned segments and folds
-    them in the same order reproduces this reduction bit-for-bit over
-    arbitrary shard boundaries. Neither ``Tensor.sum`` nor ``cumsum`` is
-    used: their order differs between devices and with the length.
+    sums combine strictly left to right (:func:`fold_segments`). A
+    streaming consumer that buffers samples into the same aligned segments
+    and folds them in the same order reproduces this reduction bit-for-bit
+    over arbitrary shard boundaries. Neither ``Tensor.sum`` nor a device
+    ``cumsum`` is used: their order differs between devices and with the
+    length.
     """
     x = f64(x, device)
     x = torch.movedim(x, axis, -1)
@@ -153,10 +172,7 @@ def stream_sum(x, axis: int = -1, device=None) -> torch.Tensor:
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
     seg = _segment_sums(x.reshape(x.shape[:-1] + (nseg, STREAM_SEGMENT)))
-    total = seg[..., 0]
-    for k in range(1, nseg):
-        total = total + seg[..., k]
-    return total
+    return torch.from_numpy(np.array(fold_segments(seg))).to(x.device)
 
 
 def decompose_batch(power_w, sample_interval_s: float = 15.0,

@@ -4,9 +4,9 @@ power channel (paper §III-A).
 Per-step samples are aggregated into fixed windows (the paper's 2 s -> 15 s
 pre-aggregation) so memory stays bounded at fleet scale; a job log carries
 the scheduler metadata (job id, science domain, node count) that the paper
-joins against for domain-level analysis. A copy of the reference's store and
-log (host Python and numpy, like the reference); the spill to ``.npz`` files
-arrives with ``power.stream`` (ROADMAP queue A item 2).
+joins against for domain-level analysis. A copy of the reference's store,
+log and ``.npz`` spill format (host Python and numpy, like the reference):
+a spill written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import collections
 import json
 import time
 from dataclasses import asdict, dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -150,6 +150,86 @@ class TelemetryStore:
             d["mode_hist"] = {int(k): v for k, v in d["mode_hist"].items()}
             st.windows.append(WindowAggregate(**d))
         return st
+
+    def spill_npz(self, path: str) -> int:
+        """Flush, write every aggregated window to a compressed ``.npz``
+        spill file, and drop the windows from memory — the out-of-core
+        hand-off consumed by :func:`repro_torch.power.stream.iter_npz`.
+        Month-scale runs spill periodically instead of letting the bounded
+        deque silently evict old windows. Returns the number of windows
+        written.
+
+        Spill format (``schema`` 1), columnar over ``W`` windows:
+
+        * ``schema`` (int), ``window_s`` (float) — format tag + the store's
+          aggregation window;
+        * ``t_start``, ``t_end``, ``mean_power_w``, ``energy_j`` —
+          ``(W,)`` float64;
+        * ``samples`` — ``(W,)`` int64 raw-sample counts;
+        * ``job_id`` — ``(W,)`` unicode;
+        * ``mode_window`` / ``mode_idx`` / ``mode_count`` — the sparse
+          mode histograms as aligned int64 triples (window row, paper mode
+          index 1..4, sample count).
+        """
+        self.flush()
+        ws = list(self.windows)
+        trip = [(i, m, c) for i, w in enumerate(ws)
+                for m, c in sorted(w.mode_hist.items())]
+        tw, tm, tc = (np.array([t[k] for t in trip], dtype=np.int64)
+                      for k in range(3)) if trip else \
+            (np.empty(0, np.int64),) * 3
+        np.savez_compressed(
+            path, schema=np.int64(1), window_s=np.float64(self.window_s),
+            t_start=np.array([w.t_start for w in ws], dtype=np.float64),
+            t_end=np.array([w.t_end for w in ws], dtype=np.float64),
+            mean_power_w=np.array([w.mean_power_w for w in ws],
+                                  dtype=np.float64),
+            energy_j=np.array([w.energy_j for w in ws], dtype=np.float64),
+            samples=np.array([w.samples for w in ws], dtype=np.int64),
+            job_id=np.array([w.job_id for w in ws], dtype=np.str_),
+            mode_window=tw, mode_idx=tm, mode_count=tc)
+        self.windows.clear()
+        return len(ws)
+
+    @classmethod
+    def from_npz(cls, path: str, window_s: Optional[float] = None
+                 ) -> "TelemetryStore":
+        """Rehydrate a store from one :meth:`spill_npz` file."""
+        windows, spilled_window_s = load_spill(path)
+        st = cls(window_s=window_s if window_s is not None
+                 else spilled_window_s)
+        st.windows.extend(windows)
+        return st
+
+
+def load_spill(path: str) -> Tuple[List[WindowAggregate], float]:
+    """Read one :meth:`TelemetryStore.spill_npz` file back into
+    ``(windows, window_s)`` — the low-level reader behind
+    :meth:`TelemetryStore.from_npz` and
+    ``repro_torch.power.stream.iter_npz``."""
+    with np.load(path) as z:
+        schema = int(z["schema"])
+        if schema != 1:
+            raise ValueError(f"unknown telemetry spill schema {schema} "
+                             f"in {path!r} (supported: 1)")
+        # materialize each column ONCE: every NpzFile[key] access
+        # decompresses the whole member again, so indexing z[...] inside
+        # the window loop would be O(windows^2)
+        t_start, t_end = z["t_start"], z["t_end"]
+        mean_p, energy = z["mean_power_w"], z["energy_j"]
+        samples, job_id = z["samples"], z["job_id"]
+        hists: List[Dict[int, int]] = [dict() for _ in range(
+            t_start.shape[0])]
+        for w, m, c in zip(z["mode_window"], z["mode_idx"],
+                           z["mode_count"]):
+            hists[int(w)][int(m)] = int(c)
+        windows = [WindowAggregate(
+            t_start=float(t_start[i]), t_end=float(t_end[i]),
+            mean_power_w=float(mean_p[i]), energy_j=float(energy[i]),
+            samples=int(samples[i]), mode_hist=hists[i],
+            job_id=str(job_id[i]))
+            for i in range(t_start.shape[0])]
+        return windows, float(z["window_s"])
 
 
 class JobLog:

@@ -28,15 +28,24 @@ jobs       — job-level fleet: :class:`JobTable` (synthetic multi-job
              workload sampled from the model configs / job-tagged telemetry
              ingestion) + per-job class assignment and the per-class cap
              schedule (``FleetAnalysis.from_jobs(table).job_report()``)
+stream     — out-of-core telemetry: :class:`SampleShard` sources
+             (tensors, JSONL, ``.npz`` spills, job tables),
+             :class:`StreamingTelemetry` accumulators bit-for-bit with the
+             batch pipeline, and counterfactual :func:`replay` of a
+             recorded trace under any policy x chip
+broker     — the online fleet power broker: :class:`ClusterTrace`,
+             :func:`simulate_cluster` (event loop, FCFS + EASY backfill,
+             one facility budget) and the uniform / greedy /
+             class-schedule / oracle / policy brokers
 scenarios  — the declarative what-if surface: :class:`Workload`,
              :class:`Scenario`, :class:`Study` (batched grid execution) and
              :class:`StudyResult` (``compare()`` / ``best("dT<=0.5")`` /
-             ``pivot()`` / ``confidence()``); every ``tables=`` spelling
-             resolves through one :func:`resolve_tables`
+             ``pivot()`` / ``pareto()`` / ``confidence()``); every
+             ``tables=`` spelling resolves through one
+             :func:`resolve_tables`
 
-The reference's ``stream`` (out-of-core telemetry and replay, ROADMAP queue
-A item 2), ``broker`` (the online fleet power broker, item 3) and its legacy
-``PowerGovernor`` / ``GovernorConfig`` (item 7) are not ported yet.
+The reference's legacy ``PowerGovernor`` / ``GovernorConfig`` (ROADMAP
+queue A item 7) are not ported yet.
 
 Typical use:
 
@@ -74,6 +83,14 @@ from repro_torch.power.jobs import (  # noqa: F401
     ClassReport, FleetJobsReport, JOB_CLASSES, JobTable, JobTrace,
     class_cap_report, classify_jobs, synth_job_traces)
 from repro_torch.power.fleet import FleetAnalysis  # noqa: F401
+from repro_torch.power.stream import (  # noqa: F401
+    ReplayReport, SampleShard, StreamingModal, StreamingTelemetry,
+    iter_array, iter_jobs, iter_jsonl, iter_npz, iter_store, replay,
+    write_jsonl)
+from repro_torch.power.broker import (  # noqa: F401
+    BROKERS, BrokerReport, BrokerView, ClassScheduleBroker, ClusterTrace,
+    GreedyValueBroker, OracleBroker, PolicyBroker, UniformBroker,
+    get_broker, simulate_cluster)
 from repro_torch.power.scenarios import (  # noqa: F401
     CellResult, ConfidenceInterval, Scenario, Study, StudyResult, TablesLike,
     Workload, cap_label, resolve_tables)
@@ -103,6 +120,14 @@ __all__ = [
     "FleetJobsReport", "JOB_CLASSES", "JobTable", "JobTrace",
     "class_cap_report", "classify_jobs", "decompose_batch", "project_batch",
     "synth_job_traces",
+    # streaming ingestion + counterfactual replay
+    "ReplayReport", "SampleShard", "StreamingModal", "StreamingTelemetry",
+    "iter_array", "iter_jobs", "iter_jsonl", "iter_npz", "iter_store",
+    "replay", "write_jsonl",
+    # online fleet power broker (event-driven cluster simulation)
+    "BROKERS", "BrokerReport", "BrokerView", "ClassScheduleBroker",
+    "ClusterTrace", "GreedyValueBroker", "OracleBroker", "PolicyBroker",
+    "UniformBroker", "get_broker", "simulate_cluster",
     # declarative scenario studies (the grid surface over everything above)
     "CellResult", "ConfidenceInterval", "Scenario", "Study", "StudyResult",
     "TablesLike", "Workload", "cap_label", "resolve_tables",

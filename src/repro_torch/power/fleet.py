@@ -8,8 +8,10 @@ wiring as one chainable object:
     rows = FleetAnalysis.from_store(ts).decompose().project([900])
 
 Construct from a live :class:`TelemetryStore`, a raw power-sample tensor or
-array, the paper-calibrated synthetic fleet, or — for the paper's
-job-granular claims — a :class:`repro_torch.power.jobs.JobTable` via
+array, the paper-calibrated synthetic fleet, an out-of-core telemetry
+stream via :meth:`from_stream` (month-scale traces, O(shard) memory — see
+:mod:`repro_torch.power.stream`), or — for the paper's job-granular
+claims — a :class:`repro_torch.power.jobs.JobTable` via
 :meth:`from_jobs`, which unlocks the per-job surface (``per_job()`` /
 ``project_jobs()`` / ``job_report()``). Both paths run on the same batched
 tensor core (:func:`repro_torch.core.modal.decompose_batch`,
@@ -35,8 +37,6 @@ from repro_torch.core.projection import (BatchProjection, ProjectionRow,
 from repro_torch.core.telemetry import TelemetryStore
 from repro_torch.power import jobs as jobs_mod
 
-_STREAM = "power.stream, which is not ported yet (ROADMAP queue A item 2)"
-
 
 class FleetAnalysis:
     """Chained fleet-power analysis over one tensor of power samples (plus
@@ -54,6 +54,9 @@ class FleetAnalysis:
         self.decomposition: Optional[ModalDecomposition] = None
         self.jobs = jobs
         self._job_decomposition: Optional[BatchModalDecomposition] = None
+        # set by attach_stream: analyses built out-of-core never hold the
+        # raw sample tensor; the streaming accumulators stand in for it
+        self._stream = None
 
     # --------------------------------------------------------- constructors
     @classmethod
@@ -95,15 +98,36 @@ class FleetAnalysis:
                     sample_interval_s: float = 15.0, bins: int = 120,
                     max_w: Optional[float] = None,
                     track_jobs: bool = True,
-                    executor=None) -> "FleetAnalysis":
-        """Out-of-core constructor over an iterator of sample shards."""
-        raise NotImplementedError(
-            f"FleetAnalysis.from_stream needs {_STREAM}")
+                    executor=None, device=None) -> "FleetAnalysis":
+        """Out-of-core constructor: fold an iterator of sample shards (see
+        :mod:`repro_torch.power.stream` — tensor chunks, JSONL sample logs,
+        ``TelemetryStore.spill_npz`` files, ``JobTable.to_stream()``)
+        through the incremental accumulators with O(shard) memory, on the
+        shards' device (``device`` places array shards). The result's
+        ``decompose``/``project``/``project_jobs``/``job_report`` are
+        bit-for-bit what the materialized concatenated trace would give;
+        only the raw ``powers`` tensor is absent, so the histogram is the
+        streaming one (bins fixed at ingest). ``track_jobs=False`` skips
+        the per-job accumulators for flat fleet-only analyses.
+        ``executor`` (the sharded executor) is ROADMAP queue A item 5 and
+        raises ``NotImplementedError``."""
+        from repro_torch.power.stream import StreamingTelemetry
+        return StreamingTelemetry(
+            chip=chip, sample_interval_s=sample_interval_s, bins=bins,
+            max_w=max_w, track_jobs=track_jobs, executor=executor,
+            device=device).extend(stream).fleet()
 
     def attach_stream(self, stream) -> "FleetAnalysis":
-        """Back this analysis with finished streaming accumulators."""
-        raise NotImplementedError(
-            f"FleetAnalysis.attach_stream needs {_STREAM}")
+        """Back this analysis with finished streaming accumulators (a
+        :class:`repro_torch.power.stream.StreamingTelemetry`) instead of a
+        raw sample tensor — used by ``StreamingTelemetry.fleet()``. The
+        per-job view comes along only for multi-job streams, matching
+        :meth:`from_store`."""
+        self._stream = stream
+        self.decomposition = stream.decomposition()
+        if len(stream.job_ids()) > 1:
+            self._job_decomposition = stream.per_job()
+        return self
 
     @classmethod
     def synthetic(cls, n_samples: int, seed: int = 0,
@@ -135,6 +159,9 @@ class FleetAnalysis:
     def decompose(self) -> "FleetAnalysis":
         """Modal decomposition (Table IV); chainable — the result is kept on
         ``self.decomposition``."""
+        if self._stream is not None:
+            self.decomposition = self._stream.decomposition()
+            return self
         self.decomposition = decompose(self.powers, self.sample_interval_s,
                                        self.chip)
         return self
@@ -142,8 +169,19 @@ class FleetAnalysis:
     def histogram(self, bins: Optional[int] = None,
                   max_w: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fleet power histogram (paper Fig. 8): (bin centers, density),
-        ``bins`` defaulting to 120."""
+        """Fleet power histogram (paper Fig. 8): (bin centers, density).
+        ``bins`` defaults to 120 — or, on a streamed analysis, to the bin
+        layout fixed at ingest (explicitly asking for a different one
+        raises: the raw samples are gone)."""
+        if self._stream is not None:
+            if (bins is not None and bins != self._stream.bins) or (
+                    max_w is not None and max_w != self._stream.max_w):
+                raise ValueError(
+                    f"streamed analysis: histogram bins/max_w are fixed at "
+                    f"ingest (bins={self._stream.bins}, "
+                    f"max_w={self._stream.max_w}); re-ingest via "
+                    f"FleetAnalysis.from_stream(..., bins=, max_w=)")
+            return self._stream.histogram()
         return power_histogram(self.powers, bins=bins if bins is not None
                                else 120, max_w=max_w)
 
@@ -205,7 +243,8 @@ class FleetAnalysis:
         if self.jobs is None:
             raise ValueError(
                 "no per-job view: construct via FleetAnalysis.from_jobs / "
-                "synthetic_jobs, or a multi-job telemetry store")
+                "synthetic_jobs / from_stream, or a multi-job telemetry "
+                "store")
         return self.jobs
 
     def per_job(self) -> BatchModalDecomposition:
@@ -247,7 +286,8 @@ class FleetAnalysis:
         d = self._decomposition()
         out = {
             "chip": self.chip.name,
-            "samples": int(self.powers.numel()),
+            "samples": (self._stream.n_samples if self._stream is not None
+                        else int(self.powers.numel())),
             "hours_pct": d.hours_pct,
             "energy_pct": d.energy_pct(),
             "total_energy_mwh": d.total_energy_mwh,

@@ -201,11 +201,11 @@ class JobTable:
                                self.chip, mask=self.mask)
 
     def to_stream(self, samples_per_shard: int = 65536):
-        """This table as a job-ordered telemetry stream — the hand-off to
-        the out-of-core pipeline, which is not ported yet."""
-        raise NotImplementedError(
-            "JobTable.to_stream needs power.stream, which is not ported yet "
-            "(ROADMAP queue A item 2)")
+        """This table as a job-ordered telemetry stream on its device — the
+        hand-off to the out-of-core pipeline
+        (:func:`repro_torch.power.stream.iter_jobs`)."""
+        from repro_torch.power.stream import iter_jobs
+        return iter_jobs(self, samples_per_shard)
 
     # ----------------------------------------------------------- ingestion
     @classmethod

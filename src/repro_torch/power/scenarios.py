@@ -5,9 +5,9 @@ surfaces and job classes over months of telemetry to find the best-case
 envelope (8.5% / 1438 MWh). This module is the one grid API over it:
 
 * :class:`Workload` — a named workload source (a power tensor, a live
-  :class:`TelemetryStore`, a :class:`JobTable`, the paper-calibrated
-  synthetic fleet, or bare modal energies) with one cached analysis per
-  study, however many cells share it;
+  :class:`TelemetryStore`, a :class:`JobTable`, a re-iterable telemetry
+  stream, the paper-calibrated synthetic fleet, or bare modal energies)
+  with one cached analysis per study, however many cells share it;
 * :class:`Scenario` — ONE cell of a what-if grid: workload x chip x policy
   x cap (+ ``kind`` and a response-:data:`TablesLike` spec). The cell shape
   follows from (policy, cap):
@@ -18,20 +18,26 @@ envelope (8.5% / 1438 MWh). This module is the one grid API over it:
   ``None``     a number    cap projection — ``FleetAnalysis.project``
   ``None``     a sequence  per-class cap schedule — ``job_report``
                / ``None``
-  a policy     anything    counterfactual replay (needs ``power.stream``,
-                           ROADMAP queue A item 2)
+  a policy     anything    counterfactual replay — ``stream.replay`` (a
+                           cap additionally attaches the response-table
+                           projection rows of the recorded trace)
   ===========  ==========  ==============================================
 
-  Broker cells (``Study(brokers=..., budgets_mw=...)``) need
-  ``power.broker`` (ROADMAP queue A item 3);
+* broker cells (``Study(brokers=[...], budgets_mw=[...])``) — the online
+  counterpart: each cell is one :func:`~repro_torch.power.broker.
+  simulate_cluster` run of the workload's cached
+  :class:`~repro_torch.power.broker.ClusterTrace` under a budgeted broker,
+  reported with throughput next to savings;
 * :class:`Study` — axes (lists per dimension) expanded into the cartesian
   grid and executed **batched**: one modal decomposition per workload, one
   ``project`` pass per (workload, tables, kind) over the union of the
-  group's caps, one ``class_cap_report`` per schedule group;
+  group's caps, one ``class_cap_report`` per schedule group, one chunked
+  ``replay`` per (workload, policy, chip);
 * :class:`StudyResult` — the grid as columnar arrays (``savings_pct``,
   ``dt_pct``, ``savings_mwh``…) with ``compare()`` / ``best("dT<=0.5")`` /
-  ``pivot()`` / ``to_markdown()`` / ``confidence()`` and per-cell detail
-  objects (:class:`ProjectionRow` / :class:`FleetJobsReport`);
+  ``pivot()`` / ``pareto()`` / ``to_markdown()`` / ``confidence()`` and
+  per-cell detail objects (:class:`ProjectionRow` /
+  :class:`FleetJobsReport` / ``ReplayReport`` / ``BrokerReport``);
 * :func:`resolve_tables` — the response-table resolver every entry point
   shares: ``None``/``"measured"`` -> the paper's measured MI250X columns, a
   chip (spec/name/model) -> cached model-derived
@@ -66,8 +72,8 @@ import re
 from dataclasses import dataclass
 from functools import lru_cache
 from statistics import NormalDist
-from typing import (Any, Dict, Iterator, List, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -83,9 +89,6 @@ from repro_torch.core.telemetry import TelemetryStore
 from repro_torch.power.jobs import FleetJobsReport, JobTable
 from repro_torch.power.objectives import check_objective, get_objective
 from repro_torch.power.policies import PolicyLike, PowerPolicy, get_policy
-
-_STREAM_ITEM = "power.stream, which is not ported yet (ROADMAP queue A item 2)"
-_BROKER_ITEM = "power.broker, which is not ported yet (ROADMAP queue A item 3)"
 
 # ---------------------------------------------------------------------------
 # The response-table resolver
@@ -165,11 +168,13 @@ class Workload:
 
     One instance = one frozen snapshot of the workload: however many cells
     (or successive studies) reference it, its modal decomposition (and
-    per-job view) is computed once and cached for the object's lifetime. To
-    re-analyze a live source that has since grown (e.g. a recording
+    per-job view) is computed once and cached for the object's lifetime,
+    and :meth:`stream` re-yields the identical shard sequence for every
+    replay cell, so a chunked replay of the same (policy, chip) is shared
+    too. To re-analyze a live source that has since grown (e.g. a recording
     :class:`TelemetryStore`), construct a fresh Workload. The analysis runs
     on ``device``: a power tensor's or job table's own, else the one asked
-    for (default the card).
+    for (default the card; a stream's shards stay on their own device).
     """
 
     def __init__(self, name: str, chip: Union[str, ChipSpec, ChipModel],
@@ -177,15 +182,13 @@ class Workload:
                  powers=None,
                  store: Optional[TelemetryStore] = None,
                  jobs: Optional[JobTable] = None,
-                 stream_factory=None,
+                 stream_factory: Optional[Callable[[], Iterable]] = None,
                  energies: Optional[Tuple[float, float, float]] = None,
                  device=None):
         sources = [s is not None for s in (powers, store, jobs,
                                            stream_factory, energies)]
         if sum(sources) != 1:
             raise ValueError("exactly one workload source required")
-        if stream_factory is not None:
-            raise NotImplementedError(f"stream workloads need {_STREAM_ITEM}")
         self.name = name
         self.chip: ChipSpec = ChipModel(chip).spec
         self.sample_interval_s = float(sample_interval_s)
@@ -198,8 +201,10 @@ class Workload:
         self._powers = powers
         self._store = store
         self._jobs = jobs
+        self._stream_factory = stream_factory
         self._energies_src = energies
         self._fleet = None
+        self._cluster: Dict[int, Any] = {}
 
     def __repr__(self) -> str:
         return f"Workload({self.name!r}, chip={self.chip.name!r})"
@@ -249,10 +254,25 @@ class Workload:
     @classmethod
     def from_stream(cls, stream_factory, chip=MI250X_GCD,
                     sample_interval_s: float = 15.0,
-                    name: str = "stream") -> "Workload":
-        """An out-of-core telemetry stream."""
-        raise NotImplementedError(
-            f"Workload.from_stream needs {_STREAM_ITEM}")
+                    name: str = "stream", device=None) -> "Workload":
+        """An out-of-core telemetry stream. ``stream_factory`` must be
+        re-iterable — a zero-arg callable returning a fresh shard iterator,
+        or a ``.npz`` spill path / list of paths
+        (:meth:`TelemetryStore.spill_npz` files, read onto ``device``) —
+        because projection cells fold it once and every (policy, chip)
+        replay group re-reads it."""
+        if isinstance(stream_factory, (str, list, tuple)):
+            paths = stream_factory
+            from repro_torch.power.stream import iter_npz
+            dev = as_device(device)
+            stream_factory = lambda: iter_npz(paths, device=dev)  # noqa: E731
+        elif not callable(stream_factory):
+            raise TypeError(
+                "stream_factory must be a zero-arg callable returning a "
+                "fresh shard iterator, or .npz spill path(s); a bare "
+                "iterator would be exhausted by the first cell")
+        return cls(name, chip, sample_interval_s,
+                   stream_factory=stream_factory, device=device)
 
     @classmethod
     def synthetic(cls, n_samples: int, seed: int = 0,
@@ -319,6 +339,11 @@ class Workload:
                     device=self.device)
             elif self._jobs is not None:
                 fa = FleetAnalysis.from_jobs(self._jobs)
+            elif self._stream_factory is not None:
+                fa = FleetAnalysis.from_stream(
+                    self._stream_factory(), chip=self.chip,
+                    sample_interval_s=self.sample_interval_s,
+                    device=self.device)
             else:
                 raise ValueError(
                     f"workload {self.name!r} carries modal energies only — "
@@ -337,13 +362,47 @@ class Workload:
                 d.total_energy_mwh)
 
     def stream(self) -> Iterator:
-        """A fresh shard iterator over this workload."""
-        raise NotImplementedError(f"Workload.stream needs {_STREAM_ITEM}")
+        """A fresh shard iterator over this workload (same boundaries every
+        call, so shared replays are reproducible), on the workload's
+        device."""
+        from repro_torch.power.stream import iter_array, iter_store
+        if self._powers is not None:
+            return iter_array(self._powers,
+                              sample_interval_s=self.sample_interval_s)
+        if self._store is not None:
+            return iter_store(self._store, device=self.device)
+        if self._jobs is not None:
+            return self._jobs.to_stream()
+        if self._stream_factory is not None:
+            return iter(self._stream_factory())
+        raise ValueError(
+            f"workload {self.name!r} carries modal energies only — replay "
+            f"cells need a sample stream")
 
     def cluster_trace(self, chunk_samples: int = 60):
-        """This workload's cluster trace — what broker cells simulate."""
-        raise NotImplementedError(
-            f"Workload.cluster_trace needs {_BROKER_ITEM}")
+        """This workload's :class:`~repro_torch.power.broker.ClusterTrace`
+        (cached per ``chunk_samples``) — what broker cells simulate.
+        Job-table workloads chunk-fold the table on its device; stream
+        workloads fold the shard stream (arrivals from ``time_s`` stamps).
+        Flat power tensors / stores / bare energies carry no job
+        structure."""
+        ct = self._cluster.get(chunk_samples)
+        if ct is None:
+            from repro_torch.power.broker import ClusterTrace
+            if self._jobs is not None:
+                ct = ClusterTrace.from_jobs(self._jobs,
+                                            chunk_samples=chunk_samples)
+            elif self._stream_factory is not None:
+                ct = ClusterTrace.from_stream(
+                    self._stream_factory(), chip=self.chip,
+                    sample_interval_s=self.sample_interval_s,
+                    chunk_samples=chunk_samples, device=self.device)
+            else:
+                raise ValueError(
+                    f"workload {self.name!r} has no per-job structure — "
+                    f"broker cells need a JobTable or stream workload")
+            self._cluster[chunk_samples] = ct
+        return ct
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +502,21 @@ class Scenario:
         return [float(c) for c in self.cap]
 
     def resolved_broker(self):
-        raise NotImplementedError(f"broker cells need {_BROKER_ITEM}")
+        from repro_torch.power.broker import get_broker
+        if isinstance(self.broker, tuple) and len(self.broker) == 2 \
+                and isinstance(self.broker[0], str) \
+                and isinstance(self.broker[1], dict):
+            name, knobs = self.broker
+            knobs = dict(knobs)
+            if self.objective != "energy":
+                knobs.setdefault("objective", self.objective)
+            return get_broker(name, **knobs)
+        if isinstance(self.broker, str) and self.objective != "energy":
+            try:
+                return get_broker(self.broker, objective=self.objective)
+            except TypeError:
+                pass     # broker takes no objective knob (e.g. uniform)
+        return get_broker(self.broker)
 
     @property
     def cell(self) -> str:
@@ -472,8 +545,9 @@ class CellResult:
     ``savings_pct`` / ``dt_pct`` / ``savings_mwh`` are the cell's headline:
     the projection row for project cells; the schedule aggregate for
     schedule cells (``dt_pct`` there is the energy-weighted mean of the
-    per-class projected dT). ``model_bias_pct`` is NaN for the cells this
-    package evaluates (it belongs to replay cells).
+    per-class projected dT); the replayed-vs-nominal-baseline delta for
+    replay cells. ``savings_dt0_pct`` is NaN for replay cells and
+    ``model_bias_pct`` NaN for non-replay cells.
     """
 
     workload: str
@@ -578,6 +652,22 @@ def _job_contributions(cell: CellResult, stat: str
     The tensors lie on the workload's device."""
     s = cell.scenario
     if s is None:
+        return None
+    if cell.cell == REPLAY:
+        rows = getattr(cell.detail, "jobs", None)
+        if not rows:
+            return None
+        dev = s.workload.device
+        base = f64([r.energy_base_j for r in rows], dev)
+        sav = f64([r.savings_pct for r in rows], dev)
+        if stat == "savings_pct":
+            return base * sav / 100.0, base, 100.0
+        if stat == "savings_mwh":
+            return base * sav / 100.0 / 3.6e9, None, 1.0
+        if stat == "dt_pct":
+            t = f64([r.time_rec_s for r in rows], dev)
+            dt = f64([r.dt_pct for r in rows], dev)
+            return t * dt / 100.0, t, 100.0
         return None
     if cell.cell not in (PROJECT, SCHEDULE) or stat not in (
             "savings_pct", "savings_mwh", "savings_dt0_pct"):
@@ -900,11 +990,23 @@ def _is_policy_spec(x) -> bool:
             and isinstance(x[1], dict))
 
 
+def _policy_key(policy) -> Any:
+    """Grouping key for a resolved policy: value-based for the hashable
+    built-ins (two cells naming "energy-aware" share one replay pass),
+    identity for unhashable third-party policies."""
+    try:
+        hash(policy)
+    except TypeError:
+        return id(policy)
+    return policy
+
+
 class Study:
     """A declarative what-if grid: axes (LISTS per dimension) expanded into
     the cartesian product workload x chip x policy x cap, executed batched
     (see the module docstring). ``caps`` axis values are single caps
-    (projection cells), cap TUPLES or ``None`` (per-class schedule cells).
+    (projection cells), cap TUPLES or ``None`` (per-class schedule cells),
+    composing with the ``policies`` axis into replay cells.
 
     Where a tuple already means something on its own it is ONE axis value,
     not an axis: ``caps=(1300, 900)`` is a single schedule cell
@@ -919,11 +1021,17 @@ class Study:
     report the metric-equivalent savings as the ``objective_pct`` column;
     projection passes are shared across metrics.
 
-    A non-``None`` policy makes a replay cell and ``brokers`` /
-    ``budgets_mw`` make broker cells; running either raises
-    ``NotImplementedError`` until ``power.stream`` (ROADMAP queue A item 2)
-    and ``power.broker`` (item 3) are ported. ``executor`` / ``devices``
-    (the sharded executor, item 5) raise at construction.
+    ``brokers`` / ``budgets_mw`` are the online axes: each combination is
+    one event-driven :func:`~repro_torch.power.broker.simulate_cluster` run
+    of the workload's :meth:`~Workload.cluster_trace` (built once per
+    workload) on an ``n_nodes`` pool; a ``caps`` number/tuple then sets
+    the cap *menu* instead of spawning projection cells. Broker cells
+    evaluate on the workload's own chip and are a different cell shape
+    from replays, so ``brokers`` and ``policies`` axes are mutually
+    exclusive (a policy can still be an axis *value* of ``brokers`` — it
+    rides along as a :class:`~repro_torch.power.broker.PolicyBroker`).
+    ``executor`` / ``devices`` (the sharded executor, ROADMAP queue A
+    item 5) raise at construction.
 
     Pass ``scenarios=[Scenario(...), ...]`` instead of axes for a
     non-cartesian grid.
@@ -955,7 +1063,15 @@ class Study:
         if kind not in ("freq", "power"):
             raise ValueError(f"kind must be 'freq' or 'power', got {kind!r}")
         if brokers is not None or budgets_mw is not None:
-            raise NotImplementedError(f"broker axes need {_BROKER_ITEM}")
+            if policies is not None:
+                raise ValueError(
+                    "brokers and policies are different cell shapes — run "
+                    "two studies, or pass a policy as a brokers= value "
+                    "(it becomes a PolicyBroker)")
+            if chips is not None:
+                raise ValueError(
+                    "broker cells evaluate on the workload's own chip "
+                    "(the trace was recorded there); drop the chips axis")
         # axes are LISTS; a tuple is a single axis VALUE wherever a tuple
         # already means something on its own — a cap schedule, a
         # (name, knobs) policy spec
@@ -965,17 +1081,25 @@ class Study:
             else _aslist("caps", caps)
         pol_axis = [policies] if _is_policy_spec(policies) \
             else _aslist("policies", policies)
+        brk_axis = [brokers] if _is_policy_spec(brokers) \
+            else _aslist("brokers", brokers)
+        if isinstance(budgets_mw, np.ndarray):
+            budgets_mw = budgets_mw.tolist()
+        bud_axis = _aslist("budgets_mw", budgets_mw)
         # the metrics axis: each value is an objectives-registry name; the
         # default (no axis) is the energy objective
         met_axis = ["energy" if m is None else check_objective(m)
                     for m in _aslist("metrics", metrics)]
         self._scenarios = [
             Scenario(workload=w, chip=ch, policy=p, cap=c, kind=kind,
-                     tables=tables, n_nodes=n_nodes, objective=m)
+                     tables=tables, broker=b, budget_mw=bud,
+                     n_nodes=n_nodes, objective=m)
             for w in _aslist("workloads", workloads)
             for ch in _aslist("chips", chips)
             for p in pol_axis
             for c in caps_axis
+            for b in brk_axis
+            for bud in bud_axis
             for m in met_axis]
 
     def scenarios(self) -> List[Scenario]:
@@ -991,16 +1115,11 @@ class Study:
         Grouping: one cached analysis per workload; one ``project`` pass
         per (workload, tables, kind) group over the union of its caps; one
         ``class_cap_report`` per (workload, tables, kind, objective,
-        schedule) — cells only *read* their slice of the shared pass, which
-        is why every cell stays equal to its standalone call.
+        schedule); one chunked ``replay`` per (workload, policy, chip),
+        shared across caps — cells only *read* their slice of the shared
+        pass, which is why every cell stays equal to its standalone call.
         """
         cells = self._scenarios
-        for s in cells:
-            if s.cell == REPLAY:
-                raise NotImplementedError(
-                    f"replay cells (policy={s.policy!r}) need {_STREAM_ITEM}")
-            if s.cell == BROKER:
-                raise NotImplementedError(f"broker cells need {_BROKER_ITEM}")
         resolved = [(s, s.resolved_chip(), s.resolved_policy(),
                      s.resolved_tables()) for s in cells]
 
@@ -1028,6 +1147,21 @@ class Study:
                            tables=g["tables"], device=g["workload"].device)
             proj_rows[key] = {cap: row for cap, row in zip(g["caps"], rows)}
 
+        # ---- one chunked replay per (workload, policy, chip)
+        replay_reports: Dict[tuple, Any] = {}
+        for s, chip, policy, tables in resolved:
+            if s.cell != REPLAY:
+                continue
+            # the frozen spec itself (not its name) keys the group: two
+            # same-named chip variants are two different replays
+            key = (id(s.workload), _policy_key(policy), chip)
+            if key not in replay_reports:
+                from repro_torch.power.stream import replay
+                replay_reports[key] = replay(
+                    s.workload.stream(), policy, chip=chip,
+                    record_chip=s.workload.chip,
+                    sample_interval_s=s.workload.sample_interval_s)
+
         out: List[CellResult] = []
         # schedule cells memoize too: cells differing only in axes the
         # report doesn't depend on (e.g. chip under explicit tables) share
@@ -1038,7 +1172,25 @@ class Study:
                         policy=_policy_label(policy), cap=s.cap,
                         kind=s.kind, tables=_tables_source(tables),
                         label=s.label, metric=s.objective, scenario=s)
-            if s.cell == PROJECT:
+            if s.cell == BROKER:
+                from repro_torch.power.broker import simulate_cluster
+                rep = simulate_cluster(
+                    s.workload.cluster_trace(), s.resolved_broker(),
+                    s.budget_mw, n_nodes=s.n_nodes, kind=s.kind,
+                    caps=s.caps_list(), tables=tables)
+                base["policy"] = rep.broker      # the broker names the row
+                out.append(CellResult(
+                    cell=BROKER, savings_pct=rep.savings_pct,
+                    dt_pct=rep.dt_pct, savings_mwh=rep.savings_mwh,
+                    total_energy_mwh=rep.baseline_mwh,
+                    savings_dt0_pct=float("nan"),
+                    model_bias_pct=float("nan"),
+                    budget_mw=rep.budget_mw,
+                    throughput_jobs_per_h=rep.throughput_jobs_per_h,
+                    objective_pct=_obj_pct(s.objective, rep.savings_pct,
+                                           rep.dt_pct),
+                    detail=rep, **base))
+            elif s.cell == PROJECT:
                 row = proj_rows[(id(s.workload), id(tables), s.kind)][
                     float(s.cap)]
                 if s.objective != row.objective:
@@ -1056,7 +1208,7 @@ class Study:
                     savings_dt0_pct=row.savings_dt0_pct,
                     model_bias_pct=float("nan"),
                     objective_pct=row.objective_pct, detail=row, **base))
-            else:
+            elif s.cell == SCHEDULE:
                 skey = (id(s.workload), id(tables), s.kind, s.objective,
                         None if s.cap is None else tuple(s.caps_list()))
                 if skey not in schedule_reports:
@@ -1078,4 +1230,23 @@ class Study:
                     objective_pct=_obj_pct(s.objective, rep.savings_pct,
                                            dt_pct),
                     detail=rep, **base))
+            else:
+                rep = replay_reports[(id(s.workload), _policy_key(policy),
+                                      chip)]
+                projection = None
+                if s.cap is not None:
+                    projection = rep.project(s.caps_list(), s.kind,
+                                             tables=tables,
+                                             objective=s.objective)
+                out.append(CellResult(
+                    cell=REPLAY, savings_pct=rep.savings_pct,
+                    dt_pct=rep.dt_pct,
+                    savings_mwh=(rep.energy_base_j - rep.energy_new_j)
+                    / 3.6e9,
+                    total_energy_mwh=rep.energy_base_j / 3.6e9,
+                    savings_dt0_pct=float("nan"),
+                    model_bias_pct=rep.model_bias_pct,
+                    objective_pct=_obj_pct(s.objective, rep.savings_pct,
+                                           rep.dt_pct),
+                    detail=rep, projection=projection, **base))
         return StudyResult(out)

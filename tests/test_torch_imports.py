@@ -107,13 +107,15 @@ def test_serving_slice_modules_import_no_jax_and_no_reference():
 JOB_SLICE = (
     "repro_torch.core.telemetry", "repro_torch.power.chip",
     "repro_torch.power.jobs", "repro_torch.power.fleet",
-    "repro_torch.power.scenarios", "repro_torch.power",
+    "repro_torch.power.scenarios", "repro_torch.power.stream",
+    "repro_torch.power.broker", "repro_torch.power",
     "repro_torch.core.projection", "repro_torch.convert")
 
 
 def test_job_slice_modules_import_no_jax_and_no_reference():
-    """The modules of the job and scenario layer, one after the other in a
-    fresh interpreter, each checked right after its own import."""
+    """The modules of the job, scenario, stream and broker layer, one after
+    the other in a fresh interpreter, each checked right after its own
+    import."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     probe = ("import importlib, sys\n"
@@ -133,26 +135,15 @@ def test_job_slice_modules_import_no_jax_and_no_reference():
 #: public names of a ported reference module that its counterpart does not
 #: have yet, each with the ROADMAP queue A item that brings it
 STILL_MISSING = {
-    "repro.power": {
-        **dict.fromkeys(
-            ("ReplayReport", "SampleShard", "StreamingModal",
-             "StreamingTelemetry", "iter_array", "iter_jobs", "iter_jsonl",
-             "iter_npz", "iter_store", "replay", "write_jsonl"),
-            "item 2: power/stream.py"),
-        **dict.fromkeys(
-            ("BROKERS", "BrokerReport", "BrokerView", "ClassScheduleBroker",
-             "ClusterTrace", "GreedyValueBroker", "OracleBroker",
-             "PolicyBroker", "UniformBroker", "get_broker",
-             "simulate_cluster"),
-            "item 3: power/broker.py"),
-        **dict.fromkeys(("GovernorConfig", "PowerGovernor"),
-                        "item 7: the legacy governor shims"),
-    },
+    "repro.power": dict.fromkeys(("GovernorConfig", "PowerGovernor"),
+                                 "item 7: the legacy governor shims"),
     "repro.power.chip": {},
     "repro.power.jobs": {},
     "repro.power.fleet": {},
     "repro.power.scenarios": {},
-    "repro.core.telemetry": {"load_spill": "item 2: power/stream.py"},
+    "repro.power.stream": {},
+    "repro.power.broker": {},
+    "repro.core.telemetry": {},
 }
 
 
@@ -169,19 +160,17 @@ def _public(mod):
 @pytest.mark.parametrize("ref_name", sorted(STILL_MISSING))
 def test_public_names_of_ported_modules_resolve(ref_name):
     """Every public name of a ported reference module resolves in its
-    counterpart, except the listed ones still to come; methods of the
-    counterpart's classes that the reference has (``TelemetryStore.
-    spill_npz`` and ``from_npz`` aside) resolve too."""
+    counterpart, except the listed ones still to come; so do the methods
+    of the counterpart's classes that the reference has."""
     import importlib
     ref = importlib.import_module(ref_name)
     port = importlib.import_module(ref_name.replace("repro", "repro_torch",
                                                     1))
     missing = sorted(n for n in _public(ref) if not hasattr(port, n))
     assert missing == sorted(STILL_MISSING[ref_name])
-    waiting = {"spill_npz", "from_npz"}
     for n in sorted(_public(ref) - set(STILL_MISSING[ref_name])):
         r, p = getattr(ref, n), getattr(port, n)
         if isinstance(r, type) and isinstance(p, type):
             lost = {a for a in vars(r) if not a.startswith("_")} \
-                - set(dir(p)) - waiting
+                - set(dir(p))
             assert not lost, (n, sorted(lost))

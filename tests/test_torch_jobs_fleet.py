@@ -426,15 +426,32 @@ def test_summary_includes_job_classes(fleet, ref_fleet):
 
 
 def test_flat_fleet_has_no_job_surface():
+    """A flat fleet has no per-job view; the stream spellings next to it
+    work and agree with the reference's: an empty stream, a flat
+    analysis backed by a one-job stream, and a one-trace table's stream."""
     fa = FleetAnalysis.from_powers(np.full(100, 300.0), device=CPU)
     with pytest.raises(ValueError):
         fa.per_job()
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        FleetAnalysis.from_stream(iter([]))
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        fa.attach_stream(None)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        JobTable([JobTrace("a", np.ones(3))], device=CPU).to_stream()
+    empty = FleetAnalysis.from_stream(iter([]), device=CPU)
+    ref_empty = RefFleetAnalysis.from_stream(iter([]))
+    assert empty.decompose().decomposition.total_energy_mwh \
+        == ref_empty.decompose().decomposition.total_energy_mwh == 0.0
+    from repro.power.stream import StreamingTelemetry as RefStreaming
+    from repro_torch.power.stream import StreamingTelemetry, iter_array
+    st = StreamingTelemetry(device=CPU).extend(iter_array(
+        torch.full((100,), 300.0, dtype=torch.float64), chunk=33))
+    assert fa.attach_stream(st) is fa
+    ref_fa = RefFleetAnalysis.from_powers(np.full(100, 300.0))
+    ref_fa.attach_stream(RefStreaming().extend([np.full(100, 300.0)]))
+    assert fa.decomposition.energy_mwh == ref_fa.decomposition.energy_mwh
+    with pytest.raises(ValueError):
+        fa.per_job()                         # one job: still no job view
+    table = JobTable([JobTrace("a", np.ones(3))], device=CPU)
+    ref_table = ref_jobs.JobTable([ref_jobs.JobTrace("a", np.ones(3))])
+    (got,), (want,) = list(table.to_stream()), list(ref_table.to_stream())
+    _same_bits(got.power_w, want.power_w)
+    _same_bits(got.time_s, want.time_s)
+    assert got.job_id.tolist() == want.job_id.tolist() == ["a"] * 3
 
 
 # ----------------------------------------------------- telemetry ingestion

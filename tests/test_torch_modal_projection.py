@@ -54,6 +54,18 @@ def test_stream_sum_bit_for_bit(n):
     _same_bits(modal.stream_sum(torch.from_numpy(y)), ref_modal.stream_sum(y))
 
 
+def test_stream_sum_bit_for_bit_past_ten_thousand_segments():
+    """A row of 10,157 segments (1.3 M samples): the segment sums fold
+    strictly left to right in one host pass, bit for bit with the
+    reference's ``np.cumsum`` fold, rows and the flat case alike."""
+    rng = np.random.default_rng(10_157)
+    n = 10_157 * 128 - 77
+    x = rng.normal(300.0, 120.0, size=(2, n))
+    _same_bits(modal.stream_sum(x, device="cpu"), ref_modal.stream_sum(x))
+    _same_bits(modal.stream_sum(x[1], device="cpu"),
+               ref_modal.stream_sum(x[1]))
+
+
 def test_stream_sum_is_chunk_associative():
     """The contract a streaming consumer relies on: folding segment-aligned
     shards left to right reproduces the batch sum bit for bit."""

@@ -1,9 +1,10 @@
 """repro_torch's declarative Study surface (``power/scenarios.py``) against
 the reference package, on CPU float64 tensors fed the same numpy inputs —
-the projection and schedule cases of ``tests/test_scenarios.py`` and the
-confidence cases of ``tests/test_objectives.py``. Replay and broker cells
-wait for ``power.stream`` and ``power.broker`` (ROADMAP queue A items 2 and
-3); their spellings raise ``NotImplementedError`` naming the item.
+the projection, schedule, replay and broker cases of
+``tests/test_scenarios.py`` and the confidence cases of
+``tests/test_objectives.py``. ``Study(executor=/devices=)`` waits for the
+sharded executor (ROADMAP queue A item 5) and raises
+``NotImplementedError`` naming it.
 
 Stated tolerances: every Study cell equals the port's own standalone call
 (``FleetAnalysis.project`` / ``job_report``) exactly — the Study only
@@ -11,7 +12,10 @@ groups work. Against the reference, cells, their detail objects, both CI
 methods and ``best()`` picks agree to rtol 1e-12 with equal classes, caps,
 ``meets_dt0`` and picked cells. The bootstrap draws its count vectors from
 the reference's ``np.random.default_rng(seed)`` sequence, so the intervals
-are comparable number for number.
+are comparable number for number. Replay cells agree with the reference to
+rtol 1e-12 with equal job rows (the device's sums take another order than
+numpy's); broker cells have equal event counts, makespans and waits and
+savings to rtol 1e-12.
 """
 import dataclasses
 import importlib
@@ -211,8 +215,10 @@ def test_paper_fleet_workload_reproduces_table_v():
 
 def test_energies_only_workload_rejects_replay_and_schedule():
     w = Workload.paper_fleet(device=CPU)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        Scenario(w, policy="energy-aware").run()
+    with pytest.raises(ValueError, match="energies only"):
+        Scenario(w, policy="energy-aware").run()   # replay needs a stream
+    with pytest.raises(ValueError, match="energies only"):
+        rp.Scenario(rp.Workload.paper_fleet(), policy="energy-aware").run()
     with pytest.raises(ValueError, match="energies only"):
         Scenario(w, cap=None).run()    # schedule needs samples/jobs
 
@@ -247,31 +253,209 @@ def test_store_workload_is_a_frozen_snapshot():
     assert w.fleet()._decomposition().total_energy_mwh == total_before
 
 
+def _same_replay(got, want):
+    """Two ReplayReports: names, counts and job order equal; energies,
+    times and the derived percentages to rtol 1e-12; the recorded modal
+    split bit for bit."""
+    assert (got.policy, got.chip, got.record_chip, got.n_samples) \
+        == (want.policy, want.chip, want.record_chip, want.n_samples)
+    for k in ("energy_rec_j", "energy_base_j", "energy_new_j", "time_rec_s",
+              "time_new_s", "savings_pct", "dt_pct", "model_bias_pct"):
+        _close(getattr(got, k), getattr(want, k))
+    assert [(r.job_id, r.n_samples) for r in got.jobs] \
+        == [(r.job_id, r.n_samples) for r in want.jobs]
+    for a, b in zip(got.jobs, want.jobs):
+        _same_detail(a, b)
+    assert dataclasses.asdict(got.recorded) \
+        == dataclasses.asdict(want.recorded)
+    _same_detail(got.replayed, want.replayed)
+
+
+def _same_broker(got, want):
+    """Two BrokerReports: every discrete outcome and time equal, energies
+    to rtol 1e-12."""
+    for k in ("broker", "kind", "chip", "n_nodes", "n_jobs", "n_events",
+              "makespan_s", "mean_wait_s", "n_scaled_events",
+              "budget_exceeded", "bin_caps", "offline", "budget_mw",
+              "throughput_jobs_per_h", "node_util_pct", "dt_pct"):
+        assert getattr(got, k) == getattr(want, k), k
+    for k in ("baseline_mwh", "savings_mwh", "savings_pct",
+              "peak_alloc_w", "bin_energy_mwh", "bin_savings_mwh"):
+        _close(getattr(got, k), getattr(want, k))
+
+
+def _same_dynamic_cells(res, ref):
+    """Replay / broker cells: the cell columns as in :func:`_same_cells`,
+    the detail reports by their own comparison."""
+    assert len(res) == len(ref)
+    for a, b in zip(res, ref):
+        da, db = a.to_dict(), b.to_dict()
+        assert da.keys() == db.keys()
+        for k, v in db.items():
+            if isinstance(v, float) and not isinstance(v, bool):
+                assert math.isnan(da[k]) if math.isnan(v) \
+                    else math.isclose(da[k], v, rel_tol=RTOL, abs_tol=0), k
+            else:
+                assert da[k] == v, (k, da[k], v)
+        if a.cell == "replay":
+            _same_replay(a.detail, b.detail)
+            assert (a.projection is None) == (b.projection is None)
+            for x, y in zip(a.projection or [], b.projection or []):
+                _same_detail(x, y)
+        else:
+            _same_broker(a.detail, b.detail)
+
+
 @pytest.mark.parametrize("unported", [
     "replay", "broker_axis", "broker_cell", "from_stream", "stream",
     "cluster_trace", "devices", "executor"])
 def test_unported_spellings_raise_naming_their_item(unported):
-    w = Workload.synthetic_jobs(20, seed=1, device=CPU)
-    item = {"replay": 2, "from_stream": 2, "stream": 2, "broker_axis": 3,
-            "broker_cell": 3, "cluster_trace": 3, "devices": 5,
-            "executor": 5}[unported]
-    calls = {
-        "replay": lambda: Study(workloads=[w], policies=["energy-aware"],
-                                caps=[900.0]).run(),
-        "broker_axis": lambda: Study(workloads=[w], brokers=["greedy"],
-                                     budgets_mw=[5.0]),
-        "broker_cell": lambda: Scenario(w, broker="greedy",
-                                        budget_mw=5.0).run(),
-        "from_stream": lambda: Workload.from_stream(lambda: iter([])),
-        "stream": w.stream,
-        "cluster_trace": w.cluster_trace,
-        "devices": lambda: Study(workloads=[w], caps=[900.0], devices=2),
-        "executor": lambda: Study(workloads=[w], caps=[900.0],
-                                  executor=object()),
-    }
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue A item {item}"):
-        calls[unported]()
+    """The spellings PR 16 left raising: the replay, broker and stream ones
+    now run and agree with the reference's; the sharded executor's
+    (``devices`` / ``executor``) still raise naming ROADMAP queue A item
+    5."""
+    w, ref = _jobs_pair(20, seed=1)
+    if unported in ("devices", "executor"):
+        calls = {
+            "devices": lambda: Study(workloads=[w], caps=[900.0],
+                                     devices=2),
+            "executor": lambda: Study(workloads=[w], caps=[900.0],
+                                      executor=object()),
+        }
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue A item 5"):
+            calls[unported]()
+        return
+    if unported == "replay":
+        _same_dynamic_cells(
+            Study(workloads=[w], policies=["energy-aware"],
+                  caps=[900.0]).run(),
+            rp.Study(workloads=[ref], policies=["energy-aware"],
+                     caps=[900.0]).run())
+    elif unported == "broker_axis":
+        got = Study(workloads=[w], brokers=["greedy"], budgets_mw=[5.0])
+        want = rp.Study(workloads=[ref], brokers=["greedy"],
+                        budgets_mw=[5.0])
+        assert [s.cell for s in got.scenarios()] == ["broker"]
+        _same_dynamic_cells(got.run(), want.run())
+    elif unported == "broker_cell":
+        _same_dynamic_cells(
+            Scenario(w, broker="greedy", budget_mw=5.0).run(),
+            rp.Scenario(ref, broker="greedy", budget_mw=5.0).run())
+    elif unported == "from_stream":
+        got = Workload.from_stream(lambda: w.fleet().jobs.to_stream(500),
+                                   device=CPU)
+        want = rp.Workload.from_stream(
+            lambda: ref.fleet().jobs.to_stream(500))
+        assert dataclasses.asdict(got.fleet()._decomposition()) \
+            == dataclasses.asdict(want.fleet()._decomposition())
+        _same_detail(got.fleet().job_report(), want.fleet().job_report())
+    elif unported == "stream":
+        shards, ref_shards = list(w.stream()), list(ref.stream())
+        assert len(shards) == len(ref_shards) >= 1
+        for a, b in zip(shards, ref_shards):
+            assert np.array_equal(a.power_w.numpy(), b.power_w)
+            assert np.array_equal(a.time_s.numpy(), b.time_s)
+            assert a.job_id.tolist() == b.job_id.tolist()
+    else:                                    # cluster_trace
+        ct, want = w.cluster_trace(), ref.cluster_trace()
+        assert ct is w.cluster_trace()                 # cached
+        assert ct.job_ids == want.job_ids
+        for name in ("arrival_s", "walltime_s", "nodes", "chunk_power_w",
+                     "chunk_mode", "cum_e_tot", "cum_ci_s"):
+            assert np.array_equal(getattr(ct, name).numpy(),
+                                  getattr(want, name)), name
+
+
+# ------------------------------------------------- replay and broker cells
+def test_streaming_replay_cell_parity(tmp_path):
+    """The streaming-replay cell: an .npz spill stream workload replayed
+    under a policy x chip pair equals the standalone chunked replay, and
+    the reference's cell to rtol 1e-12."""
+    from repro_torch.power.stream import iter_npz, replay
+    w_store, ref_store = _store_pair(seed=5)
+    spill, ref_spill = str(tmp_path / "s.npz"), str(tmp_path / "r.npz")
+    w_store._store.spill_npz(spill)
+    ref_store._store.spill_npz(ref_spill)
+    w = Workload.from_stream(spill, name="spills", device=CPU)
+    cell = Scenario(w, chip="tpu-v5e", policy="energy-aware",
+                    cap=900.0).run()[0]
+    rep = replay(iter_npz(spill, device=CPU), "energy-aware",
+                 chip="tpu-v5e", record_chip=MI250X_GCD,
+                 sample_interval_s=15.0)
+    assert cell.savings_pct == rep.savings_pct
+    assert cell.dt_pct == rep.dt_pct
+    assert cell.projection == rep.project([900.0], "freq", tables="tpu-v5e")
+    ref = rp.Scenario(rp.Workload.from_stream(ref_spill, name="spills"),
+                      chip="tpu-v5e", policy="energy-aware",
+                      cap=900.0).run()
+    _same_dynamic_cells(StudyResult([cell]), ref)
+
+
+def test_study_shares_replay_passes_across_caps(monkeypatch):
+    """4 caps x 1 (policy, chip) run ONE chunked replay, not 4 — the grid
+    batching contract — and the cells agree with the reference's."""
+    import repro_torch.power.stream as stream_mod
+    calls = []
+    real = stream_mod.replay
+
+    def counting_replay(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(stream_mod, "replay", counting_replay)
+    pair = _jobs_pair(30, seed=0)
+    caps = [1500.0, 1300.0, 1100.0, 900.0]
+    res, ref = _study_pair(pair, policies=["energy-aware"], caps=caps)
+    assert len(res) == 4
+    assert len(calls) == 1
+    assert len({c.savings_pct for c in res}) == 1      # shared headline
+    assert [c.projection[0].cap for c in res] == caps
+    _same_dynamic_cells(res, ref)
+
+
+def test_replay_report_project_auto_matches_study_cell():
+    """ReplayReport.project(tables="auto") resolves against the replay's
+    evaluation chip — the same rows a Study replay cell attaches."""
+    from repro_torch.power.stream import replay
+    w, ref = _powers_pair(2000, seed=8)
+    cell = Scenario(w, chip="tpu-v5e", policy="energy-aware",
+                    cap=900.0).run()[0]
+    rep = replay(w.stream(), "energy-aware", chip="tpu-v5e",
+                 record_chip=w.chip, sample_interval_s=15.0)
+    assert rep.project([900.0], tables="auto") == cell.projection
+    # and differs from the measured-table spelling (it's a TPU surface)
+    assert rep.project([900.0], tables=None) != cell.projection
+    ref_cell = rp.Scenario(ref, chip="tpu-v5e", policy="energy-aware",
+                           cap=900.0).run()
+    _same_dynamic_cells(StudyResult([cell]), ref_cell)
+
+
+def test_replay_projection_kwargs_shim_parity():
+    """The deprecated tables=/caps= attachment warns and equals
+    ReplayReport.project on the same replay, and the reference's rows."""
+    from repro.power.stream import iter_array as ref_iter_array
+    from repro.power.stream import replay as ref_replay
+    from repro_torch.power.stream import iter_array, replay
+    powers = synth_fleet_powers(3000, seed=11)
+    tables = response_table("tpu-v5e", kind="freq", device=CPU)
+    with pytest.warns(DeprecationWarning, match="replay"):
+        old = replay(iter_array(powers, 1024, device=CPU), "energy-aware",
+                     chip="tpu-v5e", record_chip=MI250X_GCD, tables=tables,
+                     caps=[900.0])
+    new = replay(iter_array(powers, 1024, device=CPU), "energy-aware",
+                 chip="tpu-v5e", record_chip=MI250X_GCD)
+    rows = new.project([900.0], "freq", tables=tables)
+    assert old.projection == rows
+    assert old.savings_pct == new.savings_pct
+    with pytest.warns(DeprecationWarning, match="replay"):
+        want = ref_replay(ref_iter_array(powers, 1024), "energy-aware",
+                          chip="tpu-v5e", record_chip=REF_MI250X,
+                          tables=rp.response_table("tpu-v5e", kind="freq"),
+                          caps=[900.0])
+    _same_replay(old, want)
+    for a, b in zip(old.projection, want.projection):
+        _same_detail(a, b)
 
 
 # -------------------------------------------------------- randomized parity
@@ -624,6 +808,22 @@ def test_confidence_bootstrap_resamples_jobs(jobs_pair, stat):
     c = res.confidence(stat, n_boot=300, seed=2)[0]
     assert (a.lo, a.hi) == (b.lo, b.hi)
     assert (a.lo, a.hi) != (c.lo, c.hi)
+
+
+@pytest.mark.parametrize("stat", ["savings_pct", "savings_mwh", "dt_pct"])
+def test_confidence_of_replay_cells(stat):
+    """Replay cells resample their per-job rows: both methods agree with
+    the reference's to rtol 1e-12 (the bootstrap's count vectors are the
+    reference's draws); a broker cell carries no per-job structure."""
+    pair = _jobs_pair(60, seed=4)
+    res, ref = _study_pair(pair, policies=["energy-aware"], caps=[900.0])
+    for method in ("bootstrap", "jackknife"):
+        got = res.confidence(stat, n_boot=300, method=method)
+        assert got[0].n == 60
+        _same_cis(got, ref.confidence(stat, n_boot=300, method=method))
+    brk = Scenario(pair[0], broker="uniform", budget_mw=1.0,
+                   kind="power").run()
+    assert brk.confidence(stat)[0].n == 0
 
 
 @pytest.mark.parametrize("stat", ["savings_pct", "savings_dt0_pct"])
