@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
 Builds the four CUDA kernels from the sources in this checkout (vai, membw,
-and flash attention in f32 and in bf16), holds each against its plain
+and flash attention in f32 and in bf16, the bf16 one also at MLA's head
+dims (192, 128)), holds each against its plain
 PyTorch version on the card, tunes the f32 flash-attention tiles and runs
 the model's f32 prefill route through the f32 kernel, then drives the
-port's two paths once at full size through the entry points a user would
+port's paths once at full size through the entry points a user would
 call:
 
     the paper's pipeline: VAI / membw kernels timed by the wall-clock
@@ -34,6 +35,17 @@ call:
       served through the plain attention route must give the same greedy
       tokens wherever the logits' top-2 margin exceeds the difference
       between the two routes
+    the MoE models, one after the other: dbrx-132b (8 of 40 layers) and
+      deepseek-v3-671b (MLA attention; 2 of 61 layers, no multi-token
+      prediction head) at full width in bf16, freed before the next is
+      built -> ServeEngine.generate on 4 greedy requests -> serve() on the
+      same Poisson arrivals; their prefill attention runs the bf16 flash
+      kernel at head dims (128, 128) and (192, 128). DBRX's layer 0 in f32
+      holds the MoE local path against the dense oracle; each model's
+      prompt through the plain attention route must give the same greedy
+      tokens by the margin rule, and layer 0 must route the prompt's tokens
+      alike on the kernel route and on routes that compute the same
+      attention, and not on the kernel route with a wrong softmax scale
 
 Run it with no arguments from the root of the checkout:
 
@@ -51,6 +63,8 @@ card. It measures nothing, never prints the ok line, and exits 3.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
@@ -91,6 +105,36 @@ FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-3, 1e-2)}
 #: about 25 ms at the card's clock: time for the host to queue a timed run
 QUEUE_SLEEP_CYCLES = 50_000_000
 SERVE_ARCH = "qwen2.5-14b"     # the reference serve CLI's default --arch
+#: the MoE models served at full width and cut depth, freed one before the
+#: next is built: (arch, the config's cuts, why)
+MOE_SERVE = (
+    ("dbrx-132b", {"n_layers": 8},
+     "memory: a layer holds 3.26 B parameters (6.52 GB in bf16), the "
+     "untied embeddings 2.47 GB; 40 layers would need ~263 GB of one "
+     "card's 80 GB"),
+    ("deepseek-v3-671b", {"n_layers": 2, "mtp_depth": 0},
+     "memory: a layer holds ~11.5 B parameters (23.0 GB in bf16), the "
+     "embeddings 3.71 GB; the multi-token-prediction head is one more MoE "
+     "block (23 GB) that only training reads"),
+)
+#: q/k and v head dims of MLA's prefill attention (deepseek-v3-671b)
+MLA_HEAD_DIMS = (192, 128)
+#: the flash cases timed (every tile, beside the plain version and SDPA)
+TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16")
+#: the MoE local path against the dense oracle: DBRX layer 0 in f32 on this
+#: many tokens, within the reference test's tolerance (tests/test_moe.py)
+MOE_CHECK_TOKENS = 64
+MOE_TOL = 2e-4
+#: the least share of a prompt's tokens that layer 0 of an MoE model must
+#: route to the same experts as the kernel route, on the plain attention
+#: route, on the plain route with p rounded as in the kernel and on a second
+#: run of the kernel route; the kernel route with its softmax scale off by
+#: MOE_BROKEN_SCALE must route fewer tokens alike (PERF.md §7 has the
+#: readings this limit lies between)
+MOE_ROUTING_AGREEMENT = 0.9
+#: the broken witness: the scale a kernel would take from Dv in place of D
+#: at MLA's head dims, 1/sqrt(128) for 1/sqrt(192)
+MOE_BROKEN_SCALE = math.sqrt(MLA_HEAD_DIMS[0] / MLA_HEAD_DIMS[1])
 #: the job leg: the response surfaces of its Study, its bootstrap count and
 #: the tolerance of the card against the host
 JOB_TABLES = ("measured", "calibrated:vai", "h100-sxm")
@@ -124,6 +168,17 @@ def emit(**obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """``module.name`` is ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 class Timer:
@@ -928,14 +983,17 @@ def attention_entries(Sq: int, Skv: int, causal: bool) -> int:
     return Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
 
 
-def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, itemsize, causal):
-    """Least time for one call: bytes (q, k, v read once, o written once)
-    over the HBM rate against the flops the function needs (2 D for q.k and
-    2 D for p.v per unmasked score entry) over the rate of the tensor-core
-    products the kernel does them with: bf16 at the bf16 peak; f32 as
-    3xTF32, three TF32 products for each f32 one, at the TF32 peak."""
-    flops = 2.0 * B * Hq * attention_entries(Sq, Skv, causal) * (2 * D)
-    byts = itemsize * D * (2 * B * Sq * Hq + 2 * B * Skv * Hkv)
+def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, itemsize, causal, Dv=None):
+    """Least time for one call: bytes (q and k of head dim D, v and o of
+    Dv, each read or written once) over the HBM rate against the flops the
+    function needs (2 D for q.k and 2 Dv for p.v per unmasked score entry)
+    over the rate of the tensor-core products the kernel does them with:
+    bf16 at the bf16 peak; f32 as 3xTF32, three TF32 products for each f32
+    one, at the TF32 peak. As kernels/flash_attention.py's
+    flash_attention_work counts them."""
+    Dv = D if Dv is None else Dv
+    flops = 2.0 * B * Hq * attention_entries(Sq, Skv, causal) * (D + Dv)
+    byts = itemsize * (B * Sq * Hq * (D + Dv) + B * Skv * Hkv * (D + Dv))
     by_bytes = byts / HBM_BYTES_PER_S * 1e3
     by_ops = (3 * flops / TF32_TENSOR_FLOPS if itemsize == 4 else
               flops / BF16_TENSOR_FLOPS) * 1e3
@@ -989,10 +1047,12 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     prompt shorter than one tile; bf16 (wgmma) at the served model's
     prefill shape (GQA), at the lock-step route's ragged prompt length, at
     a prompt shorter than one tile, with Sq != Skv both ways, non-causal
-    over a ragged kv length, with K zero (P.V alone), and at head dims 64
-    and 160 (whole and ragged). Every instantiated tile is checked and
-    timed at the two timed shapes. Returns the kernels-line entries of the
-    bf16 and the f32 kernel."""
+    over a ragged kv length, with K zero (P.V alone), at head dims 64
+    and 160 (whole and ragged), and at MLA's prefill (q/k of head dim 192,
+    v of 128, 128 heads; whole and ragged). Every instantiated tile is
+    checked and timed at the three timed shapes. Returns the kernels-line
+    entries of the bf16 kernel at D = Dv = 128 and at (192, 128), and of
+    the f32 kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
@@ -1007,9 +1067,11 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     bh, seq, hd = sizes["flash_space"]
     mseq, mhq, mhkv, mhd = sizes["flash_model"]
     ragged = sizes["flash_ragged"]
+    mla_seq, mla_heads = sizes["flash_mla"]
     tiles = attn.flash_tiles(bf16)
     tiles_f32 = attn.flash_tiles(f32)
-    # (name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, block_q, block_k)
+    # (name, B, Sq, Skv, Hq, Hkv, D or (D, Dv), dtype, causal, block_q,
+    #  block_k)
     cases = [
         ("space_f32", bh, seq, seq, 1, 1, hd, f32, True, *tiles_f32),
         ("model_prefill_bf16", 1, mseq, mseq, mhq, mhkv, mhd, bf16, True,
@@ -1060,12 +1122,20 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
         # K = 0: every score is 0, so the output is the mean of V's rows
         # and P.V is checked alone
         ("zero_k_bf16", 1, 128, 128, 2, 1, mhd, bf16, False, *tiles),
+        # MLA prefill (deepseek-v3-671b): q/k of qk_nope + qk_rope = 192, v
+        # of v_head_dim = 128, one kv head a q head; the lock-step route's
+        # ragged prompt too
+        ("mla_prefill_bf16", 1, mla_seq, mla_seq, mla_heads, mla_heads,
+         MLA_HEAD_DIMS, bf16, True, *tiles),
+        ("mla_prefill_ragged_bf16", 1, ragged, ragged, mla_heads, mla_heads,
+         MLA_HEAD_DIMS, bf16, True, *tiles),
     ]
     rows = []
     for name, B, Sq, Skv, Hq, Hkv, D, dt, causal, bq, bk in cases:
+        D, Dv = (D, D) if isinstance(D, int) else D
         q = rnd((B, Sq, Hq, D), dt)
         k = rnd((B, Skv, Hkv, D), dt)
-        v = rnd((B, Skv, Hkv, D), dt)
+        v = rnd((B, Skv, Hkv, Dv), dt)
         if name == "zero_k_bf16":
             k.zero_()
         got = fa.flash_attention_bshd(q, k, v, causal=causal, block_q=bq,
@@ -1077,12 +1147,13 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
               f"flash_attention[{name}] differs from its plain version by "
               f"{err}, {share} of the limit {flash_tolerance(dt)}")
         row = {"case": name, "q": list(q.shape), "kv": list(k.shape),
+               "v": list(v.shape), "head_dims": [D, Dv],
                "dtype": str(dt).replace("torch.", ""), "causal": causal,
                "blocks": [bq, bk], "max_abs_err": err,
                "share_of_limit": share, "tolerance": flash_tolerance(dt)}
-        if name in ("space_f32", "model_prefill_bf16"):
+        if name in TIMED_FLASH_CASES:
             bound, by, flops, byts = flash_bound_ms(
-                B, Hq, Hkv, Sq, Skv, D, q.element_size(), causal)
+                B, Hq, Hkv, Sq, Skv, D, q.element_size(), causal, Dv)
             ms = timer(lambda: fa.flash_attention_bshd(
                 q, k, v, causal=causal, block_q=bq, block_k=bk), reps=10,
                 queued=True)
@@ -1093,6 +1164,7 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv),
                 reps=10, queued=True)
+            del qt, kt, vt
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=by, tflops=flops / ms / 1e9,
                        gbytes_s=byts / ms / 1e6)
@@ -1103,7 +1175,7 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
             by_tile, err_by_tile, share_by_tile = {}, {}, {}
             for tq in q_opts:
                 for tk in k_opts:
-                    if fa.unsupported(q.element_size(), D, D, tq, tk):
+                    if fa.unsupported(q.element_size(), D, Dv, tq, tk):
                         continue
                     out = fa.flash_attention_bshd(q, k, v, causal=causal,
                                                   block_q=tq, block_k=tk)
@@ -1132,21 +1204,26 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     timing = ("CUDA events around each launch, queued behind a sleep kernel "
               "so the wrapper's host work is not timed")
     entries = []
-    for dt, source in ((bf16, "flash_attention_sm90.cu"),
-                       (f32, "flash_attention.cu")):
-        mine = [r for r in rows if r["dtype"] == str(dt).replace("torch.",
-                                                                 "")]
+    mla = list(MLA_HEAD_DIMS)
+    for name, dt, source, what in (
+            ("flash_attention", bf16, "flash_attention_sm90.cu",
+             "(the served model's prefill)"),
+            ("flash_attention_192x128", bf16, "flash_attention_sm90.cu",
+             "(deepseek-v3-671b's MLA prefill, q/k head dim 192, v 128)"),
+            ("flash_attention_f32", f32, "flash_attention.cu",
+             "(the tuning space's shape, the model's f32 tiles)")):
+        mine = [r for r in rows
+                if r["dtype"] == str(dt).replace("torch.", "")
+                and (r["head_dims"] == mla) == (name.endswith("192x128"))]
         main = next(r for r in mine if "ms" in r)
         entry = {
-            "name": "flash_attention" if dt == bf16 else
-                    "flash_attention_f32",
+            "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": "src/repro/kernels/flash_attention.py:60",
-            "shape": f"q {main['q']}, k/v {main['kv']} "
+            "shape": f"q {main['q']}, k {main['kv']}, v {main['v']} "
                      f"{main['dtype']}, causal, blocks {main['blocks']} "
-                     + ("(the served model's prefill)" if dt == bf16 else
-                        "(the tuning space's shape, the model's f32 tiles)"),
+                     + what,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "share_of_limit": max(r["share_of_limit"] for r in mine),
             "tolerance": f"{flash_tolerance(dt)} against the plain version"
@@ -1229,32 +1306,58 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def serve_path(device, sizes: dict):
-    """The serving path at full width and depth; returns the report, the
-    config and the parameters (for the end-to-end check)."""
+def serve_config(sizes: dict, arch: str, cuts=None, why: str = ""):
+    """``arch``'s config at full width, with ``cuts`` (config fields cut to
+    fit one card) applied; the CPU rehearsal takes its reduced config in
+    f32. Returns (config, the ``reduced`` record of the cuts)."""
     import dataclasses
 
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **(cuts or {}))
+    reduced = {k: [getattr(full, k), v] for k, v in (cuts or {}).items()}
+    if reduced:
+        reduced["why"] = why
+    if sizes["serve_reduced"]:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+        reduced["rehearsal"] = "the config's reduced() in f32"
+    return cfg, reduced
+
+
+def serve_path(device, sizes: dict, cfg, reduced=None,
+               sampled: bool = True):
+    """The serving path of ``cfg`` (all widths as published); returns the
+    report, the flash launches of generate() and serve(), those of the
+    sampled generate, and the parameters (for the end-to-end check).
+    ``sampled`` adds the lock-step route's sampled generate()."""
     import numpy as np
 
     import repro_torch.core.hardware as hw
-    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_mod
     from repro_torch.models.transformer import Runtime
     from repro_torch.power import EnergySession
     from repro_torch.serving import (ContinuousEngine, Request, ServeEngine,
                                      poisson_arrivals, serve)
-    cfg = get_config(SERVE_ARCH)
-    if sizes["serve_reduced"]:
-        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
-    rt = Runtime()
+    rt = Runtime(tp=1, moe_impl="local")
     max_len, new = sizes["serve_max_len"], sizes["serve_new_tokens"]
     lo, hi = sizes["serve_prompt_lens"]
-    report = {"arch": cfg.name, "dtype": cfg.dtype,
+    report = {"arch": cfg.name, "dtype": cfg.dtype, "family": cfg.family,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
               "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
               "max_len": max_len, "new_tokens": new}
+    if cfg.family == "moe":
+        report["experts"] = [cfg.n_experts, cfg.experts_per_token,
+                             cfg.n_shared_experts]
+    if cfg.use_mla:
+        report["mla"] = {"q_lora_rank": cfg.q_lora_rank,
+                         "kv_lora_rank": cfg.kv_lora_rank,
+                         "qk_head_dim": cfg.qk_nope_dim + cfg.qk_rope_dim,
+                         "v_head_dim": cfg.v_head_dim}
+    if reduced:
+        report["reduced"] = reduced
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1304,7 +1407,8 @@ def serve_path(device, sizes: dict):
         o.shape == (new,) and o.min() >= 0 and o.max() < V
         for o in rep.outputs), "serve() returned malformed outputs")
     check(rep.n_prefills == 8, "serve() did not prefill every request")
-    counts = ops.launch_counts()
+    counts = dict(ops.launch_counts(),
+                  flash_by_head_dims=dict(fa.LAUNCHES_BY_HEAD_DIMS))
     report["serve"] = {
         "prompt_lens": [len(r.prompt) for r in reqs8],
         "arrivals": [float(a) for a in arrivals],
@@ -1341,9 +1445,18 @@ def serve_path(device, sizes: dict):
         "prefill_tokens_per_s": hi / prefill_s,
         "decode_slots": ceng.max_slots, "decode_ms_per_step": decode_s * 1e3,
         "decode_tokens_per_s": ceng.max_slots / decode_s}
+    report["flash_launches"] = counts["flash_attention"]
+    report["flash_launches_by_head_dims"] = counts["flash_by_head_dims"]
     if device.type == "cuda":
         report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for what, x in (("prefill ms", prefill_s), ("decode ms/step",
+                                                    decode_s),
+                        ("peak memory", report["peak_memory_gb"]),
+                        ("flash launches", counts["flash_attention"])):
+            check(x > 0, f"{cfg.name}: {what} is {x}")
     del ceng, pfs
+    if not sampled:
+        return report, counts, 0, params
 
     # -- ServeEngine.generate, sampled: the lock-step route, one
     #    right-padded prefill at the longest prompt, which no tile divides;
@@ -1370,7 +1483,7 @@ def serve_path(device, sizes: dict):
           f"the sampled generate's prefill made {sampled_launches} flash "
           f"launches for {cfg.n_layers} layers")
     del seng
-    return report, counts, sampled_launches, cfg, params
+    return report, counts, sampled_launches, params
 
 
 def _leaves(tree):
@@ -1384,26 +1497,109 @@ def _leaves(tree):
         yield tree
 
 
+def moe_local_vs_dense(device, sizes: dict, cfg, params) -> dict:
+    """The MoE local path (sort-scatter into capacity buffers) against the
+    dense oracle on the card: DBRX layer 0's MoE weights cast to f32, on
+    MOE_CHECK_TOKENS tokens, within the reference test's 2e-4. The routing
+    each path used is taken from inside its call and must be equal; a token
+    with a pair past its expert's capacity is dropped by the local path
+    alone (the oracle has no capacity), so the comparison takes the tokens
+    none of whose pairs was dropped, and reports the drops."""
+    from repro_torch.models import moe
+    p = params["layers"][0]["mlp"]
+    p32 = {"router": p["router"].float(),
+           "experts": {k: w.float() for k, w in p["experts"].items()}}
+    g = torch.Generator(device=device)
+    g.manual_seed(21)
+    T, k = MOE_CHECK_TOKENS, cfg.experts_per_token
+    x = torch.randn((1, T, cfg.d_model), generator=g, device=device)
+    used, route = [], moe._route
+
+    def recorded(router_w, xt, k):
+        out = route(router_w, xt, k)
+        used.append(out[1])
+        return out
+
+    with patched(moe, "_route", recorded):
+        y_local, aux_l = moe.moe_block_local(p32, cfg, x)
+        y_dense, aux_d = moe.moe_block_dense(p32, cfg, x)
+    order, _, pos = moe._dispatch_indices(used[0])
+    capacity = moe._capacity(T, cfg)
+    dropped = torch.zeros(T, dtype=torch.bool, device=device)
+    dropped[(order[pos >= capacity] // k).long()] = True
+    keep = ~dropped
+    diff = (y_local[0] - y_dense[0]).abs()[keep]
+    limit = MOE_TOL + MOE_TOL * y_dense[0].abs()[keep]
+    share = float((diff / limit).max()) if bool(keep.any()) else 0.0
+    out = {"arch": cfg.name, "layer": 0, "dtype": "float32",
+           "tokens": T, "experts": [cfg.n_experts, k], "capacity": capacity,
+           "routing_equal": len(used) == 2 and bool(torch.equal(*used)),
+           "pairs_dropped": int((pos >= capacity).sum()),
+           "tokens_compared": int(keep.sum()),
+           "max_abs_err": float(diff.max()) if bool(keep.any()) else 0.0,
+           "share_of_limit": share,
+           "aux_local": float(aux_l), "aux_dense": float(aux_d),
+           "output_max_abs": float(y_dense.abs().max()),
+           "tolerance": f"|err| <= {MOE_TOL} + {MOE_TOL} * |dense|"}
+    check(out["routing_equal"] and out["tokens_compared"] > 0
+          and share <= 1.0 and abs(out["aux_local"] - out["aux_dense"])
+          <= 1e-5 * max(1.0, abs(out["aux_dense"])),
+          f"the MoE local path differs from the dense oracle: {out}")
+    del p32
+    return out
+
+
 def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
     """One prompt through prefill + greedy decode on both attention routes.
     Both routes decode alike; they differ in prefill attention, kernel or
     plain. Tokens must agree at every step whose plain-route top-2 margin
     exceeds the routes' logit difference, up to the first step where it
-    does not (after that the two contexts may part)."""
+    does not (after that the two contexts may part).
+
+    An MoE model's top-k routing turns a last-bit difference into another
+    expert for the token (a near tie between the k-th and the next expert),
+    which moves the logits by more than the top-2 margin, so its tokens may
+    part at once. For it the prefill's routing is compared too, layer by
+    layer: the share of tokens whose expert set is that of the kernel
+    route. Layer 0's router reads the prefill attention's output directly;
+    its share is read on three routes that compute the same attention (the
+    plain route, the plain route with p rounded as in the kernel, the
+    kernel route again), each of which must reach MOE_ROUTING_AGREEMENT,
+    and on the card on the kernel route broken on purpose (its softmax
+    scale times MOE_BROKEN_SCALE), which must not."""
     import numpy as np
 
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.models import decode as decode_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.transformer import Runtime
     rng = np.random.default_rng(7)
     S, steps = sizes["e2e_prompt_len"], sizes["e2e_steps"]
     V = cfg.vocab_size
     toks = torch.from_numpy(rng.integers(0, V, (1, S), dtype=np.int32)).to(
         device)
-    runs = {}
+    route = moe_mod._route
+
+    def prefill(impl, max_len):
+        """prefill's logits and state, and each MoE layer's expert sets"""
+        routes = []
+
+        def recorded(router_w, x, k):
+            out = route(router_w, x, k)
+            routes.append(torch.sort(out[1], dim=-1).values)
+            return out
+
+        with patched(moe_mod, "_route", recorded):
+            logits, state = decode_mod.prefill(
+                cfg, Runtime(attn_impl=impl), params, {"tokens": toks},
+                max_len)
+        return logits, state, routes
+
+    runs, routes = {}, {}
     for impl in ("kernel", "plain"):
         rt = Runtime(attn_impl=impl)
-        logits, state = decode_mod.prefill(cfg, rt, params,
-                                           {"tokens": toks}, S + steps)
+        logits, state, routes[impl] = prefill(impl, S + steps)
         seq_logits, seq_toks = [], []
         for i in range(steps):
             lg = logits[0, 0, :V].float()
@@ -1432,7 +1628,41 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
               f"route ({tk[i]} vs {tp[i]}) though the margin {margin} "
               f"exceeds the logit difference {diff}")
         compared += 1
-    return {"prompt_len": S, "steps": steps,
+    out = {}
+    if cfg.family == "moe":
+        kernel_op = ops.flash_attention_op
+
+        def wrong_scale(q, k, v, *, scale, **kw):
+            return kernel_op(q, k, v, scale=scale * MOE_BROKEN_SCALE, **kw)
+
+        witnesses = {
+            "plain_round_p": ("plain", (fa, "flash_attention_plain",
+                                        functools.partial(
+                                            fa.flash_attention_plain,
+                                            round_p=True))),
+            "kernel_again": ("kernel", None),
+            "kernel_wrong_scale": ("kernel", (ops, "flash_attention_op",
+                                              wrong_scale))}
+        for name, (impl, patch) in witnesses.items():
+            with patched(*patch) if patch else contextlib.nullcontext():
+                _, state, routes[name] = prefill(impl, S + 1)
+            del state
+        agree = {name: [float((a == b).all(dim=-1).float().mean())
+                        for a, b in zip(routes["kernel"], r)]
+                 for name, r in routes.items() if name != "kernel"}
+        out["prefill_routing_agreement_by_layer"] = agree["plain"]
+        out["layer0_routing_agreement"] = {n: a[0] for n, a in agree.items()}
+        out["broken_softmax_scale_factor"] = MOE_BROKEN_SCALE
+        same = ("plain", "plain_round_p", "kernel_again")
+        check(all(len(a) == cfg.n_layers for a in agree.values())
+              and all(agree[n][0] >= MOE_ROUTING_AGREEMENT for n in same)
+              and (device.type != "cuda" or agree["kernel_wrong_scale"][0]
+                   < MOE_ROUTING_AGREEMENT),
+              f"{cfg.name}: layer 0 routes {out['layer0_routing_agreement']}"
+              f" of the prompt's tokens as the kernel route does: at least "
+              f"{MOE_ROUTING_AGREEMENT} needed on {same}, less on the "
+              f"broken kernel")
+    return {"prompt_len": S, "steps": steps, **out,
             "prefill_logits_max_abs_diff": diffs[0],
             "step_logit_diffs": diffs, "plain_top2_margins": margins,
             "tokens_compared": compared, "kernel_tokens": tk,
@@ -1449,9 +1679,10 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             replay_shard=2 ** 20, replay_sizes=(2 ** 23, 2 ** 24),
             broker_jobs=1500, broker_bench_jobs=50_000,
             # flash: (batch*heads, seq, head dim) of SPACES; the served
-            # model's prefill (seq, q heads, kv heads, head dim)
+            # model's prefill (seq, q heads, kv heads, head dim); MLA's
+            # prefill (seq, heads) at head dims MLA_HEAD_DIMS
             flash_space=(4, 1024, 128), flash_model=(1024, 40, 8, 128),
-            flash_ragged=1000,
+            flash_ragged=1000, flash_mla=(1024, 128),
             serve_reduced=False,
             serve_max_len=2048, serve_new_tokens=32,
             serve_prompt_lens=(100, 1000), serve_decode_steps=16,
@@ -1462,7 +1693,7 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            replay_shard=2 ** 10, replay_sizes=(2 ** 13, 2 ** 14),
            broker_jobs=120, broker_bench_jobs=2000,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
-           flash_ragged=61,
+           flash_ragged=61, flash_mla=(64, 4),
            serve_reduced=True,
            serve_max_len=256, serve_new_tokens=6,
            serve_prompt_lens=(10, 100), serve_decode_steps=2,
@@ -1546,8 +1777,9 @@ def main() -> int:
                     sizes["membw_big_rows"], sizes["membw_iters"], timer)]
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    kernels.extend(check_flash(device, timer, sizes))
-    emit(phase="flash_attention_check", cases=kernels[-2]["cases"])
+    flash = check_flash(device, timer, sizes)
+    kernels.extend(flash)
+    emit(phase="flash_attention_check", cases=flash[0]["cases"])
 
     # each path runs with the counts set to 0 just before it and read just
     # after; launches made by the checks above do not count. The f32
@@ -1578,20 +1810,48 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit(phase="broker", **broker_phase(device, sizes))
 
-    serve_report, serve_counts, sampled_launches, cfg, params = serve_path(
-        device, sizes)
+    cfg, _ = serve_config(sizes, SERVE_ARCH)
+    serve_report, serve_counts, sampled_launches, params = serve_path(
+        device, sizes, cfg)
     emit(phase="serve", **serve_report)
     e2e = end_to_end_check(device, cfg, params, sizes)
     emit(phase="serve_kernel_vs_plain", **e2e)
     del params
+    # the MoE models, one at a time: each path's flash launches by head
+    # dims, counted from just before its generate() to just after serve()
+    moe_counts = {}
+    for arch, cuts, why in MOE_SERVE:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        cfg, reduced = serve_config(sizes, arch, cuts, why)
+        report, moe_counts[arch], _, params = serve_path(
+            device, sizes, cfg, reduced, sampled=False)
+        if arch == "dbrx-132b":
+            emit(phase="moe_local_vs_dense",
+                 **moe_local_vs_dense(device, sizes, cfg, params))
+        emit(phase="serve_moe", **report)
+        emit(phase="serve_moe_kernel_vs_plain", arch=arch,
+             **end_to_end_check(device, cfg, params, sizes))
+        del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    by_dims = {arch: c["flash_by_head_dims"] for arch, c in moe_counts.items()}
+    mla_key = "x".join(map(str, MLA_HEAD_DIMS))
 
     launches = {"vai": counts["vai"], "membw": counts["membw"],
-                "flash_attention": serve_counts["flash_attention"],
+                "flash_attention": serve_counts["flash_attention"]
+                + moe_counts["dbrx-132b"]["flash_attention"],
+                "flash_attention_192x128":
+                    by_dims["deepseek-v3-671b"].get(mla_key, 0),
                 "flash_attention_f32": tuning_launches + dispatch_f32}
     emit(phase="launches", **launches,
          flash_attention_sampled_generate=sampled_launches,
          flash_attention_f32_tuning=tuning_launches,
-         flash_attention_f32_model_dispatch=dispatch_f32)
+         flash_attention_f32_model_dispatch=dispatch_f32,
+         flash_attention_by_path={SERVE_ARCH: serve_counts["flash_attention"],
+                                  **{a: c["flash_attention"]
+                                     for a, c in moe_counts.items()}},
+         flash_attention_by_head_dims=by_dims)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
@@ -1602,6 +1862,10 @@ def main() -> int:
           f"the main path did not launch both of its kernels: {counts}")
     check(serve_counts["flash_attention"] > 0,
           "the serving path never launched the flash_attention kernel")
+    check(by_dims["dbrx-132b"].get("128x128", 0) > 0
+          and by_dims["deepseek-v3-671b"].get(mla_key, 0) > 0,
+          f"the MoE serving paths did not launch the bf16 flash kernel at "
+          f"128x128 (dbrx-132b) and {mla_key} (deepseek-v3-671b): {by_dims}")
     check(tuning_launches > 0 and dispatch_f32 == 1,
           f"the f32 path launched the f32 flash kernel {tuning_launches} "
           f"times in tuning and {dispatch_f32} in the model's dispatch")

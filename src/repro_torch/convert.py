@@ -131,23 +131,32 @@ def _unstack(tree: Mapping, i: int, device) -> Dict:
             for k, v in tree.items()}
 
 
+def _tensors(tree: Mapping, device) -> Dict:
+    return {k: (_tensors(v, device) if isinstance(v, Mapping)
+                else _tensor(v, device))
+            for k, v in tree.items()}
+
+
 def params_from_jax(tree: Mapping, cfg, device=DEFAULT_DEVICE) -> Dict:
     """The port's parameters from the reference's ``init_params`` tree of a
-    dense config, given as numpy arrays: ``emb``, ``ln_f``, ``unemb`` as
-    they are, and ``layers`` — arrays stacked over the layers on axis 0 —
-    as a list of per-layer dicts."""
+    dense or MoE config (GQA or MLA attention), given as numpy arrays:
+    ``emb``, ``ln_f``, ``unemb`` and the unstacked ``mtp`` subtree as they
+    are, and ``layers`` — arrays stacked over the layers on axis 0, the MoE
+    leaves (``router``, ``experts``, ``shared``) and the MLA leaves
+    included — as a list of per-layer dicts."""
     from repro_torch.models.transformer import check_family
     check_family(cfg)
     dev = as_device(device)
-    out = {k: _tensor(v, dev) for k, v in tree.items() if k != "layers"}
+    out = _tensors({k: v for k, v in tree.items() if k != "layers"}, dev)
     out["layers"] = [_unstack(tree["layers"], i, dev)
                      for i in range(cfg.n_layers)]
     return out
 
 
 def decode_state_from_jax(state: Mapping, device=DEFAULT_DEVICE) -> Dict:
-    """The port's decode state (``{"layers": {"k", "v"}}``, stacked over
-    the layers) from the reference's, given as numpy arrays."""
+    """The port's decode state (``{"layers": {"k", "v"}}``, or the MLA
+    cache ``{"layers": {"c_kv", "k_rope"}}``, stacked over the layers) from
+    the reference's, given as numpy arrays."""
     dev = as_device(device)
     return {"layers": {k: _tensor(v, dev)
                        for k, v in state["layers"].items()}}

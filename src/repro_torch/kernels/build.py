@@ -162,7 +162,7 @@ def load_library() -> ctypes.CDLL:
                                         i64, ptr]
         lib.repro_membw_f32.restype = i32
         lib.repro_flash_attention.argtypes = (
-            [i32, ptr, ptr, ptr, ptr] + [i32] * 6 + [i64] * 12
+            [i32, ptr, ptr, ptr, ptr] + [i32] * 7 + [i64] * 12
             + [i32, ctypes.c_float, i32, i32, ptr])
         lib.repro_flash_attention.restype = i32
         lib.repro_error_string.argtypes = [i32]

@@ -717,24 +717,26 @@ int by_head_dim(int d, int block_q, int block_k, const float* q,
 // flash_attention_sm90.cu: the bf16 path, same arguments
 int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
                                void* o, int batch, int hq, int hkv, int sq,
-                               int skv, int d, long long q_sb, long long q_ss,
-                               long long q_sh, long long k_sb, long long k_ss,
-                               long long k_sh, long long v_sb, long long v_ss,
-                               long long v_sh, long long o_sb, long long o_ss,
-                               long long o_sh, int causal, float scale,
-                               int block_q, int block_k, cudaStream_t stream);
+                               int skv, int d, int dv, long long q_sb,
+                               long long q_ss, long long q_sh, long long k_sb,
+                               long long k_ss, long long k_sh, long long v_sb,
+                               long long v_ss, long long v_sh, long long o_sb,
+                               long long o_ss, long long o_sh, int causal,
+                               float scale, int block_q, int block_k,
+                               cudaStream_t stream);
 
-// q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], o [B, Sq, Hq, D], each given
-// by its base pointer and its (batch, seq, head) strides in elements; the
-// last dim is contiguous. dtype 0 = float32 (this file's kernel: 16-byte
-// aligned bases and strides that are multiples of 4 elements, for its
-// 16-byte copies), 1 = bfloat16 (the wgmma kernel). Hq is a multiple of
-// Hkv. Launches on `stream`, does not synchronise, returns
-// cudaGetLastError() (or cudaErrorInvalidValue for shapes, tiles or types
-// that are not instantiated).
+// q [B, Sq, Hq, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv, DV], o [B, Sq, Hq,
+// DV], each given by its base pointer and its (batch, seq, head) strides in
+// elements; the last dim is contiguous. dtype 0 = float32 (this file's
+// kernel, DV == D: 16-byte aligned bases and strides that are multiples of
+// 4 elements, for its 16-byte copies), 1 = bfloat16 (the wgmma kernel,
+// which also takes D = 192 with DV = 128). Hq is a multiple of Hkv.
+// Launches on `stream`, does not synchronise, returns cudaGetLastError() (or
+// cudaErrorInvalidValue for shapes, tiles or types that are not
+// instantiated).
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o,
-    int batch, int hq, int hkv, int sq, int skv, int d,
+    int batch, int hq, int hkv, int sq, int skv, int d, int dv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -747,11 +749,11 @@ extern "C" int repro_flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return repro_flash_attention_sm90(
-        q, k, v, o, batch, hq, hkv, sq, skv, d, q_sb, q_ss, q_sh, k_sb, k_ss,
-        k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, scale, block_q,
-        block_k, s);
+        q, k, v, o, batch, hq, hkv, sq, skv, d, dv, q_sb, q_ss, q_sh, k_sb,
+        k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, scale,
+        block_q, block_k, s);
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 || dv != d) return static_cast<int>(cudaErrorInvalidValue);
   Params p{hq, hkv, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * kLog2e, causal != 0};
   return by_head_dim(d, block_q, block_k, static_cast<const float*>(q),

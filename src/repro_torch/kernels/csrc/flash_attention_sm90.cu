@@ -7,7 +7,8 @@
 // `repro_flash_attention` sends bf16 calls to `repro_flash_attention_sm90`
 // below.
 //
-// What it computes, per (batch, q head) and query row, as the reference:
+// What it computes, per (batch, q head) and query row, as the reference, for
+// q and k of head dim D and v and out of head dim DV:
 //   s = (q . k^T) * scale     (bf16 products, f32 sums, on the tensor cores)
 //   s = -1e30 where causal and kpos > qpos  (top-left aligned)
 //   online softmax with m, l and acc in f32; acc is rescaled by
@@ -22,7 +23,8 @@
 // query rows (wgmma's M), and one producer warpgroup, one thread of which
 // issues every copy:
 //   - TMA loads the Q tile once, and the K and V tiles into a ring of three
-//     stages (two where three do not fit: D = 160 at 128 x 128). Each stage
+//     stages (two where three do not fit: D = 160 at 128 x 128, and D = 192,
+//     DV = 128 at 128-row kv tiles). Each stage
 //     has a "full" mbarrier (the producer posts the bytes it expects; the
 //     TMA unit completes them) and an "empty" one (every consumer thread
 //     arrives once its products on the stage are done), so the next tiles
@@ -32,8 +34,10 @@
 //     the previous tile's S holds no registers while P V runs. O += P V
 //     takes P from registers: the f32 accumulator fragment of S,
 //     exponentiated in place, is the A fragment of P V (two f32 values to one
-//     bf16x2 register), with no trip through shared memory. V [BK, D] is an
-//     MN-major B operand, through wgmma's transpose bit;
+//     bf16x2 register), with no trip through shared memory. V [BK, DV] is an
+//     MN-major B operand, through wgmma's transpose bit; its width DV is
+//     the N of P V, so the registers of a consumer (S and O) depend on BK
+//     and DV alone, and D = 192 only lengthens Q K^T to 12 steps;
 //   - the softmax stays in registers: a thread holds two rows of S, the four
 //     threads of a row take its max with __shfl_xor_sync, exp2f has
 //     scale * log2(e) folded in, and each thread keeps its share of l, summed
@@ -46,9 +50,11 @@
 //     first, so the blocks with the most causal work start first and the
 //     short ones fill the tail.
 // TMA writes a tile in boxes one swizzle span wide: the 128-byte swizzle (64
-// bf16 columns a box) when D is a multiple of 64, else the 64-byte one (32
-// columns; D = 160 is five boxes, as CUTLASS picks for such widths), and the
-// wgmma descriptors name the same swizzle. The tensor maps are 4-D (D, H, S,
+// bf16 columns a box) when the tile's head dim is a multiple of 64, else
+// the 64-byte one (32 columns; D = 160 is five boxes, as CUTLASS picks for
+// such widths), and the wgmma descriptors name the same swizzle. Q and K
+// follow D's swizzle, V DV's (D = 192 is three 128-byte boxes, DV = 128
+// two). The tensor maps are 4-D (D, H, S,
 // B) with the caller's strides, so a box that runs past the end of a
 // sequence is zero-filled rather than read from the next batch row. Those kv
 // columns get the weight -inf explicitly (a zero K row would score 0, not
@@ -61,10 +67,12 @@
 //
 // What bounds it on this card: operations. At the served prefill shape (q
 // [1, 1024, 40, 128], k/v [1, 1024, 8, 128], causal) the flops need 0.0109 ms
-// at the bf16 tensor peak and the bytes 0.0038 ms at the HBM rate. A
-// consumer warpgroup runs its two products and its softmax one after the
-// other; the two consumers of a block overlap each other's softmax with
-// their products, and the producer overlaps the copies with both.
+// at the bf16 tensor peak and the bytes 0.0038 ms at the HBM rate. At MLA's
+// prefill (q/k [1, 1024, 128, 192], v [1, 1024, 128, 128]: 128 kv heads)
+// bytes bound it, 0.050 ms against 0.043 ms of flops. A consumer warpgroup
+// runs its two products and its softmax one after the other; the two
+// consumers of a block overlap each other's softmax with their products,
+// and the producer overlaps the copies with both.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,15 +104,16 @@ struct Swizzle {
 // stored box by box, a box [rows, kCols] swizzled), 2 kStages + 1 mbarriers,
 // and the slack that aligns the tiles to 1024 bytes (the swizzle repeats
 // there). The ring has three stages where they fit in 227 KB, else two (D =
-// 160 at 128 x 128). kernels/flash_attention.py:smem_bytes repeats this
-// formula for bf16.
-template <int D, int BQ, int BK>
+// 160 at 128 x 128; D = 192, DV = 128 at BK = 128).
+// kernels/flash_attention.py:smem_bytes repeats this formula for bf16.
+template <int D, int DV, int BQ, int BK>
 struct SmemSm90 {
   static constexpr size_t kQ = 2ull * BQ * D;
-  static constexpr size_t kKV = 2ull * BK * D;
+  static constexpr size_t kK = 2ull * BK * D;
+  static constexpr size_t kV = 2ull * BK * DV;
   static constexpr size_t kAlign = 1024;
   static constexpr size_t bytes(int stages) {
-    return kQ + 2 * stages * kKV + 8 * (2 * stages + 1) + kAlign;
+    return kQ + stages * (kK + kV) + 8 * (2 * stages + 1) + kAlign;
   }
   static constexpr int kStages = bytes(3) <= kSmemLimit ? 3 : 2;
   static constexpr size_t kBytes = bytes(kStages);
@@ -480,18 +489,18 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_base,
 }
 
 // O += P V for the V tile at v_base, in one commit group. V is MN-major:
-// its boxes of D columns are BK rows apart (the leading offset), its 8-row
+// its boxes of DV columns are BK rows apart (the leading offset), its 8-row
 // groups of kv rows 8 box rows apart (the stride offset).
-template <int D, int BK>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+template <int DV, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[DV / 2],
                                         const uint32_t (&a)[BK / 16][4],
                                         uint32_t v_base) {
-  using Sw = Swizzle<D>;
+  using Sw = Swizzle<DV>;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    wgmma_rs<D>(acc, a[kk],
-                make_desc<D>(v_base + kk * 16 * Sw::kBytes, BK * Sw::kBytes,
-                             8 * Sw::kBytes));
+    wgmma_rs<DV>(acc, a[kk],
+                 make_desc<DV>(v_base + kk * 16 * Sw::kBytes, BK * Sw::kBytes,
+                               8 * Sw::kBytes));
   }
   wgmma_commit();
 }
@@ -562,11 +571,11 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
   }
 }
 
-template <int D>
-__device__ __forceinline__ void rescale(float (&acc)[D / 2],
+template <int DV>
+__device__ __forceinline__ void rescale(float (&acc)[DV / 2],
                                         const float (&corr)[2]) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DV / 8; ++i) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       acc[4 * i + 2 * j] *= corr[j];
@@ -589,7 +598,7 @@ __device__ __forceinline__ int active_tiles(const Params& p, int row_lo,
 // A consumer warpgroup: 64 query rows from row_lo on. Per active kv tile:
 // Q K^T, the softmax, P V, one after the other; the tiles above its diagonal
 // are released unread.
-template <int D, int BQ, int BK, int kStages>
+template <int D, int DV, int BQ, int BK, int kStages>
 __device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
                                         const bf16* sV, uint64_t* full,
                                         uint64_t* empty, uint64_t* q_full,
@@ -603,9 +612,9 @@ __device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
   const int col = 2 * (lane % 4);  // its first column in each group of 8
   const int n_act = active_tiles<BK>(p, row_lo, n_tiles);
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   float s[BK / 2];
   uint32_t a[BK / 16][4];
   float m[2] = {kNegInf, kNegInf};
@@ -622,12 +631,12 @@ __device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
     fence_operands(s);
     softmax<BK>(s, m, l, corr, p, t * BK, r0, col,
                 p.causal && (t + 1) * BK - 1 > row_lo);
-    rescale<D>(acc, corr);
+    rescale<DV>(acc, corr);
     pack_p<BK>(s, a);
     fence_operands(a);
     fence_operands(acc);
     wgmma_fence();
-    issue_pv<D, BK>(acc, a, smem_u32(sV + st * BK * D));
+    issue_pv<DV, BK>(acc, a, smem_u32(sV + st * BK * DV));
     wgmma_wait<0>();
     fence_operands(acc);
     mbar_arrive(&empty[st]);
@@ -647,7 +656,7 @@ __device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
     bf16* orow = o + b * p.o_sb + static_cast<long long>(row) * p.o_ss +
                  h * p.o_sh;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + col) =
           __floats2bfloat162_rn(acc[4 * i + 2 * j] / den,
                                 acc[4 * i + 2 * j + 1] / den);
@@ -656,15 +665,16 @@ __device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
 }
 
 // One block: BQ / 64 consumer warpgroups, then the producer warpgroup.
-template <int D, int BQ, int BK>
+template <int D, int DV, int BQ, int BK>
 __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           bf16* __restrict__ o, const Params p) {
   constexpr int kConsumers = BQ / kRowsPerWG;
-  using Sw = Swizzle<D>;
-  using Sm = SmemSm90<D, BQ, BK>;
+  using Sw = Swizzle<D>;    // Q and K
+  using SwV = Swizzle<DV>;  // V
+  using Sm = SmemSm90<D, DV, BQ, BK>;
   constexpr int kStages = Sm::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -672,9 +682,9 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
       smem_raw + ((Sm::kAlign - (raw & (Sm::kAlign - 1))) & (Sm::kAlign - 1));
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = reinterpret_cast<bf16*>(smem + Sm::kQ);
-  bf16* sV = reinterpret_cast<bf16*>(smem + Sm::kQ + kStages * Sm::kKV);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + Sm::kQ + 2 * kStages * Sm::kKV);
+  bf16* sV = reinterpret_cast<bf16*>(smem + Sm::kQ + kStages * Sm::kK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + Sm::kQ + kStages * (Sm::kK + Sm::kV));
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
 
@@ -710,12 +720,14 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
-        mbar_expect_tx(&full[st], static_cast<uint32_t>(2 * Sm::kKV));
+        mbar_expect_tx(&full[st], static_cast<uint32_t>(Sm::kK + Sm::kV));
         for (int c = 0; c < Sw::kBoxes; ++c) {
           tma_load(sK + st * BK * D + c * BK * Sw::kCols, &tk, &full[st],
                    c * Sw::kCols, hk, t * BK, b);
-          tma_load(sV + st * BK * D + c * BK * Sw::kCols, &tv, &full[st],
-                   c * Sw::kCols, hk, t * BK, b);
+        }
+        for (int c = 0; c < SwV::kBoxes; ++c) {
+          tma_load(sV + st * BK * DV + c * BK * SwV::kCols, &tv, &full[st],
+                   c * SwV::kCols, hk, t * BK, b);
         }
       }
     }
@@ -723,9 +735,9 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
     // the producer's registers, handed over: 128 x (168 - 40) = 2 x 128 x
     // (232 - 168)
     if constexpr (kConsumers > 1) setmaxnreg_inc<232>();
-    consume<D, BQ, BK, kStages>(smem_u32(sQ) + wg * kRowsPerWG * Sw::kBytes,
-                                sK, sV, full, empty, q_full, o, p,
-                                q0 + wg * kRowsPerWG, h, b, n_tiles);
+    consume<D, DV, BQ, BK, kStages>(
+        smem_u32(sQ) + wg * kRowsPerWG * Sw::kBytes, sK, sV, full, empty,
+        q_full, o, p, q0 + wg * kRowsPerWG, h, b, n_tiles);
   }
 }
 
@@ -794,9 +806,9 @@ struct Call {
   Params p;
 };
 
-template <int D, int BQ, int BK>
+template <int D, int DV, int BQ, int BK>
 int launch(const Call& c, cudaStream_t stream) {
-  constexpr size_t smem = SmemSm90<D, BQ, BK>::kBytes;
+  constexpr size_t smem = SmemSm90<D, DV, BQ, BK>::kBytes;
   static_assert(smem <= kSmemLimit, "tile does not fit in shared memory");
   CUtensorMap tq, tk, tv;
   const Params& p = c.p;
@@ -804,11 +816,11 @@ int launch(const Call& c, cudaStream_t stream) {
                    BQ) ||
       !make_map<D>(&tk, c.k, p.hkv, p.skv, c.batch, c.k_sb, c.k_ss, c.k_sh,
                    BK) ||
-      !make_map<D>(&tv, c.v, p.hkv, p.skv, c.batch, c.v_sb, c.v_ss, c.v_sh,
-                   BK)) {
+      !make_map<DV>(&tv, c.v, p.hkv, p.skv, c.batch, c.v_sb, c.v_ss, c.v_sh,
+                    BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_fwd_sm90_kernel<D, BQ, BK>;
+  auto kernel = flash_fwd_sm90_kernel<D, DV, BQ, BK>;
   static bool configured = false;  // the attribute outlives the launch
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -824,10 +836,10 @@ int launch(const Call& c, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DV>
 int by_tile(int block_q, int block_k, const Call& c, cudaStream_t s) {
 #define REPRO_FLASH_SM90_TILE(BQ, BK) \
-  if (block_q == BQ && block_k == BK) return launch<D, BQ, BK>(c, s);
+  if (block_q == BQ && block_k == BK) return launch<D, DV, BQ, BK>(c, s);
   REPRO_FLASH_SM90_TILE(64, 64)
   REPRO_FLASH_SM90_TILE(64, 128)
   REPRO_FLASH_SM90_TILE(128, 64)
@@ -842,21 +854,30 @@ int by_tile(int block_q, int block_k, const Call& c, cudaStream_t s) {
 // arguments. Every base pointer is 16-byte aligned and every stride of a
 // dim longer than 1 is a multiple of 8 elements (TMA's rule; the wrapper
 // checks it). Tiles (block_q, block_k) in {64, 128} x {64, 128}, head dims
-// 64, 128 and 160.
+// (d, dv) in (64, 64), (128, 128), (160, 160) and (192, 128) (MLA prefill:
+// qk_nope + qk_rope = 192, v_head_dim = 128).
 int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
                                void* o, int batch, int hq, int hkv, int sq,
-                               int skv, int d, long long q_sb, long long q_ss,
-                               long long q_sh, long long k_sb, long long k_ss,
-                               long long k_sh, long long v_sb, long long v_ss,
-                               long long v_sh, long long o_sb, long long o_ss,
-                               long long o_sh, int causal, float scale,
-                               int block_q, int block_k, cudaStream_t stream) {
+                               int skv, int d, int dv, long long q_sb,
+                               long long q_ss, long long q_sh, long long k_sb,
+                               long long k_ss, long long k_sh, long long v_sb,
+                               long long v_ss, long long v_sh, long long o_sb,
+                               long long o_ss, long long o_sh, int causal,
+                               float scale, int block_q, int block_k,
+                               cudaStream_t stream) {
   const Call c{q,    k,    v,    o,    batch, q_sb, q_ss,
                q_sh, k_sb, k_ss, k_sh, v_sb,  v_ss, v_sh,
                Params{hq, hkv, sq, skv, o_sb, o_ss, o_sh, scale * kLog2e,
                       causal != 0}};
-  if (d == 64) return by_tile<64>(block_q, block_k, c, stream);
-  if (d == 128) return by_tile<128>(block_q, block_k, c, stream);
-  if (d == 160) return by_tile<160>(block_q, block_k, c, stream);
+  if (d == 64 && dv == 64) return by_tile<64, 64>(block_q, block_k, c, stream);
+  if (d == 128 && dv == 128) {
+    return by_tile<128, 128>(block_q, block_k, c, stream);
+  }
+  if (d == 160 && dv == 160) {
+    return by_tile<160, 160>(block_q, block_k, c, stream);
+  }
+  if (d == 192 && dv == 128) {
+    return by_tile<192, 128>(block_q, block_k, c, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,15 +24,16 @@ copies), bf16 to the tensor-core kernel of ``csrc/flash_attention_sm90.cu``
 takes any sequence lengths: a ragged last tile runs masked. The
 reference-signature :func:`flash_attention` keeps the reference's rule that
 ``min(block, S)`` divides the sequence (``ValueError`` otherwise). What
-the kernels are built for — the tiles of :func:`tile_options` by dtype, head
-dims :data:`HEAD_DIMS` with ``Dv == D``, and the shared memory a block may
-have — is stated once, in :func:`unsupported`; a tile longer than the
-sequence runs with its tail masked.
+the kernels are built for — the tiles of :func:`tile_options` and the head
+dims ``(D, Dv)`` of :func:`head_dims`, by dtype (f32 at :data:`HEAD_DIMS`
+with ``Dv == D``; bf16 there and at ``(192, 128)``, MLA's prefill), and the
+shared memory a block may have — is stated once, in :func:`unsupported`; a
+tile longer than the sequence runs with its tail masked.
 """
 from __future__ import annotations
 
 import operator
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -45,7 +46,11 @@ BLOCK_K_OPTIONS = (64, 128)
 #: bf16 tiles (the tensor-core kernel): 64 query rows a consumer warpgroup
 BF16_BLOCK_Q_OPTIONS = (64, 128)
 BF16_BLOCK_K_OPTIONS = (64, 128)
+#: head dims of both kernels, with Dv == D
 HEAD_DIMS = (64, 128, 160)
+#: ``(D, Dv)`` of the bf16 kernel: HEAD_DIMS with Dv == D, and MLA's prefill
+#: (q/k of qk_nope + qk_rope = 192, v of v_head_dim = 128)
+BF16_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 #: stages of the bf16 kernel's K/V ring: three where they fit in shared
 #: memory, else two (``SmemSm90::kStages`` in the source)
 BF16_MAX_STAGES = 3
@@ -56,8 +61,10 @@ SMEM_LIMIT_BYTES = 232448
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: kernel launches made by the wrappers (only where they launch)
+#: kernel launches made by the wrappers (only where they launch), in all
+#: and by head dims ``"<D>x<Dv>"``
 LAUNCHES = 0
+LAUNCHES_BY_HEAD_DIMS: Dict[str, int] = {}
 
 
 def tile_options(itemsize: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -68,22 +75,33 @@ def tile_options(itemsize: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     return BLOCK_Q_OPTIONS, BLOCK_K_OPTIONS
 
 
-def _bf16_smem(head_dim: int, block_q: int, block_k: int,
-               stages: int) -> int:
-    return (2 * head_dim * (block_q + 2 * stages * block_k)
+def head_dims(itemsize: int) -> Tuple[Tuple[int, int], ...]:
+    """``(D, Dv)`` pairs the kernel of this element size is instantiated
+    for: bf16 (2 bytes) or f32 (4)."""
+    if itemsize == 2:
+        return BF16_HEAD_DIMS
+    return tuple((d, d) for d in HEAD_DIMS)
+
+
+def _bf16_smem(head_dim: int, block_q: int, block_k: int, stages: int,
+               value_dim: Optional[int] = None) -> int:
+    dv = head_dim if value_dim is None else value_dim
+    return (2 * (head_dim * (block_q + stages * block_k)
+                 + dv * stages * block_k)
             + 8 * (2 * stages + 1) + 1024)
 
 
-def bf16_stages(head_dim: int, block_q: int, block_k: int) -> int:
+def bf16_stages(head_dim: int, block_q: int, block_k: int,
+                value_dim: Optional[int] = None) -> int:
     """Stages of the bf16 kernel's K/V ring at these tiles: three where
     they fit in a block's shared memory, else two."""
-    fits = _bf16_smem(head_dim, block_q, block_k,
-                      BF16_MAX_STAGES) <= SMEM_LIMIT_BYTES
+    fits = _bf16_smem(head_dim, block_q, block_k, BF16_MAX_STAGES,
+                      value_dim) <= SMEM_LIMIT_BYTES
     return BF16_MAX_STAGES if fits else 2
 
 
 def smem_bytes(itemsize: int, head_dim: int, block_q: int,
-               block_k: int) -> int:
+               block_k: int, value_dim: Optional[int] = None) -> int:
     """Shared memory of one thread block of the kernel.
 
     f32 (``TilesF32`` of ``csrc/flash_attention.cu``): Q split into Q_big
@@ -93,11 +111,14 @@ def smem_bytes(itemsize: int, head_dim: int, block_q: int,
     splits reuses the same bytes. bf16
     (``SmemSm90`` of
     ``csrc/flash_attention_sm90.cu``): the Q tile, :func:`bf16_stages` K and
-    V tiles, ``2 * stages + 1`` 8-byte mbarriers and 1024 bytes of slack
-    that align the swizzled tiles."""
+    V tiles (``value_dim`` wide, default ``head_dim``), ``2 * stages + 1``
+    8-byte mbarriers and 1024 bytes of slack that align the swizzled
+    tiles: ``2 (D (bq + stages bk) + Dv stages bk) + 8 (2 stages + 1) +
+    1024``."""
     if itemsize == 2:
         return _bf16_smem(head_dim, block_q, block_k,
-                          bf16_stages(head_dim, block_q, block_k))
+                          bf16_stages(head_dim, block_q, block_k, value_dim),
+                          value_dim)
     return itemsize * (2 * block_q * head_dim + block_k * (head_dim + 16)
                        + block_k * (head_dim + 4))
 
@@ -252,19 +273,27 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
     (f32, ``itemsize`` 4) and ``csrc/flash_attention_sm90.cu`` (bf16,
     ``itemsize`` 2) instantiate, read by the wrapper and by the tuning
     space's prune."""
-    if head_dim not in HEAD_DIMS or value_dim != head_dim:
-        return (f"not-instantiated (head dims {HEAD_DIMS} with Dv == D; got "
-                f"D {head_dim}, Dv {value_dim})")
+    dims = head_dims(itemsize)
+    if (head_dim, value_dim) not in dims:
+        why = (f"not-instantiated (the {itemsize}-byte kernel is built for "
+               f"head dims (D, Dv) in {dims}; got D {head_dim}, Dv "
+               f"{value_dim})")
+        if itemsize == 4 and value_dim != head_dim:
+            why += ("; f32 attention at Dv != D is ROADMAP queue B, later "
+                    "work: the kernel contract narrower than the TPU "
+                    "kernel's")
+        return why
     q_opts, k_opts = tile_options(itemsize)
     if block_q not in q_opts or block_k not in k_opts:
         return (f"not-instantiated (the {itemsize}-byte kernel is built for "
                 f"block_q in {q_opts}, block_k in {k_opts}; got "
                 f"({block_q}, {block_k}))")
-    smem = smem_bytes(itemsize, head_dim, block_q, block_k)
+    smem = smem_bytes(itemsize, head_dim, block_q, block_k, value_dim)
     if smem > SMEM_LIMIT_BYTES:
         return (f"smem-overflow (tiles ({block_q}, {block_k}) need {smem} B "
-                f"of shared memory at {itemsize}-byte elements, head dim "
-                f"{head_dim}; a block has {SMEM_LIMIT_BYTES} B)")
+                f"of shared memory at {itemsize}-byte elements, head dims "
+                f"({head_dim}, {value_dim}); a block has {SMEM_LIMIT_BYTES} "
+                f"B)")
     return None
 
 
@@ -324,7 +353,7 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.repro_flash_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+            out.data_ptr(), B, Hq, Hkv, Sq, Skv, D, Dv,
             *tma_strides(q)[:3], *tma_strides(k)[:3], *tma_strides(v)[:3],
             *out.stride()[:3], int(bool(causal)), scale, block_q, block_k,
             stream)
@@ -332,6 +361,8 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
                              f"k {tuple(k.shape)}, {q.dtype}, "
                              f"blocks ({block_q}, {block_k}))")
     LAUNCHES += 1
+    key = f"{D}x{Dv}"
+    LAUNCHES_BY_HEAD_DIMS[key] = LAUNCHES_BY_HEAD_DIMS.get(key, 0) + 1
     return out
 
 

@@ -43,3 +43,4 @@ def reset_launch_counts() -> None:
     vai_mod.LAUNCHES_BY_SHAPE.clear()
     mb.LAUNCHES = 0
     fa.LAUNCHES = 0
+    fa.LAUNCHES_BY_HEAD_DIMS.clear()

@@ -4,8 +4,10 @@ on the card.
     python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --batch 4 --new-tokens 16 --policy energy-aware
 
-``--reduced`` serves the arch's tiny same-family config in f32 (add
-``--device cpu`` to run it without a card). Weights are random, drawn from
+``--arch`` takes the dense and MoE configs (``dbrx-132b``,
+``deepseek-v3-671b`` with MLA attention). ``--reduced`` serves the arch's
+tiny same-family config in f32 (add ``--device cpu`` to run it without a
+card). Weights are random, drawn from
 a generator seeded with ``--seed``.
 """
 from __future__ import annotations
@@ -51,7 +53,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
-    rt = Runtime()
+    rt = Runtime(tp=1, moe_impl="local")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model_mod.init_params(cfg, rt, gen, device=device)

@@ -15,7 +15,14 @@ plain blocked online softmax,
 
 Decode writes each new K/V row into the cache in place (``index_copy_`` /
 index assignment on the cache tensors) and returns the same tensors.
-MLA and cross-attention are ROADMAP queue A item 4's remaining families.
+
+MLA (DeepSeek-V3): prefill decompresses per-head K and V from the latent
+and goes through :func:`chunked_attention` with q/k head dim
+``qk_nope + qk_rope`` and v head dim ``v_head_dim`` (192 and 128 at full
+width: the bf16 kernel's ``(192, 128)`` instantiation); decode is the
+absorbed form over the ``(c_kv, k_rope)`` cache, in plain PyTorch, as the
+reference computes it outside any kernel. Cross-attention (VLM / enc-dec)
+is ROADMAP queue A item 4's remaining work.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.common import ParamMaker, apply_rope
+from repro_torch.models.common import ParamMaker, apply_rope, rms_norm
 
 NEG_INF = -1e30
 
@@ -250,3 +257,122 @@ def decode_self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                 softmax_scale=scale)
     y = _out_proj(out, p["wo"])
     return y, {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+def mla_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
+               tp: int = 1) -> Dict:
+    d = cfg.d_model
+    nh = cfg.padded_heads(tp)
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        # query low-rank path
+        "wq_a": mk(f"{prefix}.wq_a", (d, cfg.q_lora_rank)),
+        "q_norm": mk(f"{prefix}.q_norm", (cfg.q_lora_rank,), init="ones"),
+        "wq_b": mk(f"{prefix}.wq_b", (cfg.q_lora_rank, nh, qk)),
+        # kv latent path (+ shared rope key)
+        "wkv_a": mk(f"{prefix}.wkv_a",
+                    (d, cfg.kv_lora_rank + cfg.qk_rope_dim)),
+        "kv_norm": mk(f"{prefix}.kv_norm", (cfg.kv_lora_rank,),
+                      init="ones"),
+        "wk_b": mk(f"{prefix}.wk_b", (cfg.kv_lora_rank, nh, cfg.qk_nope_dim)),
+        "wv_b": mk(f"{prefix}.wv_b", (cfg.kv_lora_rank, nh, cfg.v_head_dim)),
+        "wo": mk(f"{prefix}.wo", (nh, cfg.v_head_dim, d)),
+    }
+
+
+def _mla_q(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    qa = rms_norm(x @ p["wq_a"], p["q_norm"])
+    q = _proj(qa, p["wq_b"])
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    kv = x @ p["wkv_a"]
+    c_kv = rms_norm(kv[..., :cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = apply_rope(kv[..., None, cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta)[..., 0, :]   # shared across heads
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, return_cache: bool = False,
+                  impl: str = "kernel"):
+    """Train/prefill MLA: decompress per-head K/V from the latent. On the
+    card the causal attention is the flash kernel's case at head dims
+    ``(qk_nope + qk_rope, v_head_dim)``."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = _proj(c_kv, p["wk_b"])
+    v = _proj(c_kv, p["wv_b"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        *k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
+    out = chunked_attention(q, k, v, causal=True,
+                            softmax_scale=_mla_scale(cfg), impl=impl)
+    y = _out_proj(out, p["wo"])
+    if return_cache:
+        return y, (c_kv, k_rope)
+    return y
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> Dict:
+    from repro_torch import as_device
+    dev = as_device(device)
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=dev),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=dev),
+    }
+
+
+def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+               pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-matrix MLA decode: attention runs entirely in the latent
+    space — the cache stores only (c_kv, k_rope) per token. ``pos`` is a
+    0-d tensor, or a per-sequence ``[B]`` vector for slot-pool decode. The
+    new rows are written into ``cache`` in place."""
+    per_seq = pos.ndim == 1
+    if per_seq:
+        posm = pos.to(torch.int32)[:, None]                  # [B, 1]
+    else:
+        posm = pos.reshape(1).to(torch.int32)[None, :]       # [1, 1]
+    q_nope, q_rope = _mla_q(p, cfg, x, posm)          # [B,1,H,*]
+    c_new, kr_new = _mla_latent(p, cfg, x, posm)      # [B,1,r], [B,1,rope]
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    if per_seq:
+        _batch_scatter(ck, c_new, pos)
+        _batch_scatter(kr, kr_new, pos)
+    else:
+        idx = pos.reshape(1).long()
+        ck.index_copy_(1, idx, c_new.to(ck.dtype))
+        kr.index_copy_(1, idx, kr_new.to(kr.dtype))
+    # absorb W_uk into q: q_tilde = q_nope @ W_uk^T  -> latent space
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+    valid = pos + 1
+    kv_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=ck.device)
+    s = (torch.einsum("bshr,btr->bhst", q_lat, ck.to(q_lat.dtype))
+         + torch.einsum("bshk,btk->bhst", q_rope, kr.to(q_rope.dtype)))
+    s = s.float() * _mla_scale(cfg)
+    if per_seq:
+        mask = (kv_pos[None, :] < valid[:, None])[:, None, None, :]
+    else:
+        mask = (kv_pos < valid)[None, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    a = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", a.to(ck.dtype), ck)
+    out = torch.einsum("bshr,rhk->bshk", o_lat, p["wv_b"])
+    y = _out_proj(out, p["wo"])
+    return y, {"c_kv": ck, "k_rope": kr}

@@ -6,12 +6,15 @@ The reference maps logical axes to a device mesh here (``shard``,
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the most elements a normal leaf draws in one f32 temporary (1 GiB)
+SLAB_ELEMS = 2 ** 28
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -28,7 +31,10 @@ class ParamMaker:
     is drawn in f32 from ``generator`` on ``device``, scaled, and cast to
     ``dtype`` (the reference draws the same way from its own key; the two
     generators give different numbers, so parity tests hand the reference's
-    parameters over through :mod:`repro_torch.convert`)."""
+    parameters over through :mod:`repro_torch.convert`). A leaf is drawn in
+    slabs of at most :data:`SLAB_ELEMS` elements along its first axis, so
+    that the f32 temporary stays one slab (a full-width expert tensor would
+    need 15 GB of it); a leaf that fits is one draw."""
 
     def __init__(self, generator: torch.Generator, dtype: str,
                  device: torch.device):
@@ -45,9 +51,14 @@ class ParamMaker:
             return torch.ones(shape, dtype=self._dtype, device=self._device)
         if scale is None:
             scale = shape[0] ** -0.5 if len(shape) > 1 else 0.02
-        x = torch.randn(shape, generator=self._gen, device=self._device,
-                        dtype=torch.float32)
-        return x.mul_(scale).to(self._dtype)
+        out = torch.empty(shape, dtype=self._dtype, device=self._device)
+        step = max(1, SLAB_ELEMS // max(1, math.prod(shape[1:])))
+        for i in range(0, shape[0], step):
+            rows = min(step, shape[0] - i)
+            slab = torch.randn((rows,) + tuple(shape[1:]), generator=self._gen,
+                               device=self._device, dtype=torch.float32)
+            out[i:i + rows] = slab.mul_(scale)
+        return out
 
 
 # ---------------------------------------------------------------------------

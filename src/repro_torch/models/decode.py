@@ -1,9 +1,11 @@
-"""Serving substrate for the dense family: decode-state construction,
-prefill, single-token decode.
+"""Serving substrate for the dense and MoE families: decode-state
+construction, prefill, single-token decode.
 
 The state mirrors the reference's layout, stacked over layers:
-``{"layers": {"k": [L, B, M, Hkv, hd], "v": [L, B, M, Hkv, hd]}}`` in bf16
-for bf16 configs (f32 otherwise). :func:`decode_step` writes each layer's new
+``{"layers": {"k": [L, B, M, Hkv, hd], "v": [L, B, M, Hkv, hd]}}``, or for
+MLA the latent cache ``{"layers": {"c_kv": [L, B, M, kv_lora_rank],
+"k_rope": [L, B, M, qk_rope_dim]}}``, in bf16 for bf16 configs (f32
+otherwise). :func:`decode_step` writes each layer's new
 row into those tensors in place and returns the same dict; the reference
 returns a new pytree (its jitted callers donate the old one).
 """
@@ -35,12 +37,16 @@ def init_decode_state(cfg: ModelConfig, rt: Runtime, batch: int,
     """Zeroed KV cache for ``batch`` sequences of up to ``max_len`` tokens
     on ``device`` (default: the card)."""
     tfm.check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.padded_kv_heads(rt.tp),
-             cfg.resolved_head_dim)
-    dev = as_device(device)
-    dt = _cache_dtype(cfg)
-    return {"layers": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    L, dev, dt = cfg.n_layers, as_device(device), _cache_dtype(cfg)
+    if cfg.use_mla:
+        shapes = {"c_kv": (L, batch, max_len, cfg.kv_lora_rank),
+                  "k_rope": (L, batch, max_len, cfg.qk_rope_dim)}
+    else:
+        kv = (L, batch, max_len, cfg.padded_kv_heads(rt.tp),
+              cfg.resolved_head_dim)
+        shapes = {"k": kv, "v": kv}
+    return {"layers": {name: torch.zeros(shape, dtype=dt, device=dev)
+                       for name, shape in shapes.items()}}
 
 
 def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
@@ -60,14 +66,19 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     x = model_mod.embed(p, cfg, tokens)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     state = init_decode_state(cfg, rt, B, max_len, device=x.device)
-    ck, cv = state["layers"]["k"], state["layers"]["v"]
+    caches = list(state["layers"].values())   # (k, v) or (c_kv, k_rope)
     for i, p_layer in enumerate(p["layers"]):
         z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-        y, (k, v) = attn.self_attention(p_layer["attn"], cfg, z, pos,
-                                        return_cache=True,
-                                        impl=rt.attn_impl)
-        ck[i, :, :S] = k
-        cv[i, :, :S] = v
+        if cfg.use_mla:
+            y, rows = attn.mla_attention(p_layer["attn"], cfg, z, pos,
+                                         return_cache=True,
+                                         impl=rt.attn_impl)
+        else:
+            y, rows = attn.self_attention(p_layer["attn"], cfg, z, pos,
+                                          return_cache=True,
+                                          impl=rt.attn_impl)
+        for cache, r in zip(caches, rows):
+            cache[i, :, :S] = r
         x = x + y
         y2, _ = tfm._ffn(p_layer, cfg, rt, x)
         x = x + y2
@@ -88,13 +99,16 @@ def decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
     tfm.check_family(cfg)
     x = model_mod.embed(p, cfg, token)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
-    ck, cv = state["layers"]["k"], state["layers"]["v"]
+    layers = state["layers"]
     for i, p_layer in enumerate(p["layers"]):
         z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-        y, _ = attn.decode_self_attention(p_layer["attn"], cfg, z,
-                                          {"k": ck[i], "v": cv[i]}, pos,
-                                          impl=rt.decode_impl)
+        cache = {name: t[i] for name, t in layers.items()}
+        if cfg.use_mla:
+            y, _ = attn.mla_decode(p_layer["attn"], cfg, z, cache, pos)
+        else:
+            y, _ = attn.decode_self_attention(p_layer["attn"], cfg, z, cache,
+                                              pos, impl=rt.decode_impl)
         x = x + y
-        y2, _ = tfm._ffn(p_layer, cfg, rt, x)
+        y2, _ = tfm._ffn(p_layer, cfg, rt, x, decode=True)
         x = x + y2
     return model_mod.logits_fn(p, cfg, x), state

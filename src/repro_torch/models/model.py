@@ -1,4 +1,4 @@
-"""Top-level model API for the dense family.
+"""Top-level model API for the dense and MoE families.
 
     params        = init_params(cfg, rt, generator, device=...)
     logits        = forward_logits(cfg, rt, params, batch)
@@ -8,9 +8,14 @@
 
 Parameters are plain dicts of tensors: ``emb [V, d]``, ``ln_f [d]``,
 ``unemb [d, V]`` (``V`` the padded vocab) and ``layers``, a list of per-layer
-dicts (``ln1``, ``ln2``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``, biases},
-``mlp`` {``wi``, ``wg``, ``wo``}) in the reference's layouts. Logits span the
-padded vocab, as in the reference; callers slice ``[..., :vocab_size]``.
+dicts (``ln1``, ``ln2``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``, biases} or
+the MLA leaves {``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``,
+``wk_b``, ``wv_b``, ``wo``}, ``mlp`` {``wi``, ``wg``, ``wo``} or the MoE
+leaves {``router``, ``experts`` {``wi``, ``wg``, ``wo``}, ``shared``}) in the
+reference's layouts, and for a config with ``mtp_depth`` the multi-token
+prediction head ``mtp`` {``ln_h``, ``ln_e``, ``w_proj``, ``block``}, which
+only training reads (ROADMAP queue A item 6). Logits span the padded
+vocab, as in the reference; callers slice ``[..., :vocab_size]``.
 """
 from __future__ import annotations
 
@@ -36,6 +41,13 @@ def _build(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
     if not cfg.tie_embeddings:
         p["unemb"] = mk("unemb", (d, V), scale=d ** -0.5)
     p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers)
+    if cfg.mtp_depth:
+        p["mtp"] = {
+            "ln_h": mk("mtp.ln_h", (d,), init="ones"),
+            "ln_e": mk("mtp.ln_e", (d,), init="ones"),
+            "w_proj": mk("mtp.w_proj", (2 * d, d)),
+            "block": tfm.decoder_layer_params(mk, cfg, rt),
+        }
     return p
 
 

@@ -1,20 +1,21 @@
-"""Trunk assembly for the dense family.
+"""Trunk assembly for the dense and MoE families, with GQA or MLA
+attention.
 
 The reference scans over layer parameters stacked on a leading axis; here
 the layers are a Python list of per-layer parameter dicts and the trunk is a
-loop over them. The other families (MoE, MLA, SSM, hybrid RG-LRU, VLM,
-enc-dec) are ROADMAP queue A item 4's remaining work and raise
-``NotImplementedError``.
+loop over them. The other families (SSM, hybrid RG-LRU, VLM, enc-dec) are
+ROADMAP queue A item 4's remaining work and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamMaker, gated_mlp,
                                        gated_mlp_params, rms_norm)
 
@@ -27,18 +28,23 @@ class Runtime:
     flash kernel's case on the card to the hand-written kernel,
     ``"plain"`` keeps it on the plain chunked loops."""
     tp: int = 1
+    moe_impl: str = "local"       # dense | local
     decode_impl: str = "chunked"  # chunked | dense (single einsum)
     attn_impl: str = "kernel"     # kernel | plain
 
 
+#: the families the port serves, with GQA or MLA attention
+FAMILIES = ("dense", "moe")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """The port serves the dense family; the others are still to port."""
-    if cfg.family != "dense" or cfg.use_mla:
-        what = "MLA attention" if cfg.use_mla else f"the {cfg.family!r} family"
+    """The port serves the dense and MoE families; the others are still to
+    port."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP queue A item 4: MoE, MLA, "
-            f"SSM, hybrid, VLM and enc-dec families); the port serves dense "
-            f"models")
+            f"the {cfg.family!r} family is not ported yet (ROADMAP queue A "
+            f"item 4: SSM, hybrid, VLM and enc-dec families); the port "
+            f"serves the families {FAMILIES}, with GQA or MLA attention")
 
 
 # ---------------------------------------------------------------------------
@@ -47,21 +53,36 @@ def check_family(cfg: ModelConfig) -> None:
 def decoder_layer_params(mk: ParamMaker, cfg: ModelConfig,
                          rt: Runtime) -> Dict:
     check_family(cfg)
-    return {"ln1": mk("ln1", (cfg.d_model,), init="ones"),
-            "ln2": mk("ln2", (cfg.d_model,), init="ones"),
-            "attn": attn.attention_params(mk, "attn", cfg, rt.tp),
-            "mlp": gated_mlp_params(mk, "mlp", cfg.d_model, cfg.d_ff)}
+    p = {"ln1": mk("ln1", (cfg.d_model,), init="ones"),
+         "ln2": mk("ln2", (cfg.d_model,), init="ones")}
+    if cfg.use_mla:
+        p["attn"] = attn.mla_params(mk, "attn", cfg, rt.tp)
+    else:
+        p["attn"] = attn.attention_params(mk, "attn", cfg, rt.tp)
+    if cfg.family == "moe":
+        p["mlp"] = moe_mod.moe_params(mk, "moe", cfg, rt.tp)
+    else:
+        p["mlp"] = gated_mlp_params(mk, "mlp", cfg.d_model, cfg.d_ff)
+    return p
 
 
 def _mixer(p, cfg: ModelConfig, rt: Runtime, x, positions, window=0):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        return attn.mla_attention(p["attn"], cfg, h, positions,
+                                  impl=rt.attn_impl)
     return attn.self_attention(p["attn"], cfg, h, positions, window=window,
                                impl=rt.attn_impl)
 
 
-def _ffn(p, cfg: ModelConfig, rt: Runtime,
-         x) -> Tuple[torch.Tensor, float]:
+def _ffn(p, cfg: ModelConfig, rt: Runtime, x, decode: bool = False
+         ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """The layer's FFN on ``rms_norm(x)``: (output, aux loss). The MoE aux
+    loss is a 0-d tensor; a dense FFN's is 0.0."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return moe_mod.moe_block(p["mlp"], cfg, h, impl=rt.moe_impl,
+                                 decode=decode)
     return gated_mlp(p["mlp"], h, cfg.act), 0.0
 
 

@@ -508,7 +508,7 @@ class FlashAttentionSpace(KernelSpace):
             kernel=self.kernel, config=config,
             flops=2.0 * bh * entries * (d + dv),
             hbm_bytes=float(it * bh * (sq * d + sq * dv + kv_rows * (d + dv))),
-            vmem_bytes=fa.smem_bytes(it, d, bq, bk),
+            vmem_bytes=fa.smem_bytes(it, d, bq, bk, dv),
             grid_steps=bh * pairs)
 
     def _get_qkv(self):

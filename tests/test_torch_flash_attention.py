@@ -116,6 +116,32 @@ def test_bf16_plain_rounds_p_as_the_reference_kernel(Sq, Hq, Hkv, D, bq, bk):
         fa.flash_attention_plain(*f32, block_q=bq, block_k=bk))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Hq,Hkv,D,Dv,bq,bk", [
+    (128, 2, 2, 48, 32, 64, 64),       # MLA's shape, cut: D = Dv + Dv / 2
+    (256, 4, 2, 192, 128, 128, 64),    # MLA's head dims, GQA, two q tiles
+])
+def test_plain_at_dv_ne_d_matches_reference_kernel(Sq, Hq, Hkv, D, Dv, bq,
+                                                   bk, dtype):
+    """q/k of head dim D and v of Dv: the reference Pallas kernel (interpret
+    mode) returns [B, Sq, Hq, Dv], and so does the port's op on CPU
+    tensors, within the reference's tolerance."""
+    arrays = [_normal(D + i, 1, Sq, h, w) for i, (h, w) in
+              enumerate(((Hq, D), (Hkv, D), (Hkv, Dv)))]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in arrays)
+    want = ref_ops.flash_attention_op(jq, jk, jv, causal=True, block_q=bq,
+                                      block_k=bk)
+    got = ops.flash_attention_op(tq, tk, tv, causal=True, block_q=bq,
+                                 block_k=bk)
+    assert got.shape == want.shape == (1, Sq, Hq, Dv)
+    assert got.dtype == getattr(torch, dtype)
+    if dtype == "bfloat16":        # p rounded, as the reference kernel
+        atol, rtol = BF16_ROUNDED_P_TOL
+    else:
+        atol = rtol = TOL[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=rtol, atol=atol)
+
+
 def test_flash_noncausal_matches_reference_kernel():
     q, k, v = (_normal(70 + i, 1, 128, 2, 32) for i in range(3))
     want = ref_ops.flash_attention_op(q, k, v, causal=False, block_q=64,
@@ -357,15 +383,32 @@ def test_plain_causal_skip_is_exact(q_offset, window):
     (4, 64, 64, 16, 64, "not-instantiated"),
     (2, 128, 128, 32, 64, "not-instantiated"),   # bf16: 64 rows a warpgroup
     (2, 128, 128, 128, 256, "not-instantiated"),
+    # MLA prefill: q/k of 192, v of 128, bf16 only, at every tile
+    (2, 192, 128, 128, 64, None),
+    (2, 192, 128, 128, 128, None),
+    (2, 192, 128, 64, 64, None),
+    (2, 192, 128, 64, 128, None),
+    (4, 192, 128, 64, 64, "queue B"),        # f32 at Dv != D: later work
+    (2, 192, 192, 64, 64, "not-instantiated"),
+    (2, 128, 192, 64, 64, "not-instantiated"),
+    (2, 128, 64, 64, 64, "not-instantiated"),
 ])
 def test_support_rules(itemsize, D, Dv, bq, bk, why):
     got = fa.unsupported(itemsize, D, Dv, bq, bk)
     assert got is None if why is None else why in got
     q_opts, k_opts = fa.tile_options(itemsize)
-    assert (got is None) == (D in fa.HEAD_DIMS and Dv == D and bq in q_opts
-                             and bk in k_opts
-                             and fa.smem_bytes(itemsize, D, bq, bk)
+    assert (got is None) == ((D, Dv) in fa.head_dims(itemsize)
+                             and bq in q_opts and bk in k_opts
+                             and fa.smem_bytes(itemsize, D, bq, bk, Dv)
                              <= fa.SMEM_LIMIT_BYTES)
+
+
+def test_head_dims_by_kernel():
+    """f32 takes the head dims of HEAD_DIMS with Dv == D; bf16 those and
+    MLA's (192, 128)."""
+    assert fa.head_dims(4) == ((64, 64), (128, 128), (160, 160))
+    assert fa.head_dims(2) == fa.head_dims(4) + ((192, 128),)
+    assert fa.unsupported(4, 128, 64, 64, 64).startswith("not-instantiated")
 
 
 @pytest.mark.parametrize("Sq,Skv,bq,bk", [(256, 256, 64, 64),
@@ -420,9 +463,33 @@ def test_shared_memory_formula():
     assert fa.bf16_stages(160, 128, 128) == 2
     assert fa.smem_bytes(2, 160, 128, 128) == 205864 <= fa.SMEM_LIMIT_BYTES
     assert fa.bf16_stages(160, 128, 64) == 3
-    assert all(fa.smem_bytes(2, D, bq, bk) <= fa.SMEM_LIMIT_BYTES
-               for D in fa.HEAD_DIMS for bq in fa.BF16_BLOCK_Q_OPTIONS
+    assert all(fa.smem_bytes(2, D, bq, bk, Dv) <= fa.SMEM_LIMIT_BYTES
+               for D, Dv in fa.BF16_HEAD_DIMS
+               for bq in fa.BF16_BLOCK_Q_OPTIONS
                for bk in fa.BF16_BLOCK_K_OPTIONS)
+
+
+def test_shared_memory_formula_with_dv():
+    """bf16 at D = 192, Dv = 128: 2 (D (bq + stages bk) + Dv stages bk)
+    bytes of tiles + 8 (2 stages + 1) of mbarriers + 1024 of slack. At the
+    model's 128 x 64 three stages fit: 48 + 3 (24 + 16) KB of tiles; at
+    128-row kv tiles the ring keeps two."""
+    assert fa.bf16_stages(192, 128, 64, 128) == 3
+    assert fa.smem_bytes(2, 192, 128, 64, 128) == \
+        49152 + 3 * (24576 + 16384) + 56 + 1024 == 173112
+    assert fa.bf16_stages(192, 128, 128, 128) == 2
+    assert fa.smem_bytes(2, 192, 128, 128, 128) == \
+        49152 + 2 * (49152 + 32768) + 40 + 1024
+    assert fa.bf16_stages(192, 64, 128, 128) == 2
+    assert fa.bf16_stages(192, 64, 64, 128) == 3
+    # three stages at D = Dv = 192 and 128 x 64 would not be the same
+    # bytes: V's width counts on its own
+    assert fa.smem_bytes(2, 192, 128, 64, 192) - \
+        fa.smem_bytes(2, 192, 128, 64, 128) == 2 * 64 * 3 * 64
+    # value_dim defaults to head_dim: the formula of Dv == D
+    for D in fa.HEAD_DIMS:
+        assert fa.smem_bytes(2, D, 128, 64) == \
+            fa.smem_bytes(2, D, 128, 64, D)
 
 
 def test_noncausal_cost_equals_the_reference_space():
@@ -569,6 +636,37 @@ def test_flash_tiles(recorded, dtype, S):
     attn.chunked_attention(q, k, v)
     (kw,) = recorded
     assert (kw["block_q"], kw["block_k"]) == tiles
+
+
+def test_mla_prefill_goes_to_the_kernel_at_192_128(recorded):
+    """MLA prefill on the card: q/k of qk_nope + qk_rope = 192, v of
+    v_head_dim = 128, at the full model's head dims (one layer cut to 2
+    heads and a small latent), bf16. It reaches the kernel op at the
+    model's bf16 tiles with scale 192 ** -0.5, and the output equals the
+    plain route's within the bf16 rounding of p, carried through the bf16
+    output projection: 2e-2 relative, or 1 % of the largest output."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import ParamMaker
+    cfg = dataclasses.replace(
+        get_config("deepseek-v3-671b"), d_model=64, n_heads=2, n_kv_heads=2,
+        q_lora_rank=32, kv_lora_rank=16, dtype="bfloat16")
+    p = attn.mla_params(ParamMaker(torch.Generator().manual_seed(0),
+                                   "bfloat16", torch.device("cpu")),
+                        "attn", cfg)
+    x = torch.from_numpy(_normal(60, 1, 40, 64)).bfloat16()
+    pos = torch.arange(40, dtype=torch.int32)[None]
+    got = attn.mla_attention(p, cfg, x, pos)
+    assert len(recorded) == 1
+    assert recorded[0]["scale"] == 192 ** -0.5
+    assert (recorded[0]["block_q"], recorded[0]["block_k"]) == \
+        attn.flash_tiles(torch.bfloat16)
+    want = attn.mla_attention(p, cfg, x, pos, impl="plain")
+    assert len(recorded) == 1
+    want = _f32(want)
+    np.testing.assert_allclose(_f32(got), want, rtol=2e-2,
+                               atol=1e-2 * float(np.abs(want).max()))
 
 
 def test_cpu_tensors_never_reach_the_kernel():

@@ -74,10 +74,12 @@ def test_chip_smoke_fails_without_a_card():
 
 SERVING_SLICE = (
     "repro_torch.configs.base", "repro_torch.configs.qwen2_5_14b",
+    "repro_torch.configs.dbrx_132b", "repro_torch.configs.deepseek_v3_671b",
     "repro_torch.core.roofline", "repro_torch.core.telemetry",
     "repro_torch.core.governor", "repro_torch.kernels.flash_attention",
     "repro_torch.models", "repro_torch.models.common",
-    "repro_torch.models.attention", "repro_torch.models.transformer",
+    "repro_torch.models.attention", "repro_torch.models.moe",
+    "repro_torch.models.transformer",
     "repro_torch.models.model", "repro_torch.models.decode",
     "repro_torch.power.policies", "repro_torch.power.session",
     "repro_torch.serving", "repro_torch.serving.engine",

@@ -1,10 +1,15 @@
 """repro_torch.models on the CPU against the reference package's models.
 
-Both packages run the reduced qwen2.5-14b and stablelm-12b configs in f32
-on the same parameters: the reference's ``init_params`` tree, with its
+Both packages run the reduced qwen2.5-14b and stablelm-12b configs (dense,
+GQA), dbrx-132b (MoE, GQA) and deepseek-v3-671b (MoE with a shared expert,
+MLA attention, a multi-token-prediction head) in f32 on the same
+parameters: the reference's ``init_params`` tree, with its
 zero-initialised biases and unit norm gains replaced by random values so
 that those code paths carry weight, handed to the port as numpy arrays
-through :func:`repro_torch.convert.params_from_jax`.
+through :func:`repro_torch.convert.params_from_jax`. MoE runs the local
+path (``Runtime(tp=1, moe_impl="local")``, the reference's single-device
+path) unless a test says otherwise; its discrete routing is equal in both
+packages on these inputs, so its outputs are held to the same tolerance.
 
 Tolerance: rtol = atol = 1e-5 on logits, caches and every building block.
 The two packages multiply in different orders (XLA's dot against PyTorch's
@@ -40,7 +45,9 @@ from repro_torch.models import common, decode, model
 from repro_torch.models.transformer import Runtime
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ["qwen2.5-14b", "stablelm-12b"]
+ARCHS = ["qwen2.5-14b", "stablelm-12b", "dbrx-132b", "deepseek-v3-671b"]
+#: leaves initialised to ones (norm gains), drawn at random in the tests
+GAINS = ("ln1", "ln2", "q_norm", "kv_norm", "ln_h", "ln_e")
 
 
 def _normal(seed, *shape, scale=1.0):
@@ -67,9 +74,7 @@ def pair(request):
     tree = jax.tree.map(lambda a: np.array(a, np.float32), rparams)
     rng = np.random.default_rng(1)
     layers = tree["layers"]
-    for name in ("ln1", "ln2"):
-        layers[name] = 1.0 + 0.1 * rng.standard_normal(
-            layers[name].shape).astype(np.float32)
+    _random_gains(tree, rng)
     tree["ln_f"] = 1.0 + 0.1 * rng.standard_normal(
         tree["ln_f"].shape).astype(np.float32)
     for name in ("bq", "bk", "bv"):
@@ -80,6 +85,16 @@ def pair(request):
     params = convert.params_from_jax(tree, cfg, device="cpu")
     return rcfg, rparams, cfg, params
 
+
+def _random_gains(tree, rng):
+    """Every norm gain of :data:`GAINS` in ``tree``, at any depth, redrawn
+    around 1."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _random_gains(v, rng)
+        elif k in GAINS:
+            tree[k] = 1.0 + 0.1 * rng.standard_normal(v.shape).astype(
+                np.float32)
 
 # ---------------------------------------------------------------------------
 # configs, parameters, roofline terms
@@ -133,18 +148,38 @@ def test_init_params_has_the_reference_layout(arch):
             t = t[key.key]
         assert tuple(t.shape) == leaf.shape[1:], path
         assert t.dtype == torch.float32
-    # the draws: zero biases, unit gains, normal weights at 1/sqrt(fan-in)
+    # the multi-token-prediction head (unstacked in the reference too)
+    assert ("mtp" in params) == bool(cfg.mtp_depth)
+    if cfg.mtp_depth:
+        flat = jax.tree_util.tree_flatten_with_path(rparams["mtp"])[0]
+        assert len(flat) == len(list(_leaves(params["mtp"])))
+        for path, leaf in flat:
+            t = params["mtp"]
+            for key in path:
+                t = t[key.key]
+            assert tuple(t.shape) == leaf.shape, path
+    # the draws: zero biases, unit gains, normal weights at shape[0] ** -0.5
+    # (the reference's rule: 1/sqrt(fan-in) for a matrix; for an expert
+    # tensor [E, d, ff] its first axis is the expert count)
     lay = params["layers"][1]
     assert torch.equal(lay["ln1"], torch.ones(cfg.d_model))
-    w = lay["mlp"]["wi"]
-    assert abs(float(w.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    mlp = lay["mlp"]
+    w = mlp["wi"] if "wi" in mlp else mlp["experts"]["wi"]
+    assert abs(float(w.std()) * w.shape[0] ** 0.5 - 1.0) < 0.05
     again = model.init_params(cfg, Runtime(),
                               torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again["emb"], params["emb"])
 
 
-@pytest.mark.parametrize("family_arch", ["dbrx-132b", "deepseek-v3-671b",
-                                         "mamba2-2.7b", "recurrentgemma-2b",
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+@pytest.mark.parametrize("family_arch", ["mamba2-2.7b", "recurrentgemma-2b",
                                          "llama-3.2-vision-11b",
                                          "seamless-m4t-large-v2"])
 def test_families_still_to_port_raise(family_arch):
@@ -272,7 +307,8 @@ def test_prefill_logits_and_cache_match(pair, lengths):
                                 {"tokens": torch.from_numpy(toks)}, 24,
                                 lengths=tl)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
-    for name in ("k", "v"):
+    assert list(state["layers"]) == list(rstate["layers"])
+    for name in rstate["layers"]:
         assert tuple(state["layers"][name].shape) == \
             rstate["layers"][name].shape
         np.testing.assert_allclose(_np(state["layers"][name]),
@@ -298,11 +334,11 @@ def test_decode_steps_match_scalar_and_per_slot(pair):
         pos = lengths + i
         want, rstate = ref_decode.decode_step(
             rcfg, rrt, rparams, jnp.asarray(tok), jnp.asarray(pos), rstate)
-        cache = state["layers"]["k"]
+        cache = next(iter(state["layers"].values()))
         got, state = decode.decode_step(
             cfg, rt, params, torch.from_numpy(tok), torch.from_numpy(pos),
             state)
-        assert state["layers"]["k"] is cache           # written in place
+        assert next(iter(state["layers"].values())) is cache   # in place
         np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
     for impl in ("chunked", "dense"):
         tok = _tokens(cfg, 40, 2, 1)
@@ -314,7 +350,7 @@ def test_decode_steps_match_scalar_and_per_slot(pair):
             torch.tensor(19), convert.decode_state_from_jax(
                 jax.tree.map(np.asarray, rstate), device="cpu"))
         np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
-        for name in ("k", "v"):
+        for name in rs["layers"]:
             np.testing.assert_allclose(_np(st["layers"][name]),
                                        np.asarray(rs["layers"][name]), **TOL)
 
@@ -323,7 +359,8 @@ def test_decode_state_layout_matches(pair):
     rcfg, _, cfg, _ = pair
     rstate = ref_decode.init_decode_state(rcfg, RefRuntime(tp=1), 3, 40)
     state = decode.init_decode_state(cfg, Runtime(), 3, 40, device="cpu")
-    for name in ("k", "v"):
+    assert list(state["layers"]) == list(rstate["layers"])
+    for name in rstate["layers"]:
         assert tuple(state["layers"][name].shape) == \
             rstate["layers"][name].shape
         assert state["layers"][name].dtype == torch.float32
@@ -344,3 +381,152 @@ def test_init_kv_cache_matches(window):
     for name in ("k", "v"):
         assert tuple(got[name].shape) == want[name].shape
         assert not got[name].any()
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA
+# ---------------------------------------------------------------------------
+def test_trunk_aux_loss_matches(pair):
+    """The MoE load-balance loss summed over the layers (0 for a dense
+    trunk), on the reference's local path."""
+    rcfg, rparams, cfg, params = pair
+    toks = _tokens(cfg, 15, 2, 11)
+    _, want, _ = ref_model.trunk_hidden(rcfg, RefRuntime(tp=1),
+                                        rparams, {"tokens": jnp.asarray(toks)})
+    _, got, _ = model.trunk_hidden(cfg, Runtime(), params,
+                                   {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(got), float(want), **TOL)
+    assert (float(got) > 0) == (cfg.family == "moe")
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_moe_dense_oracle_runtime_matches(arch):
+    """``Runtime(moe_impl="dense")`` runs every layer's FFN on the dense
+    oracle, in both packages."""
+    rcfg, cfg = _reduced(arch)
+    rparams, _ = ref_model.init_params(rcfg, RefRuntime(tp=1),
+                                       jax.random.PRNGKey(3))
+    tree = jax.tree.map(lambda a: np.array(a, np.float32), rparams)
+    params = convert.params_from_jax(tree, cfg, device="cpu")
+    toks = _tokens(cfg, 16, 2, 9)
+    want = ref_model.forward_logits(rcfg, RefRuntime(tp=1, moe_impl="dense"),
+                                    rparams, {"tokens": jnp.asarray(toks)})
+    got = model.forward_logits(cfg, Runtime(moe_impl="dense"), params,
+                               {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
+        model.forward_logits(cfg, Runtime(moe_impl="ep"), params,
+                             {"tokens": torch.from_numpy(toks)})
+
+
+@pytest.fixture(scope="module")
+def mla_layer():
+    """Layer 0's MLA parameters of the reduced deepseek-v3-671b, with random
+    norm gains, in both packages."""
+    rcfg, cfg = _reduced("deepseek-v3-671b")
+    rparams, _ = ref_model.init_params(rcfg, RefRuntime(tp=1),
+                                       jax.random.PRNGKey(4))
+    tree = jax.tree.map(lambda a: np.array(a[0], np.float32),
+                        rparams["layers"]["attn"])
+    _random_gains(tree, np.random.default_rng(5))
+    return (rcfg, jax.tree.map(jnp.asarray, tree), cfg,
+            {k: torch.from_numpy(v) for k, v in tree.items()})
+
+
+@pytest.mark.parametrize("positions", ["arange", "per_row"])
+def test_mla_blocks_match(mla_layer, positions):
+    rcfg, rp, cfg, p = mla_layer
+    x = _normal(50, 2, 10, cfg.d_model)
+    pos = (np.arange(10, dtype=np.int32)[None] if positions == "arange"
+           else np.array([np.arange(10), np.arange(3, 13)], np.int32))
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    jpos, tpos = jnp.asarray(pos), torch.from_numpy(pos)
+    for name in ("_mla_q", "_mla_latent"):
+        want = getattr(ref_attn, name)(rp, rcfg, jx, jpos)
+        got = getattr(attn, name)(p, cfg, tx, tpos)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+    want, (wc, wr) = ref_attn.mla_attention(rp, rcfg, jx, jpos,
+                                            return_cache=True)
+    got, (gc, gr) = attn.mla_attention(p, cfg, tx, tpos, return_cache=True)
+    for g, w in ((got, want), (gc, wc), (gr, wr)):
+        np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+    assert torch.equal(attn.mla_attention(p, cfg, tx, tpos), got)
+    # q/k of qk_nope + qk_rope, v of v_head_dim: the kernel's (D, Dv)
+    assert (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) == (24, 16)
+
+
+@pytest.mark.parametrize("pos", [np.int32(6), np.array([6, 2], np.int32)])
+def test_mla_decode_matches(mla_layer, pos):
+    """Absorbed decode over a latent cache, at a scalar position and at
+    per-slot positions; the port writes the new rows in place."""
+    rcfg, rp, cfg, p = mla_layer
+    x = _normal(51, 2, 1, cfg.d_model)
+    cache = {"c_kv": _normal(52, 2, 12, cfg.kv_lora_rank),
+             "k_rope": _normal(53, 2, 12, cfg.qk_rope_dim)}
+    want, wc = ref_attn.mla_decode(rp, rcfg, jnp.asarray(x),
+                                   {k: jnp.asarray(v)
+                                    for k, v in cache.items()},
+                                   jnp.asarray(pos))
+    tcache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    got, gc = attn.mla_decode(p, cfg, torch.from_numpy(x), tcache,
+                              torch.from_numpy(np.asarray(pos)))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    for name in cache:
+        assert gc[name] is tcache[name]
+        np.testing.assert_allclose(_np(gc[name]), np.asarray(wc[name]),
+                                   **TOL)
+
+
+def test_init_mla_cache_matches():
+    rcfg, cfg = _reduced("deepseek-v3-671b")
+    want = ref_attn.init_mla_cache(rcfg, 2, 20, dtype=jnp.float32)
+    got = attn.init_mla_cache(cfg, 2, 20, dtype=torch.float32, device="cpu")
+    assert list(got) == list(want) == ["c_kv", "k_rope"]
+    for name in want:
+        assert tuple(got[name].shape) == want[name].shape
+        assert not got[name].any()
+
+
+def test_full_size_latent_cache_layout():
+    """deepseek-v3-671b at full width: the decode state is the latent cache,
+    512 + 64 values a token and layer, in bf16."""
+    full = decode.init_decode_state(get_config("deepseek-v3-671b"),
+                                    Runtime(), 2, 8, device="meta")
+    assert list(full["layers"]) == ["c_kv", "k_rope"]
+    assert tuple(full["layers"]["c_kv"].shape) == (61, 2, 8, 512)
+    assert tuple(full["layers"]["k_rope"].shape) == (61, 2, 8, 64)
+    assert full["layers"]["c_kv"].dtype == torch.bfloat16
+
+
+def test_decode_state_from_jax_takes_the_latent_cache():
+    rcfg, cfg = _reduced("deepseek-v3-671b")
+    rstate = jax.tree.map(np.asarray, ref_decode.init_decode_state(
+        rcfg, RefRuntime(tp=1), 2, 6))
+    rstate["layers"]["c_kv"] = _normal(54, *rstate["layers"]["c_kv"].shape)
+    state = convert.decode_state_from_jax(rstate, device="cpu")
+    assert list(state["layers"]) == ["c_kv", "k_rope"]
+    for name, want in rstate["layers"].items():
+        np.testing.assert_array_equal(_np(state["layers"][name]), want)
+
+
+def test_large_leaves_are_drawn_in_slabs(monkeypatch):
+    """A leaf of more than SLAB_ELEMS elements is drawn slab by slab along
+    its first axis, each slab in f32 from the same generator and cast into
+    the leaf: the numbers of the draws one after the other."""
+    monkeypatch.setattr(common, "SLAB_ELEMS", 64)
+    shape, scale = (16, 8, 4), 16 ** -0.5
+    mk = common.ParamMaker(torch.Generator().manual_seed(3), "bfloat16",
+                           torch.device("cpu"))
+    got = mk("w", shape)
+    gen = torch.Generator().manual_seed(3)
+    want = torch.cat([torch.randn((2, 8, 4), generator=gen) * scale
+                      for _ in range(8)]).bfloat16()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    assert torch.equal(got, want)
+    # a leaf at the limit is one draw, as before
+    small = common.ParamMaker(torch.Generator().manual_seed(3), "float32",
+                              torch.device("cpu"))("b", (8, 8))
+    assert torch.equal(small, torch.randn(
+        (8, 8), generator=torch.Generator().manual_seed(3)) * 8 ** -0.5)

@@ -4,7 +4,10 @@ power policies, EnergySession and its telemetry, and the serve CLI.
 
 Both packages serve the reduced qwen2.5-14b config in f32 on the same
 parameters (the reference's ``init_params`` tree with random biases,
-handed over through :func:`repro_torch.convert.params_from_jax`). Greedy
+handed over through :func:`repro_torch.convert.params_from_jax`); the
+generate, serve() and CLI cases also serve the reduced dbrx-132b (MoE) and
+deepseek-v3-671b (MoE with MLA attention), whose norm gains are drawn at
+random as well, on the MoE local path. Greedy
 tokens must be equal, for the same admission order: the logits agree to
 about 1e-6 (tests/test_torch_models.py), far inside the top-2 margins of
 these prompts. Profiles, decisions and session summaries are float64 host
@@ -44,24 +47,46 @@ from repro_torch.serving import (ContinuousEngine, Request, ServeEngine,
 
 RTOL = 1e-12
 MAX_LEN = 48
+#: the MoE configs served besides qwen2.5-14b: GQA, and MLA attention
+MOE_ARCHS = ["dbrx-132b", "deepseek-v3-671b"]
+#: norm gains (initialised to ones), drawn at random in the MoE models
+GAINS = ("ln1", "ln2", "q_norm", "kv_norm")
 
 
-@pytest.fixture(scope="module")
-def served():
-    rcfg = dataclasses.replace(ref_get_config("qwen2.5-14b").reduced(),
+def _served(arch):
+    """(reference cfg, params; port cfg, params) of ``arch`` reduced, in
+    f32, on the reference's parameters with random biases and gains."""
+    rcfg = dataclasses.replace(ref_get_config(arch).reduced(),
                                dtype="float32")
-    cfg = dataclasses.replace(get_config("qwen2.5-14b").reduced(),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     rparams, _ = ref_model.init_params(rcfg, RefRuntime(tp=1),
                                        jax.random.PRNGKey(0))
     tree = jax.tree.map(lambda a: np.array(a, np.float32), rparams)
     rng = np.random.default_rng(3)
+    attn = tree["layers"]["attn"]
     for name in ("bq", "bk", "bv"):
-        tree["layers"]["attn"][name] = 0.1 * rng.standard_normal(
-            tree["layers"]["attn"][name].shape).astype(np.float32)
+        if name in attn:
+            attn[name] = 0.1 * rng.standard_normal(
+                attn[name].shape).astype(np.float32)
+    if cfg.family == "moe":
+        for sub in (tree["layers"], attn):
+            for name in GAINS:
+                if name in sub:
+                    sub[name] = 1.0 + 0.1 * rng.standard_normal(
+                        sub[name].shape).astype(np.float32)
     rparams = jax.tree.map(jnp.asarray, tree)
     params = convert.params_from_jax(tree, cfg, device="cpu")
     return rcfg, rparams, cfg, params
+
+
+@pytest.fixture(scope="module")
+def served():
+    return _served("qwen2.5-14b")
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def served_moe(request):
+    return _served(request.param)
 
 
 def _requests(cfg, lengths, budgets, seed=0):
@@ -79,6 +104,18 @@ def _ref_requests(reqs):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("lengths", [(9, 9, 9), (5, 12, 9)])
 def test_generate_both_routes_match_the_reference(served, lengths):
+    _check_generate(served, lengths)
+
+
+@pytest.mark.parametrize("lengths", [(9, 9, 9), (5, 12, 9)])
+def test_moe_generate_both_routes_match_the_reference(served_moe, lengths):
+    """dbrx-132b and deepseek-v3-671b: the continuous route (per-slot
+    caches, latent for MLA) and the lock-step route give the reference's
+    greedy tokens."""
+    _check_generate(served_moe, lengths)
+
+
+def _check_generate(served, lengths):
     rcfg, rparams, cfg, params = served
     reqs = _requests(cfg, lengths, (6, 6, 6), seed=len(set(lengths)))
     reng = ref_serving.ServeEngine(rcfg, RefRuntime(tp=1), rparams,
@@ -92,7 +129,11 @@ def test_generate_both_routes_match_the_reference(served, lengths):
         np.testing.assert_array_equal(g, w)
     for g, w in zip(got_lock, want_lock):
         np.testing.assert_array_equal(g, w)
-    if len(set(lengths)) == 1:        # same length: the routes agree too
+    # same length: the routes of a dense model agree too. An MoE layer's
+    # capacity drops depend on every token of its batch (pads included), so
+    # a prompt prefilled alone and the same prompt in a batch of three may
+    # route differently, in the reference as in the port
+    if len(set(lengths)) == 1 and cfg.family == "dense":
         for c, l in zip(got_cont, got_lock):
             np.testing.assert_array_equal(c, l)
 
@@ -102,6 +143,15 @@ def test_serve_matches_the_reference(served):
     equal scheduling (steps, prefills, occupancy, queue), and the port's
     per-slot masking keeps a request's tokens independent of its
     batch-mates, as in the reference."""
+    _check_serve(served)
+
+
+def test_moe_serve_matches_the_reference(served_moe):
+    """serve() of dbrx-132b and deepseek-v3-671b, as for qwen2.5-14b."""
+    _check_serve(served_moe)
+
+
+def _check_serve(served):
     rcfg, rparams, cfg, params = served
     rng = np.random.default_rng(2)
     reqs = _requests(cfg, rng.integers(2, 14, 8), rng.integers(1, 7, 8),
@@ -208,9 +258,19 @@ def test_no_kernel_launch_on_cpu_tensors(served):
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
+    _check_cli(capsys, [])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_cli_runs_the_moe_configs_on_the_cpu(capsys, arch):
+    _check_cli(capsys, ["--arch", arch])
+
+
+def _check_cli(capsys, extra):
     out = serve_cli.main(["--reduced", "--device", "cpu", "--batch", "2",
                           "--prompt-len", "6", "--new-tokens", "3",
-                          "--max-len", "32", "--policy", "energy-aware"])
+                          "--max-len", "32", "--policy", "energy-aware",
+                          *extra])
     assert len(out["outputs"]) == 2
     assert all(o.shape == (3,) for o in out["outputs"])
     assert out["summary"]["policy"] == "energy-aware"

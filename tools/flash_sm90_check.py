@@ -6,8 +6,9 @@ Builds the kernels, prints what ``ptxas`` said about the bf16 kernel
 (registers, spills, setmaxnreg), its SASS counts of tensor-core products
 (HGMMA) and TMA loads (UTMALDG) and the highest register each
 instantiation uses. Then, at the lock-step route's ragged prefill (q
-``[1,1000,40,128]``) and at head dim 160 (q ``[1,1024,32,160]``), holds
-every tile against the plain version and times it beside
+``[1,1000,40,128]``), at head dim 160 (q ``[1,1024,32,160]``) and at MLA's
+prefill (q/k ``[1,1024,128,192]``, v ``[1,1024,128,128]``), holds every
+tile against the plain version and times it beside
 ``F.scaled_dot_product_attention``, with ``chip_smoke.py``'s timer and
 tolerance (``chip_smoke.py`` checks every other case). One JSON line per
 result; exit 1 if a tile is outside the tolerance.
@@ -62,8 +63,10 @@ def main() -> int:
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     bad = 0
-    for S, Hq, Hkv, D in ((1000, 40, 8, 128), (1024, 32, 8, 160)):
-        q, k, v = rnd(1, S, Hq, D), rnd(1, S, Hkv, D), rnd(1, S, Hkv, D)
+    for S, Hq, Hkv, D, Dv in ((1000, 40, 8, 128, 128),
+                              (1024, 32, 8, 160, 160),
+                              (1024, 128, 128, *cs.MLA_HEAD_DIMS)):
+        q, k, v = rnd(1, S, Hq, D), rnd(1, S, Hkv, D), rnd(1, S, Hkv, Dv)
         ms, share = {}, {}
         for bq in fa.BF16_BLOCK_Q_OPTIONS:
             for bk in fa.BF16_BLOCK_K_OPTIONS:
@@ -80,10 +83,12 @@ def main() -> int:
                     reps=20, queued=True)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20,
+            qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv), reps=20,
             queued=True)
-        cs.emit(phase="tiles", shape=f"q [1,{S},{Hq},{D}], k/v [1,{S},{Hkv},"
-                f"{D}] bf16 causal", ms_by_tile=ms, sdpa_ms=sdpa,
+        bound, by, _, _ = cs.flash_bound_ms(1, Hq, Hkv, S, S, D, 2, True, Dv)
+        cs.emit(phase="tiles", shape=f"q [1,{S},{Hq},{D}], k [1,{S},{Hkv},"
+                f"{D}], v [1,{S},{Hkv},{Dv}] bf16 causal", ms_by_tile=ms,
+                sdpa_ms=sdpa, bound_ms=bound, bound_by=by,
                 share_of_limit_by_tile=share,
                 tolerance=cs.flash_tolerance(torch.bfloat16),
                 device=torch.cuda.get_device_name(0))

@@ -2,10 +2,16 @@
 """Where the serving path's time goes on the card: one prefill (through the
 flash kernel, then through the plain attention route) and a run of decode
 steps of the port's qwen2.5-14b at full width and depth (bf16, random
-weights from a seeded generator), traced with ``torch.profiler``.
+weights from a seeded generator), traced with ``torch.profiler``; or of
+another served config at full width, its depth cut by ``--layers`` (an MoE
+model runs the local path; a multi-token-prediction head, which serving
+never reads, is not built).
 
-    python3 tools/serve_profile.py [--prompt-len 1000] [--slots 4]
-                                   [--decode-steps 8] [--layers 48]
+    python3 tools/serve_profile.py [--arch qwen2.5-14b] [--prompt-len 1000]
+                                   [--slots 4] [--decode-steps 8]
+                                   [--layers 48]
+    python3 tools/serve_profile.py --arch dbrx-132b --layers 8
+    python3 tools/serve_profile.py --arch deepseek-v3-671b --layers 2
 
 For each phase it prints one JSON line: the wall time (host clock around
 work that ends in a synchronise), the device time summed over the phase's
@@ -87,11 +93,12 @@ def _phase(name: str, fn, out_dir) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2.5-14b")
     ap.add_argument("--prompt-len", type=int, default=1000)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth (0 = the config's 48 layers)")
+                    help="cut the depth (0 = the config's own)")
     ap.add_argument("--trace", metavar="DIR", default=None,
                     help="write a Chrome trace of each phase into DIR")
     args = ap.parse_args()
@@ -109,10 +116,10 @@ def main() -> int:
     out_dir = args.trace
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-    cfg = get_config("qwen2.5-14b")
+    cfg = dataclasses.replace(get_config(args.arch), mtp_depth=0)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    rt = Runtime()
+    rt = Runtime(tp=1, moe_impl="local")
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
     params = model_mod.init_params(cfg, rt, gen, device=device)
@@ -127,7 +134,8 @@ def main() -> int:
     for _ in range(2):
         eng.generate_step()
     rows = [_phase("prefill", lambda: eng.prefill(req), out_dir)]
-    plain = ContinuousEngine(cfg, Runtime(attn_impl="plain"), params,
+    plain = ContinuousEngine(cfg, Runtime(moe_impl="local",
+                                          attn_impl="plain"), params,
                              max_slots=1, max_len=2048)
     plain.prefill(req)
     rows.append(_phase("prefill_plain_attention", lambda: plain.prefill(req),
