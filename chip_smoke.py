@@ -3,8 +3,8 @@
 
 Builds the four CUDA kernels from the sources in this checkout (vai, membw,
 and flash attention in f32 and in bf16, the bf16 one also at MLA's head
-dims (192, 128)), holds each against its plain
-PyTorch version on the card, tunes the f32 flash-attention tiles and runs
+dims (192, 128) and RecurrentGemma's (256, 256)), holds each against its
+plain PyTorch version on the card, tunes the f32 flash-attention tiles and runs
 the model's f32 prefill route through the f32 kernel, then drives the
 port's paths once at full size through the entry points a user would
 call:
@@ -46,6 +46,15 @@ call:
       tokens by the margin rule, and layer 0 must route the prompt's tokens
       alike on the kernel route and on routes that compute the same
       attention, and not on the kernel route with a wrong softmax scale
+    the recurrent models, one after the other, at full width and depth in
+      bf16: mamba2-2.7b (64 SSD layers) and recurrentgemma-2b (18 RG-LRU
+      and 8 local-attention layers) -> ServeEngine.generate on 4 greedy
+      requests of 1024 tokens (the lock-step route); recurrentgemma's
+      local-attention prefill runs the bf16 flash kernel at head dims
+      (256, 256), and its prompt through the plain attention route must
+      give the same greedy tokens by the margin rule. One layer of each
+      in f32 holds the chunked SSD and the doubling RG-LRU scan against
+      their one-token decode steps
 
 Run it with no arguments from the root of the checkout:
 
@@ -119,8 +128,28 @@ MOE_SERVE = (
 )
 #: q/k and v head dims of MLA's prefill attention (deepseek-v3-671b)
 MLA_HEAD_DIMS = (192, 128)
+#: q/k and v head dims of RecurrentGemma's local attention
+RG_HEAD_DIMS = (256, 256)
 #: the flash cases timed (every tile, beside the plain version and SDPA)
-TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16")
+TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16",
+                     "rg_local_prefill_served_bf16", "rg_local_prefill_bf16")
+#: the recurrent models, served at full width and depth one after the other,
+#: each on this many requests of one length (``rec_prompt_len``) in one
+#: lock-step prefill
+RECURRENT_SERVE = ("mamba2-2.7b", "recurrentgemma-2b")
+REC_REQUESTS = 4
+#: the chunked SSD and the doubling RG-LRU scan against their one-token
+#: decode steps, one layer at full width in f32: |err| <= atol + rtol *
+#: |step|. Both sides sum the same terms in another order; the SSD's
+#: cumulative log decay over a chunk reaches O(100), where one f32 step is
+#: ~1e-5, and exp(seg_i - seg_j) carries that as a relative error
+SCAN_TOL = (1e-4, 1e-4)
+#: a second draw of the SSD block with dt in Mamba2's trained range:
+#: ``dt_bias`` -4 (softplus gives ~0.02 a token) and ``A_log`` 0 (A = -1),
+#: so a chunk's decay exp(seg_L) is a few hundredths and the state each
+#: chunk carries into the next holds weight (at the initial ``dt_bias`` of
+#: 0 it is ~exp(-100), and a dropped carry would not show)
+SSD_TRAINED_DT = {"dt_bias": -4.0, "A_log": 0.0}
 #: the MoE local path against the dense oracle: DBRX layer 0 in f32 on this
 #: many tokens, within the reference test's tolerance (tests/test_moe.py)
 MOE_CHECK_TOKENS = 64
@@ -133,7 +162,8 @@ MOE_TOL = 2e-4
 #: readings this limit lies between)
 MOE_ROUTING_AGREEMENT = 0.9
 #: the broken witness: the scale a kernel would take from Dv in place of D
-#: at MLA's head dims, 1/sqrt(128) for 1/sqrt(192)
+#: at MLA's head dims, 1/sqrt(128) for 1/sqrt(192); the hybrid's witness
+#: takes the same factor
 MOE_BROKEN_SCALE = math.sqrt(MLA_HEAD_DIMS[0] / MLA_HEAD_DIMS[1])
 #: the job leg: the response surfaces of its Study, its bootstrap count and
 #: the tolerance of the card against the host
@@ -1003,14 +1033,19 @@ def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, itemsize, causal, Dv=None):
 
 def ptxas_facts(log: str, kernel: str) -> dict:
     """Registers and spill bytes ``ptxas -v`` gave each instantiation of
-    ``kernel`` (a template over head dim, block_q and block_k), keyed
-    ``D<d>_<block_q>x<block_k>``."""
+    ``kernel`` (a template over head dim, block_q and block_k, keyed
+    ``D<d>_<block_q>x<block_k>``; or over head dims D and Dv, block_q and
+    block_k, keyed ``D<d>_<dv>_<block_q>x<block_k>``)."""
     import re
     facts, name = {}, None
     for line in log.splitlines():
-        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E", line)
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
+                      line)
         if "Compiling entry function" in line:
-            name = f"D{m[1]}_{m[2]}x{m[3]}" if m else None
+            if m and m[4]:
+                name = f"D{m[1]}_{m[2]}_{m[3]}x{m[4]}"
+            else:
+                name = f"D{m[1]}_{m[2]}x{m[3]}" if m else None
             if name:
                 facts[name] = {}
         elif name and "spill stores" in line:
@@ -1050,9 +1085,12 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     over a ragged kv length, with K zero (P.V alone), at head dims 64
     and 160 (whole and ragged), and at MLA's prefill (q/k of head dim 192,
     v of 128, 128 heads; whole and ragged). Every instantiated tile is
-    checked and timed at the three timed shapes. Returns the kernels-line
-    entries of the bf16 kernel at D = Dv = 128 and at (192, 128), and of
-    the f32 kernel."""
+    checked and timed at the timed shapes; and bf16 at RecurrentGemma's
+    local-attention prefill (head dims (256, 256), 10 q heads over one kv
+    head; at the served batch of REC_REQUESTS prompts, at one prompt, and
+    ragged). Returns the kernels-line entries of the bf16 kernel at D = Dv
+    = 128, at (192, 128) and at (256, 256), and of the f32 kernel, each
+    from the first timed case at its head dims."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
@@ -1068,8 +1106,11 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     mseq, mhq, mhkv, mhd = sizes["flash_model"]
     ragged = sizes["flash_ragged"]
     mla_seq, mla_heads = sizes["flash_mla"]
+    rg_seq, rg_heads, rg_kv = sizes["flash_rg"]
+    rec_seq = sizes["rec_prompt_len"]
     tiles = attn.flash_tiles(bf16)
     tiles_f32 = attn.flash_tiles(f32)
+    tiles_rg = attn.flash_tiles(bf16, RG_HEAD_DIMS)
     # (name, B, Sq, Skv, Hq, Hkv, D or (D, Dv), dtype, causal, block_q,
     #  block_k)
     cases = [
@@ -1129,6 +1170,17 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
          MLA_HEAD_DIMS, bf16, True, *tiles),
         ("mla_prefill_ragged_bf16", 1, ragged, ragged, mla_heads, mla_heads,
          MLA_HEAD_DIMS, bf16, True, *tiles),
+        # RecurrentGemma's local-attention prefill (recurrentgemma-2b): 10 q
+        # heads over one kv head of 256, the window masking no key; at the
+        # shape serve_recurrent gives it (REC_REQUESTS prompts of
+        # rec_prompt_len in one prefill: its kernels row), at one prompt,
+        # and at the lock-step route's ragged prompt
+        ("rg_local_prefill_served_bf16", REC_REQUESTS, rec_seq, rec_seq,
+         rg_heads, rg_kv, RG_HEAD_DIMS, bf16, True, *tiles_rg),
+        ("rg_local_prefill_bf16", 1, rg_seq, rg_seq, rg_heads, rg_kv,
+         RG_HEAD_DIMS, bf16, True, *tiles_rg),
+        ("rg_local_prefill_ragged_bf16", 1, ragged, ragged, rg_heads, rg_kv,
+         RG_HEAD_DIMS, bf16, True, *tiles_rg),
     ]
     rows = []
     for name, B, Sq, Skv, Hq, Hkv, D, dt, causal, bq, bk in cases:
@@ -1204,17 +1256,23 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     timing = ("CUDA events around each launch, queued behind a sleep kernel "
               "so the wrapper's host work is not timed")
     entries = []
-    mla = list(MLA_HEAD_DIMS)
-    for name, dt, source, what in (
-            ("flash_attention", bf16, "flash_attention_sm90.cu",
+    other_dims = (list(MLA_HEAD_DIMS), list(RG_HEAD_DIMS))
+    for name, dt, dims, source, what in (
+            ("flash_attention", bf16, None, "flash_attention_sm90.cu",
              "(the served model's prefill)"),
-            ("flash_attention_192x128", bf16, "flash_attention_sm90.cu",
+            ("flash_attention_192x128", bf16, MLA_HEAD_DIMS,
+             "flash_attention_sm90.cu",
              "(deepseek-v3-671b's MLA prefill, q/k head dim 192, v 128)"),
-            ("flash_attention_f32", f32, "flash_attention.cu",
+            ("flash_attention_256x256", bf16, RG_HEAD_DIMS,
+             "flash_attention_sm90.cu",
+             "(recurrentgemma-2b's local-attention prefill as served, "
+             "head dim 256)"),
+            ("flash_attention_f32", f32, None, "flash_attention.cu",
              "(the tuning space's shape, the model's f32 tiles)")):
         mine = [r for r in rows
                 if r["dtype"] == str(dt).replace("torch.", "")
-                and (r["head_dims"] == mla) == (name.endswith("192x128"))]
+                and (r["head_dims"] == list(dims) if dims
+                     else r["head_dims"] not in other_dims)]
         main = next(r for r in mine if "ms" in r)
         entry = {
             "name": name,
@@ -1566,11 +1624,26 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
     plain route, the plain route with p rounded as in the kernel, the
     kernel route again), each of which must reach MOE_ROUTING_AGREEMENT,
     and on the card on the kernel route broken on purpose (its softmax
-    scale times MOE_BROKEN_SCALE), which must not."""
+    scale times MOE_BROKEN_SCALE), which must not.
+
+    A hybrid model (recurrentgemma-2b) with random weights echoes its
+    input: the tied embeddings, scaled by sqrt(d_model), dominate the
+    residual stream, so the top-2 margin among 256,000 logits is about one
+    bf16 step, the routes' difference, and its tokens may not be compared
+    at all. For it the first local-attention layer's output is compared
+    (layer 2: its input comes out of two RG-LRU layers that both routes
+    compute alike): on the kernel route and a second kernel run it must
+    lie within the flash tolerance of the plain route's with p rounded as
+    in the kernel (as check_flash holds the kernel), and on the card on the
+    kernel route with its softmax scale times MOE_BROKEN_SCALE it must not.
+    Its share of the limit against the plain route with p in f32 is
+    reported: rounding p alone moves an output near 0 by about 2**-9 of
+    |v|, close to the limit's 2e-3."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import decode as decode_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.transformer import Runtime
@@ -1579,22 +1652,32 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
     V = cfg.vocab_size
     toks = torch.from_numpy(rng.integers(0, V, (1, S), dtype=np.int32)).to(
         device)
-    route = moe_mod._route
+    route, chunked = moe_mod._route, attn_mod.chunked_attention
 
     def prefill(impl, max_len):
-        """prefill's logits and state, and each MoE layer's expert sets"""
-        routes = []
+        """prefill's logits and state, and each MoE layer's expert sets or
+        a hybrid's first attention layer's output"""
+        routes, attn_out = [], []
 
         def recorded(router_w, x, k):
             out = route(router_w, x, k)
             routes.append(torch.sort(out[1], dim=-1).values)
             return out
 
-        with patched(moe_mod, "_route", recorded):
+        def first_attention(*args, **kw):
+            out = chunked(*args, **kw)
+            if not attn_out:
+                attn_out.append(out)
+            return out
+
+        hybrid = cfg.family == "hybrid"
+        with patched(moe_mod, "_route", recorded), \
+                (patched(attn_mod, "chunked_attention", first_attention)
+                 if hybrid else contextlib.nullcontext()):
             logits, state = decode_mod.prefill(
                 cfg, Runtime(attn_impl=impl), params, {"tokens": toks},
                 max_len)
-        return logits, state, routes
+        return logits, state, (attn_out if hybrid else routes)
 
     runs, routes = {}, {}
     for impl in ("kernel", "plain"):
@@ -1629,7 +1712,7 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
               f"exceeds the logit difference {diff}")
         compared += 1
     out = {}
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "hybrid"):
         kernel_op = ops.flash_attention_op
 
         def wrong_scale(q, k, v, *, scale, **kw):
@@ -1647,6 +1730,27 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
             with patched(*patch) if patch else contextlib.nullcontext():
                 _, state, routes[name] = prefill(impl, S + 1)
             del state
+    if cfg.family == "hybrid":
+        rounded = routes["plain_round_p"][0]
+        shares = {name: flash_error(routes[name][0], rounded)[1]
+                  for name in ("kernel", "kernel_again",
+                               "kernel_wrong_scale")}
+        out["first_attention_layer_share_of_limit"] = shares
+        out["first_attention_layer_tolerance"] = (
+            f"{flash_tolerance(rounded.dtype)} against the plain route "
+            f"with p rounded as in the kernel")
+        out["first_attention_layer_share_of_limit_unrounded_plain"] = {
+            name: flash_error(routes[name][0], routes["plain"][0])[1]
+            for name in ("kernel", "plain_round_p")}
+        out["broken_softmax_scale_factor"] = MOE_BROKEN_SCALE
+        same = ("kernel", "kernel_again")
+        check(all(shares[n] <= 1.0 for n in same)
+              and (device.type != "cuda"
+                   or shares["kernel_wrong_scale"] > 1.0),
+              f"{cfg.name}: the first attention layer's output on {same} "
+              f"is not within the flash tolerance of the plain route's "
+              f"with p rounded, or the broken kernel's is: {shares}")
+    if cfg.family == "moe":
         agree = {name: [float((a == b).all(dim=-1).float().mean())
                         for a, b in zip(routes["kernel"], r)]
                  for name, r in routes.items() if name != "kernel"}
@@ -1669,6 +1773,202 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
             "plain_tokens": tp}
 
 
+# ------------------------------------------------------- recurrent models
+def recurrent_scan_check(device, sizes: dict) -> dict:
+    """The chunked SSD (mamba2-2.7b) and the doubling RG-LRU scan
+    (recurrentgemma-2b) against their one-token decode steps on the card:
+    one block of each at full width in f32 with the model's initial
+    parameters, 2 sequences of ``scan_len`` tokens (SSD: scan_len / 128
+    chunks), the forward's outputs and final (h, conv) against those of
+    scan_len decode steps from a zero cache, within :data:`SCAN_TOL`; the
+    SSD block once more with dt in Mamba2's trained range
+    (:data:`SSD_TRAINED_DT`), where the state carried across chunks holds
+    weight (``chunk_decay``: exp of a chunk's summed log decay, by head and
+    chunk, for each draw). Both serving routes run the same forward forms,
+    so only this holds them against the plain recurrence."""
+    import dataclasses
+
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.common import ParamMaker, softplus
+    S = sizes["scan_len"]
+    atol, rtol = SCAN_TOL
+    g = torch.Generator(device=device)
+    g.manual_seed(31)
+    out = {"dtype": "float32", "batch": 2, "seq": S,
+           "tolerance": f"|err| <= {atol} + {rtol} * |step|"}
+    ssd = (ssm.ssm_params, ssm.ssd_forward, ssm.init_ssm_cache,
+           ssm.ssd_decode_step)
+    for key, arch, block, leaves, (params_fn, fwd, init, step) in (
+            ("mamba2-2.7b", "mamba2-2.7b", "ssd", {}, ssd),
+            ("mamba2-2.7b_trained_dt", "mamba2-2.7b", "ssd", SSD_TRAINED_DT,
+             ssd),
+            ("recurrentgemma-2b", "recurrentgemma-2b", "rglru", {},
+             (rglru.rglru_params, rglru.rglru_forward,
+              rglru.init_rglru_cache, rglru.rglru_decode_step))):
+        cfg = dataclasses.replace(serve_config(sizes, arch)[0],
+                                  dtype="float32")
+        p = params_fn(ParamMaker(g, "float32", device), block, cfg)
+        for name, value in leaves.items():
+            p[name].fill_(value)
+        u = torch.randn((2, S, cfg.d_model), generator=g, device=device)
+        t0 = time.perf_counter()
+        want, (h, tail) = fwd(p, cfg, u, return_state=True)
+        _sync(device)
+        fwd_s = time.perf_counter() - t0
+        cache = init(cfg, 2, device=device)
+        t0 = time.perf_counter()
+        steps = torch.cat([step(p, cfg, u[:, t:t + 1], cache)[0]
+                           for t in range(S)], dim=1)
+        _sync(device)
+        step_s = time.perf_counter() - t0
+        errs, shares = {}, {}
+        for name, a, b in (("output", want, steps), ("h", h, cache["h"]),
+                           ("conv", tail, cache["conv"])):
+            diff = (a - b).abs()
+            errs[name] = float(diff.max())
+            shares[name] = float((diff / (atol + rtol * b.abs())).max())
+        row = out[key] = {"block": block, "d_model": cfg.d_model,
+                          "leaves_set": leaves,
+                          "max_abs_err": errs, "share_of_limit": shares,
+                          "output_max_abs": float(steps.abs().max()),
+                          "state_max_abs": float(cache["h"].abs().max()),
+                          "forward_s": fwd_s, "decode_steps_s": step_s}
+        if block == "ssd":
+            n = S // ssm.CHUNK if S % ssm.CHUNK == 0 else 1
+            H = ssm.ssm_dims(cfg)[1]
+            dt = softplus((u @ p["w_in"][:, -H:]) + p["dt_bias"])
+            seg = (dt * -torch.exp(p["A_log"])).reshape(2, n, -1, H).sum(2)
+            decay = torch.exp(seg)
+            row.update(chunks=n, chunk_decay={
+                "min": float(decay.min()), "median": float(decay.median()),
+                "max": float(decay.max())})
+        check(all(v <= 1.0 for v in shares.values()),
+              f"{key}: the {block} forward differs from {S} decode steps: "
+              f"{errs}, {shares} of the limit {out['tolerance']}")
+        del p, u, want, steps, cache
+    return out
+
+
+def serve_recurrent(device, sizes: dict, arch: str):
+    """A recurrent model (``mamba2-2.7b``, ``recurrentgemma-2b``) at full
+    width and depth in bf16, random weights from a seeded generator:
+    ServeEngine.generate on REC_REQUESTS greedy requests of one length
+    (``rec_prompt_len``; the recurrent state folds pads, so ragged prompts
+    would mean something else), which takes the lock-step route, its flash
+    launches counted from just before to just after; then the prefill of
+    the same batch and decode steps, timed alone. Returns the report, the
+    launch counts of generate(), the parameters and the config."""
+    import numpy as np
+
+    import repro_torch.core.hardware as hw
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as decode_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.power import EnergySession
+    from repro_torch.serving import Request, ServeEngine
+    cfg, reduced = serve_config(sizes, arch)
+    rt = Runtime(tp=1)
+    S, new = sizes["rec_prompt_len"], sizes["serve_new_tokens"]
+    max_len, B = sizes["serve_max_len"], REC_REQUESTS
+    report = {"arch": cfg.name, "dtype": cfg.dtype, "family": cfg.family,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size, "reduced": reduced,
+              "requests": B, "prompt_len": S, "max_len": max_len,
+              "new_tokens": new, "route": "lock-step (generate_blocking)"}
+    if cfg.family == "ssm":
+        d_in, H, hd, ds = ssm.ssm_dims(cfg)
+        report["ssm"] = {"d_inner": d_in, "heads": H, "head_dim": hd,
+                         "state": ds, "chunk": ssm.CHUNK,
+                         "chunks": S // ssm.CHUNK if S % ssm.CHUNK == 0
+                         else 1}
+    else:
+        kinds = tfm.hybrid_kinds(cfg)
+        report["hybrid"] = {
+            "pattern": list(cfg.block_pattern), "lru_width": cfg.lru_width,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+            "d_ff": cfg.d_ff, "local_window": cfg.local_window,
+            "attention_layers": kinds.count("attn")}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    params = model_mod.init_params(cfg, rt, gen, device=device)
+    _sync(device)
+    report["init_s"] = time.perf_counter() - t0
+    report["params"] = sum(t.numel() for t in _leaves(params))
+    report["param_count_config"] = cfg.param_count()
+    V = cfg.vocab_size
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, V, S, dtype=np.int32),
+                    max_new_tokens=new) for _ in range(B)]
+    sess = EnergySession(policy="energy-aware", chip=hw.H100_SXM,
+                         device=device)
+    engine = ServeEngine(cfg, rt, params, max_len=max_len, session=sess)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts(),
+                  flash_by_head_dims=dict(fa.LAUNCHES_BY_HEAD_DIMS))
+    report["generate"] = {"wall_s": wall, "tokens_per_s": B * new / wall,
+                          "tokens": [o.tolist()[:8] for o in outs],
+                          "session": sess.summary()}
+    check(all(o.shape == (new,) and o.min() >= 0 and o.max() < V
+              for o in outs), f"{arch}: generate returned malformed tokens")
+    del engine
+
+    # -- the prefill of the same batch, then decode steps, timed alone ----
+    tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(device)
+    times = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, state = decode_mod.prefill(cfg, rt, params,
+                                           {"tokens": tokens}, max_len)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    prefill_s = statistics.median(times)
+    tok = torch.argmax(logits[:, 0, :V], dim=-1).to(torch.int32)[:, None]
+    n_steps = sizes["serve_decode_steps"]
+
+    def step(i):
+        return decode_mod.decode_step(
+            cfg, rt, params, tok,
+            torch.tensor(S + i, dtype=torch.int32, device=device), state)[0]
+    step(0)
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(1, n_steps + 1):
+        logits = step(i)
+    _sync(device)
+    decode_s = (time.perf_counter() - t0) / n_steps
+    check(bool(torch.isfinite(logits).all()),
+          f"{arch}: decode gave non-finite logits")
+    report["timing"] = {
+        "prefill_tokens": B * S, "prefill_ms": prefill_s * 1e3,
+        "prefill_tokens_per_s": B * S / prefill_s, "decode_batch": B,
+        "decode_ms_per_step": decode_s * 1e3,
+        "decode_tokens_per_s": B / decode_s}
+    report["flash_launches"] = counts["flash_attention"]
+    report["flash_launches_by_head_dims"] = counts["flash_by_head_dims"]
+    if device.type == "cuda":
+        report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for what, x in (("prefill ms", prefill_s),
+                        ("decode ms/step", decode_s),
+                        ("generate tokens/s", report["generate"]
+                         ["tokens_per_s"]),
+                        ("peak memory", report["peak_memory_gb"])):
+            check(x > 0, f"{arch}: {what} is {x}")
+    del state, logits
+    return report, counts, params, cfg
+
+
 FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             membw_big_rows=2 ** 21, membw_iters=64,          # 1 GiB
             fleet_rows=9408 * 8, fleet_samples=5760, jobs=1500,
@@ -1683,21 +1983,25 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             # prefill (seq, heads) at head dims MLA_HEAD_DIMS
             flash_space=(4, 1024, 128), flash_model=(1024, 40, 8, 128),
             flash_ragged=1000, flash_mla=(1024, 128),
+            flash_rg=(1024, 10, 1),
             serve_reduced=False,
             serve_max_len=2048, serve_new_tokens=32,
             serve_prompt_lens=(100, 1000), serve_decode_steps=16,
-            e2e_prompt_len=512, e2e_steps=8)
+            e2e_prompt_len=512, e2e_steps=8,
+            # the recurrent models: one prompt length (8 SSD chunks, inside
+            # RecurrentGemma's 2048-token window); the scan check's length
+            rec_prompt_len=1024, scan_len=512)
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            membw_iters=8, fleet_rows=64, fleet_samples=300, jobs=300,
            stream_shard=2 ** 12, stream_job_shard=4096,
            replay_shard=2 ** 10, replay_sizes=(2 ** 13, 2 ** 14),
            broker_jobs=120, broker_bench_jobs=2000,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
-           flash_ragged=61, flash_mla=(64, 4),
+           flash_ragged=61, flash_mla=(64, 4), flash_rg=(64, 2, 1),
            serve_reduced=True,
            serve_max_len=256, serve_new_tokens=6,
            serve_prompt_lens=(10, 100), serve_decode_steps=2,
-           e2e_prompt_len=32, e2e_steps=3)
+           e2e_prompt_len=32, e2e_steps=3, rec_prompt_len=32, scan_len=256)
 
 
 def main() -> int:
@@ -1737,7 +2041,9 @@ def main() -> int:
                   "flash_f32_hmma_in_sass": ("flash_fwd_f32", "HMMA"),
                   "flash_bf16_hgmma_in_sass": ("flash_fwd_sm90", "HGMMA"),
                   "flash_bf16_utmaldg_in_sass": ("flash_fwd_sm90",
-                                                 "UTMALDG")}
+                                                 "UTMALDG"),
+                  "flash_bf16_256x256_hgmma_in_sass": (
+                      "flash_fwd_sm90_kernelILi256ELi256E", "HGMMA")}
         in_sass = dict.fromkeys(counts)
         vai_banks = {}
         try:
@@ -1754,10 +2060,14 @@ def main() -> int:
              library=os.path.relpath(build.library_path(), HERE), **in_sass,
              vai_fma_kernel_sass=vai_banks,
              flash_f32_ptxas=ptxas_facts(build.build_log(),
-                                         "flash_fwd_f32_kernel"))
+                                         "flash_fwd_f32_kernel"),
+             flash_bf16_ptxas=ptxas_facts(build.build_log(),
+                                          "flash_fwd_sm90_kernel"))
         check(bool(in_sass["flash_bf16_hgmma_in_sass"])
-              and bool(in_sass["flash_bf16_utmaldg_in_sass"]),
-              f"the bf16 flash kernel shows no HGMMA or UTMALDG: {in_sass}")
+              and bool(in_sass["flash_bf16_utmaldg_in_sass"])
+              and bool(in_sass["flash_bf16_256x256_hgmma_in_sass"]),
+              f"the bf16 flash kernel shows no HGMMA or UTMALDG (or its "
+              f"256x256 instantiation no HGMMA): {in_sass}")
         check(bool(in_sass["flash_f32_hmma_in_sass"]),
               f"the f32 flash kernel shows no HMMA: {in_sass}")
         check(set(vai_banks) == set(VAI_SHAPES) and all(
@@ -1833,16 +2143,37 @@ def main() -> int:
         emit(phase="serve_moe_kernel_vs_plain", arch=arch,
              **end_to_end_check(device, cfg, params, sizes))
         del params
+    # the recurrent models, one at a time: each path's flash launches by
+    # head dims, counted from just before its generate() to just after
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    by_dims = {arch: c["flash_by_head_dims"] for arch, c in moe_counts.items()}
+    emit(phase="recurrent_scan_check", **recurrent_scan_check(device, sizes))
+    rec_counts = {}
+    for arch in RECURRENT_SERVE:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        report, rec_counts[arch], params, cfg = serve_recurrent(
+            device, sizes, arch)
+        emit(phase="serve_recurrent", **report)
+        if cfg.family == "hybrid":
+            rg_attn_layers = report["hybrid"]["attention_layers"]
+            emit(phase="serve_recurrent_kernel_vs_plain", arch=arch,
+                 **end_to_end_check(device, cfg, params, sizes))
+        del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    by_dims = {arch: c["flash_by_head_dims"]
+               for arch, c in {**moe_counts, **rec_counts}.items()}
     mla_key = "x".join(map(str, MLA_HEAD_DIMS))
+    rg_key = "x".join(map(str, RG_HEAD_DIMS))
 
     launches = {"vai": counts["vai"], "membw": counts["membw"],
                 "flash_attention": serve_counts["flash_attention"]
                 + moe_counts["dbrx-132b"]["flash_attention"],
                 "flash_attention_192x128":
                     by_dims["deepseek-v3-671b"].get(mla_key, 0),
+                "flash_attention_256x256":
+                    by_dims["recurrentgemma-2b"].get(rg_key, 0),
                 "flash_attention_f32": tuning_launches + dispatch_f32}
     emit(phase="launches", **launches,
          flash_attention_sampled_generate=sampled_launches,
@@ -1850,7 +2181,8 @@ def main() -> int:
          flash_attention_f32_model_dispatch=dispatch_f32,
          flash_attention_by_path={SERVE_ARCH: serve_counts["flash_attention"],
                                   **{a: c["flash_attention"]
-                                     for a, c in moe_counts.items()}},
+                                     for a, c in {**moe_counts,
+                                                  **rec_counts}.items()}},
          flash_attention_by_head_dims=by_dims)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1866,6 +2198,11 @@ def main() -> int:
           and by_dims["deepseek-v3-671b"].get(mla_key, 0) > 0,
           f"the MoE serving paths did not launch the bf16 flash kernel at "
           f"128x128 (dbrx-132b) and {mla_key} (deepseek-v3-671b): {by_dims}")
+    check(by_dims["recurrentgemma-2b"].get(rg_key, 0) == rg_attn_layers > 0
+          and rec_counts["mamba2-2.7b"]["flash_attention"] == 0,
+          f"recurrentgemma-2b's generate did not launch the bf16 flash "
+          f"kernel at {rg_key} once for each of its {rg_attn_layers} "
+          f"attention layers, or mamba2-2.7b launched it: {by_dims}")
     check(tuning_launches > 0 and dispatch_f32 == 1,
           f"the f32 path launched the f32 flash kernel {tuning_launches} "
           f"times in tuning and {dispatch_f32} in the model's dispatch")

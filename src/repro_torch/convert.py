@@ -138,25 +138,47 @@ def _tensors(tree: Mapping, device) -> Dict:
 
 
 def params_from_jax(tree: Mapping, cfg, device=DEFAULT_DEVICE) -> Dict:
-    """The port's parameters from the reference's ``init_params`` tree of a
-    dense or MoE config (GQA or MLA attention), given as numpy arrays:
-    ``emb``, ``ln_f``, ``unemb`` and the unstacked ``mtp`` subtree as they
-    are, and ``layers`` — arrays stacked over the layers on axis 0, the MoE
-    leaves (``router``, ``experts``, ``shared``) and the MLA leaves
-    included — as a list of per-layer dicts."""
-    from repro_torch.models.transformer import check_family
+    """The port's parameters from the reference's ``init_params`` tree, given
+    as numpy arrays: ``emb``, ``ln_f``, ``unemb`` and the unstacked ``mtp``
+    subtree as they are, and ``layers`` as a list of per-layer dicts in
+    layer order. A dense, MoE or SSM tree stacks its layers on axis 0 (the
+    MoE, MLA and SSD leaves included); a hybrid tree stacks each place
+    ``i`` of its block pattern over the groups (``groups["pos{i}"]``, group
+    ``g`` being layer ``len(pattern) * g + i``) and keeps the remainder
+    layers apart (``rest[j]``, layer ``len(pattern) * n_groups + j``)."""
+    from repro_torch.models.transformer import (check_family,
+                                                hybrid_group_counts)
     check_family(cfg)
     dev = as_device(device)
     out = _tensors({k: v for k, v in tree.items() if k != "layers"}, dev)
-    out["layers"] = [_unstack(tree["layers"], i, dev)
-                     for i in range(cfg.n_layers)]
+    layers = tree["layers"]
+    if cfg.family == "hybrid":
+        n_groups, _ = hybrid_group_counts(cfg)
+        n_pat = len(cfg.block_pattern)
+        out["layers"] = [_unstack(layers["groups"][f"pos{i}"], g, dev)
+                         for g in range(n_groups) for i in range(n_pat)]
+        out["layers"] += [_tensors(r, dev) for r in layers["rest"]]
+    else:
+        out["layers"] = [_unstack(layers, i, dev)
+                         for i in range(cfg.n_layers)]
     return out
 
 
 def decode_state_from_jax(state: Mapping, device=DEFAULT_DEVICE) -> Dict:
-    """The port's decode state (``{"layers": {"k", "v"}}``, or the MLA
-    cache ``{"layers": {"c_kv", "k_rope"}}``, stacked over the layers) from
-    the reference's, given as numpy arrays."""
+    """The port's decode state from the reference's, given as numpy arrays:
+    ``{"layers": {...}}`` stacked over the layers (the KV cache ``k`` /
+    ``v``, the MLA cache ``c_kv`` / ``k_rope`` or the SSM state ``h`` /
+    ``conv``) as it is; a hybrid state ``{"groups": {"pos{i}": stacked over
+    the groups}, "rest": [each with a leading axis of 1]}`` as the list of
+    per-layer dicts in layer order."""
     dev = as_device(device)
-    return {"layers": {k: _tensor(v, dev)
-                       for k, v in state["layers"].items()}}
+    if "groups" not in state:
+        return {"layers": {k: _tensor(v, dev)
+                           for k, v in state["layers"].items()}}
+    groups = state["groups"]
+    n_pat = len(groups)
+    n_groups = len(next(iter(groups["pos0"].values())))
+    layers = [_unstack(groups[f"pos{i}"], g, dev)
+              for g in range(n_groups) for i in range(n_pat)]
+    layers += [_unstack(r, 0, dev) for r in state["rest"]]
+    return {"layers": layers}

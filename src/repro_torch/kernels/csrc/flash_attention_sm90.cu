@@ -23,8 +23,9 @@
 // query rows (wgmma's M), and one producer warpgroup, one thread of which
 // issues every copy:
 //   - TMA loads the Q tile once, and the K and V tiles into a ring of three
-//     stages (two where three do not fit: D = 160 at 128 x 128, and D = 192,
-//     DV = 128 at 128-row kv tiles). Each stage
+//     stages (two where three do not fit: D = 160 at 128 x 128, and D =
+//     192, DV = 128 at 128-row kv tiles; at D = DV = 256 only 64 x 64 is
+//     built, see kBuilt). Each stage
 //     has a "full" mbarrier (the producer posts the bytes it expects; the
 //     TMA unit completes them) and an "empty" one (every consumer thread
 //     arrives once its products on the stage are done), so the next tiles
@@ -37,7 +38,9 @@
 //     bf16x2 register), with no trip through shared memory. V [BK, DV] is an
 //     MN-major B operand, through wgmma's transpose bit; its width DV is
 //     the N of P V, so the registers of a consumer (S and O) depend on BK
-//     and DV alone, and D = 192 only lengthens Q K^T to 12 steps;
+//     and DV alone, and D = 192 only lengthens Q K^T to 12 steps. At DV =
+//     256 (m64n256k16, N at wgmma's largest) O alone is 128 f32 registers a
+//     thread, twice DV = 128's, and Q K^T runs 16 steps;
 //   - the softmax stays in registers: a thread holds two rows of S, the four
 //     threads of a row take its max with __shfl_xor_sync, exp2f has
 //     scale * log2(e) folded in, and each thread keeps its share of l, summed
@@ -45,7 +48,9 @@
 //   - setmaxnreg moves registers from the producer warpgroup to the two
 //     consumer warpgroups of a 128-row tile: the launch bound of 384 threads
 //     gives every thread 168, the producer keeps 40 and the consumers take
-//     232 (a 64-row tile, 256 threads, has 255 without it);
+//     232 (a 64-row tile, 256 threads, has 255 without it: at DV = 256,
+//     built at 64 x 64 only, a consumer holds O (128), S (32) and P (16) in
+//     them);
 //   - the grid runs the heads fastest and the q tiles from the last to the
 //     first, so the blocks with the most causal work start first and the
 //     short ones fill the tail.
@@ -54,7 +59,7 @@
 // the 64-byte one (32 columns; D = 160 is five boxes, as CUTLASS picks for
 // such widths), and the wgmma descriptors name the same swizzle. Q and K
 // follow D's swizzle, V DV's (D = 192 is three 128-byte boxes, DV = 128
-// two). The tensor maps are 4-D (D, H, S,
+// two, D = DV = 256 four). The tensor maps are 4-D (D, H, S,
 // B) with the caller's strides, so a box that runs past the end of a
 // sequence is zero-filled rather than read from the next batch row. Those kv
 // columns get the weight -inf explicitly (a zero K row would score 0, not
@@ -69,7 +74,10 @@
 // [1, 1024, 40, 128], k/v [1, 1024, 8, 128], causal) the flops need 0.0109 ms
 // at the bf16 tensor peak and the bytes 0.0038 ms at the HBM rate. At MLA's
 // prefill (q/k [1, 1024, 128, 192], v [1, 1024, 128, 128]: 128 kv heads)
-// bytes bound it, 0.050 ms against 0.043 ms of flops. A consumer warpgroup
+// bytes bound it, 0.050 ms against 0.043 ms of flops. At RecurrentGemma's
+// local-attention prefill (q [1, 1024, 10, 256], k/v [1, 1024, 1, 256]) the
+// flops need 0.0054 ms and the bytes 0.0034 ms, but its grid is 10 heads x
+// 8 q tiles = 80 blocks on 132 SMs. A consumer warpgroup
 // runs its two products and its softmax one after the other; the two
 // consumers of a block overlap each other's softmax with their products,
 // and the producer overlaps the copies with both.
@@ -462,6 +470,60 @@ __device__ __forceinline__ void wgmma_rs<160>(float (&d)[80],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ------------------------------------------------------------------ kernel
 // S = Q K^T for the K tile at k_base: one wgmma per 16 columns of D, in one
 // commit group. K-major operands: 8-row groups are 8 box rows apart; the 16
@@ -836,10 +898,24 @@ int launch(const Call& c, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiles of head dims (D, DV) that are instantiated: those that fit in
+// a block's shared memory with at least two stages (D = DV = 256 at 128-row
+// kv tiles does not), less D = DV = 256 at 128 x 64, which fits but spills
+// 216 bytes of registers (a 384-thread block leaves a thread 168 at compile
+// time) and ran 2.2x slower than 64 x 64. The wrapper refuses the others
+// first (unsupported() in kernels/flash_attention.py).
+template <int D, int DV, int BQ, int BK>
+constexpr bool kBuilt = SmemSm90<D, DV, BQ, BK>::bytes(2) <= kSmemLimit &&
+                        !(D == 256 && DV == 256 && BQ == 128);
+
 template <int D, int DV>
 int by_tile(int block_q, int block_k, const Call& c, cudaStream_t s) {
-#define REPRO_FLASH_SM90_TILE(BQ, BK) \
-  if (block_q == BQ && block_k == BK) return launch<D, DV, BQ, BK>(c, s);
+#define REPRO_FLASH_SM90_TILE(BQ, BK)                          \
+  if constexpr (kBuilt<D, DV, BQ, BK>) {                       \
+    if (block_q == BQ && block_k == BK) {                      \
+      return launch<D, DV, BQ, BK>(c, s);                      \
+    }                                                          \
+  }
   REPRO_FLASH_SM90_TILE(64, 64)
   REPRO_FLASH_SM90_TILE(64, 128)
   REPRO_FLASH_SM90_TILE(128, 64)
@@ -854,8 +930,9 @@ int by_tile(int block_q, int block_k, const Call& c, cudaStream_t s) {
 // arguments. Every base pointer is 16-byte aligned and every stride of a
 // dim longer than 1 is a multiple of 8 elements (TMA's rule; the wrapper
 // checks it). Tiles (block_q, block_k) in {64, 128} x {64, 128}, head dims
-// (d, dv) in (64, 64), (128, 128), (160, 160) and (192, 128) (MLA prefill:
-// qk_nope + qk_rope = 192, v_head_dim = 128).
+// (d, dv) in (64, 64), (128, 128), (160, 160), (192, 128) (MLA prefill:
+// qk_nope + qk_rope = 192, v_head_dim = 128) and (256, 256)
+// (RecurrentGemma's local attention; 64 x 64 only).
 int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
                                void* o, int batch, int hq, int hkv, int sq,
                                int skv, int d, int dv, long long q_sb,
@@ -878,6 +955,9 @@ int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
   }
   if (d == 192 && dv == 128) {
     return by_tile<192, 128>(block_q, block_k, c, stream);
+  }
+  if (d == 256 && dv == 256) {
+    return by_tile<256, 256>(block_q, block_k, c, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

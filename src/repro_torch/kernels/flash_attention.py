@@ -26,9 +26,10 @@ reference-signature :func:`flash_attention` keeps the reference's rule that
 ``min(block, S)`` divides the sequence (``ValueError`` otherwise). What
 the kernels are built for — the tiles of :func:`tile_options` and the head
 dims ``(D, Dv)`` of :func:`head_dims`, by dtype (f32 at :data:`HEAD_DIMS`
-with ``Dv == D``; bf16 there and at ``(192, 128)``, MLA's prefill), and the
-shared memory a block may have — is stated once, in :func:`unsupported`; a
-tile longer than the sequence runs with its tail masked.
+with ``Dv == D``; bf16 there, at ``(192, 128)``, MLA's prefill, and at
+``(256, 256)``, RecurrentGemma's local attention), and the shared memory a
+block may have — is stated once, in :func:`unsupported`; a tile longer
+than the sequence runs with its tail masked.
 """
 from __future__ import annotations
 
@@ -48,9 +49,17 @@ BF16_BLOCK_Q_OPTIONS = (64, 128)
 BF16_BLOCK_K_OPTIONS = (64, 128)
 #: head dims of both kernels, with Dv == D
 HEAD_DIMS = (64, 128, 160)
-#: ``(D, Dv)`` of the bf16 kernel: HEAD_DIMS with Dv == D, and MLA's prefill
-#: (q/k of qk_nope + qk_rope = 192, v of v_head_dim = 128)
-BF16_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+#: ``(D, Dv)`` of the bf16 kernel: HEAD_DIMS with Dv == D, MLA's prefill
+#: (q/k of qk_nope + qk_rope = 192, v of v_head_dim = 128) and
+#: RecurrentGemma's local attention (256, 256; only the 64-row kv tiles fit
+#: in shared memory there, and of those only 64 x 64 is built:
+#: :data:`BF16_SPILLING_TILES`)
+BF16_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (256, 256))
+#: ``(D, Dv, block_q, block_k)`` of the bf16 kernel that fit in shared
+#: memory but are not built (``kBuilt`` in the source): at (256, 256), 128 x
+#: 64 spills 216 bytes of registers (a 384-thread block leaves a thread 168
+#: at compile time) and ran 2.2x slower than 64 x 64 (PERF.md §6)
+BF16_SPILLING_TILES = frozenset({(256, 256, 128, 64)})
 #: stages of the bf16 kernel's K/V ring: three where they fit in shared
 #: memory, else two (``SmemSm90::kStages`` in the source)
 BF16_MAX_STAGES = 3
@@ -278,10 +287,10 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
         why = (f"not-instantiated (the {itemsize}-byte kernel is built for "
                f"head dims (D, Dv) in {dims}; got D {head_dim}, Dv "
                f"{value_dim})")
-        if itemsize == 4 and value_dim != head_dim:
-            why += ("; f32 attention at Dv != D is ROADMAP queue B, later "
-                    "work: the kernel contract narrower than the TPU "
-                    "kernel's")
+        if itemsize == 4:
+            why += ("; f32 attention at other head dims is ROADMAP queue B, "
+                    "later work item 6: the kernel contract narrower than "
+                    "the TPU kernel's")
         return why
     q_opts, k_opts = tile_options(itemsize)
     if block_q not in q_opts or block_k not in k_opts:
@@ -294,6 +303,11 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
                 f"of shared memory at {itemsize}-byte elements, head dims "
                 f"({head_dim}, {value_dim}); a block has {SMEM_LIMIT_BYTES} "
                 f"B)")
+    if itemsize == 2 and (head_dim, value_dim, block_q,
+                          block_k) in BF16_SPILLING_TILES:
+        return (f"spills (tiles ({block_q}, {block_k}) at head dims "
+                f"({head_dim}, {value_dim}) spill registers and are not "
+                f"built; see BF16_SPILLING_TILES)")
     return None
 
 

@@ -5,7 +5,8 @@ on the card.
         --batch 4 --new-tokens 16 --policy energy-aware
 
 ``--arch`` takes the dense and MoE configs (``dbrx-132b``,
-``deepseek-v3-671b`` with MLA attention). ``--reduced`` serves the arch's
+``deepseek-v3-671b`` with MLA attention), the SSM config ``mamba2-2.7b``
+and the hybrid ``recurrentgemma-2b`` (these two on the lock-step route). ``--reduced`` serves the arch's
 tiny same-family config in f32 (add ``--device cpu`` to run it without a
 card). Weights are random, drawn from
 a generator seeded with ``--seed``.

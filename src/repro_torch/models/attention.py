@@ -3,18 +3,24 @@ caches for decode.
 
 :func:`chunked_attention` dispatches on its arguments, as the reference's
 ``chunked_attention`` picks its flash path. Prefill self-attention on the
-card — CUDA tensors, causal, no window, offset 0, no kv mask — is the case
-the hand-written flash kernel computes, the same function with the same
-outputs: it goes to :func:`repro_torch.kernels.ops.flash_attention_op` with
-the tiles :func:`flash_tiles` picks, for any sequence length (a ragged last
-tile runs masked), and what the kernel is not built for (a head dim, a
-dtype) raises there.
-Every other case (CPU tensors, windows, query offsets, kv masks) takes the
-plain blocked online softmax,
+card — CUDA tensors, causal, offset 0, no kv mask, and no window or a local
+window that masks no key — is the case the hand-written flash kernel
+computes, the same function with the same outputs: it goes to
+:func:`repro_torch.kernels.ops.flash_attention_op` with the tiles
+:func:`flash_tiles` picks, for any sequence length (a ragged last tile runs
+masked), and what the kernel is not built for (a head dim, a dtype) raises
+there. A causal window of ``w`` keys at offset 0 masks nothing while
+``Sq <= w`` (RecurrentGemma's local attention at every prompt up to its
+2048-token window); at ``Sq > w`` it masks keys, which the kernel does not
+do, and the call takes the plain route: that is the kernel's contract, not
+a fallback on failure.
+Every other case (CPU tensors, windows that mask, query offsets, kv masks)
+takes the plain blocked online softmax,
 :func:`repro_torch.kernels.flash_attention.flash_attention_plain`.
 
 Decode writes each new K/V row into the cache in place (``index_copy_`` /
-index assignment on the cache tensors) and returns the same tensors.
+index assignment on the cache tensors) and returns the same tensors; a
+cache of ``window`` slots is a ring (slot ``pos % window``).
 
 MLA (DeepSeek-V3): prefill decompresses per-head K and V from the latent
 and goes through :func:`chunked_attention` with q/k head dim
@@ -43,6 +49,10 @@ NEG_INF = -1e30
 #: (PERF.md); the f32 tile also fits at head dim 160, where Q split in two
 #: leaves room for 32 x 64, 32 x 128 and 64 x 64 only
 FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 64)}
+#: the tiles at head dims ``(D, Dv)`` where FLASH_TILES' are not built: at
+#: (256, 256) the bf16 kernel has 64 x 64 only (its 128 x 64 would spill,
+#: ``fa.BF16_SPILLING_TILES``)
+FLASH_TILES_BY_HEAD_DIMS = {(torch.bfloat16, 256, 256): (64, 64)}
 
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -58,11 +68,18 @@ def _pick_chunk(n: int, pref: int) -> int:
     return max(c, 1)
 
 
-def flash_tiles(dtype: torch.dtype) -> Tuple[int, int]:
-    """The kernel's ``(block_q, block_k)`` for a prefill of ``dtype``, at
-    every length: the kernel masks a ragged last tile (and a tile longer
-    than the sequence). A dtype the kernel does not take gets the default
-    tiles, and the kernel's wrapper refuses it."""
+def flash_tiles(dtype: torch.dtype,
+                head_dims: Optional[Tuple[int, int]] = None
+                ) -> Tuple[int, int]:
+    """The kernel's ``(block_q, block_k)`` for a prefill of ``dtype`` (at
+    ``head_dims`` ``(D, Dv)``, where :data:`FLASH_TILES_BY_HEAD_DIMS`
+    names some), at every length: the kernel masks a ragged last tile (and
+    a tile longer than the sequence). A dtype the kernel does not take gets
+    the default tiles, and the kernel's wrapper refuses it."""
+    if head_dims is not None:
+        tiles = FLASH_TILES_BY_HEAD_DIMS.get((dtype, *head_dims))
+        if tiles is not None:
+            return tiles
     return FLASH_TILES.get(dtype, (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K))
 
 
@@ -73,8 +90,11 @@ def _on_card(q: torch.Tensor) -> bool:
 def _kernel_case(q, causal: bool, q_offset, kv_valid_len,
                  window: int) -> bool:
     """Prefill self-attention on the card, what the flash kernel computes:
-    CUDA tensors, causal, no window, offset 0, no kv mask."""
-    return (_on_card(q) and causal and not window and kv_valid_len is None
+    CUDA tensors, causal, offset 0, no kv mask, and no window or one that
+    masks no key (``Sq <= window``: the farthest key a causal query at
+    offset 0 reaches is ``Sq - 1`` positions back)."""
+    return (_on_card(q) and causal and kv_valid_len is None
+            and (not window or q.shape[1] <= window)
             and isinstance(q_offset, int) and q_offset == 0)
 
 
@@ -107,7 +127,7 @@ def chunked_attention(
     if impl == "kernel" and _kernel_case(q, causal, q_offset, kv_valid_len,
                                          window):
         from repro_torch.kernels import ops
-        bq, bk = flash_tiles(q.dtype)
+        bq, bk = flash_tiles(q.dtype, (Dk, Dv))
         return ops.flash_attention_op(q, k, v, causal=True, block_q=bq,
                                       block_k=bk, scale=scale)
     return fa.flash_attention_plain(

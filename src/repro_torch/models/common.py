@@ -1,5 +1,5 @@
-"""Shared model plumbing: parameter factory, norms, rotary embeddings, gated
-MLP.
+"""Shared model plumbing: parameter factory, norms, rotary embeddings,
+softplus, gated MLP.
 
 The reference maps logical axes to a device mesh here (``shard``,
 ``ShardingRules``); the port runs on one card and has no counterpart.
@@ -91,6 +91,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it,
+    ``logaddexp(x, 0)``, at every ``x`` (``F.softplus`` returns ``x``
+    itself above its threshold)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def conv_tail(x_raw: torch.Tensor, k: int) -> torch.Tensor:
+    """The last ``k - 1`` rows of ``x_raw [B, S, C]`` along the sequence,
+    left-padded with zeros when ``S < k - 1``: the rolling window a
+    recurrent block's causal conv of width ``k`` decodes from after a
+    prefill."""
+    S = x_raw.shape[1]
+    if S >= k - 1:
+        return x_raw[:, S - (k - 1):]
+    return F.pad(x_raw, (0, 0, k - 1 - S, 0))
 
 
 def gated_mlp_params(mk: ParamMaker, prefix: str, d: int, ff: int) -> Dict:

@@ -1,13 +1,21 @@
-"""Serving substrate for the dense and MoE families: decode-state
-construction, prefill, single-token decode.
+"""Serving substrate for the dense, MoE, SSM and hybrid families:
+decode-state construction, prefill, single-token decode.
 
-The state mirrors the reference's layout, stacked over layers:
-``{"layers": {"k": [L, B, M, Hkv, hd], "v": [L, B, M, Hkv, hd]}}``, or for
-MLA the latent cache ``{"layers": {"c_kv": [L, B, M, kv_lora_rank],
-"k_rope": [L, B, M, qk_rope_dim]}}``, in bf16 for bf16 configs (f32
-otherwise). :func:`decode_step` writes each layer's new
-row into those tensors in place and returns the same dict; the reference
-returns a new pytree (its jitted callers donate the old one).
+The state mirrors the reference's layout where the reference stacks over
+layers: ``{"layers": {"k": [L, B, M, Hkv, hd], "v": [L, B, M, Hkv, hd]}}``,
+or for MLA the latent cache ``{"layers": {"c_kv": [L, B, M,
+kv_lora_rank], "k_rope": [L, B, M, qk_rope_dim]}}``, or for the SSM family
+``{"layers": {"h": [L, B, H, head_dim, d_state] (f32), "conv": [L, B, K -
+1, conv_dim]}}``. The hybrid family's state is a list of per-layer dicts in
+layer order, as its parameters are (the reference stacks it over pattern
+groups and keeps the remainder layers apart): an RG-LRU layer's ``{"h":
+[B, lru_width] (f32), "conv": [B, 3, lru_width]}`` and a local-attention
+layer's ring ``{"k", "v": [B, min(local_window, M), Hkv, hd]}``, slot ``p %
+window`` holding position ``p``. Caches are in bf16 for bf16 configs (f32
+otherwise); the recurrent ``h`` is always f32. :func:`decode_step` writes
+each layer's new row or state into those tensors in place and returns the
+same dict; the reference returns a new pytree (its jitted callers donate
+the old one).
 """
 from __future__ import annotations
 
@@ -19,12 +27,16 @@ from repro_torch import as_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import model as model_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import gated_mlp, rms_norm
 from repro_torch.models.transformer import Runtime
 
 #: families whose decode state is a position-indexed cache, so padding past a
-#: sequence's true length is recoverable (masked at read time)
+#: sequence's true length is recoverable (masked at read time). The
+#: recurrent families (ssm / hybrid) fold every prefill token into their
+#: state and cannot un-see pads.
 CAUSAL_CACHE_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
@@ -34,19 +46,63 @@ def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_decode_state(cfg: ModelConfig, rt: Runtime, batch: int,
                       max_len: int, device=None) -> Dict:
-    """Zeroed KV cache for ``batch`` sequences of up to ``max_len`` tokens
-    on ``device`` (default: the card)."""
+    """Zeroed decode state for ``batch`` sequences of up to ``max_len``
+    tokens on ``device`` (default: the card)."""
     tfm.check_family(cfg)
     L, dev, dt = cfg.n_layers, as_device(device), _cache_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    if cfg.family == "hybrid":
+        win = min(cfg.local_window, max_len)
+        kv = (batch, win, cfg.padded_kv_heads(rt.tp), hd)
+        return {"layers": [
+            {"k": torch.zeros(kv, dtype=dt, device=dev),
+             "v": torch.zeros(kv, dtype=dt, device=dev)}
+            if kind == "attn" else
+            rglru_mod.init_rglru_cache(cfg, batch, dtype=dt, device=dev)
+            for kind in tfm.hybrid_kinds(cfg)]}
+    if cfg.family == "ssm":
+        d_in, H, shd, ds = ssm_mod.ssm_dims(cfg)
+        C = d_in + 2 * cfg.ssm_n_groups * ds
+        return {"layers": {
+            "h": torch.zeros((L, batch, H, shd, ds), dtype=torch.float32,
+                             device=dev),
+            "conv": torch.zeros((L, batch, cfg.ssm_conv_kernel - 1, C),
+                                dtype=dt, device=dev)}}
     if cfg.use_mla:
         shapes = {"c_kv": (L, batch, max_len, cfg.kv_lora_rank),
                   "k_rope": (L, batch, max_len, cfg.qk_rope_dim)}
     else:
-        kv = (L, batch, max_len, cfg.padded_kv_heads(rt.tp),
-              cfg.resolved_head_dim)
+        kv = (L, batch, max_len, cfg.padded_kv_heads(rt.tp), hd)
         shapes = {"k": kv, "v": kv}
     return {"layers": {name: torch.zeros(shape, dtype=dt, device=dev)
                        for name, shape in shapes.items()}}
+
+
+def _pad_to(x: torch.Tensor, M: int, axis: int) -> torch.Tensor:
+    """``x`` zero-padded to length ``M`` along ``axis``."""
+    S = x.shape[axis]
+    if S == M:
+        return x
+    shape = list(x.shape)
+    shape[axis] = M - S
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _ring_from_kv(k: torch.Tensor, win: int) -> torch.Tensor:
+    """Arrange the last ``win`` entries of k [B,S,...] into ring-buffer order
+    (slot = pos % win)."""
+    S = k.shape[1]
+    if S <= win:
+        return _pad_to(k, win, 1)
+    base = S - win
+    pos = [base + ((slot - base) % win) for slot in range(win)]
+    return k[:, torch.tensor(pos, device=k.device)]
+
+
+def _hybrid_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The second half of a hybrid block: ``x`` plus its gated MLP."""
+    return x + gated_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                         cfg.act)
 
 
 def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
@@ -59,29 +115,64 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     the right-padded ``tokens``: logits are then read at position
     ``lengths[b]-1`` per sequence instead of the batch max (causal attention
     keeps positions < length clean; the pad rows the cache still holds are
-    masked later by per-sequence decode positions)."""
+    masked later by per-sequence decode positions). Only meaningful for
+    :data:`CAUSAL_CACHE_FAMILIES`: the recurrent families raise
+    ``ValueError``."""
     tfm.check_family(cfg)
+    if lengths is not None and cfg.family not in CAUSAL_CACHE_FAMILIES:
+        raise ValueError(
+            f"per-sequence prefill lengths need a position-indexed "
+            f"cache; the recurrent state of family {cfg.family!r} "
+            f"absorbs pad tokens")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = model_mod.embed(p, cfg, tokens)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     state = init_decode_state(cfg, rt, B, max_len, device=x.device)
-    caches = list(state["layers"].values())   # (k, v) or (c_kv, k_rope)
-    for i, p_layer in enumerate(p["layers"]):
-        z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-        if cfg.use_mla:
-            y, rows = attn.mla_attention(p_layer["attn"], cfg, z, pos,
-                                         return_cache=True,
-                                         impl=rt.attn_impl)
-        else:
-            y, rows = attn.self_attention(p_layer["attn"], cfg, z, pos,
-                                          return_cache=True,
-                                          impl=rt.attn_impl)
-        for cache, r in zip(caches, rows):
-            cache[i, :, :S] = r
-        x = x + y
-        y2, _ = tfm._ffn(p_layer, cfg, rt, x)
-        x = x + y2
+    layers = state["layers"]
+
+    if cfg.family == "ssm":
+        for i, p_layer in enumerate(p["layers"]):
+            z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+            y, (h, conv) = ssm_mod.ssd_forward(p_layer["ssm"], cfg, z,
+                                               return_state=True)
+            layers["h"][i] = h
+            layers["conv"][i] = conv
+            x = x + y
+    elif cfg.family == "hybrid":
+        for p_layer, cache, kind in zip(p["layers"], layers,
+                                        tfm.hybrid_kinds(cfg)):
+            z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+            if kind == "attn":
+                y, (k, v) = attn.self_attention(
+                    p_layer["attn"], cfg, z, pos, window=cfg.local_window,
+                    return_cache=True, impl=rt.attn_impl)
+                win = cache["k"].shape[1]
+                cache["k"].copy_(_ring_from_kv(k, win))
+                cache["v"].copy_(_ring_from_kv(v, win))
+            else:
+                y, (h, tail) = rglru_mod.rglru_forward(
+                    p_layer["rglru"], cfg, z, return_state=True)
+                cache["h"].copy_(h)
+                cache["conv"].copy_(tail)
+            x = _hybrid_mlp(p_layer, cfg, x + y)
+    else:
+        caches = list(layers.values())   # (k, v) or (c_kv, k_rope)
+        for i, p_layer in enumerate(p["layers"]):
+            z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+            if cfg.use_mla:
+                y, rows = attn.mla_attention(p_layer["attn"], cfg, z, pos,
+                                             return_cache=True,
+                                             impl=rt.attn_impl)
+            else:
+                y, rows = attn.self_attention(p_layer["attn"], cfg, z, pos,
+                                              return_cache=True,
+                                              impl=rt.attn_impl)
+            for cache, r in zip(caches, rows):
+                cache[i, :, :S] = r
+            x = x + y
+            y2, _ = tfm._ffn(p_layer, cfg, rt, x)
+            x = x + y2
 
     if lengths is None:
         x_last = x[:, -1:]
@@ -94,15 +185,34 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
 def decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
                 pos: torch.Tensor, state: Dict) -> Tuple[torch.Tensor, Dict]:
     """token: [B, 1] int; pos: next position to write — a 0-d tensor for
-    lock-step batches, or per-sequence [B] for slot-pool decode. Returns
-    (logits [B,1,V], state), the state updated in place."""
+    lock-step batches, or per-sequence [B] for slot-pool decode
+    (:data:`CAUSAL_CACHE_FAMILIES` only: the recurrent families have no
+    position to index). Returns (logits [B,1,V], state), the state updated
+    in place."""
     tfm.check_family(cfg)
     x = model_mod.embed(p, cfg, token)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     layers = state["layers"]
+    if cfg.family == "hybrid":
+        for p_layer, cache, kind in zip(p["layers"], layers,
+                                        tfm.hybrid_kinds(cfg)):
+            z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+            if kind == "attn":
+                y, _ = attn.decode_self_attention(p_layer["attn"], cfg, z,
+                                                  cache, pos,
+                                                  impl=rt.decode_impl)
+            else:
+                y, _ = rglru_mod.rglru_decode_step(p_layer["rglru"], cfg, z,
+                                                   cache)
+            x = _hybrid_mlp(p_layer, cfg, x + y)
+        return model_mod.logits_fn(p, cfg, x), state
     for i, p_layer in enumerate(p["layers"]):
         z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
         cache = {name: t[i] for name, t in layers.items()}
+        if cfg.family == "ssm":
+            y, _ = ssm_mod.ssd_decode_step(p_layer["ssm"], cfg, z, cache)
+            x = x + y
+            continue
         if cfg.use_mla:
             y, _ = attn.mla_decode(p_layer["attn"], cfg, z, cache, pos)
         else:

@@ -1,4 +1,4 @@
-"""Top-level model API for the dense and MoE families.
+"""Top-level model API for the dense, MoE, SSM and hybrid families.
 
     params        = init_params(cfg, rt, generator, device=...)
     logits        = forward_logits(cfg, rt, params, batch)
@@ -14,7 +14,12 @@ the MLA leaves {``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``,
 leaves {``router``, ``experts`` {``wi``, ``wg``, ``wo``}, ``shared``}) in the
 reference's layouts, and for a config with ``mtp_depth`` the multi-token
 prediction head ``mtp`` {``ln_h``, ``ln_e``, ``w_proj``, ``block``}, which
-only training reads (ROADMAP queue A item 6). Logits span the padded
+only training reads (ROADMAP queue A item 6). An SSM layer is {``ln1``,
+``ssm`` {``w_in``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
+``norm_g``, ``w_out``}}; a hybrid layer {``ln1``, ``ln2``, ``mlp``} with
+``attn`` or ``rglru`` {``w_x``, ``w_gate``, ``conv_w``, ``conv_b``, ``w_a``,
+``b_a``, ``w_i``, ``b_i``, ``lam``, ``w_out``} by its place in
+``block_pattern``. Logits span the padded
 vocab, as in the reference; callers slice ``[..., :vocab_size]``.
 """
 from __future__ import annotations
@@ -40,7 +45,12 @@ def _build(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
     }
     if not cfg.tie_embeddings:
         p["unemb"] = mk("unemb", (d, V), scale=d ** -0.5)
-    p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers)
+    if cfg.family == "ssm":
+        p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers, "ssm")
+    elif cfg.family == "hybrid":
+        p["layers"] = tfm.hybrid_params(mk, cfg, rt)
+    else:
+        p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers, "decoder")
     if cfg.mtp_depth:
         p["mtp"] = {
             "ln_h": mk("mtp.ln_h", (d,), init="ones"),
@@ -69,7 +79,12 @@ def init_params(cfg: ModelConfig, rt: Runtime,
 # Embedding / head
 # ---------------------------------------------------------------------------
 def embed(p: Dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return p["emb"][tokens.long()]
+    x = p["emb"][tokens.long()]
+    if cfg.family == "hybrid":
+        # gemma-style embedding scale, rounded to the embedding dtype first
+        # as the reference does (sqrt(2560) = 50.596 is 50.5 in bf16)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x
 
 
 def _unemb_w(p: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -98,7 +113,12 @@ def trunk_hidden(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
         inputs = tokens[:, :-1]
     x = embed(p, cfg, inputs)
     pos = _positions(x.shape[1], x.device)
-    x, aux = tfm.trunk_forward(p["layers"], cfg, rt, x, pos)
+    aux = 0.0
+    if cfg.family == "hybrid":
+        x = tfm.hybrid_forward(p["layers"], cfg, rt, x, pos)
+    else:
+        x, aux = tfm.trunk_forward(p["layers"], cfg, rt, x, pos,
+                                   "ssm" if cfg.family == "ssm" else "decoder")
     return x, aux, inputs
 
 

@@ -18,9 +18,12 @@ the chip model — so any policy behind an :class:`EnergySession` caps the
 decode phase deep while leaving prefill at nominal.
 
 :class:`ServeEngine.generate` keeps its blocking signature: greedy calls
-route through the continuous engine; sampling takes the lock-step path
+of the dense and MoE families route through the continuous engine;
+sampling, and every call of the recurrent families (SSM, hybrid: no
+position-indexed cache to fill a slot from), take the lock-step path
 (:meth:`ServeEngine.generate_blocking`), which reads logits and decodes at
-per-sequence positions for heterogeneous prompt lengths.
+per-sequence positions for heterogeneous prompt lengths of the families
+with a position-indexed cache.
 """
 from __future__ import annotations
 
@@ -249,9 +252,10 @@ class ContinuousEngine:
 
 
 class ServeEngine:
-    """Blocking batch facade over the serving substrate. Greedy calls route
-    through a pooled :class:`ContinuousEngine`; temperature sampling takes
-    the lock-step path."""
+    """Blocking batch facade over the serving substrate. Greedy calls of
+    :data:`SLOT_FAMILIES` route through a pooled :class:`ContinuousEngine`;
+    temperature sampling and the recurrent families take the lock-step
+    path."""
 
     def __init__(self, cfg: ModelConfig, rt: Runtime, params,
                  max_len: int = 256,

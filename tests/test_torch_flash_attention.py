@@ -392,6 +392,15 @@ def test_plain_causal_skip_is_exact(q_offset, window):
     (2, 192, 192, 64, 64, "not-instantiated"),
     (2, 128, 192, 64, 64, "not-instantiated"),
     (2, 128, 64, 64, 64, "not-instantiated"),
+    # RecurrentGemma's local attention: head dim 256, bf16 only; the 128-row
+    # kv tiles overflow shared memory even with two stages, and 128 x 64
+    # fits but spills registers, so 64 x 64 is the one tile built
+    (2, 256, 256, 128, 64, "spills"),
+    (2, 256, 256, 64, 64, None),
+    (2, 256, 256, 128, 128, "smem-overflow"),
+    (2, 256, 256, 64, 128, "smem-overflow"),
+    (4, 256, 256, 32, 64, "queue B"),        # f32 at head dim 256: later
+    (2, 256, 128, 64, 64, "not-instantiated"),
 ])
 def test_support_rules(itemsize, D, Dv, bq, bk, why):
     got = fa.unsupported(itemsize, D, Dv, bq, bk)
@@ -400,14 +409,16 @@ def test_support_rules(itemsize, D, Dv, bq, bk, why):
     assert (got is None) == ((D, Dv) in fa.head_dims(itemsize)
                              and bq in q_opts and bk in k_opts
                              and fa.smem_bytes(itemsize, D, bq, bk, Dv)
-                             <= fa.SMEM_LIMIT_BYTES)
+                             <= fa.SMEM_LIMIT_BYTES
+                             and not (itemsize == 2 and (D, Dv, bq, bk)
+                                      in fa.BF16_SPILLING_TILES))
 
 
 def test_head_dims_by_kernel():
-    """f32 takes the head dims of HEAD_DIMS with Dv == D; bf16 those and
-    MLA's (192, 128)."""
+    """f32 takes the head dims of HEAD_DIMS with Dv == D; bf16 those,
+    MLA's (192, 128) and RecurrentGemma's (256, 256)."""
     assert fa.head_dims(4) == ((64, 64), (128, 128), (160, 160))
-    assert fa.head_dims(2) == fa.head_dims(4) + ((192, 128),)
+    assert fa.head_dims(2) == fa.head_dims(4) + ((192, 128), (256, 256))
     assert fa.unsupported(4, 128, 64, 64, 64).startswith("not-instantiated")
 
 
@@ -463,10 +474,27 @@ def test_shared_memory_formula():
     assert fa.bf16_stages(160, 128, 128) == 2
     assert fa.smem_bytes(2, 160, 128, 128) == 205864 <= fa.SMEM_LIMIT_BYTES
     assert fa.bf16_stages(160, 128, 64) == 3
+    # every bf16 tile fits up to head dim 192; at 256 only the 64-row kv
+    # tiles do (test_shared_memory_formula_at_head_dim_256)
     assert all(fa.smem_bytes(2, D, bq, bk, Dv) <= fa.SMEM_LIMIT_BYTES
-               for D, Dv in fa.BF16_HEAD_DIMS
+               for D, Dv in fa.BF16_HEAD_DIMS if D < 256
                for bq in fa.BF16_BLOCK_Q_OPTIONS
                for bk in fa.BF16_BLOCK_K_OPTIONS)
+
+
+def test_shared_memory_formula_at_head_dim_256():
+    """bf16 at D = Dv = 256: at 128 x 64 three stages would need 263224 B,
+    so the ring keeps two (197672 B); at 64 x 64 three fit (230456 B of the
+    232448); a 128-row kv tile overflows with two stages at either q
+    tile."""
+    assert fa.bf16_stages(256, 128, 64) == 2
+    assert fa.smem_bytes(2, 256, 128, 64) == \
+        65536 + 2 * (32768 + 32768) + 40 + 1024 == 197672
+    assert fa._bf16_smem(256, 128, 64, 3) == 263224 > fa.SMEM_LIMIT_BYTES
+    assert fa.bf16_stages(256, 64, 64) == 3
+    assert fa.smem_bytes(2, 256, 64, 64) == 230456 <= fa.SMEM_LIMIT_BYTES
+    for bq in fa.BF16_BLOCK_Q_OPTIONS:
+        assert fa._bf16_smem(256, bq, 128, 2) > fa.SMEM_LIMIT_BYTES
 
 
 def test_shared_memory_formula_with_dv():
@@ -636,6 +664,52 @@ def test_flash_tiles(recorded, dtype, S):
     attn.chunked_attention(q, k, v)
     (kw,) = recorded
     assert (kw["block_q"], kw["block_k"]) == tiles
+
+
+@pytest.mark.parametrize("S,window,kernel", [
+    (64, 64, True),           # the window reaches every key: masks nothing
+    (40, 2048, True),         # RecurrentGemma's window, a shorter prompt
+    (64, 63, False),          # one key of the last row falls outside it
+    (65, 64, False),
+])
+def test_a_local_window_that_masks_no_key_reaches_the_kernel_op(
+        recorded, S, window, kernel):
+    """RecurrentGemma's local attention, bf16 at head dims (256, 256): a
+    causal prefill at offset 0 whose window is at least its length masks
+    no key, so it is the kernel's case, at the tiles of
+    FLASH_TILES_BY_HEAD_DIMS; a longer prompt is masked by the window,
+    which the kernel does not do, and takes the plain route (the kernel's
+    contract). Both equal the plain route with the window."""
+    dt = torch.bfloat16
+    q = torch.from_numpy(_normal(S, 1, S, 4, 256)).to(dt)
+    k, v = (torch.from_numpy(_normal(S + 1 + i, 1, S, 1, 256)).to(dt)
+            for i in range(2))
+    out = attn.chunked_attention(q, k, v, window=window)
+    if kernel:
+        (kw,) = recorded
+        assert kw["causal"] is True
+        assert (kw["block_q"], kw["block_k"]) == (64, 64) == \
+            attn.flash_tiles(dt, (256, 256))
+        assert fa.unsupported(2, 256, 256, 64, 64) is None
+    else:
+        assert recorded == []
+    plain = attn.chunked_attention(q, k, v, window=window, impl="plain")
+    np.testing.assert_allclose(_f32(out), _f32(plain), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+
+
+def test_flash_tiles_by_head_dims():
+    """(256, 256) in bf16 takes 64 x 64, the one tile built there; every
+    other head dim the dtype's tiles."""
+    assert attn.flash_tiles(torch.bfloat16, (256, 256)) == (64, 64)
+    assert [(bq, bk) for bq in fa.BF16_BLOCK_Q_OPTIONS
+            for bk in fa.BF16_BLOCK_K_OPTIONS
+            if fa.unsupported(2, 256, 256, bq, bk) is None] == [(64, 64)]
+    for dims in ((128, 128), (192, 128), (160, 160)):
+        assert attn.flash_tiles(torch.bfloat16, dims) == \
+            attn.FLASH_TILES[torch.bfloat16]
+    assert attn.flash_tiles(torch.float32, (256, 256)) == \
+        attn.FLASH_TILES[torch.float32]
 
 
 def test_mla_prefill_goes_to_the_kernel_at_192_128(recorded):

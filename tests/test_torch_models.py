@@ -11,6 +11,11 @@ path (``Runtime(tp=1, moe_impl="local")``, the reference's single-device
 path) unless a test says otherwise; its discrete routing is equal in both
 packages on these inputs, so its outputs are held to the same tolerance.
 
+The recurrent families run too: mamba2-2.7b (SSM) and recurrentgemma-2b
+(hybrid RG-LRU / local attention), reduced, with every leaf the reference
+sets to zeros or ones (norm gains, ``A_log``, ``D``, ``dt_bias``,
+``conv_b``, ``b_a``, ``b_i``, ``lam``) drawn at random.
+
 Tolerance: rtol = atol = 1e-5 on logits, caches and every building block.
 The two packages multiply in different orders (XLA's dot against PyTorch's
 matmul, one fused projection against an einsum) and take exp / rsqrt /
@@ -42,7 +47,9 @@ from repro_torch.core import roofline
 from repro_torch.core.hardware import CHIPS
 from repro_torch.models import attention as attn
 from repro_torch.models import common, decode, model
+from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import Runtime
+from torch_recurrent_params import redraw
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ["qwen2.5-14b", "stablelm-12b", "dbrx-132b", "deepseek-v3-671b"]
@@ -179,8 +186,7 @@ def _leaves(tree):
             yield v
 
 
-@pytest.mark.parametrize("family_arch", ["mamba2-2.7b", "recurrentgemma-2b",
-                                         "llama-3.2-vision-11b",
+@pytest.mark.parametrize("family_arch", ["llama-3.2-vision-11b",
                                          "seamless-m4t-large-v2"])
 def test_families_still_to_port_raise(family_arch):
     cfg = dataclasses.replace(get_config(family_arch).reduced(),
@@ -530,3 +536,258 @@ def test_large_leaves_are_drawn_in_slabs(monkeypatch):
                               torch.device("cpu"))("b", (8, 8))
     assert torch.equal(small, torch.randn(
         (8, 8), generator=torch.Generator().manual_seed(3)) * 8 ** -0.5)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: SSM (mamba2-2.7b) and hybrid (recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+REC_ARCHS = ["mamba2-2.7b", "recurrentgemma-2b"]
+
+
+def _rec_models(arch, seed=0, **cuts):
+    rcfg, cfg = _reduced(arch)
+    rcfg = dataclasses.replace(rcfg, **cuts)
+    cfg = dataclasses.replace(cfg, **cuts)
+    rparams, _ = ref_model.init_params(rcfg, RefRuntime(tp=1),
+                                       jax.random.PRNGKey(seed))
+    tree = jax.tree.map(lambda a: np.array(a, np.float32), rparams)
+    redraw(tree, np.random.default_rng(seed + 1))
+    tree["ln_f"] = 1.0 + 0.1 * np.random.default_rng(seed + 2) \
+        .standard_normal(tree["ln_f"].shape).astype(np.float32)
+    return (rcfg, jax.tree.map(jnp.asarray, tree), cfg,
+            convert.params_from_jax(tree, cfg, device="cpu"))
+
+
+@pytest.fixture(scope="module", params=REC_ARCHS)
+def rec_pair(request):
+    return _rec_models(request.param)
+
+
+def _flat_state(state):
+    """A decode state's tensors in a fixed order: the port's list of
+    per-layer dicts, or a dict of stacked tensors, keys sorted."""
+    layers = state["layers"]
+    dicts = layers if isinstance(layers, list) else [layers]
+    return [(i, k, d[k]) for i, d in enumerate(dicts) for k in sorted(d)]
+
+
+def _assert_states_match(got, want_ref):
+    want = convert.decode_state_from_jax(jax.tree.map(np.asarray, want_ref),
+                                         device="cpu")
+    g, w = _flat_state(got), _flat_state(want)
+    assert [(i, k, tuple(t.shape)) for i, k, t in g] == \
+        [(i, k, tuple(t.shape)) for i, k, t in w]
+    for (_, _, gt), (_, _, wt) in zip(g, w):
+        np.testing.assert_allclose(_np(gt), _np(wt), **TOL)
+
+
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_recurrent_params_have_the_reference_layout(arch):
+    """init_params gives each layer the leaves and shapes that the
+    reference's tree gives it through params_from_jax: stacked SSM layers,
+    and the hybrid's pattern groups and remainder layers, in layer order."""
+    rcfg, cfg = _reduced(arch)
+    rparams, _ = ref_model.init_params(rcfg, RefRuntime(tp=1),
+                                       jax.random.PRNGKey(0))
+    carried = convert.params_from_jax(
+        jax.tree.map(lambda a: np.array(a, np.float32), rparams), cfg,
+        device="cpu")
+    params = model.init_params(cfg, Runtime(),
+                               torch.Generator().manual_seed(0), device="cpu")
+    assert set(params) == set(carried) == {"emb", "ln_f", "layers"}
+    assert len(params["layers"]) == len(carried["layers"]) == cfg.n_layers
+
+    def shapes(tree):
+        return {k: (shapes(v) if isinstance(v, dict) else tuple(v.shape))
+                for k, v in tree.items()}
+    for mine, theirs in zip(params["layers"], carried["layers"]):
+        assert shapes(mine) == shapes(theirs)
+    if cfg.family == "hybrid":
+        kinds = ["attn" if "attn" in p else "rglru"
+                 for p in params["layers"]]
+        assert kinds == ["rglru", "rglru", "attn", "rglru", "rglru"]
+        assert kinds == [k if k == "attn" else "rglru"
+                         for k in tfm.hybrid_kinds(cfg)]
+        assert tfm.hybrid_group_counts(cfg) == (1, 2)
+        full = get_config(arch)
+        assert tfm.hybrid_kinds(full).count("attn") == 8
+        assert tfm.hybrid_group_counts(full) == (8, 2)
+
+
+@pytest.mark.parametrize("S", [12, 128])
+def test_recurrent_forward_logits_match(rec_pair, S):
+    """12 positions, and 128: one whole SSD chunk."""
+    rcfg, rparams, cfg, params = rec_pair
+    toks = _tokens(cfg, 105, 2, S + 1)
+    want = ref_model.forward_logits(rcfg, RefRuntime(tp=1), rparams,
+                                    {"tokens": jnp.asarray(toks)})
+    got = model.forward_logits(cfg, Runtime(), params,
+                               {"tokens": torch.from_numpy(toks)})
+    assert tuple(got.shape) == want.shape == (2, S, cfg.padded_vocab(1))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_recurrent_prefill_logits_and_state_match(rec_pair):
+    rcfg, rparams, cfg, params = rec_pair
+    toks = _tokens(cfg, 106, 2, 16)
+    want, rstate = ref_decode.prefill(rcfg, RefRuntime(tp=1), rparams,
+                                      {"tokens": jnp.asarray(toks)}, 24)
+    got, state = decode.prefill(cfg, Runtime(), params,
+                                {"tokens": torch.from_numpy(toks)}, 24)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    _assert_states_match(state, rstate)
+
+
+def test_recurrent_decode_steps_match(rec_pair):
+    """Three steps, each on the state the step before left (the port's
+    updated in place), then one step from the reference's state carried
+    over by decode_state_from_jax, on both decode impls."""
+    rcfg, rparams, cfg, params = rec_pair
+    rrt, rt = RefRuntime(tp=1), Runtime()
+    toks = _tokens(cfg, 107, 2, 16)
+    _, rstate = ref_decode.prefill(rcfg, rrt, rparams,
+                                   {"tokens": jnp.asarray(toks)}, 24)
+    _, state = decode.prefill(cfg, rt, params,
+                              {"tokens": torch.from_numpy(toks)}, 24)
+    first = _flat_state(state)[0][2]
+    for i in range(3):
+        tok = _tokens(cfg, 130 + i, 2, 1)
+        want, rstate = ref_decode.decode_step(
+            rcfg, rrt, rparams, jnp.asarray(tok), jnp.int32(16 + i), rstate)
+        got, state = decode.decode_step(
+            cfg, rt, params, torch.from_numpy(tok), torch.tensor(16 + i),
+            state)
+        assert _flat_state(state)[0][2] is first            # in place
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    _assert_states_match(state, rstate)
+    for impl in ("chunked", "dense"):
+        tok = _tokens(cfg, 140, 2, 1)
+        want, rs = ref_decode.decode_step(
+            rcfg, RefRuntime(tp=1, decode_impl=impl), rparams,
+            jnp.asarray(tok), jnp.int32(19), rstate)
+        got, st = decode.decode_step(
+            cfg, Runtime(decode_impl=impl), params, torch.from_numpy(tok),
+            torch.tensor(19), convert.decode_state_from_jax(
+                jax.tree.map(np.asarray, rstate), device="cpu"))
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+        _assert_states_match(st, rs)
+
+
+def test_hybrid_ring_window_matches():
+    """recurrentgemma-2b with its local window cut to 8 at a 16-token
+    prompt: the prefill leaves the last 8 keys in ring order (slot p % 8
+    holds position p) and each decode step overwrites the oldest, as in
+    the reference."""
+    rcfg, rparams, cfg, params = _rec_models("recurrentgemma-2b", seed=3,
+                                             local_window=8)
+    toks = _tokens(cfg, 108, 2, 16)
+    want, rstate = ref_decode.prefill(rcfg, RefRuntime(tp=1), rparams,
+                                      {"tokens": jnp.asarray(toks)}, 24)
+    got, state = decode.prefill(cfg, Runtime(), params,
+                                {"tokens": torch.from_numpy(toks)}, 24)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    assert tuple(state["layers"][2]["k"].shape) == (2, 8, 1, 16)
+    _assert_states_match(state, rstate)
+    for i in range(3):
+        tok = _tokens(cfg, 150 + i, 2, 1)
+        want, rstate = ref_decode.decode_step(
+            rcfg, RefRuntime(tp=1), rparams, jnp.asarray(tok),
+            jnp.int32(16 + i), rstate)
+        got, state = decode.decode_step(
+            cfg, Runtime(), params, torch.from_numpy(tok),
+            torch.tensor(16 + i), state)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    _assert_states_match(state, rstate)
+
+
+@pytest.mark.parametrize("S,win", [(5, 8), (8, 8), (13, 8), (16, 8)])
+def test_ring_from_kv_puts_position_p_at_slot_p_mod_window(S, win):
+    k = torch.arange(S, dtype=torch.float32).reshape(1, S, 1, 1)
+    ring = decode._ring_from_kv(k, win)[0, :, 0, 0]
+    assert tuple(ring.shape) == (win,)
+    for p in range(max(0, S - win), S):
+        assert ring[p % win] == p
+    assert not ring[S:].any()
+
+
+def test_recurrent_prefill_rejects_lengths(rec_pair):
+    _, _, cfg, params = rec_pair
+    toks = torch.from_numpy(_tokens(cfg, 109, 2, 8))
+    with pytest.raises(ValueError, match="absorbs pad tokens"):
+        decode.prefill(cfg, Runtime(), params, {"tokens": toks}, 12,
+                       lengths=torch.tensor([8, 5]))
+
+
+def test_recurrent_decode_state_layout_matches(rec_pair):
+    rcfg, _, cfg, _ = rec_pair
+    want = convert.decode_state_from_jax(jax.tree.map(
+        np.asarray, ref_decode.init_decode_state(rcfg, RefRuntime(tp=1), 3,
+                                                 40)), device="cpu")
+    got = decode.init_decode_state(cfg, Runtime(), 3, 40, device="cpu")
+    g, w = _flat_state(got), _flat_state(want)
+    assert [(i, k, tuple(t.shape)) for i, k, t in g] == \
+        [(i, k, tuple(t.shape)) for i, k, t in w]
+    assert all(t.dtype == torch.float32 and not t.any() for _, _, t in g)
+
+
+def test_full_size_recurrent_state_layouts():
+    """At full width: mamba2-2.7b's f32 SSD state and bf16 conv window over
+    its 64 layers; recurrentgemma-2b's 18 RG-LRU states and 8 rings of
+    min(2048, max_len) keys, one kv head of 256, in layer order."""
+    mamba = decode.init_decode_state(get_config("mamba2-2.7b"), Runtime(),
+                                     4, 2048, device="meta")["layers"]
+    assert tuple(mamba["h"].shape) == (64, 4, 80, 64, 128)
+    assert mamba["h"].dtype == torch.float32
+    assert tuple(mamba["conv"].shape) == (64, 4, 3, 5120 + 2 * 128)
+    assert mamba["conv"].dtype == torch.bfloat16
+    for max_len, win in ((4096, 2048), (1056, 1056)):
+        rg = decode.init_decode_state(get_config("recurrentgemma-2b"),
+                                      Runtime(), 4, max_len,
+                                      device="meta")["layers"]
+        assert len(rg) == 26
+        attn_layers = [i for i, c in enumerate(rg) if "k" in c]
+        assert attn_layers == list(range(2, 26, 3))
+        assert tuple(rg[2]["k"].shape) == (4, win, 1, 256)
+        assert tuple(rg[0]["h"].shape) == (4, 2560)
+        assert rg[0]["h"].dtype == torch.float32
+        assert rg[0]["conv"].dtype == rg[2]["v"].dtype == torch.bfloat16
+
+
+def test_recurrent_decode_matches_forward(rec_pair):
+    """The port alone, as tests/test_serving_consistency.py holds the
+    reference: prefill of the first 8 tokens and 8 decode steps reproduce
+    the teacher-forced forward logits, rtol = atol = 2e-4."""
+    _, _, cfg, params = rec_pair
+    rt = Runtime()
+    toks = torch.from_numpy(_tokens(cfg, 110, 2, 16))
+    full = model.forward_logits(cfg, rt, params, {"tokens": torch.cat(
+        [toks, torch.zeros((2, 1), dtype=toks.dtype)], 1)})
+    logits, state = decode.prefill(cfg, rt, params, {"tokens": toks[:, :8]},
+                                   16)
+    np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, 7]),
+                               rtol=2e-4, atol=2e-4)
+    for t in range(8, 16):
+        logits, state = decode.decode_step(cfg, rt, params,
+                                           toks[:, t:t + 1],
+                                           torch.tensor(t), state)
+        np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, t]),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_hybrid_embedding_scale_is_cast_to_bf16_first():
+    """sqrt(2560) = 50.596 rounds to 50.5 in bf16; the reference multiplies
+    bf16 embeddings by that bf16 scalar, and so does the port."""
+    cfg = get_config("recurrentgemma-2b")
+    emb = _normal(111, 6, cfg.d_model)
+    toks = np.array([[0, 3, 5]], np.int32)
+    want = ref_model.embed({"emb": jnp.asarray(emb, jnp.bfloat16)}, cfg,
+                           jnp.asarray(toks))
+    got = model.embed({"emb": torch.from_numpy(emb).bfloat16()}, cfg,
+                      torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    ones = model.embed({"emb": torch.ones(1, cfg.d_model,
+                                          dtype=torch.bfloat16)},
+                       cfg, torch.zeros((1, 1), dtype=torch.int32))
+    assert float(ones[0, 0, 0]) == 50.5

@@ -7,13 +7,15 @@ parameters (the reference's ``init_params`` tree with random biases,
 handed over through :func:`repro_torch.convert.params_from_jax`); the
 generate, serve() and CLI cases also serve the reduced dbrx-132b (MoE) and
 deepseek-v3-671b (MoE with MLA attention), whose norm gains are drawn at
-random as well, on the MoE local path. Greedy
-tokens must be equal, for the same admission order: the logits agree to
-about 1e-6 (tests/test_torch_models.py), far inside the top-2 margins of
-these prompts. Profiles, decisions and session summaries are float64 host
-arithmetic in both packages: values are held to rtol 1e-12 (``torch.pow``
-against numpy's pow) and every discrete decision — frequency, mode, step
-count — to equality."""
+random as well, on the MoE local path; the generate and CLI cases also
+the reduced mamba2-2.7b (SSM) and recurrentgemma-2b (hybrid RG-LRU), on
+the lock-step route, with every leaf the reference sets to zeros or ones
+drawn at random. Greedy tokens must be equal, for the same admission
+order: the logits agree to about 1e-6 (tests/test_torch_models.py), far
+inside the top-2 margins of these prompts. Profiles, decisions and
+session summaries are float64 host arithmetic in both packages: values
+are held to rtol 1e-12 (``torch.pow`` against numpy's pow) and every
+discrete decision — frequency, mode, step count — to equality."""
 import dataclasses
 
 import jax
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import given, settings, st
+from torch_recurrent_params import redraw
 
 import repro.power as ref_power
 import repro.serving as ref_serving
@@ -113,6 +116,41 @@ def test_moe_generate_both_routes_match_the_reference(served_moe, lengths):
     caches, latent for MLA) and the lock-step route give the reference's
     greedy tokens."""
     _check_generate(served_moe, lengths)
+
+
+#: the recurrent configs: SSM and hybrid RG-LRU, served on the lock-step
+#: route
+REC_ARCHS = ["mamba2-2.7b", "recurrentgemma-2b"]
+
+
+@pytest.fixture(scope="module", params=REC_ARCHS)
+def served_rec(request):
+    """A recurrent config reduced, in f32, on the reference's parameters
+    with the leaves of ``torch_recurrent_params.REC_AROUND`` drawn at
+    random."""
+    arch = request.param
+    rcfg = dataclasses.replace(ref_get_config(arch).reduced(),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    rparams, _ = ref_model.init_params(rcfg, RefRuntime(tp=1),
+                                       jax.random.PRNGKey(0))
+    tree = jax.tree.map(lambda a: np.array(a, np.float32), rparams)
+    redraw(tree, np.random.default_rng(3))
+    return (rcfg, jax.tree.map(jnp.asarray, tree), cfg,
+            convert.params_from_jax(tree, cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("lengths", [(9, 9, 9), (5, 12, 9)])
+def test_recurrent_generate_matches_the_reference(served_rec, lengths,
+                                                  monkeypatch):
+    """mamba2-2.7b and recurrentgemma-2b: greedy generate takes the
+    lock-step route (a recurrent state has no position-indexed rows to fill
+    a slot from) and gives the reference's tokens; ragged prompts are
+    right-padded and the pads folded into the state, in both packages."""
+    def no_slot_pool(*args, **kw):
+        raise AssertionError("the continuous route took a recurrent model")
+    monkeypatch.setattr(ServeEngine, "_generate_continuous", no_slot_pool)
+    _check_generate(served_rec, lengths)
 
 
 def _check_generate(served, lengths):
@@ -263,6 +301,11 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_serve_cli_runs_the_moe_configs_on_the_cpu(capsys, arch):
+    _check_cli(capsys, ["--arch", arch])
+
+
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_serve_cli_runs_the_recurrent_configs_on_the_cpu(capsys, arch):
     _check_cli(capsys, ["--arch", arch])
 
 

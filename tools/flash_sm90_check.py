@@ -6,9 +6,11 @@ Builds the kernels, prints what ``ptxas`` said about the bf16 kernel
 (registers, spills, setmaxnreg), its SASS counts of tensor-core products
 (HGMMA) and TMA loads (UTMALDG) and the highest register each
 instantiation uses. Then, at the lock-step route's ragged prefill (q
-``[1,1000,40,128]``), at head dim 160 (q ``[1,1024,32,160]``) and at MLA's
-prefill (q/k ``[1,1024,128,192]``, v ``[1,1024,128,128]``), holds every
-tile against the plain version and times it beside
+``[1,1000,40,128]``), at head dim 160 (q ``[1,1024,32,160]``), at MLA's
+prefill (q/k ``[1,1024,128,192]``, v ``[1,1024,128,128]``) and at
+RecurrentGemma's local-attention prefill (q ``[1,1024,10,256]``, k/v
+``[1,1024,1,256]``, and its ragged 1000), holds every tile the kernel is
+built for against the plain version and times it beside
 ``F.scaled_dot_product_attention``, with ``chip_smoke.py``'s timer and
 tolerance (``chip_smoke.py`` checks every other case). One JSON line per
 result; exit 1 if a tile is outside the tolerance.
@@ -43,7 +45,7 @@ def main() -> int:
     log = build.build_log()
     part = log[log.find("flash_attention_sm90"):]
     cs.emit(phase="ptxas", nvcc_seconds=build.build_seconds,
-            lines=[ln for ln in part.splitlines()[:80]
+            lines=[ln for ln in part.splitlines()[:200]
                    if re.search(r"flash_fwd_sm90|registers|spill|setmaxnreg|"
                                 r"warning|error", ln)])
     text = build.sass("flash_fwd_sm90")
@@ -65,11 +67,15 @@ def main() -> int:
     bad = 0
     for S, Hq, Hkv, D, Dv in ((1000, 40, 8, 128, 128),
                               (1024, 32, 8, 160, 160),
-                              (1024, 128, 128, *cs.MLA_HEAD_DIMS)):
+                              (1024, 128, 128, *cs.MLA_HEAD_DIMS),
+                              (1024, 10, 1, 256, 256),
+                              (1000, 10, 1, 256, 256)):
         q, k, v = rnd(1, S, Hq, D), rnd(1, S, Hkv, D), rnd(1, S, Hkv, Dv)
         ms, share = {}, {}
         for bq in fa.BF16_BLOCK_Q_OPTIONS:
             for bk in fa.BF16_BLOCK_K_OPTIONS:
+                if fa.unsupported(2, D, Dv, bq, bk):
+                    continue
                 tile = f"{bq}x{bk}"
                 got = fa.flash_attention_bshd(q, k, v, causal=True,
                                               block_q=bq, block_k=bk)

@@ -5,13 +5,19 @@ steps of the port's qwen2.5-14b at full width and depth (bf16, random
 weights from a seeded generator), traced with ``torch.profiler``; or of
 another served config at full width, its depth cut by ``--layers`` (an MoE
 model runs the local path; a multi-token-prediction head, which serving
-never reads, is not built).
+never reads, is not built). The dense and MoE configs run the slot pool
+(one prompt a prefill, ``--slots`` slots a decode step); the recurrent
+ones (``mamba2-2.7b``, ``recurrentgemma-2b``) the lock-step route that
+serves them (``--slots`` prompts in one prefill, then decode steps of the
+batch).
 
     python3 tools/serve_profile.py [--arch qwen2.5-14b] [--prompt-len 1000]
                                    [--slots 4] [--decode-steps 8]
                                    [--layers 48]
     python3 tools/serve_profile.py --arch dbrx-132b --layers 8
     python3 tools/serve_profile.py --arch deepseek-v3-671b --layers 2
+    python3 tools/serve_profile.py --arch mamba2-2.7b --prompt-len 1024
+    python3 tools/serve_profile.py --arch recurrentgemma-2b --prompt-len 1024
 
 For each phase it prints one JSON line: the wall time (host clock around
 work that ends in a synchronise), the device time summed over the phase's
@@ -111,6 +117,7 @@ def main() -> int:
     from repro_torch.models import model as model_mod
     from repro_torch.models.transformer import Runtime
     from repro_torch.serving import ContinuousEngine, Request
+    from repro_torch.serving.engine import SLOT_FAMILIES
 
     device = torch.device("cuda", 0)
     out_dir = args.trace
@@ -123,32 +130,65 @@ def main() -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
     params = model_mod.init_params(cfg, rt, gen, device=device)
-    eng = ContinuousEngine(cfg, rt, params, max_slots=args.slots,
-                           max_len=2048)
     rng = np.random.default_rng(0)
-    req = Request(rng.integers(0, cfg.vocab_size, args.prompt_len,
-                               dtype=np.int32), max_new_tokens=32)
-    # warm: build the kernel, let cuBLAS pick its algorithms
-    for slot in range(args.slots):
-        eng.insert(eng.prefill(req), slot)
+    plain_rt = Runtime(moe_impl="local", attn_impl="plain")
+    if cfg.family in SLOT_FAMILIES:
+        route = "slot pool"
+        eng = ContinuousEngine(cfg, rt, params, max_slots=args.slots,
+                               max_len=2048)
+        req = Request(rng.integers(0, cfg.vocab_size, args.prompt_len,
+                                   dtype=np.int32), max_new_tokens=32)
+        # warm: build the kernel, let cuBLAS pick its algorithms
+        for slot in range(args.slots):
+            eng.insert(eng.prefill(req), slot)
+        plain = ContinuousEngine(cfg, plain_rt, params, max_slots=1,
+                                 max_len=2048)
+
+        def prefill():
+            eng.prefill(req)
+
+        def prefill_plain():
+            plain.prefill(req)
+
+        def step():
+            eng.generate_step()
+    else:
+        route = "lock-step"
+        from repro_torch.models import decode as decode_mod
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (args.slots, args.prompt_len),
+            dtype=np.int32)).to(device)
+        state = {}
+
+        def run_prefill(r):
+            return decode_mod.prefill(cfg, r, params, {"tokens": toks},
+                                      2048)
+
+        def prefill():
+            state["s"] = run_prefill(rt)[1]
+
+        def prefill_plain():
+            run_prefill(plain_rt)
+
+        tok = torch.zeros((args.slots, 1), dtype=torch.int32, device=device)
+        pos = torch.tensor(args.prompt_len, dtype=torch.int32, device=device)
+
+        def step():
+            decode_mod.decode_step(cfg, rt, params, tok, pos, state["s"])
+        prefill()
     for _ in range(2):
-        eng.generate_step()
-    rows = [_phase("prefill", lambda: eng.prefill(req), out_dir)]
-    plain = ContinuousEngine(cfg, Runtime(moe_impl="local",
-                                          attn_impl="plain"), params,
-                             max_slots=1, max_len=2048)
-    plain.prefill(req)
-    rows.append(_phase("prefill_plain_attention", lambda: plain.prefill(req),
-                       out_dir))
-    del plain
+        step()
+    prefill_plain()
+    rows = [_phase("prefill", prefill, out_dir),
+            _phase("prefill_plain_attention", prefill_plain, out_dir)]
 
     def decode():
         for _ in range(args.decode_steps):
-            eng.generate_step()
+            step()
     rows.append(_phase("decode", decode, out_dir))
     rows[-1]["steps"] = args.decode_steps
     for r in rows:
-        r.update(arch=cfg.name, n_layers=cfg.n_layers,
+        r.update(arch=cfg.name, n_layers=cfg.n_layers, route=route,
                  prompt_len=args.prompt_len, slots=args.slots)
         print(json.dumps(r), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
