@@ -3,7 +3,8 @@
 
 Builds the four CUDA kernels from the sources in this checkout (vai, membw,
 and flash attention in f32 and in bf16, the bf16 one also at MLA's head
-dims (192, 128) and RecurrentGemma's (256, 256)), holds each against its
+dims (192, 128) and RecurrentGemma's (256, 256), and non-causal at the
+VLM's and enc-dec's shapes), holds each against its
 plain PyTorch version on the card, tunes the f32 flash-attention tiles and runs
 the model's f32 prefill route through the f32 kernel, then drives the
 port's paths once at full size through the entry points a user would
@@ -55,6 +56,20 @@ call:
       give the same greedy tokens by the margin rule. One layer of each
       in f32 holds the chunked SSD and the doubling RG-LRU scan against
       their one-token decode steps
+    the VLM and the enc-dec, one after the other, at full width and depth
+      in bf16: llama-3.2-vision-11b (40 self layers, 8 gated cross blocks
+      over 1600 image patches; its tanh gates, zeros at init, drawn
+      non-zero) and seamless-m4t-large-v2 (24 encoder layers over 4096
+      audio frames, 24 decoder layers) -> ServeEngine.generate on 4 greedy
+      requests (1024 / 256 tokens) with a frontend in extra_batch (the
+      lock-step route). The bf16 flash kernel runs their causal
+      self-attention at prefill and their non-causal calls (the encoder,
+      cross-attention at prefill and at every decode step, Sq = 1), each
+      launch count held; the first cross-attention layer's output, its
+      inputs alike on every route, must lie within the flash tolerance of
+      the plain route's with p rounded and outside it on a kernel with a
+      wrong softmax scale, and a second frontend must move the logits by
+      more than the two attention routes differ
 
 Run it with no arguments from the root of the checkout:
 
@@ -132,12 +147,53 @@ MLA_HEAD_DIMS = (192, 128)
 RG_HEAD_DIMS = (256, 256)
 #: the flash cases timed (every tile, beside the plain version and SDPA)
 TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16",
-                     "rg_local_prefill_served_bf16", "rg_local_prefill_bf16")
+                     "rg_local_prefill_served_bf16", "rg_local_prefill_bf16",
+                     "vlm_self_prefill_bf16", "vlm_cross_prefill_bf16",
+                     "vlm_cross_decode_bf16", "encdec_encoder_bf16",
+                     "encdec_self_prefill_bf16", "encdec_cross_prefill_bf16",
+                     "encdec_cross_decode_bf16")
 #: the recurrent models, served at full width and depth one after the other,
 #: each on this many requests of one length (``rec_prompt_len``) in one
 #: lock-step prefill
 RECURRENT_SERVE = ("mamba2-2.7b", "recurrentgemma-2b")
 REC_REQUESTS = 4
+#: the VLM and the enc-dec, served at full width and depth one after the
+#: other, each on this many requests of one length (``cross_serve``: prompt
+#: length and max_len by arch) with a frontend in ``extra_batch``
+CROSS_SERVE = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")
+CROSS_REQUESTS = 4
+#: the scale of the frontends drawn here (standard normal times this): a
+#: vision or speech encoder's output enters the decoder at the residual
+#: stream's own scale. The serve CLI's stub (0.02, as the reference's) puts
+#: the VLM's cross-attention scores near 0.02 (q of unit scale, k of the
+#: frontend's) and its outputs near 5e-4, below the bf16 flash limit's
+#: atol: neither the image nor a broken kernel would show
+FRONTEND_SCALE = 1.0
+#: the kernels-line rows of the flash kernel's calls on the VLM and enc-dec
+#: paths, each at the shape serve_cross gives it: (kernels-line name,
+#: check_flash case, the arch whose generate() launches it, what)
+CROSS_FLASH_ROWS = (
+    ("flash_attention_vlm_self_prefill", "vlm_self_prefill_bf16",
+     "llama-3.2-vision-11b",
+     "(llama-3.2-vision-11b's causal self-attention at prefill)"),
+    ("flash_attention_vlm_cross_prefill", "vlm_cross_prefill_bf16",
+     "llama-3.2-vision-11b",
+     "(llama-3.2-vision-11b's cross-attention at prefill, 1600 patches)"),
+    ("flash_attention_vlm_cross_decode", "vlm_cross_decode_bf16",
+     "llama-3.2-vision-11b",
+     "(llama-3.2-vision-11b's cross-attention at a decode step, Sq = 1)"),
+    ("flash_attention_encdec_encoder", "encdec_encoder_bf16",
+     "seamless-m4t-large-v2",
+     "(seamless-m4t-large-v2's encoder self-attention, 4096 frames)"),
+    ("flash_attention_encdec_self_prefill", "encdec_self_prefill_bf16",
+     "seamless-m4t-large-v2",
+     "(seamless-m4t-large-v2's causal decoder self-attention at prefill)"),
+    ("flash_attention_encdec_cross_prefill", "encdec_cross_prefill_bf16",
+     "seamless-m4t-large-v2",
+     "(seamless-m4t-large-v2's cross-attention at prefill, 4096 frames)"),
+    ("flash_attention_encdec_cross_decode", "encdec_cross_decode_bf16",
+     "seamless-m4t-large-v2",
+     "(seamless-m4t-large-v2's cross-attention at a decode step, Sq = 1)"))
 #: the chunked SSD and the doubling RG-LRU scan against their one-token
 #: decode steps, one layer at full width in f32: |err| <= atol + rtol *
 #: |step|. Both sides sum the same terms in another order; the SSD's
@@ -1088,9 +1144,16 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     checked and timed at the timed shapes; and bf16 at RecurrentGemma's
     local-attention prefill (head dims (256, 256), 10 q heads over one kv
     head; at the served batch of REC_REQUESTS prompts, at one prompt, and
-    ragged). Returns the kernels-line entries of the bf16 kernel at D = Dv
-    = 128, at (192, 128) and at (256, 256), and of the f32 kernel, each
-    from the first timed case at its head dims."""
+    ragged); and bf16 at every shape the VLM and enc-dec paths give it:
+    llama-3.2-vision-11b's causal self-attention at prefill and its
+    cross-attention at prefill and at a decode step (Sq = 1),
+    seamless-m4t-large-v2's encoder, its causal decoder self-attention at
+    prefill and its cross-attention at prefill and at a decode step, each
+    at the model's tiles. Returns the kernels-line entries of
+    the bf16 kernel at D = Dv = 128, at (192, 128) and at (256, 256), and
+    of the f32 kernel, each from the first timed case at its head dims
+    (the rows of the VLM and enc-dec paths apart), then one entry for each
+    of those rows (CROSS_FLASH_ROWS)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
@@ -1108,6 +1171,8 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     mla_seq, mla_heads = sizes["flash_mla"]
     rg_seq, rg_heads, rg_kv = sizes["flash_rg"]
     rec_seq = sizes["rec_prompt_len"]
+    vb, vs, vf, vhq, vhkv, vhd = sizes["flash_vlm"]
+    eb, es, ef, eh, ehd = sizes["flash_encdec"]
     tiles = attn.flash_tiles(bf16)
     tiles_f32 = attn.flash_tiles(f32)
     tiles_rg = attn.flash_tiles(bf16, RG_HEAD_DIMS)
@@ -1181,6 +1246,27 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
          RG_HEAD_DIMS, bf16, True, *tiles_rg),
         ("rg_local_prefill_ragged_bf16", 1, ragged, ragged, rg_heads, rg_kv,
          RG_HEAD_DIMS, bf16, True, *tiles_rg),
+        # the calls of the VLM and enc-dec paths, at the shapes and tiles
+        # serve_cross gives them (CROSS_REQUESTS prompts in one prefill):
+        # llama-3.2-vision-11b's causal self-attention, its cross-attention
+        # over the 1600 patches at prefill and at a decode step (one query
+        # row of a 64-row tile); seamless-m4t-large-v2's encoder over its
+        # 4096 frames, its causal decoder self-attention (head dim 64), its
+        # cross-attention at prefill and at a decode step
+        ("vlm_self_prefill_bf16", vb, vs, vs, vhq, vhkv, vhd, bf16, True,
+         *attn.flash_tiles(bf16, (vhd, vhd), True, vs)),
+        ("vlm_cross_prefill_bf16", vb, vs, vf, vhq, vhkv, vhd, bf16, False,
+         *attn.flash_tiles(bf16, (vhd, vhd), False, vs)),
+        ("vlm_cross_decode_bf16", vb, 1, vf, vhq, vhkv, vhd, bf16, False,
+         *attn.flash_tiles(bf16, (vhd, vhd), False, 1)),
+        ("encdec_encoder_bf16", eb, ef, ef, eh, eh, ehd, bf16, False,
+         *attn.flash_tiles(bf16, (ehd, ehd), False, ef)),
+        ("encdec_self_prefill_bf16", eb, es, es, eh, eh, ehd, bf16, True,
+         *attn.flash_tiles(bf16, (ehd, ehd), True, es)),
+        ("encdec_cross_prefill_bf16", eb, es, ef, eh, eh, ehd, bf16, False,
+         *attn.flash_tiles(bf16, (ehd, ehd), False, es)),
+        ("encdec_cross_decode_bf16", eb, 1, ef, eh, eh, ehd, bf16, False,
+         *attn.flash_tiles(bf16, (ehd, ehd), False, 1)),
     ]
     rows = []
     for name, B, Sq, Skv, Hq, Hkv, D, dt, causal, bq, bk in cases:
@@ -1255,8 +1341,29 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
                "[B, H, S, D] copies (yardstick only)")
     timing = ("CUDA events around each launch, queued behind a sleep kernel "
               "so the wrapper's host work is not timed")
+    def entry(name, dt, main, mine, source, what):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:60",
+            "shape": f"q {main['q']}, k {main['kv']}, v {main['v']} "
+                     f"{main['dtype']}, "
+                     f"{'causal' if main['causal'] else 'non-causal'}, "
+                     f"blocks {main['blocks']} " + what,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "share_of_limit": max(r["share_of_limit"] for r in mine),
+            "tolerance": f"{flash_tolerance(dt)} against the plain version"
+                         + (" (p rounded to bf16 for p.v, as in the kernel)"
+                            if dt == bf16 else ""),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "library": library,
+            "timing": timing}
+
     entries = []
     other_dims = (list(MLA_HEAD_DIMS), list(RG_HEAD_DIMS))
+    cross_cases = {case for _, case, _, _ in CROSS_FLASH_ROWS}
     for name, dt, dims, source, what in (
             ("flash_attention", bf16, None, "flash_attention_sm90.cu",
              "(the served model's prefill)"),
@@ -1271,32 +1378,22 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
              "(the tuning space's shape, the model's f32 tiles)")):
         mine = [r for r in rows
                 if r["dtype"] == str(dt).replace("torch.", "")
+                and r["case"] not in cross_cases
                 and (r["head_dims"] == list(dims) if dims
                      else r["head_dims"] not in other_dims)]
         main = next(r for r in mine if "ms" in r)
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": "src/repro/kernels/flash_attention.py:60",
-            "shape": f"q {main['q']}, k {main['kv']}, v {main['v']} "
-                     f"{main['dtype']}, causal, blocks {main['blocks']} "
-                     + what,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "share_of_limit": max(r["share_of_limit"] for r in mine),
-            "tolerance": f"{flash_tolerance(dt)} against the plain version"
-                         + (" (p rounded to bf16 for p.v, as in the kernel)"
-                            if dt == bf16 else ""),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "library": library,
-            "timing": timing}
+        e = entry(name, dt, main, mine, source, what)
         if dt == f32:
-            entry.update(
+            e.update(
                 bound="max(bytes / 3.35 TB/s, 3 x flops / 495 TFLOP/s): "
                       "the products run as 3xTF32 on the tensor cores",
                 ms_best_tile=min(main["ms_by_tile"].values()))
-        entries.append(entry)
+        entries.append(e)
+    # the calls of the VLM and enc-dec paths, one row each
+    for name, case, _, what in CROSS_FLASH_ROWS:
+        main = next(r for r in rows if r["case"] == case)
+        entries.append(entry(name, bf16, main, [main],
+                             "flash_attention_sm90.cu", what))
     entries[0]["cases"] = rows
     return entries
 
@@ -1391,7 +1488,6 @@ def serve_path(device, sizes: dict, cfg, reduced=None,
     import numpy as np
 
     import repro_torch.core.hardware as hw
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_mod
     from repro_torch.models.transformer import Runtime
@@ -1466,7 +1562,7 @@ def serve_path(device, sizes: dict, cfg, reduced=None,
         for o in rep.outputs), "serve() returned malformed outputs")
     check(rep.n_prefills == 8, "serve() did not prefill every request")
     counts = dict(ops.launch_counts(),
-                  flash_by_head_dims=dict(fa.LAUNCHES_BY_HEAD_DIMS))
+                  flash_by_head_dims=ops.flash_launches_by_head_dims())
     report["serve"] = {
         "prompt_lens": [len(r.prompt) for r in reqs8],
         "arrivals": [float(a) for a in arrivals],
@@ -1607,7 +1703,8 @@ def moe_local_vs_dense(device, sizes: dict, cfg, params) -> dict:
     return out
 
 
-def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
+def end_to_end_check(device, cfg, params, sizes: dict,
+                     extra=None) -> dict:
     """One prompt through prefill + greedy decode on both attention routes.
     Both routes decode alike; they differ in prefill attention, kernel or
     plain. Tokens must agree at every step whose plain-route top-2 margin
@@ -1638,7 +1735,10 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
     kernel route with its softmax scale times MOE_BROKEN_SCALE it must not.
     Its share of the limit against the plain route with p in f32 is
     reported: rounding p alone moves an output near 0 by about 2**-9 of
-    |v|, close to the limit's 2e-3."""
+    |v|, close to the limit's 2e-3.
+
+    ``extra`` joins the prefill's batch: a VLM's or enc-dec's frontend for
+    the prompt."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
@@ -1675,8 +1775,8 @@ def end_to_end_check(device, cfg, params, sizes: dict) -> dict:
                 (patched(attn_mod, "chunked_attention", first_attention)
                  if hybrid else contextlib.nullcontext()):
             logits, state = decode_mod.prefill(
-                cfg, Runtime(attn_impl=impl), params, {"tokens": toks},
-                max_len)
+                cfg, Runtime(attn_impl=impl), params,
+                {"tokens": toks, **(extra or {})}, max_len)
         return logits, state, (attn_out if hybrid else routes)
 
     runs, routes = {}, {}
@@ -1861,7 +1961,6 @@ def serve_recurrent(device, sizes: dict, arch: str):
     import numpy as np
 
     import repro_torch.core.hardware as hw
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import decode as decode_mod
     from repro_torch.models import model as model_mod
@@ -1915,7 +2014,7 @@ def serve_recurrent(device, sizes: dict, arch: str):
     _sync(device)
     wall = time.perf_counter() - t0
     counts = dict(ops.launch_counts(),
-                  flash_by_head_dims=dict(fa.LAUNCHES_BY_HEAD_DIMS))
+                  flash_by_head_dims=ops.flash_launches_by_head_dims())
     report["generate"] = {"wall_s": wall, "tokens_per_s": B * new / wall,
                           "tokens": [o.tolist()[:8] for o in outs],
                           "session": sess.summary()}
@@ -1969,6 +2068,269 @@ def serve_recurrent(device, sizes: dict, arch: str):
     return report, counts, params, cfg
 
 
+# ------------------------------------------------------ VLM and enc-dec
+def draw_frontend(cfg, batch: int, generator, device) -> torch.Tensor:
+    """A frontend ``[batch, frontend_seq, d_model]`` in the config's dtype:
+    standard normal times :data:`FRONTEND_SCALE`, drawn on ``device``."""
+    from repro_torch.models.common import torch_dtype
+    x = torch.randn((batch, cfg.frontend_seq, cfg.d_model),
+                    generator=generator, device=device) * FRONTEND_SCALE
+    return x.to(torch_dtype(cfg.dtype))
+
+
+def serve_cross(device, sizes: dict, arch: str):
+    """A VLM (``llama-3.2-vision-11b``) or enc-dec
+    (``seamless-m4t-large-v2``) at full width and depth in bf16, random
+    weights from a seeded generator, the VLM's tanh gates drawn non-zero
+    (they are zeros at init, and a VLM with them at 0 ignores its image):
+    ServeEngine.generate on CROSS_REQUESTS greedy requests of one length
+    with a frontend in ``extra_batch`` (the lock-step route), its flash
+    launches counted from just before to just after; then the prefill of
+    the same batch and decode steps, timed alone, each with its launches
+    counted. Returns the report, the launch counts of generate() (by head
+    dims and mask, and by call shape), the parameters and the config."""
+    import numpy as np
+
+    import repro_torch.core.hardware as hw
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as decode_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.power import EnergySession
+    from repro_torch.serving import Request, ServeEngine
+    cfg, reduced = serve_config(sizes, arch)
+    rt = Runtime(tp=1)
+    S, max_len = sizes["cross_serve"][arch]
+    new, B = sizes["serve_new_tokens"], CROSS_REQUESTS
+    report = {"arch": cfg.name, "dtype": cfg.dtype, "family": cfg.family,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+              "d_ff": cfg.d_ff, "act": cfg.act, "vocab": cfg.vocab_size,
+              "reduced": reduced, "requests": B, "prompt_len": S,
+              "max_len": max_len, "new_tokens": new,
+              "route": "lock-step (generate_blocking, extra_batch)"}
+    if cfg.family == "vlm":
+        report["cross_attn_every"] = cfg.cross_attn_every
+    else:
+        report["n_encoder_layers"] = cfg.n_encoder_layers
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    params = model_mod.init_params(cfg, rt, gen, device=device)
+    if cfg.family == "vlm":
+        for block in params["layers"]["cross"]:
+            for name in ("gate_a", "gate_m"):
+                block[name].copy_(torch.randn(block[name].shape,
+                                              generator=gen, device=device))
+        report["gates"] = {
+            "drawn": "standard normal, each block's gate_a and gate_m (zeros "
+                     "at init)",
+            **{name: [float(b[name]) for b in params["layers"]["cross"]]
+               for name in ("gate_a", "gate_m")}}
+    fe = draw_frontend(cfg, B, gen, device)
+    _sync(device)
+    report["init_s"] = time.perf_counter() - t0
+    report["params"] = sum(t.numel() for t in _leaves(params))
+    report["param_count_config"] = cfg.param_count()
+    report["frontend"] = {"shape": list(fe.shape), "dtype": str(fe.dtype),
+                          "scale": FRONTEND_SCALE}
+    V = cfg.vocab_size
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, V, S, dtype=np.int32),
+                    max_new_tokens=new) for _ in range(B)]
+    sess = EnergySession(policy="energy-aware", chip=hw.H100_SXM,
+                         device=device)
+    engine = ServeEngine(cfg, rt, params, max_len=max_len, session=sess)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs, extra_batch={"frontend": fe})
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts(),
+                  flash_by_head_dims=ops.flash_launches_by_head_dims(),
+                  flash_by_shape=dict(fa.LAUNCHES_BY_SHAPE))
+    report["generate"] = {"wall_s": wall, "tokens_per_s": B * new / wall,
+                          "tokens": [o.tolist()[:8] for o in outs],
+                          "session": sess.summary()}
+    check(all(o.shape == (new,) and o.min() >= 0 and o.max() < V
+              for o in outs), f"{arch}: generate returned malformed tokens")
+    del engine
+
+    # -- the prefill of the same batch, then decode steps, timed alone, each
+    #    with its flash launches counted -----------------------------------
+    batch = {"tokens": torch.from_numpy(
+        np.stack([r.prompt for r in reqs])).to(device), "frontend": fe}
+    times = []
+    ops.reset_launch_counts()
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, state = decode_mod.prefill(cfg, rt, params, batch, max_len)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    prefill_s = statistics.median(times)
+    per_prefill = {k: v / 3
+                   for k, v in ops.flash_launches_by_head_dims().items()}
+    tok = torch.argmax(logits[:, 0, :V], dim=-1).to(torch.int32)[:, None]
+    n_steps = sizes["serve_decode_steps"]
+
+    def step(i):
+        return decode_mod.decode_step(
+            cfg, rt, params, tok,
+            torch.tensor(S + i, dtype=torch.int32, device=device), state)[0]
+    step(0)
+    _sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(1, n_steps + 1):
+        logits = step(i)
+    _sync(device)
+    decode_s = (time.perf_counter() - t0) / n_steps
+    per_step = {k: v / n_steps
+                for k, v in ops.flash_launches_by_head_dims().items()}
+    check(bool(torch.isfinite(logits).all()),
+          f"{arch}: decode gave non-finite logits")
+    report["timing"] = {
+        "prefill_tokens": B * S, "prefill_ms": prefill_s * 1e3,
+        "prefill_tokens_per_s": B * S / prefill_s, "decode_batch": B,
+        "decode_ms_per_step": decode_s * 1e3,
+        "decode_tokens_per_s": B / decode_s}
+    report["flash_launches"] = counts["flash_attention"]
+    report["flash_launches_by_head_dims"] = counts["flash_by_head_dims"]
+    report["flash_launches_by_shape"] = counts["flash_by_shape"]
+    report["flash_launches_per_prefill"] = per_prefill
+    report["flash_launches_per_decode_step"] = per_step
+    if device.type == "cuda":
+        report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for what, x in (("prefill ms", prefill_s),
+                        ("decode ms/step", decode_s),
+                        ("generate tokens/s", report["generate"]
+                         ["tokens_per_s"]),
+                        ("peak memory", report["peak_memory_gb"])):
+            check(x > 0, f"{arch}: {what} is {x}")
+        # a prefill: the causal self-attention once a decoder layer, the
+        # non-causal calls (encoder layers, cross-attention) once each; a
+        # decode step: the cross-attention alone (its self-attention reads
+        # a cache of written rows, the plain route's case)
+        key = f"{cfg.resolved_head_dim}x{cfg.resolved_head_dim}"
+        n_cross = (cfg.n_layers // cfg.cross_attn_every
+                   if cfg.family == "vlm" else cfg.n_layers)
+        n_enc = cfg.n_encoder_layers if cfg.family == "encdec" else 0
+        want_prefill = {key: cfg.n_layers, f"{key}/noncausal": n_enc + n_cross}
+        want_step = {f"{key}/noncausal": n_cross}
+        want_generate = {key: cfg.n_layers,
+                         f"{key}/noncausal": n_enc + n_cross * (1 + new)}
+        report["flash_launches_expected"] = {
+            "per_prefill": want_prefill, "per_decode_step": want_step,
+            "generate": want_generate}
+        check(per_prefill == want_prefill and per_step == want_step
+              and counts["flash_by_head_dims"] == want_generate,
+              f"{arch}: flash launches a prefill {per_prefill}, a decode "
+              f"step {per_step}, in generate "
+              f"{counts['flash_by_head_dims']}; expected "
+              f"{report['flash_launches_expected']}")
+    del state, logits
+    return report, counts, params, cfg
+
+
+def cross_witness(device, cfg, params, sizes: dict) -> dict:
+    """The first cross-attention layer's output of a VLM or enc-dec on the
+    card, its inputs computed alike on every route: a prefill of one
+    prompt with its frontend on the kernel route, where that one call (the
+    first non-causal call with Sq != Skv: the VLM's first cross block,
+    after cross_attn_every self layers; the enc-dec's decoder layer 0,
+    after the whole encoder) takes the route under test. On the kernel
+    route and a second kernel run it must lie within the flash tolerance
+    of the plain route's with p rounded as in the kernel, and on the card
+    on the kernel with its softmax scale times MOE_BROKEN_SCALE it must
+    not. Then a second frontend through the same prompt: the prefill's
+    logits must move by more than the routes' own difference (the kernel
+    route against the plain one, ``routes_logit_diff``), so that the
+    frontend reaches the output."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode as decode_mod
+    from repro_torch.models.transformer import Runtime
+    S, V = sizes["e2e_prompt_len"], cfg.vocab_size
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, V, (1, S), dtype=np.int32)).to(
+        device)
+    g = torch.Generator(device=device)
+    g.manual_seed(9)
+    frontends = [draw_frontend(cfg, 1, g, device) for _ in range(2)]
+    chunked, kernel_op = attn_mod.chunked_attention, ops.flash_attention_op
+    rounded_plain = functools.partial(fa.flash_attention_plain, round_p=True)
+
+    def wrong_scale(q, k, v, *, scale, **kw):
+        return kernel_op(q, k, v, scale=scale * MOE_BROKEN_SCALE, **kw)
+
+    def run(route, frontend, impl="kernel"):
+        """prefill's logits, and the first cross-attention call's output
+        on ``route`` (None: every call on ``impl``)"""
+        seen = []
+
+        def witnessed(q, k, v, **kw):
+            if (route is None or seen or kw.get("causal", True)
+                    or q.shape[1] == k.shape[1]):
+                return chunked(q, k, v, **kw)
+            if route == "plain_round_p":
+                with patched(fa, "flash_attention_plain", rounded_plain):
+                    out = chunked(q, k, v, **{**kw, "impl": "plain"})
+            elif route == "kernel_wrong_scale":
+                with patched(ops, "flash_attention_op", wrong_scale):
+                    out = chunked(q, k, v, **kw)
+            else:
+                out = chunked(q, k, v, **kw)
+            seen.append(out)
+            return out
+        with patched(attn_mod, "chunked_attention", witnessed):
+            logits, state = decode_mod.prefill(
+                cfg, Runtime(attn_impl=impl), params,
+                {"tokens": toks, "frontend": frontend}, S + 1)
+        del state
+        return logits[0, 0, :V].float(), (seen[0] if seen else None)
+
+    outs = {name: run(name, frontends[0])[1]
+            for name in ("plain_round_p", "kernel", "kernel_again",
+                         "kernel_wrong_scale")}
+    rounded = outs["plain_round_p"]
+    shares = {name: flash_error(outs[name], rounded)[1]
+              for name in ("kernel", "kernel_again", "kernel_wrong_scale")}
+    kernel_logits = run(None, frontends[0])[0]
+    plain_logits = run(None, frontends[0], impl="plain")[0]
+    other_logits = run(None, frontends[1])[0]
+    routes_diff = float((kernel_logits - plain_logits).abs().max())
+    frontend_diff = float((other_logits - kernel_logits).abs().max())
+    out = {"prompt_len": S, "frontend": list(frontends[0].shape),
+           "first_cross_attention_output": list(rounded.shape),
+           "first_cross_attention_share_of_limit": shares,
+           "first_cross_attention_tolerance":
+               f"{flash_tolerance(rounded.dtype)} against the plain route "
+               f"with p rounded as in the kernel",
+           "first_cross_attention_max_abs": float(rounded.float().abs().max()),
+           "broken_softmax_scale_factor": MOE_BROKEN_SCALE,
+           "routes_logit_diff": routes_diff,
+           "second_frontend_logit_diff": frontend_diff,
+           "logit_max_abs": float(kernel_logits.abs().max())}
+    same = ("kernel", "kernel_again")
+    check(all(shares[n] <= 1.0 for n in same)
+          and (device.type != "cuda" or shares["kernel_wrong_scale"] > 1.0),
+          f"{cfg.name}: the first cross-attention layer's output on {same} "
+          f"is not within the flash tolerance of the plain route's with p "
+          f"rounded, or the broken kernel's is: {shares}")
+    check(frontend_diff > routes_diff,
+          f"{cfg.name}: a second frontend moves the prefill's logits by "
+          f"{frontend_diff}, not more than the routes' difference "
+          f"{routes_diff}: the frontend does not reach the output")
+    return out
+
+
 FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             membw_big_rows=2 ** 21, membw_iters=64,          # 1 GiB
             fleet_rows=9408 * 8, fleet_samples=5760, jobs=1500,
@@ -1990,7 +2352,15 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             e2e_prompt_len=512, e2e_steps=8,
             # the recurrent models: one prompt length (8 SSD chunks, inside
             # RecurrentGemma's 2048-token window); the scan check's length
-            rec_prompt_len=1024, scan_len=512)
+            rec_prompt_len=1024, scan_len=512,
+            # the VLM and enc-dec: (prompt length, max_len) by arch; the
+            # flash kernel's calls on their paths: the VLM's (batch,
+            # prompt, patches, q heads, kv heads, head dim) and the
+            # enc-dec's (batch, prompt, frames, heads, head dim)
+            cross_serve={"llama-3.2-vision-11b": (1024, 2048),
+                         "seamless-m4t-large-v2": (256, 512)},
+            flash_vlm=(4, 1024, 1600, 32, 8, 128),
+            flash_encdec=(4, 256, 4096, 16, 64))
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            membw_iters=8, fleet_rows=64, fleet_samples=300, jobs=300,
            stream_shard=2 ** 12, stream_job_shard=4096,
@@ -2001,7 +2371,10 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            serve_reduced=True,
            serve_max_len=256, serve_new_tokens=6,
            serve_prompt_lens=(10, 100), serve_decode_steps=2,
-           e2e_prompt_len=32, e2e_steps=3, rec_prompt_len=32, scan_len=256)
+           e2e_prompt_len=32, e2e_steps=3, rec_prompt_len=32, scan_len=256,
+           cross_serve={"llama-3.2-vision-11b": (24, 64),
+                        "seamless-m4t-large-v2": (24, 64)},
+           flash_vlm=(2, 40, 72, 4, 2, 64), flash_encdec=(2, 24, 96, 2, 64))
 
 
 def main() -> int:
@@ -2021,6 +2394,7 @@ def main() -> int:
         device, sizes = torch.device("cuda", 0), FULL
 
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import vai as vai_mod
 
     smi = None
@@ -2160,10 +2534,35 @@ def main() -> int:
             emit(phase="serve_recurrent_kernel_vs_plain", arch=arch,
                  **end_to_end_check(device, cfg, params, sizes))
         del params
+    # the VLM and the enc-dec, one at a time: each path's flash launches by
+    # head dims and mask, and by call shape, counted from just before its
+    # generate() to just after
+    cross_counts = {}
+    for arch in CROSS_SERVE:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        report, cross_counts[arch], params, cfg = serve_cross(
+            device, sizes, arch)
+        emit(phase="serve_cross", **report)
+        g = torch.Generator(device=device)
+        g.manual_seed(8)
+        e2e = end_to_end_check(device, cfg, params, sizes, extra={
+            "frontend": draw_frontend(cfg, 1, g, device)})
+        emit(phase="serve_cross_kernel_vs_plain", arch=arch, **e2e,
+             witness=cross_witness(device, cfg, params, sizes))
+        del params
     if device.type == "cuda":
         torch.cuda.empty_cache()
     by_dims = {arch: c["flash_by_head_dims"]
-               for arch, c in {**moe_counts, **rec_counts}.items()}
+               for arch, c in {**moe_counts, **rec_counts,
+                               **cross_counts}.items()}
+    cases = {r["case"]: r for r in flash[0]["cases"]}
+
+    def served_launches(arch, case):
+        """the launches of ``arch``'s generate() at ``case``'s call shape"""
+        r = cases[case]
+        return cross_counts[arch]["flash_by_shape"].get(fa.launch_key(
+            *r["head_dims"], r["causal"], r["q"][1], r["kv"][1]), 0)
     mla_key = "x".join(map(str, MLA_HEAD_DIMS))
     rg_key = "x".join(map(str, RG_HEAD_DIMS))
 
@@ -2174,7 +2573,9 @@ def main() -> int:
                     by_dims["deepseek-v3-671b"].get(mla_key, 0),
                 "flash_attention_256x256":
                     by_dims["recurrentgemma-2b"].get(rg_key, 0),
-                "flash_attention_f32": tuning_launches + dispatch_f32}
+                "flash_attention_f32": tuning_launches + dispatch_f32,
+                **{name: served_launches(arch, case)
+                   for name, case, arch, _ in CROSS_FLASH_ROWS}}
     emit(phase="launches", **launches,
          flash_attention_sampled_generate=sampled_launches,
          flash_attention_f32_tuning=tuning_launches,
@@ -2182,8 +2583,11 @@ def main() -> int:
          flash_attention_by_path={SERVE_ARCH: serve_counts["flash_attention"],
                                   **{a: c["flash_attention"]
                                      for a, c in {**moe_counts,
-                                                  **rec_counts}.items()}},
-         flash_attention_by_head_dims=by_dims)
+                                                  **rec_counts,
+                                                  **cross_counts}.items()}},
+         flash_attention_by_head_dims=by_dims,
+         flash_attention_by_shape={a: c["flash_by_shape"]
+                                   for a, c in cross_counts.items()})
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
@@ -2203,6 +2607,9 @@ def main() -> int:
           f"recurrentgemma-2b's generate did not launch the bf16 flash "
           f"kernel at {rg_key} once for each of its {rg_attn_layers} "
           f"attention layers, or mamba2-2.7b launched it: {by_dims}")
+    check(all(launches[name] > 0 for name, _, _, _ in CROSS_FLASH_ROWS),
+          f"a call of the VLM or enc-dec path never reached the bf16 flash "
+          f"kernel at the shape its kernels row was checked at: {launches}")
     check(tuning_launches > 0 and dispatch_f32 == 1,
           f"the f32 path launched the f32 flash kernel {tuning_launches} "
           f"times in tuning and {dispatch_f32} in the model's dispatch")

@@ -3,8 +3,8 @@ paper's VAI benchmark suite.
 
 The model configurations are pure data, copied from the reference package
 (same names, same fields, same ``reduced()``), so that both packages build
-the same model from one arch id. The port serves the ``dense`` family; the
-model code raises ``NotImplementedError`` for the others."""
+the same model from one arch id. The port serves every family of them:
+dense, MoE (with MLA), SSM, hybrid, VLM and enc-dec."""
 from __future__ import annotations
 
 import importlib

@@ -125,7 +125,9 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _unstack(tree: Mapping, i: int, device) -> Dict:
+def _unstack(tree: Mapping, i, device) -> Dict:
+    """Entry ``i`` (an index, or a tuple of them over the leading axes) of
+    every leaf, as tensors on ``device``."""
     return {k: (_unstack(v, i, device) if isinstance(v, Mapping)
                 else _tensor(np.asarray(v)[i], device))
             for k, v in tree.items()}
@@ -145,14 +147,33 @@ def params_from_jax(tree: Mapping, cfg, device=DEFAULT_DEVICE) -> Dict:
     MoE, MLA and SSD leaves included); a hybrid tree stacks each place
     ``i`` of its block pattern over the groups (``groups["pos{i}"]``, group
     ``g`` being layer ``len(pattern) * g + i``) and keeps the remainder
-    layers apart (``rest[j]``, layer ``len(pattern) * n_groups + j``)."""
+    layers apart (``rest[j]``, layer ``len(pattern) * n_groups + j``). A
+    VLM tree stacks its self layers ``[n_groups, cross_attn_every, ...]``
+    (group ``g``'s layer ``j`` being layer ``cross_attn_every * g + j``)
+    and its cross blocks ``[n_groups, ...]``: the port's ``{"self": [...],
+    "cross": [...]}``. An enc-dec tree stacks ``encoder`` over the encoder
+    layers and ``layers`` over the decoder's, each as a list here."""
     from repro_torch.models.transformer import (check_family,
                                                 hybrid_group_counts)
     check_family(cfg)
     dev = as_device(device)
-    out = _tensors({k: v for k, v in tree.items() if k != "layers"}, dev)
+    out = _tensors({k: v for k, v in tree.items()
+                    if k not in ("layers", "encoder")}, dev)
     layers = tree["layers"]
-    if cfg.family == "hybrid":
+    if cfg.family == "vlm":
+        n_groups = cfg.n_layers // cfg.cross_attn_every
+        out["layers"] = {
+            "self": [_unstack(layers["self"], (g, j), dev)
+                     for g in range(n_groups)
+                     for j in range(cfg.cross_attn_every)],
+            "cross": [_unstack(layers["cross"], g, dev)
+                      for g in range(n_groups)]}
+    elif cfg.family == "encdec":
+        out["encoder"] = [_unstack(tree["encoder"], i, dev)
+                          for i in range(cfg.n_encoder_layers)]
+        out["layers"] = [_unstack(layers, i, dev)
+                         for i in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
         n_groups, _ = hybrid_group_counts(cfg)
         n_pat = len(cfg.block_pattern)
         out["layers"] = [_unstack(layers["groups"][f"pos{i}"], g, dev)
@@ -170,8 +191,18 @@ def decode_state_from_jax(state: Mapping, device=DEFAULT_DEVICE) -> Dict:
     ``v``, the MLA cache ``c_kv`` / ``k_rope`` or the SSM state ``h`` /
     ``conv``) as it is; a hybrid state ``{"groups": {"pos{i}": stacked over
     the groups}, "rest": [each with a leading axis of 1]}`` as the list of
-    per-layer dicts in layer order."""
+    per-layer dicts in layer order; a VLM or enc-dec state ``{"self": {"k",
+    "v"}, "cross": {"k", "v"}}`` with the cross K / V as they are and the
+    self cache stacked over the layers (a VLM's ``[G, cross_attn_every, B,
+    M, ...]`` in layer order, ``[G * cross_attn_every, B, M, ...]``)."""
     dev = as_device(device)
+    if "cross" in state:
+        cross = {k: _tensor(v, dev) for k, v in state["cross"].items()}
+        self_kv = {k: _tensor(v, dev) for k, v in state["self"].items()}
+        # a VLM stacks its self cache over [groups, layers of a group]
+        self_kv = {k: v.flatten(0, 1) if v.ndim == 6 else v
+                   for k, v in self_kv.items()}
+        return {"self": self_kv, "cross": cross}
     if "groups" not in state:
         return {"layers": {k: _tensor(v, dev)
                            for k, v in state["layers"].items()}}

@@ -70,10 +70,18 @@ SMEM_LIMIT_BYTES = 232448
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: kernel launches made by the wrappers (only where they launch), in all
-#: and by head dims ``"<D>x<Dv>"``
+#: kernel launches made by the wrappers (only where they launch): in all,
+#: and by call shape (:func:`launch_key`; ``ops.flash_launches_by_head_dims``
+#: sums them by head dims and mask)
 LAUNCHES = 0
-LAUNCHES_BY_HEAD_DIMS: Dict[str, int] = {}
+LAUNCHES_BY_SHAPE: Dict[str, int] = {}
+
+
+def launch_key(D: int, Dv: int, causal: bool, Sq: int, Skv: int) -> str:
+    """The key of a launch in :data:`LAUNCHES_BY_SHAPE`: ``"<D>x<Dv>
+    q<Sq> kv<Skv>"`` for a causal call, ``"<D>x<Dv>/noncausal q<Sq>
+    kv<Skv>"`` for the others."""
+    return f"{D}x{Dv}{'' if causal else '/noncausal'} q{Sq} kv{Skv}"
 
 
 def tile_options(itemsize: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -375,8 +383,8 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
                              f"k {tuple(k.shape)}, {q.dtype}, "
                              f"blocks ({block_q}, {block_k}))")
     LAUNCHES += 1
-    key = f"{D}x{Dv}"
-    LAUNCHES_BY_HEAD_DIMS[key] = LAUNCHES_BY_HEAD_DIMS.get(key, 0) + 1
+    key = launch_key(D, Dv, causal, Sq, Skv)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return out
 
 

@@ -38,9 +38,22 @@ def launch_counts() -> Dict[str, int]:
             "flash_attention": fa.LAUNCHES}
 
 
+def flash_launches_by_head_dims(by_shape: Optional[Dict[str, int]] = None
+                                ) -> Dict[str, int]:
+    """The flash kernel's launches by head dims and mask (``"128x128"``,
+    ``"64x64/noncausal"``): ``by_shape`` (by default
+    ``fa.LAUNCHES_BY_SHAPE``) summed over the call shapes."""
+    out: Dict[str, int] = {}
+    for shape, n in (fa.LAUNCHES_BY_SHAPE if by_shape is None
+                     else by_shape).items():
+        key = shape.split(" ")[0]
+        out[key] = out.get(key, 0) + n
+    return out
+
+
 def reset_launch_counts() -> None:
     vai_mod.LAUNCHES = 0
     vai_mod.LAUNCHES_BY_SHAPE.clear()
     mb.LAUNCHES = 0
     fa.LAUNCHES = 0
-    fa.LAUNCHES_BY_HEAD_DIMS.clear()
+    fa.LAUNCHES_BY_SHAPE.clear()

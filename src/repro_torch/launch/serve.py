@@ -4,11 +4,15 @@ on the card.
     python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --batch 4 --new-tokens 16 --policy energy-aware
 
-``--arch`` takes the dense and MoE configs (``dbrx-132b``,
-``deepseek-v3-671b`` with MLA attention), the SSM config ``mamba2-2.7b``
-and the hybrid ``recurrentgemma-2b`` (these two on the lock-step route). ``--reduced`` serves the arch's
-tiny same-family config in f32 (add ``--device cpu`` to run it without a
-card). Weights are random, drawn from
+``--arch`` takes every config: the dense and MoE ones (``dbrx-132b``,
+``deepseek-v3-671b`` with MLA attention), the SSM config ``mamba2-2.7b``,
+the hybrid ``recurrentgemma-2b``, the VLM ``llama-3.2-vision-11b`` and the
+enc-dec ``seamless-m4t-large-v2`` (the last four on the lock-step route).
+A config with a frontend (the VLM's image patches, the enc-dec's audio
+frames) gets a stub one, ``[batch, frontend_seq, d_model]`` drawn from the
+prompts' numpy generator after the prompts, times 0.02, in the config's
+dtype. ``--reduced`` serves the arch's tiny same-family config in f32 (add
+``--device cpu`` to run it without a card). Weights are random, drawn from
 a generator seeded with ``--seed``.
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.configs import get_config
 from repro_torch.models import model as model_mod
+from repro_torch.models.common import torch_dtype
 from repro_torch.models.transformer import Runtime
 from repro_torch.power import EnergySession
 from repro_torch.serving import Request, ServeEngine
@@ -70,8 +75,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                         dtype=np.int32),
                     max_new_tokens=args.new_tokens)
             for _ in range(args.batch)]
+    extra = None
+    if cfg.frontend_seq:
+        extra = {"frontend": torch.from_numpy(
+            rng.standard_normal((args.batch, cfg.frontend_seq, cfg.d_model))
+            * 0.02).to(device=device, dtype=torch_dtype(cfg.dtype))}
     outs = engine.generate(reqs, temperature=args.temperature,
-                           seed=args.seed)
+                           seed=args.seed, extra_batch=extra)
     for i, o in enumerate(outs[: min(4, len(outs))]):
         print(f"req{i}: {o.tolist()}")
     s = session.summary()

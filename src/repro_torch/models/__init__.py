@@ -1,7 +1,6 @@
 """The model substrate the serving path runs: dense and MoE decoder trunks
-with GQA or MLA attention, Mamba2's SSD trunk and RecurrentGemma's hybrid
-RG-LRU / local-attention trunk, prefill and decode (the VLM and enc-dec
-families of the reference's ``models/`` are ROADMAP queue A item 4's
-remaining work)."""
+with GQA or MLA attention, Mamba2's SSD trunk, RecurrentGemma's hybrid
+RG-LRU / local-attention trunk, the VLM's gated cross-attention groups and
+the enc-dec's encoder and cross-attending decoder; prefill and decode."""
 from repro_torch.models.transformer import Runtime  # noqa: F401
 from repro_torch.models import model, decode  # noqa: F401

@@ -1,21 +1,30 @@
 """Attention: chunked online-softmax forward and GQA, with per-slot KV
-caches for decode.
+caches for decode, MLA with absorbed decode, and cross-attention.
 
 :func:`chunked_attention` dispatches on its arguments, as the reference's
-``chunked_attention`` picks its flash path. Prefill self-attention on the
-card — CUDA tensors, causal, offset 0, no kv mask, and no window or a local
-window that masks no key — is the case the hand-written flash kernel
-computes, the same function with the same outputs: it goes to
+``chunked_attention`` picks its flash path. What the hand-written flash
+kernel computes, the same function with the same outputs, goes to
 :func:`repro_torch.kernels.ops.flash_attention_op` with the tiles
-:func:`flash_tiles` picks, for any sequence length (a ragged last tile runs
-masked), and what the kernel is not built for (a head dim, a dtype) raises
-there. A causal window of ``w`` keys at offset 0 masks nothing while
-``Sq <= w`` (RecurrentGemma's local attention at every prompt up to its
-2048-token window); at ``Sq > w`` it masks keys, which the kernel does not
-do, and the call takes the plain route: that is the kernel's contract, not
-a fallback on failure.
-Every other case (CPU tensors, windows that mask, query offsets, kv masks)
-takes the plain blocked online softmax,
+:func:`flash_tiles` picks: CUDA tensors at query offset 0, with no kv mask
+and no window that masks a key, causal or not. That is
+
+- causal prefill self-attention (the dense, MoE and hybrid trunks, the VLM
+  and enc-dec decoders), for any sequence length (a ragged last tile runs
+  masked);
+- non-causal attention over a whole memory: the enc-dec encoder's
+  self-attention (``Sq = Skv = F``), cross-attention at prefill (``Sq`` the
+  prompt, ``Skv = F``) and cross-attention at each decode step (``Sq = 1``),
+  whose keys come from the cache and are never masked.
+
+A window of ``w`` keys masks nothing while ``Sq <= w``, causal or not: the
+farthest key a query at offset 0 must reach is ``Sq - 1`` positions back
+(RecurrentGemma's local attention at every prompt up to its 2048-token
+window). At ``Sq > w`` it masks keys, which the kernel does not do, and the
+call takes the plain route; so do query offsets and kv masks (the decode
+self-attention over a cache of written rows). That is the kernel's
+contract, not a fallback on failure: what the kernel is not built for (a
+head dim, a dtype) raises in its wrapper. Every call on CPU tensors takes
+the plain blocked online softmax,
 :func:`repro_torch.kernels.flash_attention.flash_attention_plain`.
 
 Decode writes each new K/V row into the cache in place (``index_copy_`` /
@@ -27,8 +36,12 @@ and goes through :func:`chunked_attention` with q/k head dim
 ``qk_nope + qk_rope`` and v head dim ``v_head_dim`` (192 and 128 at full
 width: the bf16 kernel's ``(192, 128)`` instantiation); decode is the
 absorbed form over the ``(c_kv, k_rope)`` cache, in plain PyTorch, as the
-reference computes it outside any kernel. Cross-attention (VLM / enc-dec)
-is ROADMAP queue A item 4's remaining work.
+reference computes it outside any kernel.
+
+Cross-attention (VLM, enc-dec): queries from the decoder, keys and values
+from the memory (the frontend, or the encoder's output), no rope, no bias,
+non-causal over the whole memory; :func:`cross_attention` also returns the
+memory's K and V, which decode reads from the cache.
 """
 from __future__ import annotations
 
@@ -53,6 +66,18 @@ FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 64)}
 #: (256, 256) the bf16 kernel has 64 x 64 only (its 128 x 64 would spill,
 #: ``fa.BF16_SPILLING_TILES``)
 FLASH_TILES_BY_HEAD_DIMS = {(torch.bfloat16, 256, 256): (64, 64)}
+#: the tiles of a non-causal call at head dims ``(D, Dv)`` where they beat
+#: the causal ones: bf16 at 128 and 64, where every q tile walks every kv
+#: tile, 128 x 128 beat 128 x 64 beyond the spread of five rounds on the
+#: H100 (the VLM's cross-attention at prefill by 7.2 %, the enc-dec's
+#: encoder by 5.2 %; PERF.md §6)
+NONCAUSAL_FLASH_TILES = {(torch.bfloat16, 128, 128): (128, 128),
+                         (torch.bfloat16, 64, 64): (128, 128)}
+#: a non-causal bf16 call whose query fits in this many rows (a decode
+#: step's cross-attention, Sq = 1) takes q tiles of this many rows: a
+#: 128-row tile runs its second consumer warpgroup on zero rows (64 x 128
+#: beat 128 x 64 by 10.6 % / 18 % at the VLM's / enc-dec's decode step)
+SHORT_QUERY_BLOCK_Q = 64
 
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -69,31 +94,39 @@ def _pick_chunk(n: int, pref: int) -> int:
 
 
 def flash_tiles(dtype: torch.dtype,
-                head_dims: Optional[Tuple[int, int]] = None
-                ) -> Tuple[int, int]:
-    """The kernel's ``(block_q, block_k)`` for a prefill of ``dtype`` (at
-    ``head_dims`` ``(D, Dv)``, where :data:`FLASH_TILES_BY_HEAD_DIMS`
-    names some), at every length: the kernel masks a ragged last tile (and
-    a tile longer than the sequence). A dtype the kernel does not take gets
-    the default tiles, and the kernel's wrapper refuses it."""
+                head_dims: Optional[Tuple[int, int]] = None,
+                causal: bool = True,
+                seq_q: Optional[int] = None) -> Tuple[int, int]:
+    """The kernel's ``(block_q, block_k)`` for a call of ``dtype`` (at
+    ``head_dims`` ``(D, Dv)``, where :data:`FLASH_TILES_BY_HEAD_DIMS` and,
+    for a non-causal call, :data:`NONCAUSAL_FLASH_TILES` name some; a
+    non-causal bf16 query of ``seq_q <= SHORT_QUERY_BLOCK_Q`` rows in q
+    tiles of that many rows), at every length: the kernel masks a ragged
+    last tile (and a tile longer than the sequence). A dtype the kernel
+    does not take gets the default tiles, and the kernel's wrapper refuses
+    it."""
+    tiles = FLASH_TILES.get(dtype, (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K))
     if head_dims is not None:
-        tiles = FLASH_TILES_BY_HEAD_DIMS.get((dtype, *head_dims))
-        if tiles is not None:
-            return tiles
-    return FLASH_TILES.get(dtype, (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K))
+        key = (dtype, *head_dims)
+        tiles = FLASH_TILES_BY_HEAD_DIMS.get(key, tiles)
+        if not causal:
+            tiles = NONCAUSAL_FLASH_TILES.get(key, tiles)
+    if (dtype == torch.bfloat16 and not causal and seq_q is not None
+            and seq_q <= SHORT_QUERY_BLOCK_Q):
+        tiles = (SHORT_QUERY_BLOCK_Q, tiles[1])
+    return tiles
 
 
 def _on_card(q: torch.Tensor) -> bool:
     return q.is_cuda
 
 
-def _kernel_case(q, causal: bool, q_offset, kv_valid_len,
-                 window: int) -> bool:
-    """Prefill self-attention on the card, what the flash kernel computes:
-    CUDA tensors, causal, offset 0, no kv mask, and no window or one that
-    masks no key (``Sq <= window``: the farthest key a causal query at
-    offset 0 reaches is ``Sq - 1`` positions back)."""
-    return (_on_card(q) and causal and kv_valid_len is None
+def _kernel_case(q, q_offset, kv_valid_len, window: int) -> bool:
+    """What the flash kernel computes, causal or not: CUDA tensors, offset
+    0, no kv mask, and no window or one that masks no key (``Sq <=
+    window``: the farthest key a query at offset 0 must reach is ``Sq - 1``
+    positions back)."""
+    return (_on_card(q) and kv_valid_len is None
             and (not window or q.shape[1] <= window)
             and isinstance(q_offset, int) and q_offset == 0)
 
@@ -124,11 +157,10 @@ def chunked_attention(
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
     scale = softmax_scale if softmax_scale is not None else Dk ** -0.5
-    if impl == "kernel" and _kernel_case(q, causal, q_offset, kv_valid_len,
-                                         window):
+    if impl == "kernel" and _kernel_case(q, q_offset, kv_valid_len, window):
         from repro_torch.kernels import ops
-        bq, bk = flash_tiles(q.dtype, (Dk, Dv))
-        return ops.flash_attention_op(q, k, v, causal=True, block_q=bq,
+        bq, bk = flash_tiles(q.dtype, (Dk, Dv), causal, Sq)
+        return ops.flash_attention_op(q, k, v, causal=causal, block_q=bq,
                                       block_k=bk, scale=scale)
     return fa.flash_attention_plain(
         q, k, v, causal=causal, scale=scale,
@@ -137,14 +169,12 @@ def chunked_attention(
 
 
 # ---------------------------------------------------------------------------
-# Standard GQA attention block (dense trunks)
+# Standard GQA attention block (dense / hybrid / vlm / encdec trunks)
 # ---------------------------------------------------------------------------
 def attention_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
                      tp: int = 1, cross: bool = False) -> Dict:
-    if cross:
-        raise NotImplementedError(
-            "cross-attention (vlm / enc-dec families) is ROADMAP queue A "
-            "item 4's remaining work")
+    """``wq``, ``wk``, ``wv``, ``wo`` and, where ``cfg.qkv_bias``, the
+    biases; a cross-attention block (``cross``) has none."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
     p = {
@@ -153,7 +183,7 @@ def attention_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
         "wv": mk(f"{prefix}.wv", (d, nkv, hd)),
         "wo": mk(f"{prefix}.wo", (nh, hd, d)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = mk(f"{prefix}.bq", (nh, hd), init="zeros")
         p["bk"] = mk(f"{prefix}.bk", (nkv, hd), init="zeros")
         p["bv"] = mk(f"{prefix}.bv", (nkv, hd), init="zeros")
@@ -166,8 +196,10 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * hd)).view(*x.shape[:-1], h, hd)
 
 
-def _qkv(p: Dict, x: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _qkv(p: Dict, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``kv_src`` (default ``x``)."""
+    src = x if kv_src is None else kv_src
+    q, k, v = _proj(x, p["wq"]), _proj(src, p["wk"]), _proj(src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -194,6 +226,33 @@ def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     if return_cache:
         return y, (k, v)
     return y
+
+
+def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    memory: torch.Tensor, return_cache: bool = False,
+                    impl: str = "kernel"):
+    """Queries from ``x [B, S, d]``, keys and values from ``memory [B, F,
+    d]``: no rope, non-causal over the whole memory (on the card the flash
+    kernel's case). ``return_cache`` additionally returns the memory's K
+    and V, which decode reads from the cache."""
+    q, k, v = _qkv(p, x, kv_src=memory)
+    out = chunked_attention(q, k, v, causal=False, impl=impl)
+    y = _out_proj(out, p["wo"])
+    if return_cache:
+        return y, (k, v)
+    return y
+
+
+def decode_cross_attention(p: Dict, x: torch.Tensor, cache: Dict,
+                           impl: str = "kernel") -> torch.Tensor:
+    """One-token cross-attention: q from ``x [B, 1, d]`` against the
+    memory's K and V held in ``cache`` (``{"k", "v": [B, F, Hkv, hd]}``),
+    never recomputed; non-causal over the whole memory (on the card the
+    flash kernel at ``Sq = 1``)."""
+    q = _proj(x, p["wq"])
+    out = chunked_attention(q, cache["k"], cache["v"], causal=False,
+                            impl=impl)
+    return _out_proj(out, p["wo"])
 
 
 # --- KV caches --------------------------------------------------------------

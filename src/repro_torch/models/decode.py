@@ -1,5 +1,5 @@
-"""Serving substrate for the dense, MoE, SSM and hybrid families:
-decode-state construction, prefill, single-token decode.
+"""Serving substrate for every family: decode-state construction,
+prefill, single-token decode.
 
 The state mirrors the reference's layout where the reference stacks over
 layers: ``{"layers": {"k": [L, B, M, Hkv, hd], "v": [L, B, M, Hkv, hd]}}``,
@@ -11,7 +11,15 @@ layer order, as its parameters are (the reference stacks it over pattern
 groups and keeps the remainder layers apart): an RG-LRU layer's ``{"h":
 [B, lru_width] (f32), "conv": [B, 3, lru_width]}`` and a local-attention
 layer's ring ``{"k", "v": [B, min(local_window, M), Hkv, hd]}``, slot ``p %
-window`` holding position ``p``. Caches are in bf16 for bf16 configs (f32
+window`` holding position ``p``. The VLM and enc-dec families hold
+``{"self": {"k", "v": [L, B, M, Hkv, hd]}, "cross": {"k", "v": [C, B, F,
+Hkv, hd]}}``: the decoder's self-attention cache, and the K and V of the
+memory (``F`` frontend positions) that each cross-attention reads at every
+step, written once by prefill and never recomputed. ``C`` is the number of
+cross blocks (``n_layers / cross_attn_every`` for the VLM, ``n_layers`` for
+the enc-dec); the reference stacks a VLM's self cache over its groups,
+``[G, cross_attn_every, B, M, ...]``, which is the port's ``[L, ...]`` in
+layer order. Caches are in bf16 for bf16 configs (f32
 otherwise); the recurrent ``h`` is always f32. :func:`decode_step` writes
 each layer's new row or state into those tensors in place and returns the
 same dict; the reference returns a new pytree (its jitted callers donate
@@ -68,6 +76,14 @@ def init_decode_state(cfg: ModelConfig, rt: Runtime, batch: int,
                              device=dev),
             "conv": torch.zeros((L, batch, cfg.ssm_conv_kernel - 1, C),
                                 dtype=dt, device=dev)}}
+    if cfg.family in ("vlm", "encdec"):
+        kv = (L, batch, max_len, cfg.padded_kv_heads(rt.tp), hd)
+        n_cross = (L // cfg.cross_attn_every if cfg.family == "vlm" else L)
+        mem = (n_cross, batch, cfg.frontend_seq,
+               cfg.padded_kv_heads(rt.tp), hd)
+        return {part: {name: torch.zeros(shape, dtype=dt, device=dev)
+                       for name in ("k", "v")}
+                for part, shape in (("self", kv), ("cross", mem))}
     if cfg.use_mla:
         shapes = {"c_kv": (L, batch, max_len, cfg.kv_lora_rank),
                   "k_rope": (L, batch, max_len, cfg.qk_rope_dim)}
@@ -105,6 +121,37 @@ def _hybrid_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                          cfg.act)
 
 
+def _self_prefill(p_layer: Dict, cfg: ModelConfig, rt: Runtime,
+                  x: torch.Tensor, pos: torch.Tensor, caches, i: int
+                  ) -> torch.Tensor:
+    """``x`` plus layer ``i``'s self-attention (GQA or MLA) over the
+    prompt, its K and V (or latent) rows written into row ``i`` of each of
+    ``caches``."""
+    z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        y, rows = attn.mla_attention(p_layer["attn"], cfg, z, pos,
+                                     return_cache=True, impl=rt.attn_impl)
+    else:
+        y, rows = attn.self_attention(p_layer["attn"], cfg, z, pos,
+                                      return_cache=True, impl=rt.attn_impl)
+    for cache, r in zip(caches, rows):
+        cache[i, :, :r.shape[1]] = r
+    return x + y
+
+
+def _cross_prefill(p_attn: Dict, ln: torch.Tensor, cfg: ModelConfig,
+                   rt: Runtime, x: torch.Tensor, memory: torch.Tensor,
+                   cache: Dict, i: int) -> torch.Tensor:
+    """The cross-attention output of ``rms_norm(x, ln)`` over ``memory``,
+    the memory's K and V written into row ``i`` of ``cache``."""
+    z = rms_norm(x, ln, cfg.norm_eps)
+    ca, (k, v) = attn.cross_attention(p_attn, cfg, z, memory,
+                                      return_cache=True, impl=rt.attn_impl)
+    cache["k"][i] = k
+    cache["v"][i] = v
+    return ca
+
+
 def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
             max_len: int, lengths: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
@@ -129,9 +176,28 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     x = model_mod.embed(p, cfg, tokens)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     state = init_decode_state(cfg, rt, B, max_len, device=x.device)
-    layers = state["layers"]
 
-    if cfg.family == "ssm":
+    if cfg.family == "vlm":
+        memory, k_in = batch["frontend"], cfg.cross_attn_every
+        selfc = list(state["self"].values())
+        for g, p_cross in enumerate(p["layers"]["cross"]):
+            for i in range(g * k_in, (g + 1) * k_in):
+                p_layer = p["layers"]["self"][i]
+                x = _self_prefill(p_layer, cfg, rt, x, pos, selfc, i)
+                x = x + tfm._ffn(p_layer, cfg, rt, x)[0]
+            ca = _cross_prefill(p_cross["xattn"], p_cross["ln_x"], cfg, rt,
+                                x, memory, state["cross"], g)
+            x = tfm.vlm_cross_tail(p_cross, cfg, x, ca)
+    elif cfg.family == "encdec":
+        memory = tfm.encoder_forward(p["encoder"], cfg, rt, batch["frontend"])
+        selfc = list(state["self"].values())
+        for i, p_layer in enumerate(p["layers"]):
+            x = _self_prefill(p_layer, cfg, rt, x, pos, selfc, i)
+            x = x + _cross_prefill(p_layer["xattn"], p_layer["ln_x"], cfg,
+                                   rt, x, memory, state["cross"], i)
+            x = x + tfm._ffn(p_layer, cfg, rt, x)[0]
+    elif cfg.family == "ssm":
+        layers = state["layers"]
         for i, p_layer in enumerate(p["layers"]):
             z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
             y, (h, conv) = ssm_mod.ssd_forward(p_layer["ssm"], cfg, z,
@@ -140,7 +206,7 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
             layers["conv"][i] = conv
             x = x + y
     elif cfg.family == "hybrid":
-        for p_layer, cache, kind in zip(p["layers"], layers,
+        for p_layer, cache, kind in zip(p["layers"], state["layers"],
                                         tfm.hybrid_kinds(cfg)):
             z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
             if kind == "attn":
@@ -157,22 +223,10 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
                 cache["conv"].copy_(tail)
             x = _hybrid_mlp(p_layer, cfg, x + y)
     else:
-        caches = list(layers.values())   # (k, v) or (c_kv, k_rope)
+        caches = list(state["layers"].values())  # (k, v) or (c_kv, k_rope)
         for i, p_layer in enumerate(p["layers"]):
-            z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-            if cfg.use_mla:
-                y, rows = attn.mla_attention(p_layer["attn"], cfg, z, pos,
-                                             return_cache=True,
-                                             impl=rt.attn_impl)
-            else:
-                y, rows = attn.self_attention(p_layer["attn"], cfg, z, pos,
-                                              return_cache=True,
-                                              impl=rt.attn_impl)
-            for cache, r in zip(caches, rows):
-                cache[i, :, :S] = r
-            x = x + y
-            y2, _ = tfm._ffn(p_layer, cfg, rt, x)
-            x = x + y2
+            x = _self_prefill(p_layer, cfg, rt, x, pos, caches, i)
+            x = x + tfm._ffn(p_layer, cfg, rt, x)[0]
 
     if lengths is None:
         x_last = x[:, -1:]
@@ -180,6 +234,31 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
         idx = torch.as_tensor(lengths, device=x.device).long() - 1
         x_last = x[torch.arange(B, device=x.device), idx][:, None]
     return model_mod.logits_fn(p, cfg, x_last), state
+
+
+def _self_decode(p_layer: Dict, cfg: ModelConfig, rt: Runtime,
+                 x: torch.Tensor, cache: Dict, pos: torch.Tensor
+                 ) -> torch.Tensor:
+    """``x`` plus one token's self-attention (GQA or MLA) of a layer, its
+    new row written into ``cache`` in place."""
+    z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        y, _ = attn.mla_decode(p_layer["attn"], cfg, z, cache, pos)
+    else:
+        y, _ = attn.decode_self_attention(p_layer["attn"], cfg, z, cache, pos,
+                                          impl=rt.decode_impl)
+    return x + y
+
+
+def _cross_decode(p_attn: Dict, ln: torch.Tensor, cfg: ModelConfig,
+                  rt: Runtime, x: torch.Tensor, cache: Dict,
+                  i: int) -> torch.Tensor:
+    """One token's cross-attention output over row ``i`` of the memory's
+    cached K and V."""
+    z = rms_norm(x, ln, cfg.norm_eps)
+    return attn.decode_cross_attention(
+        p_attn, z, {"k": cache["k"][i], "v": cache["v"][i]},
+        impl=rt.attn_impl)
 
 
 def decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
@@ -192,6 +271,27 @@ def decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
     tfm.check_family(cfg)
     x = model_mod.embed(p, cfg, token)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+    if cfg.family in ("vlm", "encdec"):
+        selfc, crossc = state["self"], state["cross"]
+        if cfg.family == "vlm":
+            k_in = cfg.cross_attn_every
+            for g, p_cross in enumerate(p["layers"]["cross"]):
+                for i in range(g * k_in, (g + 1) * k_in):
+                    p_layer = p["layers"]["self"][i]
+                    x = _self_decode(p_layer, cfg, rt, x,
+                                     {n: t[i] for n, t in selfc.items()}, pos)
+                    x = x + tfm._ffn(p_layer, cfg, rt, x, decode=True)[0]
+                ca = _cross_decode(p_cross["xattn"], p_cross["ln_x"], cfg,
+                                   rt, x, crossc, g)
+                x = tfm.vlm_cross_tail(p_cross, cfg, x, ca)
+        else:
+            for i, p_layer in enumerate(p["layers"]):
+                x = _self_decode(p_layer, cfg, rt, x,
+                                 {n: t[i] for n, t in selfc.items()}, pos)
+                x = x + _cross_decode(p_layer["xattn"], p_layer["ln_x"], cfg,
+                                      rt, x, crossc, i)
+                x = x + tfm._ffn(p_layer, cfg, rt, x, decode=True)[0]
+        return model_mod.logits_fn(p, cfg, x), state
     layers = state["layers"]
     if cfg.family == "hybrid":
         for p_layer, cache, kind in zip(p["layers"], layers,
@@ -207,18 +307,11 @@ def decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
             x = _hybrid_mlp(p_layer, cfg, x + y)
         return model_mod.logits_fn(p, cfg, x), state
     for i, p_layer in enumerate(p["layers"]):
-        z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
         cache = {name: t[i] for name, t in layers.items()}
         if cfg.family == "ssm":
-            y, _ = ssm_mod.ssd_decode_step(p_layer["ssm"], cfg, z, cache)
-            x = x + y
+            z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+            x = x + ssm_mod.ssd_decode_step(p_layer["ssm"], cfg, z, cache)[0]
             continue
-        if cfg.use_mla:
-            y, _ = attn.mla_decode(p_layer["attn"], cfg, z, cache, pos)
-        else:
-            y, _ = attn.decode_self_attention(p_layer["attn"], cfg, z, cache,
-                                              pos, impl=rt.decode_impl)
-        x = x + y
-        y2, _ = tfm._ffn(p_layer, cfg, rt, x, decode=True)
-        x = x + y2
+        x = _self_decode(p_layer, cfg, rt, x, cache, pos)
+        x = x + tfm._ffn(p_layer, cfg, rt, x, decode=True)[0]
     return model_mod.logits_fn(p, cfg, x), state

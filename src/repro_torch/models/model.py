@@ -1,4 +1,5 @@
-"""Top-level model API for the dense, MoE, SSM and hybrid families.
+"""Top-level model API, uniform across the families: dense, MoE, SSM,
+hybrid, VLM and enc-dec.
 
     params        = init_params(cfg, rt, generator, device=...)
     logits        = forward_logits(cfg, rt, params, batch)
@@ -19,8 +20,14 @@ only training reads (ROADMAP queue A item 6). An SSM layer is {``ln1``,
 ``norm_g``, ``w_out``}}; a hybrid layer {``ln1``, ``ln2``, ``mlp``} with
 ``attn`` or ``rglru`` {``w_x``, ``w_gate``, ``conv_w``, ``conv_b``, ``w_a``,
 ``b_a``, ``w_i``, ``b_i``, ``lam``, ``w_out``} by its place in
-``block_pattern``. Logits span the padded
-vocab, as in the reference; callers slice ``[..., :vocab_size]``.
+``block_pattern``. A VLM's ``layers`` is ``{"self": [n_layers decoder
+layers], "cross": [one cross block a group of cross_attn_every: ln_x,
+ln_m, xattn {wq, wk, wv, wo}, gate_a, gate_m, mlp]}``; an enc-dec's
+``encoder`` is a list of ``n_encoder_layers`` layers and its ``layers``
+decoder layers that also hold ``ln_x`` and ``xattn``. Those two families
+read ``batch["frontend"] [B, F, d]``, the precomputed patch or frame
+embeddings. Logits span the padded vocab, as in the reference; callers
+slice ``[..., :vocab_size]``.
 """
 from __future__ import annotations
 
@@ -49,6 +56,13 @@ def _build(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
         p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers, "ssm")
     elif cfg.family == "hybrid":
         p["layers"] = tfm.hybrid_params(mk, cfg, rt)
+    elif cfg.family == "vlm":
+        p["layers"] = tfm.vlm_params(mk, cfg, rt)
+    elif cfg.family == "encdec":
+        p["encoder"] = [tfm.encoder_layer_params(mk, cfg, rt)
+                        for _ in range(cfg.n_encoder_layers)]
+        p["layers"] = [tfm.decoder_layer_params(mk, cfg, rt, cross=True)
+                       for _ in range(cfg.n_layers)]
     else:
         p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers, "decoder")
     if cfg.mtp_depth:
@@ -116,10 +130,25 @@ def trunk_hidden(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     aux = 0.0
     if cfg.family == "hybrid":
         x = tfm.hybrid_forward(p["layers"], cfg, rt, x, pos)
+    elif cfg.family == "vlm":
+        x = tfm.vlm_forward(p["layers"], cfg, rt, x, pos, batch["frontend"])
+    elif cfg.family == "encdec":
+        memory = tfm.encoder_forward(p["encoder"], cfg, rt, batch["frontend"])
+        x, aux = _encdec_decoder(p, cfg, rt, x, pos, memory)
     else:
         x, aux = tfm.trunk_forward(p["layers"], cfg, rt, x, pos,
                                    "ssm" if cfg.family == "ssm" else "decoder")
     return x, aux, inputs
+
+
+def _encdec_decoder(p: Dict, cfg: ModelConfig, rt: Runtime, x, pos, memory):
+    """The enc-dec decoder over ``x``, each layer also attending to
+    ``memory``: (hidden, aux loss)."""
+    aux = 0.0
+    for p_layer in p["layers"]:
+        x, a = tfm.decoder_layer(p_layer, cfg, rt, x, pos, memory=memory)
+        aux += a
+    return x, aux
 
 
 def forward_logits(cfg: ModelConfig, rt: Runtime, p: Dict,

@@ -1,13 +1,18 @@
-"""Trunk assembly for the dense and MoE families (GQA or MLA attention),
-the SSM family (Mamba2's SSD blocks) and the hybrid family (RecurrentGemma's
-pattern of RG-LRU and local-attention blocks).
+"""Trunk assembly for every architecture family: dense and MoE (GQA or
+MLA attention), SSM (Mamba2's SSD blocks), hybrid (RecurrentGemma's pattern
+of RG-LRU and local-attention blocks), VLM (Llama 3.2 Vision's groups of
+self-attention layers, each followed by a gated cross-attention block over
+the image's patch embeddings) and enc-dec (SeamlessM4T's non-causal
+encoder over the frontend's frames, and a decoder whose layers also attend
+to the encoder's output).
 
 The reference scans over layer parameters stacked on a leading axis (the
-hybrid over stacked pattern groups, then the remainder layers); here the
-layers are a Python list of per-layer parameter dicts in layer order and
-the trunk is a loop over them — a hybrid layer ``i`` is of kind
-``block_pattern[i % len(block_pattern)]``. The VLM and enc-dec families are
-ROADMAP queue A item 4's remaining work and raise ``NotImplementedError``.
+hybrid over stacked pattern groups, then the remainder layers; the VLM over
+groups, each an inner scan over its self layers); here the layers are a
+Python list of per-layer parameter dicts in layer order and the trunk is a
+loop over them — a hybrid layer ``i`` is of kind ``block_pattern[i %
+len(block_pattern)]``, and a VLM's self layer ``g * cross_attn_every + j``
+is layer ``j`` of group ``g``, whose cross block is ``cross[g]``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamMaker, gated_mlp,
+from repro_torch.models.common import (ParamMaker, apply_rope, gated_mlp,
                                        gated_mlp_params, rms_norm)
 
 
@@ -29,35 +34,36 @@ from repro_torch.models.common import (ParamMaker, gated_mlp,
 class Runtime:
     """Runtime knobs orthogonal to the architecture config.
 
-    ``attn_impl`` picks the prefill attention route: ``"kernel"`` sends the
-    flash kernel's case on the card to the hand-written kernel,
-    ``"plain"`` keeps it on the plain chunked loops."""
+    ``attn_impl`` picks the route of the attention the flash kernel
+    computes (prefill, and cross-attention at decode): ``"kernel"`` sends
+    the kernel's case on the card to the hand-written kernel, ``"plain"``
+    keeps it on the plain chunked loops."""
     tp: int = 1
     moe_impl: str = "local"       # dense | local
     decode_impl: str = "chunked"  # chunked | dense (single einsum)
     attn_impl: str = "kernel"     # kernel | plain
 
 
-#: the families the port serves: dense and MoE (GQA or MLA attention), SSM
-#: and hybrid RG-LRU
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the families the port serves: dense and MoE (GQA or MLA attention), SSM,
+#: hybrid RG-LRU, VLM and enc-dec
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The port serves :data:`FAMILIES`; VLM and enc-dec are still to
-    port."""
+    """``ValueError`` for a family outside :data:`FAMILIES`, as the
+    reference raises for one."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP queue A "
-            f"item 4: the VLM and enc-dec families, with cross-attention); "
-            f"the port serves the families {FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r}; the families are "
+                         f"{FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def decoder_layer_params(mk: ParamMaker, cfg: ModelConfig,
-                         rt: Runtime) -> Dict:
+def decoder_layer_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime,
+                         cross: bool = False) -> Dict:
+    """One decoder layer; ``cross`` adds the enc-dec decoder's
+    cross-attention (``ln_x``, ``xattn``)."""
     check_family(cfg)
     p = {"ln1": mk("ln1", (cfg.d_model,), init="ones"),
          "ln2": mk("ln2", (cfg.d_model,), init="ones")}
@@ -69,6 +75,10 @@ def decoder_layer_params(mk: ParamMaker, cfg: ModelConfig,
         p["mlp"] = moe_mod.moe_params(mk, "moe", cfg, rt.tp)
     else:
         p["mlp"] = gated_mlp_params(mk, "mlp", cfg.d_model, cfg.d_ff)
+    if cross:
+        p["ln_x"] = mk("ln_x", (cfg.d_model,), init="ones")
+        p["xattn"] = attn.attention_params(mk, "xattn", cfg, rt.tp,
+                                           cross=True)
     return p
 
 
@@ -93,8 +103,12 @@ def _ffn(p, cfg: ModelConfig, rt: Runtime, x, decode: bool = False
 
 
 def decoder_layer(p, cfg: ModelConfig, rt: Runtime, x, positions,
-                  window: int = 0) -> Tuple[torch.Tensor, float]:
+                  window: int = 0, memory=None) -> Tuple[torch.Tensor, float]:
     x = x + _mixer(p, cfg, rt, x, positions, window)
+    if memory is not None and "xattn" in p:
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + attn.cross_attention(p["xattn"], cfg, h, memory,
+                                     impl=rt.attn_impl)
     y, aux = _ffn(p, cfg, rt, x)
     return x + y, aux
 
@@ -127,6 +141,32 @@ def trunk_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime, x,
             x, a = decoder_layer(p_layer, cfg, rt, x, positions)
             aux += a
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Encoder (enc-dec): non-causal self-attention over the frontend's frames
+# ---------------------------------------------------------------------------
+def encoder_layer_params(mk: ParamMaker, cfg: ModelConfig,
+                         rt: Runtime) -> Dict:
+    return decoder_layer_params(mk, cfg, rt)
+
+
+def encoder_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime,
+                    x) -> torch.Tensor:
+    """The encoder over ``x [B, F, d]``: each layer roped at ``arange(F)``,
+    non-causal (on the card the flash kernel's case), then its FFN."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None]
+    for p_layer in params:
+        z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+        q, k, v = attn._qkv(p_layer["attn"], z)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        o = attn.chunked_attention(q, k, v, causal=False, impl=rt.attn_impl)
+        x = x + attn._out_proj(o, p_layer["attn"]["wo"])
+        y, _ = _ffn(p_layer, cfg, rt, x)
+        x = x + y
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -179,4 +219,50 @@ def hybrid_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime, x,
                    positions) -> torch.Tensor:
     for p, kind in zip(params, hybrid_kinds(cfg)):
         x = _rg_block(p, cfg, rt, x, positions, kind)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# VLM trunk: groups of (cross_attn_every self layers + 1 gated cross block)
+# ---------------------------------------------------------------------------
+def vlm_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
+    """``{"self": [n_layers decoder layers], "cross": [n_layers //
+    cross_attn_every cross blocks]}``; a cross block is ``ln_x``, ``ln_m``,
+    ``xattn``, the tanh gates ``gate_a`` / ``gate_m`` (zeros at init, as in
+    the reference: a fresh model ignores its image) and its own gated MLP
+    ``mlp``."""
+    n_groups = cfg.n_layers // cfg.cross_attn_every
+    d = cfg.d_model
+    cross = [{"ln_x": mk("ln_x", (d,), init="ones"),
+              "ln_m": mk("ln_m", (d,), init="ones"),
+              "xattn": attn.attention_params(mk, "xattn", cfg, rt.tp,
+                                             cross=True),
+              "gate_a": mk("gate_a", (1,), init="zeros"),
+              "gate_m": mk("gate_m", (1,), init="zeros"),
+              "mlp": gated_mlp_params(mk, "xmlp", d, cfg.d_ff)}
+             for _ in range(n_groups)]
+    return {"self": trunk_params(mk, cfg, rt,
+                                 n_groups * cfg.cross_attn_every, "decoder"),
+            "cross": cross}
+
+
+def vlm_cross_tail(p: Dict, cfg: ModelConfig, x, ca) -> torch.Tensor:
+    """The rest of a VLM cross block after its cross-attention output
+    ``ca``: ``x + tanh(gate_a) ca``, then ``+ tanh(gate_m)`` times the
+    block's gated MLP of ``rms_norm(., ln_m)``."""
+    x = x + torch.tanh(p["gate_a"]) * ca
+    z = rms_norm(x, p["ln_m"], cfg.norm_eps)
+    return x + torch.tanh(p["gate_m"]) * gated_mlp(p["mlp"], z, cfg.act)
+
+
+def vlm_forward(params: Dict, cfg: ModelConfig, rt: Runtime, x, positions,
+                memory) -> torch.Tensor:
+    k = cfg.cross_attn_every
+    for g, p_cross in enumerate(params["cross"]):
+        for p_layer in params["self"][g * k:(g + 1) * k]:
+            x, _ = decoder_layer(p_layer, cfg, rt, x, positions)
+        z = rms_norm(x, p_cross["ln_x"], cfg.norm_eps)
+        ca = attn.cross_attention(p_cross["xattn"], cfg, z, memory,
+                                  impl=rt.attn_impl)
+        x = vlm_cross_tail(p_cross, cfg, x, ca)
     return x

@@ -19,8 +19,11 @@ decode phase deep while leaving prefill at nominal.
 
 :class:`ServeEngine.generate` keeps its blocking signature: greedy calls
 of the dense and MoE families route through the continuous engine;
-sampling, and every call of the recurrent families (SSM, hybrid: no
-position-indexed cache to fill a slot from), take the lock-step path
+sampling, calls with an ``extra_batch`` (the VLM's image, the enc-dec's
+audio frames), and every call of the families outside
+:data:`SLOT_FAMILIES` (the recurrent ones have no position-indexed cache
+to fill a slot from; the slot pool holds no memory for the VLM's or
+enc-dec's cross-attention) take the lock-step path
 (:meth:`ServeEngine.generate_blocking`), which reads logits and decodes at
 per-sequence positions for heterogeneous prompt lengths of the families
 with a position-indexed cache.
@@ -253,9 +256,9 @@ class ContinuousEngine:
 
 class ServeEngine:
     """Blocking batch facade over the serving substrate. Greedy calls of
-    :data:`SLOT_FAMILIES` route through a pooled :class:`ContinuousEngine`;
-    temperature sampling and the recurrent families take the lock-step
-    path."""
+    :data:`SLOT_FAMILIES` without an ``extra_batch`` route through a pooled
+    :class:`ContinuousEngine`; temperature sampling, frontends and the other
+    families take the lock-step path."""
 
     def __init__(self, cfg: ModelConfig, rt: Runtime, params,
                  max_len: int = 256,
@@ -285,14 +288,18 @@ class ServeEngine:
                  ) -> List[np.ndarray]:
         """Generate for a batch of requests, blocking until all are done
         (every output is ``max(r.max_new_tokens)`` long; per-request budgets
-        need :func:`repro_torch.serving.serve`)."""
-        if extra_batch is not None:
-            raise NotImplementedError(
-                "the extra_batch frontend route (vlm / enc-dec frontends) "
-                "is ROADMAP queue A item 4's remaining work")
-        if self.cfg.family in SLOT_FAMILIES and temperature <= 0.0:
+        need :func:`repro_torch.serving.serve`).
+
+        ``extra_batch`` holds what the prefill reads besides the tokens: a
+        VLM's or enc-dec's ``"frontend"`` ``[B, F, d_model]`` (the image's
+        patch or the audio's frame embeddings, in the config's dtype). A
+        call with it takes the lock-step route, as every call of the
+        families outside :data:`SLOT_FAMILIES` does."""
+        if (self.cfg.family in SLOT_FAMILIES and temperature <= 0.0
+                and extra_batch is None):
             return self._generate_continuous(requests, seed)
-        return self.generate_blocking(requests, temperature, seed)
+        return self.generate_blocking(requests, temperature, seed,
+                                      extra_batch)
 
     # ---------------------------------------------------- continuous route
     def _generate_continuous(self, requests: List[Request],
@@ -333,11 +340,13 @@ class ServeEngine:
 
     # ----------------------------------------------------- lock-step route
     def generate_blocking(self, requests: List[Request],
-                          temperature: float = 0.0, seed: int = 0
+                          temperature: float = 0.0, seed: int = 0,
+                          extra_batch: Optional[Dict] = None
                           ) -> List[np.ndarray]:
         """One right-padded prefill, then every sequence decodes in
         lock-step to the batch-max budget. Kept public as the baseline the
-        continuous engine is compared against."""
+        continuous engine is compared against. ``extra_batch`` (a
+        frontend) joins the prefill's batch, on the engine's device."""
         B = len(requests)
         dev = self.device
         plen = min(max(len(r.prompt) for r in requests), self.max_len - 1)
@@ -348,6 +357,9 @@ class ServeEngine:
             prompts[i, :len(p)] = p
             lengths[i] = len(p)
         batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+        if extra_batch:
+            batch.update({k: torch.as_tensor(v, device=dev)
+                          for k, v in extra_batch.items()})
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
 

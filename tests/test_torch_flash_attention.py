@@ -579,10 +579,19 @@ def test_prefill_case_goes_to_the_kernel_and_others_do_not(recorded):
                                    kv_chunk=32)
     np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=2e-5,
                                atol=2e-5)
-    for kw in (dict(window=8), dict(q_offset=3), dict(causal=False),
-               dict(kv_valid_len=torch.tensor(20)), dict(impl="plain")):
+    # non-causal over the whole kv (encoder and cross-attention) is the
+    # kernel's case too
+    out = attn.chunked_attention(q, *kv, causal=False)
+    assert len(recorded) == 2 and recorded[1]["causal"] is False
+    plain = attn.chunked_attention(q, *kv, causal=False, impl="plain")
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    for kw in (dict(window=8), dict(q_offset=3),
+               dict(kv_valid_len=torch.tensor(20)), dict(impl="plain"),
+               dict(causal=False, window=8),
+               dict(causal=False, kv_valid_len=torch.tensor(20))):
         attn.chunked_attention(q, *kv, **kw)
-    assert len(recorded) == 1
+    assert len(recorded) == 2
 
 
 @pytest.mark.parametrize("dtype,D", [("float32", 128), ("bfloat16", 128),

@@ -186,17 +186,6 @@ def _leaves(tree):
             yield v
 
 
-@pytest.mark.parametrize("family_arch", ["llama-3.2-vision-11b",
-                                         "seamless-m4t-large-v2"])
-def test_families_still_to_port_raise(family_arch):
-    cfg = dataclasses.replace(get_config(family_arch).reduced(),
-                              dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        model.init_params(cfg, Runtime(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        decode.init_decode_state(cfg, Runtime(), 1, 8, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------

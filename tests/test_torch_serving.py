@@ -262,17 +262,15 @@ def _close_dicts(got, want):
 
 
 def test_continuous_engine_rejects_other_families():
-    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(),
-                              dtype="float32")
-    with pytest.raises(ValueError, match="continuous batching"):
-        ContinuousEngine(cfg, None, None)
-
-
-def test_extra_batch_route_is_not_ported(served):
-    _, _, cfg, params = served
-    eng = ServeEngine(cfg, Runtime(), params, max_len=MAX_LEN)
-    with pytest.raises(NotImplementedError, match="extra_batch"):
-        eng.generate(_requests(cfg, (4,), (2,)), extra_batch={"x": 0})
+    """The slot pool serves the dense and MoE families only: a recurrent
+    state has no position-indexed rows, and the pool holds no memory for
+    the VLM's or enc-dec's cross-attention (as in the reference)."""
+    for arch in ("mamba2-2.7b", "recurrentgemma-2b", "llama-3.2-vision-11b",
+                 "seamless-m4t-large-v2"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        with pytest.raises(ValueError, match="continuous batching"):
+            ContinuousEngine(cfg, None, None)
 
 
 def test_sampling_route_runs_and_stays_in_the_vocab(served):

@@ -7,9 +7,11 @@ another served config at full width, its depth cut by ``--layers`` (an MoE
 model runs the local path; a multi-token-prediction head, which serving
 never reads, is not built). The dense and MoE configs run the slot pool
 (one prompt a prefill, ``--slots`` slots a decode step); the recurrent
-ones (``mamba2-2.7b``, ``recurrentgemma-2b``) the lock-step route that
-serves them (``--slots`` prompts in one prefill, then decode steps of the
-batch).
+ones (``mamba2-2.7b``, ``recurrentgemma-2b``), the VLM
+(``llama-3.2-vision-11b``) and the enc-dec (``seamless-m4t-large-v2``)
+the lock-step route that serves them (``--slots`` prompts in one prefill,
+then decode steps of the batch); the last two read a frontend ``[slots,
+frontend_seq, d_model]``, standard normal in bf16, drawn on the card.
 
     python3 tools/serve_profile.py [--arch qwen2.5-14b] [--prompt-len 1000]
                                    [--slots 4] [--decode-steps 8]
@@ -18,6 +20,10 @@ batch).
     python3 tools/serve_profile.py --arch deepseek-v3-671b --layers 2
     python3 tools/serve_profile.py --arch mamba2-2.7b --prompt-len 1024
     python3 tools/serve_profile.py --arch recurrentgemma-2b --prompt-len 1024
+    python3 tools/serve_profile.py --arch llama-3.2-vision-11b \
+        --prompt-len 1024
+    python3 tools/serve_profile.py --arch seamless-m4t-large-v2 \
+        --prompt-len 256
 
 For each phase it prints one JSON line: the wall time (host clock around
 work that ends in a synchronise), the device time summed over the phase's
@@ -155,14 +161,17 @@ def main() -> int:
     else:
         route = "lock-step"
         from repro_torch.models import decode as decode_mod
-        toks = torch.from_numpy(rng.integers(
+        batch = {"tokens": torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (args.slots, args.prompt_len),
-            dtype=np.int32)).to(device)
+            dtype=np.int32)).to(device)}
+        if cfg.frontend_seq:
+            batch["frontend"] = torch.randn(
+                (args.slots, cfg.frontend_seq, cfg.d_model),
+                generator=gen, device=device).to(torch.bfloat16)
         state = {}
 
         def run_prefill(r):
-            return decode_mod.prefill(cfg, r, params, {"tokens": toks},
-                                      2048)
+            return decode_mod.prefill(cfg, r, params, batch, 2048)
 
         def prefill():
             state["s"] = run_prefill(rt)[1]
