@@ -70,6 +70,17 @@ call:
       the plain route's with p rounded and outside it on a kernel with a
       wrong softmax scale, and a second frontend must move the logits by
       more than the two attention routes differ
+    training: the attention's gradients under autograd (the FlashAttention
+      Function, plain f32, no kernel) against autograd through dense f64
+      attention on the card, causal at stablelm-12b's head dims and MLA's
+      (192, 128), non-causal at the enc-dec's cross shape, bf16 and f32;
+      stablelm-12b and dbrx-132b reduced in f32, three make_train_step
+      steps on the card against the same on CPU tensors from one state;
+      restart from a checkpoint on the card; then stablelm-12b at full width
+      in bf16 with f32 AdamW moments (4 of 40 layers) -> Trainer.run() for
+      4 steps of 2 x 4096 tokens under an energy-aware EnergySession. No
+      kernel launches in training, as the reference's training never
+      reaches its Pallas kernel
 
 Run it with no arguments from the root of the checkout:
 
@@ -1494,6 +1505,7 @@ def serve_path(device, sizes: dict, cfg, reduced=None,
     from repro_torch.power import EnergySession
     from repro_torch.serving import (ContinuousEngine, Request, ServeEngine,
                                      poisson_arrivals, serve)
+    from repro_torch.tree import tree_leaves
     rt = Runtime(tp=1, moe_impl="local")
     max_len, new = sizes["serve_max_len"], sizes["serve_new_tokens"]
     lo, hi = sizes["serve_prompt_lens"]
@@ -1520,7 +1532,7 @@ def serve_path(device, sizes: dict, cfg, reduced=None,
     params = model_mod.init_params(cfg, rt, gen, device=device)
     _sync(device)
     report["init_s"] = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     report["params"] = n_params
     report["param_count_config"] = cfg.param_count()
     rng = np.random.default_rng(0)
@@ -1638,17 +1650,6 @@ def serve_path(device, sizes: dict, cfg, reduced=None,
           f"launches for {cfg.n_layers} layers")
     del seng
     return report, counts, sampled_launches, params
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def moe_local_vs_dense(device, sizes: dict, cfg, params) -> dict:
@@ -1969,6 +1970,7 @@ def serve_recurrent(device, sizes: dict, arch: str):
     from repro_torch.models.transformer import Runtime
     from repro_torch.power import EnergySession
     from repro_torch.serving import Request, ServeEngine
+    from repro_torch.tree import tree_leaves
     cfg, reduced = serve_config(sizes, arch)
     rt = Runtime(tp=1)
     S, new = sizes["rec_prompt_len"], sizes["serve_new_tokens"]
@@ -1999,7 +2001,7 @@ def serve_recurrent(device, sizes: dict, arch: str):
     params = model_mod.init_params(cfg, rt, gen, device=device)
     _sync(device)
     report["init_s"] = time.perf_counter() - t0
-    report["params"] = sum(t.numel() for t in _leaves(params))
+    report["params"] = sum(t.numel() for t in tree_leaves(params))
     report["param_count_config"] = cfg.param_count()
     V = cfg.vocab_size
     rng = np.random.default_rng(0)
@@ -2099,6 +2101,7 @@ def serve_cross(device, sizes: dict, arch: str):
     from repro_torch.models.transformer import Runtime
     from repro_torch.power import EnergySession
     from repro_torch.serving import Request, ServeEngine
+    from repro_torch.tree import tree_leaves
     cfg, reduced = serve_config(sizes, arch)
     rt = Runtime(tp=1)
     S, max_len = sizes["cross_serve"][arch]
@@ -2133,7 +2136,7 @@ def serve_cross(device, sizes: dict, arch: str):
     fe = draw_frontend(cfg, B, gen, device)
     _sync(device)
     report["init_s"] = time.perf_counter() - t0
-    report["params"] = sum(t.numel() for t in _leaves(params))
+    report["params"] = sum(t.numel() for t in tree_leaves(params))
     report["param_count_config"] = cfg.param_count()
     report["frontend"] = {"shape": list(fe.shape), "dtype": str(fe.dtype),
                           "scale": FRONTEND_SCALE}
@@ -2331,6 +2334,281 @@ def cross_witness(device, cfg, params, sizes: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- training
+#: the reference training CLI's default --arch, trained at full width in
+#: bf16 with f32 AdamW moments, cut in depth to fit one card
+TRAIN_ARCH = "stablelm-12b"
+TRAIN_CUTS = {"n_layers": 4}
+TRAIN_CUT_WHY = (
+    "memory: 4 layers hold ~2.14 B parameters, ~26 GB of bf16 weights and "
+    "grads and f32 moments, and the out-of-place update holds a second "
+    "copy; all 40 layers would need ~144 GB of one card's 80 GB")
+#: the shape of the train phase: train_4k's length, its global batch of
+#: 256 cut to 2 (a step's activations at full width fit one card)
+TRAIN_BATCH_WHY = "memory and time: one card, a few steps"
+#: the card against the host: reduced f32 configs, steps of
+#: make_train_step on each from one state and the same batches
+CARD_VS_HOST_ARCHS = ("stablelm-12b", "dbrx-132b")
+CARD_VS_HOST_STEPS = 3
+CARD_VS_HOST_RTOL = 1e-5
+#: the attention backward's limits against f64 dense attention, as a share
+#: of max|want|: f32 the order of sums, bf16 the output's rounding
+ATTN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _dense_attention_f64(q, k, v, causal: bool, scale: float):
+    """Softmax attention in f64 with the kv heads repeated: the reference
+    the attention's gradients are held against."""
+    G = q.shape[2] // k.shape[2]
+    kk, vv = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+    if causal:
+        Sq, Skv = q.shape[1], k.shape[1]
+        mask = torch.ones((Sq, Skv), dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
+
+
+def train_attention_grad(device, sizes: dict, timer: Timer) -> dict:
+    """``chunked_attention``'s gradients under autograd (the FlashAttention
+    Function) on the card against autograd through dense softmax attention
+    in f64 on the card, from the same inputs and output gradient: each of
+    dq, dk, dv within ATTN_GRAD_TOL[dtype] * max|want|; every gradient
+    nonzero (the kernel op has no backward and would cut them)."""
+    from repro_torch.models import attention as attn
+    cases = []
+    g = torch.Generator(device=device)
+    g.manual_seed(31)
+    for name, (B, Sq, Skv, Hq, Hkv, D, Dv), causal, dtype in \
+            sizes["train_grad_cases"]:
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, Sq, Hq, D), generator=g, device=device).to(dt)
+        k = torch.randn((B, Skv, Hkv, D), generator=g, device=device).to(dt)
+        v = torch.randn((B, Skv, Hkv, Dv), generator=g,
+                        device=device).to(dt)
+        dout = torch.randn((B, Sq, Hq, Dv), generator=g,
+                           device=device).to(dt)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def run():
+            out = attn.chunked_attention(*leaves, causal=causal)
+            return out, torch.autograd.grad(out, leaves, dout)
+        out, got = run()
+        ms = timer(lambda: run(), reps=3)
+        ref = [t.detach().double().requires_grad_() for t in (q, k, v)]
+        want_out = _dense_attention_f64(*ref, causal, D ** -0.5)
+        want = torch.autograd.grad(want_out, ref, dout.double())
+        tol = ATTN_GRAD_TOL[dt]
+        shares = {}
+        for n, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(a.dtype == dt, f"{name}: {n} came back in {a.dtype}")
+            shares[n] = float((a.double() - b).abs().max()
+                              / (tol * b.abs().max()))
+        row = {"case": name, "dtype": dtype, "causal": causal,
+               "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D, Dv],
+               "grad_fn": type(out.grad_fn).__name__,
+               "share_of_limit": shares,
+               "worst_share": max(shares.values()),
+               "min_abs_grad_max": min(float(a.abs().max()) for a in got),
+               "fwd_bwd_ms": ms,
+               "tolerance": f"|err| <= {tol} * max|want| (f64 dense)"}
+        cases.append(row)
+        del q, k, v, dout, leaves, ref, want, got, out, want_out
+    out = {"cases": cases}
+    check(all(r["worst_share"] <= 1.0 and r["min_abs_grad_max"] > 0
+              and r["grad_fn"] == "FlashAttentionBackward" for r in cases),
+          f"the attention's gradients on the card are off: {out}")
+    return out
+
+
+def _train_states(cfg, device, seed: int):
+    """(state on the host, the same state on ``device``): the port's
+    initial parameters drawn on the host, zero f32 moments."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import tree_map
+    g = torch.Generator()
+    g.manual_seed(seed)
+    params = model_mod.init_params(cfg, Runtime(), g, device="cpu")
+    host = {"params": params, "opt": init_opt_state(params)}
+    return host, tree_map(lambda t: t.to(device), host)
+
+
+def train_card_vs_host(device, sizes: dict) -> dict:
+    """Reduced f32 configs: CARD_VS_HOST_STEPS steps of make_train_step on
+    the card and on CPU tensors, from one state and the same batches:
+    losses within rtol CARD_VS_HOST_RTOL, every parameter within
+    ``CARD_VS_HOST_RTOL * max|p|``. Then the reference's restart
+    equivalence on the card: 4 steps straight against 2 steps, a new
+    Trainer restored from disk (under build/), then 2 more; the last
+    losses within 1e-6."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import leaves_with_paths
+    shape = SHAPES_BY_NAME["train_4k"].reduced()
+    rows = []
+    for arch in CARD_VS_HOST_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        host, card = _train_states(cfg, device, seed=41)
+        step = make_train_step(cfg, Runtime(), OptConfig())
+        losses = {"card": [], "host": []}
+        for i in range(CARD_VS_HOST_STEPS):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in make_batch(cfg, shape, i).items()}
+            card, m_card = step(card, {k: v.to(device)
+                                       for k, v in batch.items()})
+            host, m_host = step(host, batch)
+            losses["card"].append(float(m_card["loss"]))
+            losses["host"].append(float(m_host["loss"]))
+        worst, worst_leaf = 0.0, ""
+        for (path, a), (_, b) in zip(leaves_with_paths(host["params"]),
+                                     leaves_with_paths(card["params"])):
+            lim = CARD_VS_HOST_RTOL * float(a.abs().max()) + 1e-30
+            share = float((b.cpu() - a).abs().max()) / lim
+            if share >= worst:
+                worst, worst_leaf = share, path
+        loss_rel = max(abs(c - h) / abs(h) for c, h in
+                       zip(losses["card"], losses["host"]))
+        rows.append({"arch": arch, "config": "reduced() in f32",
+                     "steps": CARD_VS_HOST_STEPS, "losses": losses,
+                     "max_loss_rel_diff": loss_rel,
+                     "params_worst_share_of_limit": worst,
+                     "params_worst_leaf": worst_leaf})
+        del host, card
+    ckpt = os.path.join(HERE, "build", "train_restart")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                              dtype="float32")
+
+    def trainer(steps, ckpt_dir):
+        return Trainer(cfg, shape, Runtime(), tcfg=TrainConfig(
+            steps=steps, ckpt_dir=ckpt_dir, ckpt_interval=2,
+            log_every=1000), device=device)
+    full = trainer(4, None).run()
+    trainer(2, ckpt).run()
+    resumed = trainer(4, ckpt)
+    part = resumed.run()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    restart = {"arch": TRAIN_ARCH, "config": "reduced() in f32",
+               "straight": full["losses"], "resumed": part["losses"],
+               "start_step": resumed.start_step,
+               "last_loss_abs_diff": abs(full["losses"][-1]
+                                         - part["losses"][-1]),
+               "checkpoints": "build/train_restart (removed after)"}
+    out = {"card_vs_host": rows, "restart": restart,
+           "tolerance": f"losses rtol {CARD_VS_HOST_RTOL}, parameters "
+                        f"{CARD_VS_HOST_RTOL} * max|p| a leaf; restart "
+                        f"1e-6 on the last loss"}
+    check(all(r["max_loss_rel_diff"] <= CARD_VS_HOST_RTOL
+              and r["params_worst_share_of_limit"] <= 1.0 for r in rows)
+          and restart["start_step"] == 2
+          and restart["last_loss_abs_diff"] <= 1e-6 * max(
+              1.0, abs(full["losses"][-1])),
+          f"training on the card differs from the host or from itself "
+          f"after a restart: {out}")
+    return out
+
+
+def train_phase(device, sizes: dict, timer: Timer) -> dict:
+    """``Trainer.run()`` of TRAIN_ARCH at full width in bf16 (f32 AdamW
+    moments), cut to TRAIN_CUTS, at train_4k's length and a batch cut to
+    ``sizes["train_batch"]``, energy-aware, no checkpoints: each step's ms,
+    tokens/s over the steps after the first, peak memory, the session's
+    energy and the losses. Then, on the trained state: one forward and
+    backward of the loss alone, and one attention forward and backward at
+    the step's shape, timed, for where the step's time goes."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, reduced = serve_config(sizes, TRAIN_ARCH, TRAIN_CUTS, TRAIN_CUT_WHY)
+    shape = SHAPES_BY_NAME["train_4k"]
+    B = sizes["train_batch"]
+    S = shape.seq_len if not sizes["serve_reduced"] else \
+        shape.reduced().seq_len
+    reduced["global_batch"] = [shape.global_batch, B]
+    reduced["global_batch_why"] = TRAIN_BATCH_WHY
+    shape = dataclasses.replace(shape, seq_len=S, global_batch=B)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = Trainer(cfg, shape, Runtime(), opt_cfg=OptConfig(),
+                tcfg=TrainConfig(steps=sizes["train_steps"],
+                                 policy="energy-aware", log_every=1000),
+                device=device)
+    t0 = time.perf_counter()
+    out = t.run()
+    wall = time.perf_counter() - t0
+    step_ms = [h["wall_s"] * 1e3 for h in t.history]
+    n_params = sum(p.numel() for p in tree_leaves(t.state["params"]))
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if device.type == "cuda" else None)
+    # where the step's time goes: the loss's forward and backward alone,
+    # and one attention layer's forward and backward at the step's shape
+    batch = t._device_batch(0)
+
+    def fwd_bwd():
+        params = tree_map(lambda p: p.detach().requires_grad_(),
+                          t.state["params"])
+        loss, _ = model_mod.loss_fn(cfg, Runtime(), params, batch)
+        torch.autograd.grad(loss, tree_leaves(params))
+    fwd_bwd_ms = timer(fwd_bwd, reps=2)
+    hd = cfg.resolved_head_dim
+    g = torch.Generator(device=device)
+    g.manual_seed(51)
+    dt = t.state["params"]["emb"].dtype
+    q = torch.randn((B, S, cfg.n_heads, hd), generator=g, device=device,
+                    dtype=dt).requires_grad_()
+    k, v = (torch.randn((B, S, cfg.n_kv_heads, hd), generator=g,
+                        device=device, dtype=dt).requires_grad_()
+            for _ in range(2))
+
+    def attention():
+        o = attn.chunked_attention(q, k, v)
+        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+    attn_ms = timer(attention, reps=2)
+    del q, k, v
+    med = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    tokens = B * S
+    report = {"arch": cfg.name, "dtype": cfg.dtype, "reduced": reduced,
+              "width": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                        "n_kv_heads": cfg.n_kv_heads, "head_dim": hd,
+                        "d_ff": cfg.d_ff, "vocab": cfg.padded_vocab(1),
+                        "n_layers": cfg.n_layers},
+              "params": n_params, "moments": "float32",
+              "shape": {"seq_len": S, "global_batch": B},
+              "steps": sizes["train_steps"], "policy": "energy-aware",
+              "step_ms": step_ms,
+              "tokens_per_s_after_first": (
+                  tokens * (len(step_ms) - 1) / (sum(step_ms[1:]) / 1e3)
+                  if len(step_ms) > 1 else None),
+              "peak_memory_gb": peak, "energy_j": out["energy_j"],
+              "losses": out["losses"], "run_wall_s": wall,
+              "loss_fwd_bwd_ms": fwd_bwd_ms,
+              "attention_fwd_bwd_ms_a_layer": attn_ms,
+              "attention_share_of_step": attn_ms * cfg.n_layers / med,
+              "optimizer_and_rest_ms": med - fwd_bwd_ms,
+              "timing": "host clock around each step, synchronised; the "
+                        "pieces by CUDA events, median of 2"}
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"the training losses are not finite: {report}")
+    return report
+
+
 FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             membw_big_rows=2 ** 21, membw_iters=64,          # 1 GiB
             fleet_rows=9408 * 8, fleet_samples=5760, jobs=1500,
@@ -2360,7 +2638,25 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             cross_serve={"llama-3.2-vision-11b": (1024, 2048),
                          "seamless-m4t-large-v2": (256, 512)},
             flash_vlm=(4, 1024, 1600, 32, 8, 128),
-            flash_encdec=(4, 256, 4096, 16, 64))
+            flash_encdec=(4, 256, 4096, 16, 64),
+            # training: the attention backward's cases (name, (B, Sq, Skv,
+            # Hq, Hkv, D, Dv), causal, dtype) at stablelm-12b's head dims,
+            # the enc-dec's cross shape and MLA's head dims; the train
+            # phase's global batch and steps
+            train_grad_cases=(
+                ("stablelm_causal_bf16", (1, 2048, 2048, 32, 8, 160, 160),
+                 True, "bfloat16"),
+                ("stablelm_causal_f32", (1, 2048, 2048, 32, 8, 160, 160),
+                 True, "float32"),
+                ("encdec_cross_noncausal_bf16", (2, 256, 1024, 16, 16, 64,
+                                                 64), False, "bfloat16"),
+                ("encdec_cross_noncausal_f32", (2, 256, 1024, 16, 16, 64,
+                                                64), False, "float32"),
+                ("mla_causal_bf16", (1, 2048, 2048, 16, 16, 192, 128), True,
+                 "bfloat16"),
+                ("mla_causal_f32", (1, 2048, 2048, 16, 16, 192, 128), True,
+                 "float32")),
+            train_batch=2, train_steps=4)
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            membw_iters=8, fleet_rows=64, fleet_samples=300, jobs=300,
            stream_shard=2 ** 12, stream_job_shard=4096,
@@ -2374,7 +2670,14 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            e2e_prompt_len=32, e2e_steps=3, rec_prompt_len=32, scan_len=256,
            cross_serve={"llama-3.2-vision-11b": (24, 64),
                         "seamless-m4t-large-v2": (24, 64)},
-           flash_vlm=(2, 40, 72, 4, 2, 64), flash_encdec=(2, 24, 96, 2, 64))
+           flash_vlm=(2, 40, 72, 4, 2, 64), flash_encdec=(2, 24, 96, 2, 64),
+           train_grad_cases=(
+               ("causal_bf16", (1, 96, 96, 4, 2, 32, 32), True, "bfloat16"),
+               ("cross_noncausal_f32", (2, 24, 80, 4, 4, 16, 16), False,
+                "float32"),
+               ("mla_causal_f32", (1, 64, 64, 4, 4, 24, 16), True,
+                "float32")),
+           train_batch=2, train_steps=3)
 
 
 def main() -> int:
@@ -2551,6 +2854,24 @@ def main() -> int:
         emit(phase="serve_cross_kernel_vs_plain", arch=arch, **e2e,
              witness=cross_witness(device, cfg, params, sizes))
         del params
+    # training, one phase after another, each with the counts set to 0
+    # just before it: no kernel of the port's may launch (the reference's
+    # training never reaches its Pallas kernel; the flash kernel has no
+    # backward)
+    train_counts = {}
+    for name, fn in (("train_attention_grad",
+                      lambda: train_attention_grad(device, sizes, timer)),
+                     ("train_card_vs_host",
+                      lambda: train_card_vs_host(device, sizes)),
+                     ("train", lambda: train_phase(device, sizes, timer))):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        report = fn()
+        train_counts[name] = ops.launch_counts()
+        emit(phase=name, **report, launches=train_counts[name])
+        check(not any(train_counts[name].values()),
+              f"the {name} phase launched a kernel: {train_counts[name]}")
     if device.type == "cuda":
         torch.cuda.empty_cache()
     by_dims = {arch: c["flash_by_head_dims"]
@@ -2587,7 +2908,8 @@ def main() -> int:
                                                   **cross_counts}.items()}},
          flash_attention_by_head_dims=by_dims,
          flash_attention_by_shape={a: c["flash_by_shape"]
-                                   for a, c in cross_counts.items()})
+                                   for a, c in cross_counts.items()},
+         train=train_counts)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

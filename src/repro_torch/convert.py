@@ -2,7 +2,7 @@
 
 What crosses between the two packages: profile batches, measurement grids,
 response tables and calibration caches, job traces, and a model's
-parameters and decode state. The reference hands them over as numpy arrays,
+parameters, decode state and training state. The reference hands them over as numpy arrays,
 plain dicts and JSON — this module never imports it — and the functions
 here build this package's objects from them (and hand them back the same
 way).
@@ -213,3 +213,20 @@ def decode_state_from_jax(state: Mapping, device=DEFAULT_DEVICE) -> Dict:
               for g in range(n_groups) for i in range(n_pat)]
     layers += [_unstack(r, 0, dev) for r in state["rest"]]
     return {"layers": layers}
+
+
+def train_state_from_jax(state: Mapping, cfg, device=DEFAULT_DEVICE) -> Dict:
+    """The port's training state from the reference's ``{"params", "opt":
+    {"m", "v", "step"}, ["grad_error"]}``, given as numpy arrays: every
+    params-shaped subtree through :func:`params_from_jax` (bf16 moments stay
+    bf16), ``step`` an int32 0-d tensor."""
+    dev = as_device(device)
+    opt = state["opt"]
+    out = {"params": params_from_jax(state["params"], cfg, dev),
+           "opt": {"m": params_from_jax(opt["m"], cfg, dev),
+                   "v": params_from_jax(opt["v"], cfg, dev),
+                   "step": torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32, device=dev)}}
+    if "grad_error" in state:
+        out["grad_error"] = params_from_jax(state["grad_error"], cfg, dev)
+    return out

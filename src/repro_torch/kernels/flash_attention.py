@@ -219,7 +219,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offset: Union[int, torch.Tensor] = 0,
                           window: int = 0,
                           kv_valid_len: Optional[torch.Tensor] = None,
-                          round_p: bool = False) -> torch.Tensor:
+                          round_p: bool = False, return_lse: bool = False):
     """The kernel's arithmetic in plain PyTorch, on any device: q ``[B, Sq,
     Hq, D]``, k/v ``[B, Skv, Hkv, D/Dv]`` -> ``[B, Sq, Hq, Dv]`` in v's
     dtype, f32 products and accumulation, blocks of ``block_q`` x
@@ -236,7 +236,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention route. The kv blocks wholly past a q block's last row are
     skipped when the offset is a known int >= 0 and there is no kv mask;
     then every row has met its own diagonal before them, so they would add
-    ``exp(-1e30 - m) = 0`` and rescale by 1, and skipping them is exact."""
+    ``exp(-1e30 - m) = 0`` and rescale by 1, and skipping them is exact.
+
+    ``return_lse=True`` also returns each row's log-sum-exp of its scaled
+    scores, ``m + log l`` as ``[B, Hkv, G, Sq]`` f32 (G = Hq // Hkv): what
+    the attention's backward recomputes p from."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dv = v.shape
     G = Hq // Hkv
@@ -247,6 +251,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(B, Sq, Hkv, G, D)
     kf, vf = k.float(), v.float()
     out = torch.empty((B, Sq, Hq, Dv), dtype=torch.float32, device=dev)
+    lse = (torch.empty((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     for q0 in range(0, Sq, block_q):
         rows = min(block_q, Sq - q0)
         qc = qg[:, q0:q0 + rows]
@@ -276,6 +282,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + rows] = o.permute(0, 3, 1, 2, 4).reshape(
             B, rows, Hq, Dv)
+        if return_lse:
+            lse[..., q0:q0 + rows] = m + torch.log(torch.clamp(l, min=1e-30))
+    if return_lse:
+        return out.to(v.dtype), lse
     return out.to(v.dtype)
 
 

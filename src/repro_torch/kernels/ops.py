@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import torch
+
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import membw as mb
 from repro_torch.kernels import vai as vai_mod
@@ -27,7 +29,17 @@ def flash_attention_op(q, k, v, *, causal: bool = True,
                        scale: Optional[float] = None):
     """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D/Dv] -> [B, Sq, Hq, Dv].
     GQA by indexing kv head ``h // (Hq // Hkv)``; nothing is repeated or
-    transposed."""
+    transposed.
+
+    The kernel has no backward: inputs that require grad while autograd
+    records raise, on every device (the output would carry no ``grad_fn``
+    and cut the attention out of the gradient without a word;
+    ``models.attention.FlashAttention`` is the differentiable route)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_op has no backward: its inputs require grad "
+            "while autograd records; differentiate through "
+            "repro_torch.models.attention.chunked_attention instead")
     return fa.flash_attention_bshd(q, k, v, causal=causal, scale=scale,
                                    block_q=block_q, block_k=block_k)
 

@@ -42,6 +42,16 @@ Cross-attention (VLM, enc-dec): queries from the decoder, keys and values
 from the memory (the frontend, or the encoder's output), no rope, no bias,
 non-causal over the whole memory; :func:`cross_attention` also returns the
 memory's K and V, which decode reads from the cache.
+
+Training: the flash kernel has no backward. While autograd records (grad
+enabled and q, k or v requiring grad), a call at offset 0 without a kv
+mask, causal or not, windowed or not, goes on every device to
+:class:`FlashAttention`: the plain blocked online softmax in f32 forward,
+keeping only ``(q, k, v, out, lse)``, and a backward that recomputes p a
+block at a time from ``lse`` (the reference's ``_flash`` custom_vjp). A
+recording call at a query offset or with a kv mask takes the plain route,
+and autograd runs through its loops. Calls that record nothing (serving,
+``torch.no_grad()``) route as above.
 """
 from __future__ import annotations
 
@@ -131,6 +141,77 @@ def _kernel_case(q, q_offset, kv_valid_len, window: int) -> bool:
             and isinstance(q_offset, int) and q_offset == 0)
 
 
+def _flash_bwd(q, k, v, out, lse, dout, causal: bool, window: int,
+               scale: float, qc: int, kc: int):
+    """The attention's backward from ``(q, k, v, out, lse)`` and ``dout``,
+    all in f32: ``D_i = rowsum(dO * O)``; for each (q chunk, kv chunk)
+    pair, p recomputed from ``lse`` and ``ds = p (dp - D_i) scale``. dq
+    sums over the kv chunks, dk and dv over the q chunks (in those orders,
+    as the reference's two scans); the G query heads of a kv group sum into
+    it. A pair the causal or window mask covers wholly is skipped: its p is
+    exactly 0. Never holds more than one ``[qc, kc]`` block of scores."""
+    B, Sq, Hq, Dk = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    G = Hq // Hkv
+    dev = q.device
+    qg = q.float().reshape(B, Sq, Hkv, G, Dk)
+    dog = dout.float().reshape(B, Sq, Hkv, G, Dv)
+    Dterm = torch.einsum("bshgd,bshgd->bhgs", dog,
+                         out.float().reshape(B, Sq, Hkv, G, Dv))
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros((B, Sq, Hkv, G, Dk), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Skv, Hkv, Dk), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Skv, Hkv, Dv), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, qc):
+        q1 = min(q0 + qc, Sq)
+        qch, do_i = qg[:, q0:q1], dog[:, q0:q1]
+        lse_i, D_i = lse[..., q0:q1, None], Dterm[..., q0:q1, None]
+        qpos = torch.arange(q0, q1, dtype=torch.int32, device=dev)
+        for k0 in range(0, Skv, kc):
+            k1 = min(k0 + kc, Skv)
+            if (causal and k0 > q1 - 1) or (window and k1 - 1 <= q0 - window):
+                continue
+            kch, vch = kf[:, k0:k1], vf[:, k0:k1]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qch, kch) * scale
+            kpos = torch.arange(k0, k1, dtype=torch.int32, device=dev)
+            mask = fa._block_mask(qpos, kpos, causal, window, None)
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - lse_i)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", do_i, vch)
+            ds = p * (dp - D_i) * scale
+            dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kch)
+            dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qch)
+            dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, do_i)
+    return (dq.reshape(B, Sq, Hq, Dk).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention at offset 0 without a kv mask, differentiable: the plain
+    blocked online softmax forward in f32 (out in v's dtype), saving
+    ``(q, k, v, out, lse)`` and nothing of size ``Sq x Skv``;
+    :func:`_flash_bwd` backward. The reference's ``_flash`` /
+    ``_flash_fwd`` / ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float,
+                qc: int, kc: int):
+        out, lse = fa.flash_attention_plain(
+            q, k, v, causal=causal, scale=scale, block_q=qc, block_k=kc,
+            window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, qc, kc)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def chunked_attention(
     q: torch.Tensor,                 # [B, Sq, Hq, Dk]
     k: torch.Tensor,                 # [B, Skv, Hkv, Dk]
@@ -149,7 +230,10 @@ def chunked_attention(
 
     ``impl="kernel"`` sends the flash kernel's case on the card to the
     kernel (see the module docstring); ``impl="plain"`` keeps every call on
-    the plain version (the route the end-to-end check compares against)."""
+    the plain version (the route the end-to-end check compares against).
+    While autograd records, ``impl`` is not read: a call at offset 0
+    without a kv mask goes to :class:`FlashAttention`, any other to the
+    plain version."""
     B, Sq, Hq, Dk = q.shape
     _, Skv, Hkv, Dv = v.shape
     if Hq % Hkv:
@@ -157,14 +241,20 @@ def chunked_attention(
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
     scale = softmax_scale if softmax_scale is not None else Dk ** -0.5
-    if impl == "kernel" and _kernel_case(q, q_offset, kv_valid_len, window):
+    qc, kc = _pick_chunk(Sq, q_chunk), _pick_chunk(Skv, kv_chunk)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if (grad and kv_valid_len is None and isinstance(q_offset, int)
+            and q_offset == 0):
+        return FlashAttention.apply(q, k, v, causal, window, scale, qc, kc)
+    if (not grad and impl == "kernel"
+            and _kernel_case(q, q_offset, kv_valid_len, window)):
         from repro_torch.kernels import ops
         bq, bk = flash_tiles(q.dtype, (Dk, Dv), causal, Sq)
         return ops.flash_attention_op(q, k, v, causal=causal, block_q=bq,
                                       block_k=bk, scale=scale)
     return fa.flash_attention_plain(
-        q, k, v, causal=causal, scale=scale,
-        block_q=_pick_chunk(Sq, q_chunk), block_k=_pick_chunk(Skv, kv_chunk),
+        q, k, v, causal=causal, scale=scale, block_q=qc, block_k=kc,
         q_offset=q_offset, window=window, kv_valid_len=kv_valid_len)
 
 

@@ -1,5 +1,5 @@
 """Shared model plumbing: parameter factory, norms, rotary embeddings,
-softplus, gated MLP.
+softplus, gated MLP, cross-entropy.
 
 The reference maps logical axes to a device mesh here (``shard``,
 ``ShardingRules``); the port runs on one card and has no counterpart.
@@ -125,3 +125,15 @@ def gated_mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; F.gelu does not
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     return (a * g) @ p["wo"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean CE over valid labels (label = -1 masks; padded vocab excluded by
+    construction because labels never index the pad region)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

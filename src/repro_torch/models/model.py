@@ -2,6 +2,7 @@
 hybrid, VLM and enc-dec.
 
     params        = init_params(cfg, rt, generator, device=...)
+    loss, metrics = loss_fn(cfg, rt, params, batch)          # training
     logits        = forward_logits(cfg, rt, params, batch)
     state         = init_decode_state(cfg, rt, B, max_len)   # models.decode
     logits, state = prefill(cfg, rt, params, batch, max_len)
@@ -15,7 +16,7 @@ the MLA leaves {``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``,
 leaves {``router``, ``experts`` {``wi``, ``wg``, ``wo``}, ``shared``}) in the
 reference's layouts, and for a config with ``mtp_depth`` the multi-token
 prediction head ``mtp`` {``ln_h``, ``ln_e``, ``w_proj``, ``block``}, which
-only training reads (ROADMAP queue A item 6). An SSM layer is {``ln1``,
+only training reads (:func:`loss_fn`). An SSM layer is {``ln1``,
 ``ssm`` {``w_in``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
 ``norm_g``, ``w_out``}}; a hybrid layer {``ln1``, ``ln2``, ``mlp``} with
 ``attn`` or ``rglru`` {``w_x``, ``w_gate``, ``conv_w``, ``conv_b``, ``w_a``,
@@ -31,15 +32,19 @@ slice ``[..., :vocab_size]``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import as_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ParamMaker, rms_norm
 from repro_torch.models.transformer import Runtime
+
+CE_CHUNK = 512
 
 
 def _build(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
@@ -110,6 +115,38 @@ def logits_fn(p: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ _unemb_w(p, cfg)
 
 
+def _ce_chunk(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor):
+    """(sum of the NLL over the valid labels, their count) of one chunk;
+    the gold logit gathered, which is the reference's one-hot contraction
+    exactly."""
+    logits = (hc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def lm_loss(p: Dict, cfg: ModelConfig, h: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Chunked cross-entropy over the padded vocab: chunks of
+    :data:`CE_CHUNK` tokens (halved until they divide S), each chunk's
+    logits recomputed in the backward (``torch.utils.checkpoint``), so
+    ``[B, S, V]`` is never materialised whole."""
+    S = h.shape[1]
+    h = rms_norm(h, p["ln_f"], cfg.norm_eps)
+    w = _unemb_w(p, cfg)
+    c = CE_CHUNK
+    while S % c:
+        c //= 2
+    tot = cnt = 0.0
+    for i in range(0, S, c):
+        t, n = ckpt.checkpoint(_ce_chunk, h[:, i:i + c], labels[:, i:i + c],
+                               w, use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -144,11 +181,47 @@ def trunk_hidden(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
 def _encdec_decoder(p: Dict, cfg: ModelConfig, rt: Runtime, x, pos, memory):
     """The enc-dec decoder over ``x``, each layer also attending to
     ``memory``: (hidden, aux loss)."""
+    def body(x, p_layer):
+        return tfm.decoder_layer(p_layer, cfg, rt, x, pos, memory=memory)
+
+    body = tfm._maybe_remat(body, rt)
     aux = 0.0
     for p_layer in p["layers"]:
-        x, a = tfm.decoder_layer(p_layer, cfg, rt, x, pos, memory=memory)
+        x, a = body(x, p_layer)
         aux += a
     return x, aux
+
+
+def loss_fn(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    """``(total, metrics)``: total = CE + ``router_aux_coef`` * aux, plus
+    ``rt.mtp_coef`` times the multi-token-prediction loss for a config with
+    ``mtp_depth``; metrics ``ce``, ``aux``, ``mtp`` (where there is one) and
+    ``loss``, each a 0-d tensor. ``batch["tokens"]`` is ``[B, S + 1]``."""
+    tokens = batch["tokens"]
+    labels = tokens[:, 1:]
+    h, aux, inputs = trunk_hidden(cfg, rt, p, batch)
+    loss = lm_loss(p, cfg, h, labels)
+    if not isinstance(aux, torch.Tensor):
+        aux = loss.new_tensor(aux)
+    metrics = {"ce": loss, "aux": aux}
+    total = loss + cfg.router_aux_coef * aux
+    if cfg.mtp_depth and "mtp" in p:
+        mtp = p["mtp"]
+        # predict t+2: combine h_t with emb(x_{t+1}); keep the length S and
+        # mask the trailing position in the loss
+        h_in = rms_norm(h, mtp["ln_h"], cfg.norm_eps)
+        e_next = F.pad(inputs[:, 1:], (0, 1))
+        e_in = rms_norm(embed(p, cfg, e_next), mtp["ln_e"], cfg.norm_eps)
+        z = torch.cat([h_in, e_in], dim=-1) @ mtp["w_proj"]
+        z, _ = tfm.decoder_layer(mtp["block"], cfg, rt, z,
+                                 _positions(z.shape[1], z.device))
+        mtp_labels = F.pad(labels[:, 1:], (0, 1), value=-1)
+        mtp_loss = lm_loss(p, cfg, z, mtp_labels)
+        metrics["mtp"] = mtp_loss
+        total = total + rt.mtp_coef * mtp_loss
+    metrics["loss"] = total
+    return total, metrics
 
 
 def forward_logits(cfg: ModelConfig, rt: Runtime, p: Dict,

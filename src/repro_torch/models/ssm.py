@@ -113,7 +113,10 @@ def ssd_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
     decay = (seg[:, :, :, None, :] - seg[:, :, None, :, :]).permute(
         0, 1, 4, 2, 3)                                            # [B,N,H,L,M]
     mask = torch.ones((L, L), dtype=torch.bool, device=u.device).tril()
-    m = torch.where(mask, torch.exp(decay), 0.0) * gram
+    # masked before the exp: above the diagonal the decay is positive and
+    # its exp may overflow, and where(mask, inf, 0) has a NaN gradient
+    # (0 * inf); the forward's values are the same either way
+    m = torch.exp(torch.where(mask, decay, -torch.inf)) * gram
     m = m * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
     intra_y = torch.einsum("bnhlm,bnmhd->bnlhd", m.to(dt_act), xc)
 

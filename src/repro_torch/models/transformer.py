@@ -13,13 +13,23 @@ Python list of per-layer parameter dicts in layer order and the trunk is a
 loop over them — a hybrid layer ``i`` is of kind ``block_pattern[i %
 len(block_pattern)]``, and a VLM's self layer ``g * cross_attn_every + j``
 is layer ``j`` of group ``g``, whose cross block is ``cross[g]``.
+
+``Runtime.remat`` recomputes activations in the backward where the
+reference's ``jax.checkpoint`` does, a layer body at a time (a hybrid
+pattern group, a VLM group): ``"full"`` saves a body's inputs only,
+``"dots"`` also saves the outputs of its matrix products without batch
+dims (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+weight products; attention's and the experts' batched products are
+recomputed).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple, Union
+import functools
+from typing import Callable, Dict, List, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -37,9 +47,13 @@ class Runtime:
     ``attn_impl`` picks the route of the attention the flash kernel
     computes (prefill, and cross-attention at decode): ``"kernel"`` sends
     the kernel's case on the card to the hand-written kernel, ``"plain"``
-    keeps it on the plain chunked loops."""
+    keeps it on the plain chunked loops. While autograd records, attention
+    takes the differentiable route whatever ``attn_impl`` says
+    (:func:`repro_torch.models.attention.chunked_attention`)."""
     tp: int = 1
     moe_impl: str = "local"       # dense | local
+    remat: str = "none"           # none | full | dots
+    mtp_coef: float = 0.1
     decode_impl: str = "chunked"  # chunked | dense (single einsum)
     attn_impl: str = "kernel"     # kernel | plain
 
@@ -55,6 +69,34 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; the families are "
                          f"{FAMILIES}")
+
+
+#: the products whose outputs ``remat="dots"`` keeps: 2-D matrix products,
+#: which is what a weight product ``x @ w`` becomes (batched ones are bmm)
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_PRODUCTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, rt: Runtime) -> Callable:
+    """``fn`` recomputed in the backward as ``rt.remat`` says: ``"none"``
+    returns it as it is."""
+    if rt.remat == "none":
+        return fn
+    if rt.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if rt.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                     f"{rt.remat!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +174,17 @@ def trunk_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime,
 
 def trunk_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime, x,
                   positions, kind: str) -> Tuple[torch.Tensor, float]:
-    aux = 0.0
-    for p_layer in params:
+    def body(x, p_layer):
         if kind == "ssm":
             z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-            x = x + ssm_mod.ssd_forward(p_layer["ssm"], cfg, z)
-        else:
-            x, a = decoder_layer(p_layer, cfg, rt, x, positions)
-            aux += a
+            return x + ssm_mod.ssd_forward(p_layer["ssm"], cfg, z), 0.0
+        return decoder_layer(p_layer, cfg, rt, x, positions)
+
+    body = _maybe_remat(body, rt)
+    aux = 0.0
+    for p_layer in params:
+        x, a = body(x, p_layer)
+        aux += a
     return x, aux
 
 
@@ -157,7 +202,8 @@ def encoder_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime,
     non-causal (on the card the flash kernel's case), then its FFN."""
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
-    for p_layer in params:
+
+    def body(x, p_layer):
         z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
         q, k, v = attn._qkv(p_layer["attn"], z)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -165,7 +211,11 @@ def encoder_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime,
         o = attn.chunked_attention(q, k, v, causal=False, impl=rt.attn_impl)
         x = x + attn._out_proj(o, p_layer["attn"]["wo"])
         y, _ = _ffn(p_layer, cfg, rt, x)
-        x = x + y
+        return x + y
+
+    body = _maybe_remat(body, rt)
+    for p_layer in params:
+        x = body(x, p_layer)
     return x
 
 
@@ -217,9 +267,22 @@ def _rg_block(p, cfg: ModelConfig, rt: Runtime, x, positions, kind: str):
 
 def hybrid_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime, x,
                    positions) -> torch.Tensor:
-    for p, kind in zip(params, hybrid_kinds(cfg)):
-        x = _rg_block(p, cfg, rt, x, positions, kind)
-    return x
+    """The pattern groups (each one body for ``rt.remat``, as the
+    reference's scan over groups), then the remainder layers."""
+    kinds = hybrid_kinds(cfg)
+    n_groups, _ = hybrid_group_counts(cfg)
+    n_pat = len(cfg.block_pattern)
+
+    def group(x, ps, ks):
+        for p, kind in zip(ps, ks):
+            x = _rg_block(p, cfg, rt, x, positions, kind)
+        return x
+
+    body = _maybe_remat(group, rt)
+    for g in range(n_groups):
+        x = body(x, params[g * n_pat:(g + 1) * n_pat],
+                 kinds[g * n_pat:(g + 1) * n_pat])
+    return group(x, params[n_groups * n_pat:], kinds[n_groups * n_pat:])
 
 
 # ---------------------------------------------------------------------------
@@ -258,11 +321,16 @@ def vlm_cross_tail(p: Dict, cfg: ModelConfig, x, ca) -> torch.Tensor:
 def vlm_forward(params: Dict, cfg: ModelConfig, rt: Runtime, x, positions,
                 memory) -> torch.Tensor:
     k = cfg.cross_attn_every
-    for g, p_cross in enumerate(params["cross"]):
-        for p_layer in params["self"][g * k:(g + 1) * k]:
+
+    def group(x, p_self, p_cross):
+        for p_layer in p_self:
             x, _ = decoder_layer(p_layer, cfg, rt, x, positions)
         z = rms_norm(x, p_cross["ln_x"], cfg.norm_eps)
         ca = attn.cross_attention(p_cross["xattn"], cfg, z, memory,
                                   impl=rt.attn_impl)
-        x = vlm_cross_tail(p_cross, cfg, x, ca)
+        return vlm_cross_tail(p_cross, cfg, x, ca)
+
+    group = _maybe_remat(group, rt)
+    for g, p_cross in enumerate(params["cross"]):
+        x = group(x, params["self"][g * k:(g + 1) * k], p_cross)
     return x

@@ -134,6 +134,34 @@ def test_job_slice_modules_import_no_jax_and_no_reference():
     assert all(l.endswith(" []") for l in lines), lines
 
 
+TRAIN_SLICE = (
+    "repro_torch.optim", "repro_torch.optim.compression", "repro_torch.data",
+    "repro_torch.checkpoint", "repro_torch.launch.steps",
+    "repro_torch.launch.train")
+
+
+def test_train_slice_modules_import_no_jax_and_no_reference():
+    """The modules of the training path, one after the other in a fresh
+    interpreter, each checked right after its own import."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    probe = ("import importlib, sys\n"
+             f"for m in {TRAIN_SLICE!r}:\n"
+             "    importlib.import_module(m)\n"
+             "    bad = sorted(n for n in sys.modules if n.split('.')[0]\n"
+             "                 in ('jax', 'jaxlib', 'repro'))\n"
+             "    print(m, bad)\n")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert [l.split()[0] for l in lines] == list(TRAIN_SLICE)
+    assert all(l.endswith(" []") for l in lines), lines
+
+
+#: the multi-device half of ROADMAP queue A item 6
+MULTI_DEVICE = "item 6: the multi-device half"
+
 #: public names of a ported reference module that its counterpart does not
 #: have yet, each with the ROADMAP queue A item that brings it
 STILL_MISSING = {
@@ -146,6 +174,16 @@ STILL_MISSING = {
     "repro.power.stream": {},
     "repro.power.broker": {},
     "repro.core.telemetry": {},
+    "repro.optim.adamw": {"opt_state_specs": MULTI_DEVICE},
+    "repro.optim.compression": {},
+    "repro.data.synthetic": {},
+    "repro.checkpoint.checkpointer": {},
+    "repro.launch.steps": dict.fromkeys(
+        ("abstract_params", "batch_specs", "abstract_state",
+         "abstract_decode_state", "input_specs", "rules_for_shape"),
+        MULTI_DEVICE),
+    "repro.launch.train": {},
+    "repro.models.model": {"param_specs": MULTI_DEVICE},
 }
 
 

@@ -542,7 +542,7 @@ def _run_fake(n, slots, lens, budgets, arrivals):
     assert rep.tokens_out == sum(len(o) for o in rep.outputs)
     if n:
         # a run where no request decodes (every budget is 1) steps the pool
-        # no time: occupancy is 0 then (ROADMAP C3)
+        # no time: occupancy is 0 then (ROADMAP §C5)
         decodes = any(len(o) > 1 for o in rep.outputs)
         assert (0 < rep.occupancy_mean <= slots) if decodes \
             else rep.occupancy_mean == 0
