@@ -27,6 +27,15 @@ call:
       length); the 12-cell broker x budget Study of 1500 jobs and the
       50k-job greedy broker run; each replay and the broker Study again on
       CPU tensors, within rtol 1e-12
+    the sharded executor (repro_torch.parallel.ShardedExecutor) on the
+      card: decide_shard on its memo, warm-memo, dedup and chunked routes
+      bit for bit with the plain infer + decide on the card for six
+      policies over 1 M quantized samples, and within rtol 1e-12 of the
+      executor on CPU tensors with equal modes; replay with and without it
+      bit for bit; the Frontier day streamed through its segment sums bit
+      for bit with decompose; a Study with it equal to the Study without;
+      its replay times, launches a shard, stats and peak memory at 1 M and
+      2**24 samples beside the plain path's, card and host
     the serving path: qwen2.5-14b at full width and depth in bf16 (random
       weights from a seeded generator) -> ServeEngine.generate on 4 greedy
       requests -> serve() on 8 Poisson-arriving requests through a slot pool
@@ -851,13 +860,40 @@ def _replay_rows(rep) -> list:
              r.energy_new_j, r.time_rec_s, r.time_new_s) for r in rep.jobs]
 
 
+def _report_key(rep) -> tuple:
+    """Every number of a replay report, for an exact comparison."""
+    return (rep.n_samples, rep.energy_rec_j, rep.energy_base_j,
+            rep.energy_new_j, rep.time_rec_s, rep.time_new_s,
+            sorted(rep.recorded.energy_mwh.items()),
+            sorted(rep.recorded.hours_pct.items()),
+            sorted(rep.replayed.energy_mwh.items()),
+            sorted(rep.replayed.hours_pct.items()), _replay_rows(rep))
+
+
+def _replay_worst(a, b, label: str) -> float:
+    """The largest relative difference between two replays' energies and
+    times, fleet and job rows; job order and counts must be equal."""
+    check([r[:2] for r in _replay_rows(a)] == [r[:2] for r in
+                                              _replay_rows(b)]
+          and a.n_samples == b.n_samples,
+          f"replay {label}: sample counts, job order or n_samples differ")
+    worst = max(_rel(getattr(a, k), getattr(b, k)) for k in (
+        "energy_rec_j", "energy_base_j", "energy_new_j", "time_rec_s",
+        "time_new_s"))
+    for ra, rb in zip(_replay_rows(a), _replay_rows(b)):
+        worst = max([worst] + [_rel(x, y) for x, y in zip(ra[2:], rb[2:])])
+    return worst
+
+
 def stream_phase(device, sizes: dict, table) -> dict:
     """The out-of-core stream and counterfactual replay on the card: the
     Frontier-day fleet folded shard by shard against the one-shot
     decomposition (bit for bit, histogram counts exact), the job table's
     stream against its batch decomposition and job report, the replays of
     examples/streaming_replay.py against the same replays on CPU tensors,
-    and replay at scale with its peak memory."""
+    and replay at scale with its peak memory. Returns the report, the
+    day's samples and their one-shot decomposition, which the executor
+    phase reuses."""
     from repro_torch.core import modal
     from repro_torch.power import (FleetAnalysis, JobTable,
                                    StreamingTelemetry, iter_array, replay)
@@ -926,17 +962,9 @@ def stream_phase(device, sizes: dict, table) -> dict:
         host, host_timing = _measured(torch.device("cpu"), lambda: replay(
             host_table.to_stream(samples_per_shard=jshard), policy,
             chip=target, record_chip="mi250x-gcd", **knobs))
-        check(rep.n_samples == host.n_samples == n_samples,
-              f"replay {label}: sample counts differ")
-        a, b = _replay_rows(rep), _replay_rows(host)
-        check([r[:2] for r in a] == [r[:2] for r in b],
-              f"replay {label}: job order or n_samples differ")
-        for k in ("energy_rec_j", "energy_base_j", "energy_new_j",
-                  "time_rec_s", "time_new_s"):
-            worst = max(worst, _rel(getattr(rep, k), getattr(host, k)))
-        for ra, rb in zip(a, b):
-            worst = max([worst] + [_rel(x, y) for x, y in
-                                   zip(ra[2:], rb[2:])])
+        check(rep.n_samples == n_samples,
+              f"replay {label}: {rep.n_samples} samples of {n_samples}")
+        worst = max(worst, _replay_worst(rep, host, label))
         scenarios.append({
             "scenario": label, "chip": target, "savings_pct":
             rep.savings_pct, "dt_pct": rep.dt_pct,
@@ -966,7 +994,303 @@ def stream_phase(device, sizes: dict, table) -> dict:
               f"{scale[1]['samples']} samples, {big} B at "
               f"{scale[2]['samples']}, one shard {one} B")
     report["replay_at_scale"] = {"shard_samples": rshard, "runs": scale}
-    del flat, st, fa
+    del st, fa
+    return report, flat, want
+
+
+# ------------------------------------------------------------- executor
+#: the decision routes of the sharded executor held against the plain path
+EXEC_ROUTES = ("memo", "memo_warm", "dedup", "chunked")
+#: the policies of tests/test_executor.py (name, knobs)
+EXEC_POLICIES = (
+    ("nominal", {}),
+    ("static", {"freq_mhz": 1200}),
+    ("power-cap", {"cap_w": 400.0}),
+    ("energy-aware", {"slowdown_budget": 0.05}),
+    ("energy-aware", {"slowdown_budget": 0.03, "objective": "edp"}),
+    ("energy-aware", {"slowdown_budget": 0.10,
+                      "objective": "perf_per_watt", "power_cap_w": 450.0}))
+#: two powers that share a memo key at 0.1 W and at 0.01 W: a shard of them
+#: turns the memo off for its signature, so later shards take the dedup
+#: route
+EXEC_COLLISION = (100.001, 100.004, 350.25, 420.5)
+
+
+def _device_launches(device, fn):
+    """``fn()`` under ``torch.profiler`` (as tools/broker_profile.py): the
+    kernels it launched on the device and their device ms, with its wall
+    seconds; on the CPU rehearsal the wall seconds only."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, {"launches": None, "device_ms": None,
+                     "wall_s": time.perf_counter() - t0}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, dev_us = 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = next((float(getattr(evt, a)) for a in (
+                "self_device_time_total", "self_cuda_time_total")
+                if getattr(evt, a, None) is not None), 0.0)
+            if us > 0:
+                launches += evt.count
+                dev_us += us
+    return out, {"launches": launches, "device_ms": dev_us * 1e-3,
+                 "wall_s": wall}
+
+
+def executor_phase(device, sizes: dict, flat, day) -> dict:
+    """The sharded executor (``repro_torch.parallel.ShardedExecutor``) on
+    the card: ``decide_shard`` on every route against the plain path on
+    the card, bit for bit, and against the executor on CPU tensors (rtol
+    STREAM_RTOL, equal modes); ``replay(executor=)`` against ``replay()``;
+    the Frontier day streamed through it against ``decompose``; a Study with
+    it against the same Study without; and its times, launches a shard,
+    stats and peak memory beside the plain path's, card and host."""
+    import numpy as np
+    from repro_torch.core import modal
+    from repro_torch.core.power_model import ChipModel
+    from repro_torch.parallel import ShardedExecutor
+    from repro_torch.power import StreamingTelemetry, Study, Workload
+    from repro_torch.power.policies import decide_batch, get_policy
+    from repro_torch.power.stream import SampleShard, iter_array, replay
+    host = torch.device("cpu")
+
+    def executor(dev, **kw):
+        # the default device list on the card: every visible CUDA device
+        return ShardedExecutor(**kw) if dev.type == "cuda" \
+            else ShardedExecutor(devices=[dev], **kw)
+
+    report = {}
+    n, shard, n_jobs = (sizes["exec_trace"], sizes["exec_shard"],
+                        sizes["exec_jobs"])
+    # benchmarks/bench_sharded.py's trace: 0.1 W sensor steps, 100 jobs
+    trace = torch.round(modal.synth_fleet_powers(
+        n, seed=0, device=device) * 10.0) / 10.0
+    jids = np.repeat([f"job{i:04d}" for i in range(n_jobs)], n // n_jobs)
+    host_trace = trace.cpu()
+
+    def stream(p, cols=None, size=shard):
+        for a in range(0, p.numel(), size):
+            b = min(a + size, p.numel())
+            yield SampleShard.from_arrays(
+                p[a:b], job_id=jids[a:b] if p.numel() == n else "job0",
+                **{k: v[a:b] for k, v in (cols or {}).items()})
+
+    mi = ChipModel("mi250x-gcd")
+
+    def plain(pol, p):
+        modes = modal.classify_power(p, mi.spec)
+        bd = decide_batch(pol, mi.surface(p.device).infer_profiles(
+            p, freq_frac=1.0, duration_s=15.0, mode_idx=modes), mi,
+            device=p.device)
+        return (bd.energy_j, bd.baseline_energy_j, bd.time_s, bd.mode_idx,
+                modes.to(torch.int64))
+
+    # -- decide_shard, every route, against the plain path ------------------
+    collision = torch.tensor(EXEC_COLLISION, dtype=torch.float64,
+                             device=device).repeat(2_000)
+    starts = range(0, n, shard)
+    routes = {r: {"shards": 0} for r in EXEC_ROUTES}
+    worst, modes_equal = 0.0, True
+    for name, knobs in EXEC_POLICIES:
+        pol = get_policy(name, **knobs)
+        exs = {"memo": executor(device), "dedup": executor(device),
+               "chunked": executor(device, dedup=False)}
+        exs["dedup"].decide_shard(pol, mi, mi, collision, None, 15.0, 1.0)
+        check(list(exs["dedup"]._memo.values()) == [False],
+              f"the collision trace left the memo on: {exs['dedup']._memo}")
+        ex_host = executor(host)
+        wants = {}
+
+        def held(route, ex, a):
+            got = ex.decide_shard(pol, mi, mi, trace[a:a + shard], None,
+                                  15.0, 1.0, return_modes=True)
+            check(all(torch.equal(g, w.to(g.dtype))
+                      for g, w in zip(got, wants[a])),
+                  f"decide_shard ({route}, {name} {knobs}) differs from "
+                  f"the plain path at shard {a}")
+            routes[route]["shards"] += 1
+            return got
+
+        for a in starts:
+            wants[a] = plain(pol, trace[a:a + shard])
+            got = [held(r, exs[r], a) for r in ("memo", "dedup", "chunked")]
+            on_host = ex_host.decide_shard(
+                pol, mi, mi, host_trace[a:a + shard], None, 15.0, 1.0,
+                return_modes=True)
+            memo = [x.cpu() for x in got[0]]
+            modes_equal &= all(torch.equal(g, h) for g, h in
+                               zip(memo[3:], on_host[3:]))
+            for g, h in zip(memo[:3], on_host[:3]):
+                worst = max(worst, float(((g - h).abs() / h.abs().clamp(
+                    min=1e-300)).max()))
+        # a second pass: every key is in the memo, no decision body runs
+        before = dict(exs["memo"].stats)
+        for a in starts:
+            held("memo_warm", exs["memo"], a)
+        warm = exs["memo"].stats
+        check(warm["memo_hits"] - before["memo_hits"] == len(starts)
+              and warm["kernel_calls"] == before["kernel_calls"]
+              and exs["dedup"].stats["memo_hits"] == 0
+              and exs["dedup"].stats["dedup_samples"] >= n - shard
+              and exs["chunked"].stats["dedup_samples"] == 0,
+              f"a route did not run as named: "
+              f"{ {r: e.stats for r, e in exs.items()} }")
+        for route, ex in exs.items():       # summed over the policies
+            tot = routes[route].setdefault("stats", dict.fromkeys(ex.stats,
+                                                                  0))
+            for k, v in ex.stats.items():
+                tot[k] += v
+    check(modes_equal and worst <= STREAM_RTOL,
+          f"decide_shard on the card differs from the host: modes equal "
+          f"{modes_equal}, rtol {worst}")
+    report["decide_shard"] = {
+        "samples": n, "shard_samples": shard, "policies": len(EXEC_POLICIES),
+        "routes": routes, "bit_for_bit_with_plain": True,
+        "card_vs_host": {"max_rel_diff": worst, "rtol": STREAM_RTOL,
+                         "mode_idx_equal": modes_equal}}
+
+    # -- replay(executor=) against replay(), card and host ------------------
+    replays, worst = [], 0.0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    freq = torch.tensor([1100.0, 1400.0, 1700.0], dtype=torch.float64,
+                        device=device)[torch.randint(
+                            0, 3, (n,), generator=gen, device=device)]
+    cols = {"mode": modal.classify_power(trace, mi.spec), "freq_mhz": freq}
+    cases = [(f"{name} {knobs}", name, dict(chip="mi250x-gcd", **knobs),
+              None) for name, knobs in EXEC_POLICIES]
+    cases.append(("energy-aware on tpu-v5e, mode + freq_mhz columns",
+                  "energy-aware", dict(chip="tpu-v5e",
+                                       record_chip="mi250x-gcd",
+                                       slowdown_budget=0.05), cols))
+    for label, name, kw, c in cases:
+        ex = executor(device)
+        a, t_plain = _measured(device, lambda: replay(stream(trace, c), name,
+                                                      **kw))
+        b, t_ex = _measured(device, lambda: replay(stream(trace, c), name,
+                                                   executor=ex, **kw))
+        check(_report_key(a) == _report_key(b),
+              f"replay({label}) with the executor differs from without")
+        row = {"case": label, "plain_s": t_plain["seconds"],
+               "executor_s": t_ex["seconds"], "bit_for_bit": True,
+               "stats": dict(ex.stats)}
+        if c is None:
+            hc = executor(host)
+            h = replay(stream(host_trace), name, executor=hc, **kw)
+            row["host_max_rel_diff"] = _replay_worst(b, h, label)
+            worst = max(worst, row["host_max_rel_diff"])
+        replays.append(row)
+    check(worst <= STREAM_RTOL,
+          f"replay with the executor on the card differs from the host's "
+          f"by rtol {worst}")
+    report["replay"] = {"cases": replays, "card_vs_host_max_rel_diff": worst,
+                        "rtol": STREAM_RTOL}
+
+    # -- the Frontier day through the executor's segment sums ---------------
+    ex = executor(device)
+    st, fold = _measured(device, lambda: StreamingTelemetry(
+        track_jobs=False, executor=ex).extend(iter_array(
+            flat, chunk=sizes["stream_shard"])))
+    got = st.decomposition()
+    for key in ("hours_pct", "energy_mwh", "total_energy_mwh"):
+        check(getattr(got, key) == getattr(day, key),
+              f"the day streamed through the executor: {key} differs from "
+              f"decompose")
+    report["fleet_day"] = {"samples": flat.numel(), "stream": fold,
+                           "segment_calls": ex.stats["kernel_calls"],
+                           "bit_for_bit_with_decompose": True}
+    del st
+
+    # -- a Study with the executor against the same Study without -----------
+    w = Workload("w", "mi250x-gcd", powers=torch.round(
+        modal.synth_fleet_powers(10_000, seed=14, device=device) * 10.0)
+        / 10.0)
+    axes = dict(workloads=[w], chips=["mi250x-gcd", "tpu-v5e"],
+                policies=[("energy-aware", {"slowdown_budget": 0.05}),
+                          ("power-cap", {"cap_w": 420.0})])
+    ra = Study(**axes).run()
+    ex = executor(device)
+    rb = Study(**axes, executor=ex).run()
+    check(len(ra) == len(rb) == 4 and all(
+        (ca.workload, ca.chip, ca.policy, ca.savings_pct,
+         ca.total_energy_mwh) == (cb.workload, cb.chip, cb.policy,
+                                  cb.savings_pct, cb.total_energy_mwh)
+        and _report_key(ca.detail) == _report_key(cb.detail)
+        for ca, cb in zip(ra.cells, rb.cells)),
+        "a Study with the executor differs from the same Study without")
+    report["study"] = {"cells": len(rb), "bit_for_bit": True,
+                       "stats": dict(ex.stats)}
+
+    # -- times, launches a shard, peak memory --------------------------------
+    kw = dict(chip="mi250x-gcd", slowdown_budget=0.05)
+    timing = {}
+    for dev, p in ((device, trace), (host, host_trace)):
+        ex = executor(dev)
+        replay(stream(p), "energy-aware", executor=ex, **kw)     # warm memo
+        _, t_plain = _measured(dev, lambda: replay(stream(p), "energy-aware",
+                                                   **kw))
+        _, t_warm = _measured(dev, lambda: replay(
+            stream(p), "energy-aware", executor=ex, **kw))
+        timing[dev.type] = {"plain_s": t_plain["seconds"],
+                            "executor_warm_s": t_warm["seconds"],
+                            "speedup": t_plain["seconds"]
+                            / t_warm["seconds"]}
+    shards = -(-n // shard)
+    ex = executor(device)
+    _, lp = _device_launches(device, lambda: replay(stream(trace),
+                                                    "energy-aware", **kw))
+    _, lc = _device_launches(device, lambda: replay(
+        stream(trace), "energy-aware", executor=ex, **kw))
+    _, lw = _device_launches(device, lambda: replay(
+        stream(trace), "energy-aware", executor=ex, **kw))
+    per_shard = {k: {"launches_per_shard": None if v["launches"] is None
+                     else v["launches"] / shards,
+                     "device_ms_per_shard": None if v["device_ms"] is None
+                     else v["device_ms"] / shards,
+                     "wall_s_profiled": v["wall_s"]}
+                 for k, v in (("plain", lp), ("executor_cold", lc),
+                              ("executor_warm", lw))}
+    big, big_shard = sizes["exec_big"], sizes["exec_big_shard"]
+    at_scale = {}
+    # one pass with a cold memo, then a second with it warm; unquantized
+    # (memo and dedup decline) at the default chunk, and at a chunk of the
+    # shard's size
+    for label, p, passes, chunk in (
+            ("quantized", torch.round(flat[:big] * 10.0) / 10.0, 2, None),
+            ("unquantized", flat[:big], 1, None),
+            ("unquantized_chunk_shard", flat[:big], 1, big_shard)):
+        ex = executor(device) if chunk is None \
+            else executor(device, chunk=chunk)
+
+        def run(**extra):
+            return replay(stream(p, size=big_shard), "energy-aware", **kw,
+                          **extra)
+        a, t_plain = _measured(device, run)
+        row = {"samples": big, "shard_samples": big_shard,
+               "chunk": ex.chunk, "plain": t_plain}
+        for i in range(passes):
+            b, t_ex = _measured(device, lambda: run(executor=ex))
+            check(_report_key(a) == _report_key(b),
+                  f"replay of {big} {label} samples with the executor "
+                  f"differs from without")
+            row["executor" if i == 0 else "executor_warm"] = t_ex
+            row["speedup" if i == 0 else "speedup_warm"] = \
+                t_plain["seconds"] / t_ex["seconds"]
+        at_scale[label] = {**row, "bit_for_bit": True,
+                           "stats": dict(ex.stats)}
+        del p
+    report["timing"] = {"trace_samples": n, "shards": shards,
+                        "replay_1m": timing, "launches": per_shard,
+                        "at_scale": at_scale}
     return report
 
 
@@ -2618,6 +2942,10 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             stream_shard=2 ** 22, stream_job_shard=65536,
             replay_shard=2 ** 20, replay_sizes=(2 ** 23, 2 ** 24),
             broker_jobs=1500, broker_bench_jobs=50_000,
+            # the executor: benchmarks/bench_sharded.py's trace (samples,
+            # shard, jobs), and the replay at scale (samples, shard)
+            exec_trace=1_000_000, exec_shard=65536, exec_jobs=100,
+            exec_big=2 ** 24, exec_big_shard=2 ** 20,
             # flash: (batch*heads, seq, head dim) of SPACES; the served
             # model's prefill (seq, q heads, kv heads, head dim); MLA's
             # prefill (seq, heads) at head dims MLA_HEAD_DIMS
@@ -2662,6 +2990,8 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            stream_shard=2 ** 12, stream_job_shard=4096,
            replay_shard=2 ** 10, replay_sizes=(2 ** 13, 2 ** 14),
            broker_jobs=120, broker_bench_jobs=2000,
+           exec_trace=20_000, exec_shard=16384, exec_jobs=10,
+           exec_big=2 ** 14, exec_big_shard=2 ** 12,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
            flash_ragged=61, flash_mla=(64, 4), flash_rg=(64, 2, 1),
            serve_reduced=True,
@@ -2792,7 +3122,11 @@ def main() -> int:
          **jobs_card_vs_host(jobs_raw, sizes["jobs"], jobs_raw["cal"]))
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    emit(phase="stream", **stream_phase(device, sizes, jobs_raw["table"]))
+    stream_report, flat, day = stream_phase(device, sizes, jobs_raw["table"])
+    emit(phase="stream", **stream_report)
+    emit(phase="executor", **executor_phase(device, sizes, flat, day),
+         nvidia_smi=smi)
+    del flat
     if device.type == "cuda":
         torch.cuda.empty_cache()
     emit(phase="broker", **broker_phase(device, sizes))

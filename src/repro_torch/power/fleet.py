@@ -109,8 +109,9 @@ class FleetAnalysis:
         only the raw ``powers`` tensor is absent, so the histogram is the
         streaming one (bins fixed at ingest). ``track_jobs=False`` skips
         the per-job accumulators for flat fleet-only analyses.
-        ``executor`` (the sharded executor) is ROADMAP queue A item 5 and
-        raises ``NotImplementedError``."""
+        ``executor`` (a :class:`repro_torch.parallel.ShardedExecutor`) runs
+        the fleet scope's segment sums on its devices, with the same
+        bits."""
         from repro_torch.power.stream import StreamingTelemetry
         return StreamingTelemetry(
             chip=chip, sample_interval_s=sample_interval_s, bins=bins,

@@ -1030,8 +1030,12 @@ class Study:
     from replays, so ``brokers`` and ``policies`` axes are mutually
     exclusive (a policy can still be an axis *value* of ``brokers`` — it
     rides along as a :class:`~repro_torch.power.broker.PolicyBroker`).
-    ``executor`` / ``devices`` (the sharded executor, ROADMAP queue A
-    item 5) raise at construction.
+
+    ``executor`` / ``devices`` are execution knobs, not grid axes: replay
+    cells run their per-shard infer / decide pass through a
+    :class:`repro_torch.parallel.ShardedExecutor` (the plain path's bits on
+    the executor's device); ``devices=N`` is shorthand for
+    ``ShardedExecutor(devices=N)``.
 
     Pass ``scenarios=[Scenario(...), ...]`` instead of axes for a
     non-cartesian grid.
@@ -1042,10 +1046,10 @@ class Study:
                  brokers=None, budgets_mw=None, n_nodes: int = 10_000,
                  scenarios: Optional[Sequence[Scenario]] = None,
                  executor=None, devices=None, metrics=None):
-        if executor is not None or devices is not None:
-            raise NotImplementedError(
-                "Study(executor=/devices=) needs the sharded executor of "
-                "parallel/, which is not ported yet (ROADMAP queue A item 5)")
+        if executor is None and devices is not None:
+            from repro_torch.parallel.executor import ShardedExecutor
+            executor = ShardedExecutor(devices=devices)
+        self._executor = executor
         if scenarios is not None:
             if workloads is not None or chips is not None \
                     or policies is not None or caps is not None \
@@ -1160,7 +1164,8 @@ class Study:
                 replay_reports[key] = replay(
                     s.workload.stream(), policy, chip=chip,
                     record_chip=s.workload.chip,
-                    sample_interval_s=s.workload.sample_interval_s)
+                    sample_interval_s=s.workload.sample_interval_s,
+                    executor=self._executor)
 
         out: List[CellResult] = []
         # schedule cells memoize too: cells differing only in axes the

@@ -28,10 +28,9 @@ O(shard)-memory path through it, with the reference's names and contracts:
   unchanged ``FleetAnalysis`` modal -> projection pipeline;
 * :func:`replay` — re-run a recorded trace under any policy and any chip:
   per shard one ``infer_profiles`` and one ``decide_batch`` on the shard's
-  device, yielding per-job and fleet energy/runtime deltas.
-
-The sharded executor of the reference (``executor=``) is ROADMAP queue A
-item 5; passing one raises ``NotImplementedError``.
+  device (or a :class:`repro_torch.parallel.ShardedExecutor`'s deduplicated
+  and memoized pass, the same bits), yielding per-job and fleet
+  energy/runtime deltas.
 """
 from __future__ import annotations
 
@@ -58,16 +57,9 @@ from repro_torch.power.policies import PolicyLike, decide_batch, get_policy
 
 _N_MODES = len(MODES)
 _MODE_IDXS = tuple(m.idx for m in MODES)
-_EXECUTOR = ("the sharded executor of parallel/, which is not ported yet "
-             "(ROADMAP queue A item 5)")
 
 ShardLike = Union["SampleShard", torch.Tensor, np.ndarray,
                   Sequence[StepSample]]
-
-
-def _no_executor(executor, what: str) -> None:
-    if executor is not None:
-        raise NotImplementedError(f"{what}(executor=) needs {_EXECUTOR}")
 
 
 # ---------------------------------------------------------------------------
@@ -291,15 +283,21 @@ class _ModalAcc:
     carry (:func:`fold_segments`). The open partial segment of every slot
     is a zero-padded row of a ``(slots, SEG)`` device buffer, so finalizing
     reduces the same padded tail segment the batch does. ``counts`` are
-    exact integers."""
+    exact integers.
 
-    def __init__(self) -> None:
+    ``seg_fn`` replaces :func:`_segment_sums` of :meth:`fold` (the fleet's
+    one-slot path) with a reducer of the same ``(modes + 1, segments)``
+    layout and the same bits: :meth:`repro_torch.parallel.ShardedExecutor.
+    segment_sums` plugs in here."""
+
+    def __init__(self, seg_fn=None) -> None:
         self.carry = np.zeros((0, _N_MODES + 1), dtype=np.float64)
         self.counts = np.zeros((0, _N_MODES), dtype=np.int64)
         self.n = np.zeros(0, dtype=np.int64)
         self.buf_len = np.zeros(0, dtype=np.int64)
         self._buf_p: Optional[torch.Tensor] = None     # (capacity, SEG)
         self._buf_m: Optional[torch.Tensor] = None
+        self._seg_fn = seg_fn
 
     @property
     def n_slots(self) -> int:
@@ -343,8 +341,11 @@ class _ModalAcc:
             modes = torch.cat([self._buf_m[0, :bl], modes])
         k = (p.numel() // SEG) * SEG
         if k:
-            seg = _segment_sums(_contrib(p[:k], modes[:k]).reshape(
-                _N_MODES + 1, -1, SEG))
+            if self._seg_fn is not None:
+                seg = self._seg_fn(p[:k], modes[:k])
+            else:
+                seg = _segment_sums(_contrib(p[:k], modes[:k]).reshape(
+                    _N_MODES + 1, -1, SEG))
             self.carry[0] = fold_segments(seg, self.carry[0])
         rest = p.numel() - k
         self._buf_p[0].zero_()
@@ -433,17 +434,20 @@ class StreamingModal:
     one-shot pipeline produces — bit-for-bit, for any shard boundaries
     (including shards that split mid-window or mid-job; a job's samples
     may arrive in any number of separated runs). Accumulates on the
-    shards' device; the per-job rows come back on it."""
+    shards' device; the per-job rows come back on it. With an ``executor``
+    (:class:`repro_torch.parallel.ShardedExecutor`) the fleet scope's
+    segment sums run on its devices, with the same bits; per-job scopes
+    stay on the plain path."""
 
     def __init__(self, chip: ChipSpec = MI250X_GCD,
                  sample_interval_s: float = 15.0, track_jobs: bool = True,
                  executor=None):
-        _no_executor(executor, "StreamingModal")
         self.chip = chip if isinstance(chip, ChipSpec) \
             else ChipModel(chip).spec
         self.sample_interval_s = float(sample_interval_s)
         self.track_jobs = track_jobs      # False: fleet scope only
-        self._fleet = _ModalAcc()
+        self._fleet = _ModalAcc(
+            seg_fn=executor.segment_sums if executor is not None else None)
         self._jobs = _ModalAcc()
         self._slot: Dict[str, int] = {}   # job id -> slot, first-seen order
         self.device: Optional[torch.device] = None
@@ -847,10 +851,15 @@ def replay(stream: Iterable[ShardLike], policy: PolicyLike,
     :meth:`ReplayReport.project` — or give the Scenario a ``cap`` — for
     the same rows without re-ingesting.
 
-    ``executor`` (the reference's sharded executor) is ROADMAP queue A
-    item 5 and raises ``NotImplementedError``.
+    ``executor``: a :class:`repro_torch.parallel.ShardedExecutor` runs each
+    shard's infer + decide pass (deduplicated, memoized across shards,
+    split over its devices) and the recorded fold's segment sums. The
+    results come back to the shard's device before the sums, so the report
+    is the plain path's, bit for bit, when the executor's device is the
+    shards'. Policies the executor does not support
+    (:meth:`~repro_torch.parallel.ShardedExecutor.supports`) take the plain
+    path.
     """
-    _no_executor(executor, "replay")
     model = ChipModel(chip)
     rec_model = ChipModel(record_chip) if record_chip is not None else model
     if objective is not None:
@@ -864,8 +873,9 @@ def replay(stream: Iterable[ShardLike], policy: PolicyLike,
                 f"objective={policy.objective!r}; pass objective= only "
                 f"with name-resolved policies or matching objects")
     pol = get_policy(policy, **policy_knobs)
+    exec_decides = executor is not None and executor.supports(pol)
     rec_acc = StreamingModal(rec_model.spec, sample_interval_s,
-                             track_jobs=False)
+                             track_jobs=False, executor=executor)
 
     e_rec = e_base = e_new = t_rec = t_new = 0.0
     n = 0
@@ -881,19 +891,29 @@ def replay(stream: Iterable[ShardLike], policy: PolicyLike,
             continue
         dev = sh.device
         device = str(dev)
-        surf_rec = rec_model.surface(dev)
         f = 1.0 if sh.freq_mhz is None else torch.clamp(
             sh.freq_mhz / rec_model.spec.f_nominal_mhz,
             rec_model.f_min_frac, 1.0)
-        classified = classify_power(sh.power_w, rec_model.spec)
-        rec_acc.fold(sh.power_w, sh.job_id, modes=classified)
-        modes = sh.mode if sh.mode is not None else classified
-        profiles = surf_rec.infer_profiles(
-            sh.power_w, freq_frac=f, duration_s=sh.duration_s,
-            mode_idx=modes)
-        bd = decide_batch(pol, profiles, model, device=dev)
-        be, bb, bt = bd.energy_j, bd.baseline_energy_j, bd.time_s
-        onehot = torch.stack([bd.mode_idx == idx for idx in _MODE_IDXS]
+        if exec_decides:
+            # mode=None lets the executor classify its unique values; the
+            # modes come back for the recorded fold, classified once
+            *dec, cmodes = executor.decide_shard(
+                pol, model, rec_model, sh.power_w, sh.mode, sh.duration_s,
+                f, modes_from_power=sh.mode is None, return_modes=True)
+            be, bb, bt, bm = (x.to(dev) for x in dec)
+            rec_acc.fold(sh.power_w, sh.job_id,
+                         modes=cmodes.to(dev) if sh.mode is None else None)
+        else:
+            classified = classify_power(sh.power_w, rec_model.spec)
+            rec_acc.fold(sh.power_w, sh.job_id, modes=classified)
+            modes = sh.mode if sh.mode is not None else classified
+            profiles = rec_model.surface(dev).infer_profiles(
+                sh.power_w, freq_frac=f, duration_s=sh.duration_s,
+                mode_idx=modes)
+            bd = decide_batch(pol, profiles, model, device=dev)
+            be, bb, bt, bm = (bd.energy_j, bd.baseline_energy_j, bd.time_s,
+                              bd.mode_idx)
+        onehot = torch.stack([bm == idx for idx in _MODE_IDXS]
                              ).to(torch.float64)
         cols = torch.stack([sh.energy_j, bb, be, sh.duration_s, bt], dim=1)
         # every fleet-level sum of the shard in one copy to the host

@@ -20,10 +20,11 @@ Guarantees:
   improvement hysteresis);
 * ``+ * / max min`` are exactly rounded on every device, so scalar and
   tensor calls agree in everything but ``f ** GAMMA``: that one op goes
-  through :meth:`TransferSurface._pow_gamma` (``torch.pow`` on a float64
-  tensor) for scalar and tensor calls alike. ``torch.pow`` may differ from
-  another libm by an ulp, so values are held to ``rtol 1e-12`` against the
-  reference package and every discrete decision to equality;
+  through :meth:`TransferSurface._pow_gamma` for scalar and tensor calls
+  alike, and gives an element the same bits wherever it lies in its tensor
+  (numpy's ufunc on the CPU, ``torch.pow`` on the card). The card's pow may
+  differ from the host's by an ulp, so values are held to ``rtol 1e-12``
+  against the reference package and every discrete decision to equality;
 * ``freq_for_power_cap`` is an argmax over the whole ``(profiles, grid)``
   power tensor instead of a per-frequency Python loop.
 
@@ -38,6 +39,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, as_device, device_of, f64
@@ -196,9 +198,16 @@ class TransferSurface:
         return f64(x, self.device)
 
     def _pow_gamma(self, freq_frac) -> torch.Tensor:
-        # the one pow path of the package: torch.pow on a float64 tensor,
-        # whatever shape the caller had
-        return torch.pow(self._f(freq_frac), GAMMA)
+        # the one pow path of the package, whatever shape the caller had.
+        # On the CPU torch.pow takes a vectorised pow for the body of a
+        # tensor and libm's for its last few elements, which differ by an
+        # ulp on some inputs, so an element's bits would depend on where it
+        # lies; numpy's ufunc computes every element of an array alike (a
+        # 0-d array too). On the card torch.pow computes every element alike
+        f = self._f(freq_frac)
+        if f.device.type == "cpu":
+            return torch.as_tensor(np.power(f.numpy(), GAMMA))
+        return torch.pow(f, GAMMA)
 
     def step_time(self, profiles: ProfilesLike, freq_frac=1.0):
         if self._scalar(profiles, freq_frac):

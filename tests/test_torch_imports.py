@@ -159,6 +159,32 @@ def test_train_slice_modules_import_no_jax_and_no_reference():
     assert all(l.endswith(" []") for l in lines), lines
 
 
+PARALLEL_SLICE = ("repro_torch.parallel", "repro_torch.parallel.executor")
+
+
+def test_parallel_modules_import_no_jax_and_no_reference():
+    """The sharded executor's package, first thing in a fresh interpreter,
+    checked right after each import."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    probe = ("import importlib, sys\n"
+             f"for m in {PARALLEL_SLICE!r}:\n"
+             "    importlib.import_module(m)\n"
+             "    bad = sorted(n for n in sys.modules if n.split('.')[0]\n"
+             "                 in ('jax', 'jaxlib', 'repro'))\n"
+             "    print(m, bad)\n"
+             "from repro_torch.parallel import ShardedExecutor\n"
+             "print('EXECUTOR', ShardedExecutor(devices=['cpu']))\n")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert [l.split()[0] for l in lines[:-1]] == list(PARALLEL_SLICE)
+    assert all(l.endswith(" []") for l in lines[:-1]), lines
+    assert lines[-1] == ("EXECUTOR ShardedExecutor(ndev=1, chunk=65536, "
+                         "dedup='auto', isa='AVX')")
+
+
 #: the multi-device half of ROADMAP queue A item 6
 MULTI_DEVICE = "item 6: the multi-device half"
 
@@ -184,6 +210,7 @@ STILL_MISSING = {
         MULTI_DEVICE),
     "repro.launch.train": {},
     "repro.models.model": {"param_specs": MULTI_DEVICE},
+    "repro.parallel.executor": {},
 }
 
 

@@ -2,9 +2,8 @@
 the reference package, on CPU float64 tensors fed the same numpy inputs —
 the projection, schedule, replay and broker cases of
 ``tests/test_scenarios.py`` and the confidence cases of
-``tests/test_objectives.py``. ``Study(executor=/devices=)`` waits for the
-sharded executor (ROADMAP queue A item 5) and raises
-``NotImplementedError`` naming it.
+``tests/test_objectives.py``. ``Study(executor=/devices=)`` runs its replay
+cells through the port's sharded executor, exactly as without it.
 
 Stated tolerances: every Study cell equals the port's own standalone call
 (``FleetAnalysis.project`` / ``job_report``) exactly — the Study only
@@ -32,6 +31,7 @@ from repro.core.telemetry import TelemetryStore as RefTelemetryStore
 from repro_torch.core.hardware import H100_SXM, MI250X_GCD, TPU_V5E
 from repro_torch.core.projection import project
 from repro_torch.core.telemetry import StepSample, TelemetryStore
+from repro_torch.parallel import ShardedExecutor
 from repro_torch.power import (FleetAnalysis, FleetJobsReport,
                                ResponseTables, Scenario, Study, StudyResult,
                                Workload, builtin_tables, cap_label,
@@ -310,21 +310,25 @@ def _same_dynamic_cells(res, ref):
     "replay", "broker_axis", "broker_cell", "from_stream", "stream",
     "cluster_trace", "devices", "executor"])
 def test_unported_spellings_raise_naming_their_item(unported):
-    """The spellings PR 16 left raising: the replay, broker and stream ones
-    now run and agree with the reference's; the sharded executor's
-    (``devices`` / ``executor``) still raise naming ROADMAP queue A item
-    5."""
+    """The spellings that once raised all run now and agree with the
+    reference's: the replay, broker and stream ones, and the sharded
+    executor's (``devices`` / ``executor``), whose replay cells also equal
+    the same Study's without an executor exactly."""
     w, ref = _jobs_pair(20, seed=1)
     if unported in ("devices", "executor"):
-        calls = {
-            "devices": lambda: Study(workloads=[w], caps=[900.0],
-                                     devices=2),
-            "executor": lambda: Study(workloads=[w], caps=[900.0],
-                                      executor=object()),
-        }
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 5"):
-            calls[unported]()
+        knob = {"devices": {"devices": [CPU]},
+                "executor": {"executor": ShardedExecutor(devices=[CPU])}}
+        axes = dict(policies=["energy-aware"], caps=[900.0])
+        study = Study(workloads=[w], **axes, **knob[unported])
+        assert isinstance(study._executor, ShardedExecutor)
+        got = study.run()
+        _same_dynamic_cells(got, rp.Study(workloads=[ref], **axes).run())
+        plain = Study(workloads=[w], **axes).run()
+        assert len(got) == len(plain) == 1
+        for a, b in zip(got, plain):
+            assert dataclasses.asdict(a.detail) \
+                == dataclasses.asdict(b.detail)
+        assert study._executor.stats["samples"] == got[0].detail.n_samples
         return
     if unported == "replay":
         _same_dynamic_cells(

@@ -41,6 +41,7 @@ from repro_torch.power import (EnergySession, FleetAnalysis, JobTable,
                                NominalPolicy, StreamingTelemetry,
                                response_table)
 from repro_torch.power import stream as stream_mod
+from repro_torch.parallel import ShardedExecutor
 from repro_torch.power.jobs import JobTrace
 from repro_torch.power.policies import decide_batch
 from repro_torch.power.stream import (SampleShard, iter_array, iter_jsonl,
@@ -287,14 +288,42 @@ def test_replay_empty_stream_reports_zero_deltas():
 
 @pytest.mark.parametrize("call", ["replay", "modal", "from_stream"])
 def test_executor_raises_naming_item_5(call):
-    calls = {
-        "replay": lambda: replay([], "nominal", executor=object()),
-        "modal": lambda: stream_mod.StreamingModal(executor=object()),
-        "from_stream": lambda: FleetAnalysis.from_stream(
-            iter([]), executor=object()),
-    }
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        calls[call]()
+    """The three spellings that raised before the sharded executor was
+    ported now run: with an executor each equals the same call without one,
+    exactly, at random shard boundaries."""
+    powers, jids = _random_trace(n=9_000, seed=21)
+    bounds = _cuts(powers.size, np.random.default_rng(22))
+
+    def shards():
+        return (SampleShard.from_arrays(powers[a:b], job_id=jids[a:b],
+                                        device=CPU) for a, b in bounds)
+    ex = ShardedExecutor(devices=[CPU])
+    if call == "replay":
+        kw = dict(chip=TPU_V5E, record_chip=MI250X_GCD,
+                  slowdown_budget=0.05)
+        a = replay(shards(), "energy-aware", **kw)
+        b = replay(shards(), "energy-aware", executor=ex, **kw)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert ex.stats["samples"] == powers.size
+    elif call == "modal":
+        a = stream_mod.StreamingModal()
+        b = stream_mod.StreamingModal(executor=ex)
+        for sh in shards():
+            a.fold(sh.power_w, sh.job_id)
+            b.fold(sh.power_w, sh.job_id)
+        assert dataclasses.asdict(a.decomposition()) \
+            == dataclasses.asdict(b.decomposition())
+        for k in ("hours_pct", "energy_mwh", "total_energy_mwh",
+                  "n_samples"):
+            assert torch.equal(getattr(a.per_job(), k),
+                               getattr(b.per_job(), k))
+    else:
+        a = FleetAnalysis.from_stream(shards(), chip=MI250X_GCD)
+        b = FleetAnalysis.from_stream(shards(), chip=MI250X_GCD,
+                                      executor=ex)
+        assert dataclasses.asdict(a.decompose().decomposition) \
+            == dataclasses.asdict(b.decompose().decomposition)
+    assert ex.stats["kernel_calls"] > 0       # its segment sums ran
 
 
 # ------------------------------------------------------------- sources
