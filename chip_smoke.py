@@ -90,6 +90,22 @@ call:
       4 steps of 2 x 4096 tokens under an energy-aware EnergySession. No
       kernel launches in training, as the reference's training never
       reaches its Pallas kernel
+    the multi-device path (repro_torch.parallel, repro_torch.launch.mesh /
+      elastic) with NCCL at world 1 on a 1 x 1 mesh: (a) dbrx-132b (8 of
+      40 layers) prefill through impl="ep" (the all-to-all path) and decode
+      steps through ep with ep2d, against impl="local" on the same weights
+      (logits within the bf16 flash limit, tokens by the margin rule, flash
+      launches equal, times in turns); (b) stablelm-12b (4 of 40 layers,
+      bf16) through make_train_step(rules=...) with ZeRO-1 specs, and its
+      reduced config in f32 on the mesh against one device's step; (c)
+      that f32 state saved, elastic_restore onto the surviving world's
+      mesh, back bit for bit with the next loss equal; (d) four processes
+      on the one card over gloo (a 2 x 2 mesh, dbrx-132b 2 layers): which
+      collectives gloo takes on CUDA tensors, then ep prefill and ep2d
+      decode in bf16 and in f32 (the same weights) against the local path
+      on the card in both: the f32 mesh within a relative limit of the f32
+      local path, the bf16 mesh no further from the f32 local path than a
+      factor times the bf16 local path is (times host-staged, reported)
 
 Run it with no arguments from the root of the checkout:
 
@@ -1994,8 +2010,8 @@ def moe_local_vs_dense(device, sizes: dict, cfg, params) -> dict:
     x = torch.randn((1, T, cfg.d_model), generator=g, device=device)
     used, route = [], moe._route
 
-    def recorded(router_w, xt, k):
-        out = route(router_w, xt, k)
+    def recorded(router_w, xt, k, **kw):
+        out = route(router_w, xt, k, **kw)
         used.append(out[1])
         return out
 
@@ -2084,8 +2100,8 @@ def end_to_end_check(device, cfg, params, sizes: dict,
         a hybrid's first attention layer's output"""
         routes, attn_out = [], []
 
-        def recorded(router_w, x, k):
-            out = route(router_w, x, k)
+        def recorded(router_w, x, k, **kw):
+            out = route(router_w, x, k, **kw)
             routes.append(torch.sort(out[1], dim=-1).values)
             return out
 
@@ -2933,6 +2949,688 @@ def train_phase(device, sizes: dict, timer: Timer) -> dict:
     return report
 
 
+
+# ------------------------------------------------------------ distributed
+#: the MoE model of the distributed phase, cut as its serving phase is
+DIST_MOE_ARCH, DIST_MOE_CUTS, DIST_MOE_WHY = MOE_SERVE[0]
+#: (a): prefill timed on one prompt of this many tokens; decode steps timed
+#: on DIST_DECODE_BATCH sequences prefilled at the same length
+DIST_PREFILL_LEN = 1024
+DIST_DECODE_BATCH = 4
+DIST_DECODE_STEPS = 8
+DIST_MAX_LEN = 2048
+#: (a)'s routes timed in turns, the order repeated sizes["dist_turns"]
+#: times
+DIST_TURNS = ("local", "ep", "ep", "local")
+#: (b): make_train_step steps at full width (the first one warms up)
+DIST_TRAIN_STEPS = 3
+#: (d): four processes on the one card over gloo, a (data=2, model=2) mesh;
+#: DBRX at full width cut to this many layers, a prompt a data row
+DIST_GLOO_MESH = (2, 2)
+DIST_GLOO_CUTS = {"n_layers": 2}
+DIST_GLOO_WHY = ("memory: four processes share one card; each holds "
+                 "half of 2 layers' experts and heads (of 1 layer in f32), "
+                 "and the local path it is held against holds them all")
+DIST_GLOO_PROMPT = 512
+DIST_GLOO_STEPS = 4
+#: the capacity factor of both (d) routes: a shard of the expert-parallel
+#: path sizes its capacity from its own tokens, the local path from all of
+#: them, so at the default factor they drop different pairs; inflated (no
+#: drops) as the reference's multi-device tests inflate it
+DIST_GLOO_CAPACITY = 8.0
+#: (d) runs each leg in these dtypes, the f32 weights the bf16 ones widened;
+#: the first run chooses its decode tokens greedily, the second is fed them
+DIST_GLOO_DTYPES = ("bfloat16", "float32")
+#: the layers of (d)'s f32 run: four ranks of 2 layers' f32 weights (17 GB
+#: each, with their CUDA contexts and caches) outgrew the card once
+DIST_GLOO_F32_LAYERS = 1
+#: (d)'s gates, each step's logits: the f32 mesh within DIST_GLOO_F32_RTOL *
+#: max|local f32| of the local path in f32; the bf16 mesh no further from
+#: the local f32 path than DIST_GLOO_BF16_FACTOR times the bf16 local path
+#: is. Set from the card's readings (PERF.md §6): at most 6.3e-6
+#: relative in f32 (at 2 layers), a ratio of at most 1.10 in bf16; a
+#: collective that drops a partial sum moves the logits by their own size,
+#: thousands of times the f32 limit and tens of times the bf16 one
+DIST_GLOO_F32_RTOL = 5e-5
+DIST_GLOO_BF16_FACTOR = 2.0
+#: the collectives of each (d) leg, probed on CUDA tensors before it runs
+DIST_GLOO_COLLECTIVES = ("all_reduce", "all_to_all_single",
+                         "all_gather_into_tensor", "reduce_scatter_tensor")
+DIST_GLOO_LEGS = {"ep_prefill": ("all_reduce", "all_to_all_single",
+                                 "all_gather_into_tensor"),
+                  "ep2d_decode": ("all_reduce", "all_gather_into_tensor")}
+
+
+def _flash_limit_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the bf16 flash limit 2e-3 + 1e-2 |want|."""
+    lo, rel = FLASH_TOL[torch.bfloat16]
+    return float(((got.float() - want.float()).abs()
+                  / (lo + rel * want.float().abs())).max())
+
+
+def _margin_tokens(want_steps, got_steps) -> dict:
+    """The serving checks' margin rule over greedy steps: at each step whose
+    plain-route top-2 margin exceeds the routes' logit difference the
+    tokens must agree, up to the first step where it does not."""
+    compared = agreed = 0
+    for want, got in zip(want_steps, got_steps):
+        w, g = want.float()[:, -1], got.float()[:, -1]
+        diff = (w - g).abs().max(dim=-1).values
+        top2 = w.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        sure = margin > diff
+        if not bool(sure.all()):
+            break
+        compared += int(sure.sum())
+        agreed += int((w.argmax(-1) == g.argmax(-1)).sum())
+    return {"tokens_compared": compared, "tokens_equal": agreed}
+
+
+def _greedy(prefill, decode, params, toks, steps: int, device):
+    """logits of the prefill and of ``steps`` greedy decode steps, and the
+    prefill's and a decode step's milliseconds (host clock, synchronised)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, state = prefill(params, {"tokens": toks})
+    _sync(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = [logits]
+    pos = toks.shape[1]
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = out[-1][:, -1:].argmax(-1).to(torch.int32)
+        logits, state = decode(params, tok, torch.tensor(pos + i), state)
+        out.append(logits)
+    _sync(device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return out, prefill_ms, decode_ms
+
+
+def dist_moe_ep(device, sizes: dict, mesh) -> dict:
+    """(a) DBRX at full width (cut as its serving phase) on the world-1
+    mesh: prefill through impl="ep" (the all-to-all path) and decode steps
+    through ep with ep2d, against impl="local" on the same weights; the
+    flash kernel's launches of each route; prefill ms of one prompt and
+    decode ms a step of DIST_DECODE_BATCH sequences on each, the routes
+    timed in turns (DIST_TURNS) after a greedy run of each has warmed
+    it."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import ShardingRules, default_rules
+    from repro_torch.models.transformer import Runtime
+    cfg, reduced = serve_config(sizes, DIST_MOE_ARCH, DIST_MOE_CUTS,
+                                DIST_MOE_WHY)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rt_ep = Runtime(mesh=mesh, moe_impl="ep", moe_ep2d_decode=True)
+    rules = ShardingRules(rules={**default_rules().rules,
+                                 "expert_ff": "data"})
+    params = model_mod.init_params(cfg, rt_ep, seed=11, rules=rules)
+    rt_local = Runtime(moe_impl="local")
+    S = sizes["dist_prefill_len"]
+    B = sizes["dist_decode_batch"]
+    max_len = sizes["dist_max_len"]
+    steps = sizes["dist_decode_steps"]
+    g = torch.Generator(device=device)
+    g.manual_seed(12)
+    one = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                        device=device, dtype=torch.int32)
+    many = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device=device, dtype=torch.int32)
+    routes = {"local": (make_prefill_step(cfg, rt_local, max_len),
+                        make_decode_step(cfg, rt_local)),
+              "ep": (make_prefill_step(cfg, rt_ep, max_len, rules),
+                     make_decode_step(cfg, rt_ep, rules))}
+    got, launches = {}, {}
+    pms = {name: [] for name in routes}
+    dms = {name: [] for name in routes}
+    with torch.no_grad():
+        for name, (pf, dec) in routes.items():
+            before = ops.launch_counts()["flash_attention"]
+            got[name], _, _ = _greedy(pf, dec, params, many, steps, device)
+            launches[name] = ops.launch_counts()["flash_attention"] - before
+        # times in turns (local, ep, ep, local, ...), each route warm
+        for name in DIST_TURNS * sizes["dist_turns"]:
+            pf, dec = routes[name]
+            before = ops.launch_counts()["flash_attention"]
+            _sync(device)
+            t0 = time.perf_counter()
+            pf(params, {"tokens": one})
+            _sync(device)
+            pms[name].append((time.perf_counter() - t0) * 1e3)
+            _, _, d_ms = _greedy(pf, dec, params, many, steps, device)
+            dms[name].append(d_ms)
+            launches[name] += ops.launch_counts()["flash_attention"] - before
+    timing = {name: {"prefill_ms": statistics.median(pms[name]),
+                     "prefill_ms_runs": pms[name], "prefill_tokens": S,
+                     "decode_ms_per_step": statistics.median(dms[name]),
+                     "decode_ms_runs": dms[name], "decode_batch": B,
+                     "decode_steps_a_run": steps}
+              for name in routes}
+    timing["ep_over_local"] = {
+        k: timing["ep"][k] / timing["local"][k]
+        for k in ("prefill_ms", "decode_ms_per_step")}
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if device.type == "cuda" else None)
+    shares = [_flash_limit_share(a, b) for a, b in zip(got["ep"],
+                                                      got["local"])]
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got["ep"], got["local"])]
+    out = {"arch": cfg.name, "reduced": reduced, "dtype": cfg.dtype,
+           "routes": {"prefill": "impl='ep' (all-to-all over model)",
+                      "decode": "impl='ep', ep2d (experts over model, "
+                                "their ffn over data)",
+                      "against": "impl='local', the same weights"},
+           "max_abs_err": max(errs), "share_of_limit": max(shares),
+           "tolerance": "2e-3 + 1e-2 * |local| on every logit (the bf16 "
+                        "flash limit)",
+           **_margin_tokens(got["local"], got["ep"]),
+           "flash_launches": launches, "timing": timing,
+           "engine_timing_ms_perf_md": {"prefill": 40.05,
+                                        "decode_per_step": 22.20},
+           "peak_memory_gb": peak}
+    check(max(shares) <= 1.0 and out["tokens_equal"] ==
+          out["tokens_compared"],
+          f"(a) the ep route's logits or tokens differ from the local "
+          f"route's: {out}")
+    check(launches["ep"] == launches["local"]
+          and (launches["ep"] > 0 or device.type != "cuda"),
+          f"(a) flash launches differ between the routes: {launches}")
+    del params
+    return out
+
+
+def dist_train(device, sizes: dict, mesh, timer) -> tuple:
+    """(b) TRAIN_ARCH at full width in bf16 (cut as the train phase is)
+    through make_train_step(rules=...) with ZeRO-1 specs on the world-1
+    mesh: step ms, tokens/s after the first step, peak memory; then the
+    reduced config in f32 (TF32 off): CARD_VS_HOST_STEPS steps on the mesh
+    against the single-device make_train_step, losses within rtol
+    CARD_VS_HOST_RTOL. Returns (report, the f32 mesh state after two
+    steps, its config, the mesh runtime, the batches)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim import OptConfig
+    cfg, reduced = serve_config(sizes, TRAIN_ARCH, TRAIN_CUTS, TRAIN_CUT_WHY)
+    shape = SHAPES_BY_NAME["train_4k"]
+    B = sizes["train_batch"]
+    S = shape.seq_len if not sizes["serve_reduced"] else \
+        shape.reduced().seq_len
+    shape = dataclasses.replace(shape, seq_len=S, global_batch=B)
+    rt = Runtime(mesh=mesh)
+    rules = default_rules()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, rt, model_mod.init_params(
+        cfg, rt, seed=21, rules=rules), rules=rules)
+    step = make_train_step(cfg, rt, OptConfig(), rules=rules)
+    step_ms, losses = [], []
+    for i in range(sizes["dist_train_steps"]):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in make_batch(cfg, shape, i).items()}
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if device.type == "cuda" else None)
+    del state, step
+    tokens = B * S
+    report = {"arch": cfg.name, "dtype": cfg.dtype, "reduced": reduced,
+              "shape": {"seq_len": S, "global_batch": B},
+              "zero1": "moments split over the batch axes (data = 1)",
+              "step_ms": step_ms,
+              "tokens_per_s_after_first": tokens * (len(step_ms) - 1)
+              / (sum(step_ms[1:]) / 1e3),
+              "peak_memory_gb": peak, "losses": losses,
+              "train_phase_perf_md": {"step_ms": 689.0,
+                                      "tokens_per_s": 11884.0,
+                                      "peak_memory_gb": 48.42}}
+    check(all(math.isfinite(x) for x in losses),
+          f"(b) the losses are not finite: {report}")
+    # the reduced config in f32: the mesh step against one device's
+    rcfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                               dtype="float32")
+    rshape = SHAPES_BY_NAME["train_4k"].reduced()
+    host, card = _train_states(rcfg, device, seed=41)
+    del host
+    one = make_train_step(rcfg, Runtime(), OptConfig())
+    on_mesh = make_train_step(rcfg, rt, OptConfig(), rules=rules)
+    s1 = card
+    sm = init_train_state(rcfg, rt, card["params"], rules=rules)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in make_batch(rcfg, rshape, i).items()}
+               for i in range(CARD_VS_HOST_STEPS)]
+    l1, lm, kept = [], [], None
+    for i, batch in enumerate(batches):
+        s1, m1 = one(s1, batch)
+        sm, mm = on_mesh(sm, batch)
+        l1.append(float(m1["loss"]))
+        lm.append(float(mm["loss"]))
+        if i == CARD_VS_HOST_STEPS - 2:
+            from repro_torch.tree import tree_map
+            kept = tree_map(torch.clone, sm)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lm, l1))
+    report["f32_check"] = {"config": "reduced() in f32, TF32 off",
+                           "steps": CARD_VS_HOST_STEPS,
+                           "losses_mesh": lm, "losses_one_device": l1,
+                           "max_loss_rel_diff": rel,
+                           "tolerance": f"rtol {CARD_VS_HOST_RTOL}"}
+    check(rel <= CARD_VS_HOST_RTOL,
+          f"(b) the mesh train step differs from one device's: {report}")
+    return report, kept, rcfg, rt, batches, lm
+
+
+def dist_elastic(device, mesh, state, cfg, rt, batches, losses) -> dict:
+    """(c) the f32 state of (b) after CARD_VS_HOST_STEPS - 1 mesh steps,
+    saved (gathered) under build/, elastic_restore onto shrink_mesh() (the
+    1 x 1 mesh of the surviving world): every leaf back bit for bit, and
+    the next step's loss equal to the uninterrupted step's."""
+    import shutil
+
+    from repro_torch.checkpoint import save
+    from repro_torch.launch.elastic import elastic_restore, shrink_mesh
+    from repro_torch.launch.steps import (make_train_step,
+                                          train_state_shardings)
+    from repro_torch.models.common import default_rules
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import leaves_with_paths
+    ckpt = os.path.join(HERE, "build", "dist_elastic")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    n = CARD_VS_HOST_STEPS - 1
+    save(ckpt, n, state, shardings=train_state_shardings(cfg, rt))
+    new_mesh = shrink_mesh(model_axis=1, device_type=mesh.device_type)
+    back, step, rt_new = elastic_restore(ckpt, cfg, rt, new_mesh)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    want = dict(leaves_with_paths(state))
+    got = dict(leaves_with_paths(back))
+    same = (want.keys() == got.keys() and all(
+        torch.equal(want[k], got[k]) and want[k].dtype == got[k].dtype
+        for k in want))
+    _, m = make_train_step(cfg, rt_new, OptConfig(),
+                           rules=default_rules())(back, batches[n])
+    out = {"config": "the f32 state of (b)'s check, after "
+                     f"{n} mesh steps", "restored_step": step,
+           "new_mesh": dict(new_mesh.shape), "leaves": len(want),
+           "bit_for_bit": bool(same),
+           "next_loss": float(m["loss"]), "uninterrupted_loss": losses[n],
+           "checkpoint": "build/dist_elastic (removed after)"}
+    check(same and step == n and out["next_loss"] == losses[n],
+          f"(c) elastic restore did not give the state back: {out}")
+    return out
+
+
+def _probe_collectives(group, device) -> dict:
+    """Which of DIST_GLOO_COLLECTIVES the process group takes on tensors
+    of ``device`` in the model's dtypes: "ok", or the error's first line."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    out = {}
+    for name in DIST_GLOO_COLLECTIVES:
+        res = []
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.ones(4 * n, dtype=dt, device=device)
+            try:
+                if name == "all_reduce":
+                    dist.all_reduce(x, group=group)
+                elif name == "all_to_all_single":
+                    dist.all_to_all_single(torch.empty_like(x), x,
+                                           group=group)
+                elif name == "all_gather_into_tensor":
+                    dist.all_gather_into_tensor(
+                        x.new_empty(4 * n * n), x, group=group)
+                else:
+                    dist.reduce_scatter_tensor(x.new_empty(4), x,
+                                               group=group)
+                _sync(device)
+                res.append("ok")
+            except RuntimeError as exc:
+                res.append(f"{dt}: " + str(exc).strip().splitlines()[0][:160])
+        out[name] = "ok" if res == ["ok", "ok"] else "; ".join(
+            r for r in res if r != "ok")
+    return out
+
+
+def _widen(tree) -> None:
+    """Every tensor leaf of a params tree in f32, in place, leaf by leaf
+    (each narrow leaf is freed as its wide copy takes its place)."""
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, torch.Tensor):
+            tree[k] = v.float()
+        else:
+            _widen(v)
+
+
+def _gloo_leg(cfg, rt, params, rules, toks, fed, greedy: bool, sizes,
+              device) -> dict:
+    """(d)'s run of one dtype on this rank: a prefill of its rows through
+    impl="ep", then (when ``fed``, a list of this rank's tokens a step, is
+    given) DIST_GLOO_STEPS ep2d decode steps, each fed the argmax of the
+    last logits, appended to ``fed`` (``greedy``), or ``fed``'s token; the
+    logits of each, and their times. ``params`` is cut to the 2D layout on
+    the way."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.common import ShardingRules
+    from repro_torch.parallel import collectives as coll
+    mesh = rt.mesh
+    out = {}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        prefill = make_prefill_step(cfg, rt, sizes["dist_max_len"], rules)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, state = prefill(params, {"tokens": toks})
+        _sync(device)
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["flash_launches"] = ops.launch_counts()["flash_attention"]
+        steps_out = [logits]
+        if fed is not None:
+            # the same weights in the 2D layout: each rank keeps its data
+            # row's slice of its experts' ffn
+            dgrp = mesh.group("data")
+            for layer in params["layers"]:
+                ex = layer["mlp"]["experts"]
+                ex["wi"] = coll.chunk(ex["wi"], 2, dgrp)
+                ex["wg"] = coll.chunk(ex["wg"], 2, dgrp)
+                ex["wo"] = coll.chunk(ex["wo"], 1, dgrp)
+            rules2d = ShardingRules(rules={**rules.rules,
+                                           "expert_ff": "data"})
+            decode = make_decode_step(cfg, rt, rules2d)
+            pos = toks.shape[1]
+            _sync(device)
+            t0 = time.perf_counter()
+            for i in range(DIST_GLOO_STEPS):
+                if greedy:
+                    fed.append(steps_out[-1][:, -1:].argmax(-1).to(
+                        torch.int32))
+                logits, state = decode(params, fed[i], torch.tensor(pos + i),
+                                       state)
+                steps_out.append(logits)
+            _sync(device)
+            out["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                         / DIST_GLOO_STEPS)
+    out["logits"] = steps_out
+    return out
+
+
+def _gloo_cfg(cfg, dtype: str):
+    """(d)'s config for its run in ``dtype`` (the f32 run cut to
+    DIST_GLOO_F32_LAYERS), and the config its weights are drawn in (bf16,
+    from seed 31: the f32 run's weights are those widened)."""
+    import dataclasses
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, n_layers=DIST_GLOO_F32_LAYERS)
+    return (dataclasses.replace(cfg, dtype=dtype),
+            dataclasses.replace(cfg, dtype=DIST_GLOO_DTYPES[0]))
+
+
+def _gloo_rank(rank: int, world: int, store_path: str, out_path: str,
+               device_type: str, sizes: dict) -> None:
+    """One of the (d) ranks: gloo over ``device_type`` tensors on the one
+    card (or the CPU in the rehearsal): probe the collectives, then each
+    leg whose collectives gloo takes, DBRX (cut to DIST_GLOO_CUTS) on a
+    DIST_GLOO_MESH mesh: prefill through impl="ep", and decode steps
+    through ep with ep2d, in each of DIST_GLOO_DTYPES (:func:`_gloo_cfg`),
+    the f32 run fed the tokens the bf16 run chose; rank 0 writes the
+    logits, the tokens and the times."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.parallel.sharding import NamedSharding
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    report = {"rank": rank}
+    try:
+        report["probe"] = _probe_collectives(None, device)
+        cfg, _ = serve_config(sizes, DIST_MOE_ARCH, DIST_GLOO_CUTS)
+        mesh = make_host_mesh(*DIST_GLOO_MESH, device_type=device_type)
+        tp = mesh.shape["model"]
+        rt = Runtime(tp=tp, mesh=mesh, moe_impl="ep", moe_ep2d_decode=True,
+                     moe_capacity_factor=DIST_GLOO_CAPACITY)
+        rules = default_rules()
+        rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+        g = torch.Generator(device=device)
+        g.manual_seed(32)
+        B = DIST_GLOO_MESH[0]
+        toks = torch.randint(0, cfg.vocab_size, (B, sizes["dist_gloo_prompt"]),
+                             generator=g, device=device, dtype=torch.int32)
+        legs = {}
+        for leg, needs in DIST_GLOO_LEGS.items():
+            refused = [n for n in needs if report["probe"][n] != "ok"]
+            legs[leg] = ("run" if not refused else
+                         f"not run: gloo refused {', '.join(refused)} on "
+                         f"{device_type} tensors")
+        report["legs"] = legs
+        if legs["ep_prefill"] == "run":
+            fed = [] if legs["ep2d_decode"] == "run" else None
+            runs = {}
+            for dt in DIST_GLOO_DTYPES:
+                dcfg, drawn = _gloo_cfg(cfg, dt)
+                params = model_mod.init_params(drawn, rt, seed=31,
+                                               rules=rules)
+                if dt == "float32":
+                    _widen(params)
+                res = _gloo_leg(dcfg, rt, params, rules, rows.shard(toks),
+                                fed, dt == DIST_GLOO_DTYPES[0], sizes,
+                                device)
+                del params
+                runs[dt] = {"logits": [rows.gather(t).float().cpu()
+                                       for t in res.pop("logits")], **res}
+                if device_type == "cuda":
+                    torch.cuda.empty_cache()
+            report["runs"] = {dt: {k: v for k, v in r.items()
+                                   if k != "logits"}
+                              for dt, r in runs.items()}
+            peak = (torch.cuda.max_memory_allocated(device) / 1e9
+                    if device_type == "cuda" else None)
+            peaks = [None] * world
+            dist.all_gather_object(peaks, peak)
+            report["peak_memory_gb_by_rank"] = peaks
+            fed_whole = [rows.gather(t).cpu() for t in (fed or [])]
+            if rank == 0:
+                torch.save({"tokens": toks.cpu(), "fed": fed_whole,
+                            "logits": {dt: r["logits"]
+                                       for dt, r in runs.items()}},
+                           out_path + ".pt")
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gloo_on_card(device, sizes: dict) -> dict:
+    """(d) four processes on the one card over gloo (DIST_GLOO_MESH),
+    started with torch.multiprocessing; then the local path on the card
+    from the same seed, fed the tokens the mesh chose, as each of the
+    ranks' runs (:func:`_gloo_cfg`) and in f32 at the bf16 run's layers:
+    each step's logits, the f32 mesh's against the f32 local path (within
+    DIST_GLOO_F32_RTOL * max|logits|), the bf16 mesh's distance from the
+    f32 local path at its layers against the bf16 local path's (at most
+    DIST_GLOO_BF16_FACTOR times it), and the bf16 routes' tokens by the
+    margin rule. The legs' times go through gloo's host staging:
+    reported, not gated."""
+    import dataclasses
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import Runtime
+    world = DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1]
+    work = os.path.join(HERE, "build", "dist_gloo")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out_path = os.path.join(work, "rank0.json")
+    parent_gb = None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                     "reserved": torch.cuda.memory_reserved() / 1e9}
+    t0 = time.perf_counter()
+    mp.start_processes(_gloo_rank, args=(
+        world, os.path.join(work, "store"), out_path, device.type, sizes),
+        nprocs=world, join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        rep = json.load(f)
+    out = {"backend": "gloo", "world": world,
+           "mesh": dict(zip(("data", "model"), DIST_GLOO_MESH)),
+           "device": device.type, "probe": rep["probe"],
+           "legs": rep["legs"], "wall_s": wall,
+           "runs": rep.get("runs"),
+           "peak_memory_gb_by_rank": rep.get("peak_memory_gb_by_rank"),
+           "parent_memory_gb_at_spawn": parent_gb,
+           "timing_note": "host-staged gloo collectives: reported, not "
+                          "gated"}
+    if os.path.exists(out_path + ".pt"):
+        got = torch.load(out_path + ".pt")
+        cfg, reduced = serve_config(sizes, DIST_MOE_ARCH, DIST_GLOO_CUTS,
+                                    DIST_GLOO_WHY)
+        out["reduced"] = reduced
+        rt = Runtime(moe_impl="local")
+        toks = got["tokens"].to(device)
+        have = got["logits"]
+
+        def local(run_cfg, drawn, widen: bool) -> list:
+            """the local path's logits a step, fed the tokens the mesh
+            chose, on weights drawn as the ranks drew them"""
+            params = model_mod.init_params(
+                drawn, Runtime(tp=DIST_GLOO_MESH[1]), seed=31, device=device)
+            if widen:
+                _widen(params)
+            with torch.no_grad(), patched(moe_mod, "CAPACITY_FACTOR",
+                                          DIST_GLOO_CAPACITY):
+                logits, state = make_prefill_step(
+                    run_cfg, rt, sizes["dist_max_len"])(params,
+                                                        {"tokens": toks})
+                steps_out = [logits.float().cpu()]
+                decode = make_decode_step(run_cfg, rt)
+                for i, tok in enumerate(got["fed"]):
+                    logits, state = decode(
+                        params, tok.to(device),
+                        torch.tensor(toks.shape[1] + i), state)
+                    steps_out.append(logits.float().cpu())
+            return steps_out
+
+        # bf16 and f32 at the bf16 run's layers (the bf16 gate), f32 at the
+        # f32 run's (the f32 gate)
+        bf16_cfg, drawn = _gloo_cfg(cfg, "bfloat16")
+        l16 = local(bf16_cfg, drawn, False)
+        l32_wide = local(dataclasses.replace(bf16_cfg, dtype="float32"),
+                         drawn, True)
+        l32 = local(*_gloo_cfg(cfg, "float32"), True)
+        want = {"bfloat16": l16, "float32": l32}
+        amax = lambda a, b: float((a - b).abs().max())  # noqa: E731
+        per_step = []
+        for i in range(len(l32)):
+            m16, m32 = have["bfloat16"][i], have["float32"][i]
+            per_step.append({
+                "bf16_mesh_vs_local": amax(m16, l16[i]),
+                "bf16_mesh_vs_local_f32": amax(m16, l32_wide[i]),
+                "bf16_local_vs_local_f32": amax(l16[i], l32_wide[i]),
+                "f32_mesh_vs_local": amax(m32, l32[i]),
+                "max_abs_logit_f32": float(l32[i].abs().max())})
+        out["steps"] = per_step
+        out["max_abs_err"] = max(r["bf16_mesh_vs_local"] for r in per_step)
+        out["share_of_bf16_flash_limit"] = max(
+            _flash_limit_share(a, b)
+            for a, b in zip(have["bfloat16"], want["bfloat16"]))
+        out["f32_share_of_limit"] = max(
+            r["f32_mesh_vs_local"]
+            / (DIST_GLOO_F32_RTOL * r["max_abs_logit_f32"])
+            for r in per_step)
+        out["bf16_share_of_limit"] = max(
+            r["bf16_mesh_vs_local_f32"]
+            / (DIST_GLOO_BF16_FACTOR * r["bf16_local_vs_local_f32"])
+            for r in per_step)
+        out["tolerance"] = (
+            f"each step: f32 mesh - f32 local <= {DIST_GLOO_F32_RTOL} * "
+            f"max|f32 local|; bf16 mesh - f32 local <= "
+            f"{DIST_GLOO_BF16_FACTOR} * (bf16 local - f32 local)")
+        out.update(_margin_tokens(want["bfloat16"], have["bfloat16"]))
+        check(all(bool(torch.isfinite(a).all()) and a.shape == b.shape
+                  for dt in DIST_GLOO_DTYPES
+                  for a, b in zip(have[dt], want[dt]))
+              and len(have["float32"]) == len(want["float32"])
+              == len(got["fed"]) + 1
+              and out["tokens_equal"] == out["tokens_compared"],
+              f"(d) the gloo mesh's logits are malformed or its tokens "
+              f"differ from the local path's by the margin rule: {out}")
+        check(out["f32_share_of_limit"] <= 1.0
+              and out["bf16_share_of_limit"] <= 1.0,
+              f"(d) the gloo mesh's logits are further from the local "
+              f"path's than rounding: {out}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def distributed_phase(device, sizes: dict, timer) -> dict:
+    """The multi-device path on the one card: NCCL at world 1 on a 1 x 1
+    mesh (its FileStore under build/) for (a) the MoE's expert-parallel
+    serving against its local path, (b) DP x TP training with ZeRO-1 and
+    its f32 check, (c) elastic restore; then (d) four gloo ranks on the
+    card. The CPU rehearsal runs gloo at world 1 on CPU tensors, and (d)
+    on CPU tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    store = os.path.join(HERE, "build", "dist_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, store=dist.FileStore(store, 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device_type=device.type)
+        moe = dist_moe_ep(device, sizes, mesh)
+        train, state, rcfg, rt, batches, losses = dist_train(
+            device, sizes, mesh, timer)
+        elastic = dist_elastic(device, mesh, state, rcfg, rt, batches,
+                               losses)
+        del state
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    nccl_s = time.perf_counter() - t0
+    gloo = dist_gloo_on_card(device, sizes)
+    return {"backend": backend, "world": 1, "mesh": {"data": 1, "model": 1},
+            "a_moe_ep": moe, "b_train": train, "c_elastic": elastic,
+            "d_gloo_on_card": gloo,
+            "seconds": {"world_1": nccl_s, "gloo": gloo["wall_s"],
+                        "phase": time.perf_counter() - t0}}
+
+
 FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             membw_big_rows=2 ** 21, membw_iters=64,          # 1 GiB
             fleet_rows=9408 * 8, fleet_samples=5760, jobs=1500,
@@ -2984,7 +3682,14 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
                  "bfloat16"),
                 ("mla_causal_f32", (1, 2048, 2048, 16, 16, 192, 128), True,
                  "float32")),
-            train_batch=2, train_steps=4)
+            train_batch=2, train_steps=4,
+            # the distributed phase: (a)'s prefill length, decode batch,
+            # steps and max_len; (b)'s steps; (d)'s prompt a data row
+            dist_prefill_len=DIST_PREFILL_LEN,
+            dist_decode_batch=DIST_DECODE_BATCH,
+            dist_decode_steps=DIST_DECODE_STEPS, dist_max_len=DIST_MAX_LEN,
+            dist_train_steps=DIST_TRAIN_STEPS,
+            dist_gloo_prompt=DIST_GLOO_PROMPT, dist_turns=2)
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            membw_iters=8, fleet_rows=64, fleet_samples=300, jobs=300,
            stream_shard=2 ** 12, stream_job_shard=4096,
@@ -3007,7 +3712,10 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
                 "float32"),
                ("mla_causal_f32", (1, 64, 64, 4, 4, 24, 16), True,
                 "float32")),
-           train_batch=2, train_steps=3)
+           train_batch=2, train_steps=3,
+           dist_prefill_len=32, dist_decode_batch=2, dist_decode_steps=2,
+           dist_max_len=64, dist_train_steps=2, dist_gloo_prompt=16,
+           dist_turns=1)
 
 
 def main() -> int:
@@ -3206,6 +3914,19 @@ def main() -> int:
         emit(phase=name, **report, launches=train_counts[name])
         check(not any(train_counts[name].values()),
               f"the {name} phase launched a kernel: {train_counts[name]}")
+    # the multi-device path: counts set to 0 just before it, read after;
+    # its flash launches are (a)'s two routes (the rank-local heads of a
+    # 1 x 1 mesh are all the heads), (d)'s ranks count their own
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    dist_report = distributed_phase(device, sizes, timer)
+    dist_counts = ops.launch_counts()
+    emit(phase="distributed", **dist_report, launches=dist_counts,
+         nvidia_smi=smi)
+    check(device.type != "cuda" or dist_counts["flash_attention"] > 0,
+          f"the distributed path never launched the flash kernel: "
+          f"{dist_counts}")
     if device.type == "cuda":
         torch.cuda.empty_cache()
     by_dims = {arch: c["flash_by_head_dims"]
@@ -3243,7 +3964,7 @@ def main() -> int:
          flash_attention_by_head_dims=by_dims,
          flash_attention_by_shape={a: c["flash_by_shape"]
                                    for a, c in cross_counts.items()},
-         train=train_counts)
+         train=train_counts, distributed=dist_counts)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

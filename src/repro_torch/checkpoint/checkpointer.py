@@ -12,9 +12,15 @@ State is a tree of tensors (:mod:`repro_torch.tree`); each leaf is stored
 under its path (``params/layers/0/attn/wq``). numpy has no bf16, so a bf16
 leaf is stored as its bits (``uint16``) and ``meta.json`` names its dtype;
 :func:`restore` gives back the same dtype and the same bits, on the device
-of the ``like`` leaf. The reference's resharded restore onto another mesh
-(``shardings=``) belongs to the multi-device half of ROADMAP queue A item
-6.
+of the ``like`` leaf.
+
+A sharded state (each rank holding its shards,
+:mod:`repro_torch.parallel.sharding`) is saved whole: with ``shardings``
+every rank of the mesh gathers each leaf and the mesh's first rank writes
+it, so ``state.npz`` has the one layout whatever the mesh, and a checkpoint
+of a 2 x 4 mesh restores on one device and in the reference.
+``restore(shardings=)`` cuts each leaf to this rank's shard of another
+mesh (elastic restore, :mod:`repro_torch.launch.elastic`).
 """
 from __future__ import annotations
 
@@ -24,12 +30,14 @@ import pathlib
 import re
 import shutil
 import threading
+import zipfile
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths, tree_map, tree_unflatten
+from repro_torch.tree import (leaves_with_paths, tree_leaves, tree_map,
+                              tree_unflatten)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -43,9 +51,38 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _mesh_of(shardings: Any):
+    for sh in tree_leaves(shardings):
+        if sh is not None:
+            return sh.mesh
+    return None
+
+
 def save(ckpt_dir: PathLike, step: int, state: Any,
-         extra: Optional[Dict] = None) -> pathlib.Path:
+         extra: Optional[Dict] = None,
+         shardings: Any = None) -> pathlib.Path:
+    """Write ``state`` as ``step_N/``. ``shardings`` (a tree of
+    :class:`~repro_torch.parallel.sharding.NamedSharding`, ``None`` for a
+    leaf held whole) marks ``state``'s leaves as this rank's shards: every
+    rank of the mesh calls :func:`save`, each leaf is gathered whole, the
+    mesh's first rank writes, and all return once it has."""
     ckpt_dir = pathlib.Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step}"
+    mesh = _mesh_of(shardings) if shardings is not None else None
+    if mesh is not None:
+        import torch.distributed as dist
+        state = tree_map(lambda t, sh: t if sh is None else sh.gather(t),
+                         state, shardings)
+        writer = mesh.axis_index(mesh.axis_names) == 0
+        if writer:
+            _write(ckpt_dir, step, state, extra)
+        dist.barrier(group=mesh.group(mesh.axis_names))
+        return final
+    return _write(ckpt_dir, step, state, extra)
+
+
+def _write(ckpt_dir: pathlib.Path, step: int, state: Any,
+           extra: Optional[Dict]) -> pathlib.Path:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f".tmp_step_{step}"
     final = ckpt_dir / f"step_{step}"
@@ -74,26 +111,53 @@ def latest_step(ckpt_dir: PathLike) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def saved_dtypes(ckpt_dir: PathLike, step: int) -> Dict[str, torch.dtype]:
+    """Each leaf's dtype in ``step_N/``, by its path, read from the arrays'
+    headers (nothing is loaded)."""
+    path = pathlib.Path(ckpt_dir) / f"step_{step}"
+    meta = json.loads((path / "meta.json").read_text())
+    bf16 = set(meta.get("bfloat16", ()))
+    out = {}
+    with zipfile.ZipFile(path / "state.npz") as z:
+        for name in z.namelist():
+            key = name[:-len(".npy")]
+            with z.open(name) as f:
+                version = np.lib.format.read_magic(f)
+                header = (np.lib.format.read_array_header_1_0
+                          if version == (1, 0)
+                          else np.lib.format.read_array_header_2_0)
+                dtype = header(f)[2]
+            out[key] = (torch.bfloat16 if key in bf16 else
+                        torch.from_numpy(np.empty(0, dtype)).dtype)
+    return out
+
+
 def restore(ckpt_dir: PathLike, step: int, like: Any,
             shardings: Any = None) -> Any:
-    """Restore into the structure of ``like`` (a tree of tensors): each
-    leaf in ``like``'s dtype on ``like``'s device."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto shardings belongs to ROADMAP queue A item 6: the "
-            "multi-device half")
+    """Restore into the structure of ``like`` (a tree of tensors, ``meta``
+    ones included): each leaf in ``like``'s dtype on ``like``'s device.
+    ``shardings``: a matching tree of
+    :class:`~repro_torch.parallel.sharding.NamedSharding` (``None`` for a
+    leaf kept whole): each such leaf comes back as this rank's shard, on
+    the mesh's device."""
+    shards = (tree_leaves(tree_map(lambda _, sh: [sh], like, shardings))
+              if shardings is not None else None)
     path = pathlib.Path(ckpt_dir) / f"step_{step}"
     meta = json.loads((path / "meta.json").read_text())
     bf16 = set(meta.get("bfloat16", ()))
     out = []
     with np.load(path / "state.npz") as data:
-        for key, leaf in leaves_with_paths(like):
+        for i, (key, leaf) in enumerate(leaves_with_paths(like)):
             arr = data[key]
             if key in bf16:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+            sh = shards[i] if shards is not None else None
+            if sh is not None:
+                out.append(sh.shard(t.to(dtype=leaf.dtype)))
+            else:
+                out.append(t.to(device=leaf.device, dtype=leaf.dtype))
     return tree_unflatten(like, out)
 
 

@@ -9,6 +9,7 @@ way).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -125,17 +126,77 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _unstack(tree: Mapping, i, device) -> Dict:
+@dataclass(frozen=True)
+class AbstractLeaf:
+    """A reference leaf given by its global shape, dtype name and spec (the
+    reference's ``ShapeDtypeStruct`` and its sharding's spec): what
+    :func:`abstract_from_jax` carries across."""
+    shape: Tuple[int, ...]
+    dtype: str
+    spec: Optional[Tuple] = None
+
+
+class _Leaves:
+    """How one kind of reference leaf becomes the port's: whole (``whole``),
+    entry ``i`` of its leading axes (``at``; ``i`` an index or a tuple of
+    them), and its first two axes merged (``merge01``)."""
+
+    def __init__(self, whole, at, merge01):
+        self.whole, self.at, self.merge01 = whole, at, merge01
+
+
+def _arrays(device) -> _Leaves:
+    return _Leaves(lambda v: _tensor(v, device),
+                   lambda v, i: _tensor(np.asarray(v)[i], device),
+                   lambda t: t.flatten(0, 1))
+
+
+def _depth(i) -> int:
+    return len(i) if isinstance(i, tuple) else 1
+
+
+def _spec_merge01(spec: Tuple) -> Tuple:
+    axes = tuple(x for e in spec[:2] if e is not None
+                 for x in (e if isinstance(e, tuple) else (e,)))
+    return (axes or None,) + tuple(spec[2:])
+
+
+def _specs() -> _Leaves:
+    from repro_torch.parallel.sharding import P
+    return _Leaves(lambda v: P(*v), lambda v, i: P(*tuple(v)[_depth(i):]),
+                   lambda s: P(*_spec_merge01(s)))
+
+
+def _abstracts() -> _Leaves:
+    from repro_torch.parallel.sharding import P
+
+    def spec(a, f):
+        return None if a.spec is None else P(*f(tuple(a.spec)))
+
+    def at(a, i):
+        d = _depth(i)
+        return AbstractLeaf(tuple(a.shape[d:]), a.dtype,
+                            spec(a, lambda s: s[d:]))
+
+    def merge01(a):
+        return AbstractLeaf((a.shape[0] * a.shape[1],) + tuple(a.shape[2:]),
+                            a.dtype, spec(a, _spec_merge01))
+    return _Leaves(lambda a: AbstractLeaf(tuple(a.shape), a.dtype,
+                                          spec(a, lambda s: s)),
+                   at, merge01)
+
+
+def _unstack(tree: Mapping, i, leaves: _Leaves) -> Dict:
     """Entry ``i`` (an index, or a tuple of them over the leading axes) of
-    every leaf, as tensors on ``device``."""
-    return {k: (_unstack(v, i, device) if isinstance(v, Mapping)
-                else _tensor(np.asarray(v)[i], device))
+    every leaf."""
+    return {k: (_unstack(v, i, leaves) if isinstance(v, Mapping)
+                else leaves.at(v, i))
             for k, v in tree.items()}
 
 
-def _tensors(tree: Mapping, device) -> Dict:
-    return {k: (_tensors(v, device) if isinstance(v, Mapping)
-                else _tensor(v, device))
+def _whole(tree: Mapping, leaves: _Leaves) -> Dict:
+    return {k: (_whole(v, leaves) if isinstance(v, Mapping)
+                else leaves.whole(v))
             for k, v in tree.items()}
 
 
@@ -153,12 +214,34 @@ def params_from_jax(tree: Mapping, cfg, device=DEFAULT_DEVICE) -> Dict:
     and its cross blocks ``[n_groups, ...]``: the port's ``{"self": [...],
     "cross": [...]}``. An enc-dec tree stacks ``encoder`` over the encoder
     layers and ``layers`` over the decoder's, each as a list here."""
+    return _params(tree, cfg, _arrays(as_device(device)))
+
+
+def param_specs_from_jax(specs: Mapping, cfg) -> Dict:
+    """The reference's ``param_specs`` tree (its PartitionSpecs, or tuples
+    of their entries) in the port's layout, as :func:`params_from_jax`
+    lays out the parameters: a stacked leaf's leading entries dropped."""
+    return _params(specs, cfg, _specs())
+
+
+def abstract_from_jax(tree: Mapping, cfg, layout: str = "params") -> Dict:
+    """A tree of :class:`AbstractLeaf` in the reference's ``params`` or
+    ``decode_state`` layout, in the port's (as :func:`params_from_jax` /
+    :func:`decode_state_from_jax` lay out arrays)."""
+    if layout == "params":
+        return _params(tree, cfg, _abstracts())
+    if layout == "decode_state":
+        return _decode_state(tree, _abstracts())
+    raise ValueError(f"layout must be 'params' or 'decode_state', got "
+                     f"{layout!r}")
+
+
+def _params(tree: Mapping, cfg, dev: _Leaves) -> Dict:
     from repro_torch.models.transformer import (check_family,
                                                 hybrid_group_counts)
     check_family(cfg)
-    dev = as_device(device)
-    out = _tensors({k: v for k, v in tree.items()
-                    if k not in ("layers", "encoder")}, dev)
+    out = _whole({k: v for k, v in tree.items()
+                  if k not in ("layers", "encoder")}, dev)
     layers = tree["layers"]
     if cfg.family == "vlm":
         n_groups = cfg.n_layers // cfg.cross_attn_every
@@ -178,7 +261,7 @@ def params_from_jax(tree: Mapping, cfg, device=DEFAULT_DEVICE) -> Dict:
         n_pat = len(cfg.block_pattern)
         out["layers"] = [_unstack(layers["groups"][f"pos{i}"], g, dev)
                          for g in range(n_groups) for i in range(n_pat)]
-        out["layers"] += [_tensors(r, dev) for r in layers["rest"]]
+        out["layers"] += [_whole(r, dev) for r in layers["rest"]]
     else:
         out["layers"] = [_unstack(layers, i, dev)
                          for i in range(cfg.n_layers)]
@@ -195,20 +278,22 @@ def decode_state_from_jax(state: Mapping, device=DEFAULT_DEVICE) -> Dict:
     "v"}, "cross": {"k", "v"}}`` with the cross K / V as they are and the
     self cache stacked over the layers (a VLM's ``[G, cross_attn_every, B,
     M, ...]`` in layer order, ``[G * cross_attn_every, B, M, ...]``)."""
-    dev = as_device(device)
+    return _decode_state(state, _arrays(as_device(device)))
+
+
+def _decode_state(state: Mapping, dev: _Leaves) -> Dict:
     if "cross" in state:
-        cross = {k: _tensor(v, dev) for k, v in state["cross"].items()}
-        self_kv = {k: _tensor(v, dev) for k, v in state["self"].items()}
+        cross = _whole(state["cross"], dev)
+        self_kv = _whole(state["self"], dev)
         # a VLM stacks its self cache over [groups, layers of a group]
-        self_kv = {k: v.flatten(0, 1) if v.ndim == 6 else v
-                   for k, v in self_kv.items()}
+        self_kv = {k: dev.merge01(v) if len(getattr(v, "shape", v)) == 6
+                   else v for k, v in self_kv.items()}
         return {"self": self_kv, "cross": cross}
     if "groups" not in state:
-        return {"layers": {k: _tensor(v, dev)
-                           for k, v in state["layers"].items()}}
+        return {"layers": _whole(state["layers"], dev)}
     groups = state["groups"]
     n_pat = len(groups)
-    n_groups = len(next(iter(groups["pos0"].values())))
+    n_groups = next(iter(groups["pos0"].values())).shape[0]
     layers = [_unstack(groups[f"pos{i}"], g, dev)
               for g in range(n_groups) for i in range(n_pat)]
     layers += [_unstack(r, 0, dev) for r in state["rest"]]

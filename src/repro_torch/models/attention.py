@@ -52,6 +52,22 @@ block at a time from ``lse`` (the reference's ``_flash`` custom_vjp). A
 recording call at a query offset or with a kv mask takes the plain route,
 and autograd runs through its loops. Calls that record nothing (serving,
 ``torch.no_grad()``) route as above.
+
+Tensor parallelism (a mesh that splits ``heads`` over two or more ranks,
+:func:`repro_torch.models.common.sharding_ctx`): each rank holds the
+columns of ``wq`` (and ``wk`` / ``wv`` where the kv heads split too) of its
+own q heads and the matching rows of ``wo``, so q, k and v are rank-local
+heads, attention (the flash kernel on the card) runs on them alone, and
+the output projection's partial sums are all-reduced over ``model`` (the
+input enters through ``copy_to``, the output leaves through
+``reduce_from``: Megatron's f / g). Where the kv heads do not split
+(``nkv % tp != 0``) every rank holds all of them, computes them all (the
+cache keeps them all, as the reference's replicated cache spec says), and
+attends its q head ``h`` to kv head ``h // G``; those weights pass through
+``copy_to`` too, since each rank's gradient of them covers its own heads
+only. MLA splits its heads the same way; its latent path (``wq_a``,
+``wkv_a``, the norms, the shared rope key) is replicated, and the latent
+activations enter the head-split products through ``copy_to``.
 """
 from __future__ import annotations
 
@@ -61,7 +77,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.common import ParamMaker, apply_rope, rms_norm
+from repro_torch.models.common import (ParamMaker, apply_rope, axis_group,
+                                       axis_size, rms_norm, shard)
+from repro_torch.parallel import collectives as coll
 
 NEG_INF = -1e30
 
@@ -267,17 +285,48 @@ def attention_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
     biases; a cross-attention block (``cross``) has none."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
+    h_ax = "heads" if nh % max(tp, 1) == 0 and tp > 1 else None
+    kv_ax = "kv_heads" if (tp > 1 and nkv % tp == 0) else None
     p = {
-        "wq": mk(f"{prefix}.wq", (d, nh, hd)),
-        "wk": mk(f"{prefix}.wk", (d, nkv, hd)),
-        "wv": mk(f"{prefix}.wv", (d, nkv, hd)),
-        "wo": mk(f"{prefix}.wo", (nh, hd, d)),
+        "wq": mk(f"{prefix}.wq", (d, nh, hd), ("dmodel", h_ax, None)),
+        "wk": mk(f"{prefix}.wk", (d, nkv, hd), ("dmodel", kv_ax, None)),
+        "wv": mk(f"{prefix}.wv", (d, nkv, hd), ("dmodel", kv_ax, None)),
+        "wo": mk(f"{prefix}.wo", (nh, hd, d), (h_ax, None, "dmodel")),
     }
     if cfg.qkv_bias and not cross:
-        p["bq"] = mk(f"{prefix}.bq", (nh, hd), init="zeros")
-        p["bk"] = mk(f"{prefix}.bk", (nkv, hd), init="zeros")
-        p["bv"] = mk(f"{prefix}.bv", (nkv, hd), init="zeros")
+        p["bq"] = mk(f"{prefix}.bq", (nh, hd), (h_ax, None), init="zeros")
+        p["bk"] = mk(f"{prefix}.bk", (nkv, hd), (kv_ax, None), init="zeros")
+        p["bv"] = mk(f"{prefix}.bv", (nkv, hd), (kv_ax, None), init="zeros")
     return p
+
+
+def head_split(cfg: ModelConfig):
+    """``(group, kv_heads)`` of the installed mesh's split of the q heads:
+    the model-axis group, and where the kv heads do not split, the kv
+    heads this rank's q heads attend to (q head ``h`` to kv head ``h //
+    G``; a run of equal heads collapses into one, so the local group ratio
+    stays ``G`` or divides it). ``(None, None)`` without a split: no mesh,
+    one rank on ``heads``, or q heads that do not divide over it."""
+    tp = axis_size("heads")
+    if tp < 2 or cfg.padded_heads(tp) % tp:
+        return None, None
+    grp = axis_group("heads")
+    nh, nkv = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
+    if cfg.use_mla or nkv % tp == 0:
+        return grp, None
+    hq, G, r = nh // tp, nh // nkv, coll.rank(grp)
+    idx = [(r * hq + j) // G for j in range(hq)]
+    uniq = sorted(set(idx))
+    rep = hq // len(uniq)
+    if hq % len(uniq) == 0 and idx == [h for h in uniq for _ in range(rep)]:
+        return grp, uniq
+    return grp, idx
+
+
+def _pick(t: torch.Tensor, heads) -> torch.Tensor:
+    """``t [B, S, H, D]`` at the kv heads ``heads`` (all of them for
+    ``None``)."""
+    return t if heads is None else t[:, :, heads]
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -286,12 +335,17 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * hd)).view(*x.shape[:-1], h, hd)
 
 
-def _qkv(p: Dict, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None):
-    """q from ``x``; k and v from ``kv_src`` (default ``x``)."""
+def _qkv(p: Dict, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None,
+         kv_group=None):
+    """q from ``x``; k and v from ``kv_src`` (default ``x``). ``kv_group``:
+    the group over which the (replicated) kv weights' gradients are summed
+    (:func:`head_split`'s, where the kv heads do not split)."""
     src = x if kv_src is None else kv_src
-    q, k, v = _proj(x, p["wq"]), _proj(src, p["wk"]), _proj(src, p["wv"])
+    wk, wv = (coll.copy_to(p[n], kv_group) for n in ("wk", "wv"))
+    q, k, v = _proj(x, p["wq"]), _proj(src, wk), _proj(src, wv)
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        bk, bv = (coll.copy_to(p[n], kv_group) for n in ("bk", "bv"))
+        q, k, v = q + p["bq"], k + bk, v + bv
     return q, k, v
 
 
@@ -306,13 +360,19 @@ def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    use_rope: bool = True, return_cache: bool = False,
                    impl: str = "kernel"):
     """Training / prefill self-attention over a full sequence.
-    ``return_cache`` additionally returns the (roped) K and V for caching."""
-    q, k, v = _qkv(p, x)
+    ``return_cache`` additionally returns the (roped) K and V for caching.
+    Under a head split the heads are this rank's (module docstring)."""
+    grp, sel = head_split(cfg)
+    x = coll.copy_to(x, grp)
+    q, k, v = _qkv(p, x, kv_group=grp if sel is not None else None)
+    shard(q, "batch", None, "heads", full=(None, None, cfg.padded_heads(
+        axis_size("heads")), None))
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = chunked_attention(q, k, v, causal=True, window=window, impl=impl)
-    y = _out_proj(out, p["wo"])
+    out = chunked_attention(q, _pick(k, sel), _pick(v, sel), causal=True,
+                            window=window, impl=impl)
+    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
     if return_cache:
         return y, (k, v)
     return y
@@ -395,8 +455,10 @@ def decode_self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     lock-step batches, or a per-sequence ``[B]`` vector (slot-pool decode:
     each sequence ropes, writes and masks at its own position). Keys are
     roped at write time; local attention uses a ring buffer of ``window``.
-    The new K/V rows are written into ``cache`` in place."""
+    The new K/V rows are written into ``cache`` in place; under a head
+    split the heads are this rank's (module docstring)."""
     per_seq = pos.ndim == 1
+    grp, sel = head_split(cfg)
     q, k, v = _qkv(p, x)                      # [B, 1, H(kv), hd]
     if use_rope:
         if per_seq:
@@ -419,12 +481,13 @@ def decode_self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     # construction, so masking only needs "slot has been written".
     valid = torch.clamp(pos + 1, max=slots)
     scale = cfg.resolved_head_dim ** -0.5
+    ka, va = _pick(ck, sel), _pick(cv, sel)
     if impl == "dense" or per_seq:
-        out = _dense_decode_attend(q, ck, cv, valid, scale)
+        out = _dense_decode_attend(q, ka, va, valid, scale)
     else:
-        out = chunked_attention(q, ck, cv, causal=False, kv_valid_len=valid,
+        out = chunked_attention(q, ka, va, causal=False, kv_valid_len=valid,
                                 softmax_scale=scale)
-    y = _out_proj(out, p["wo"])
+    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
     return y, {"k": ck, "v": cv}
 
 
@@ -435,26 +498,32 @@ def mla_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
                tp: int = 1) -> Dict:
     d = cfg.d_model
     nh = cfg.padded_heads(tp)
+    h_ax = "heads" if tp > 1 else None
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
     return {
         # query low-rank path
-        "wq_a": mk(f"{prefix}.wq_a", (d, cfg.q_lora_rank)),
-        "q_norm": mk(f"{prefix}.q_norm", (cfg.q_lora_rank,), init="ones"),
-        "wq_b": mk(f"{prefix}.wq_b", (cfg.q_lora_rank, nh, qk)),
+        "wq_a": mk(f"{prefix}.wq_a", (d, cfg.q_lora_rank), ("dmodel", None)),
+        "q_norm": mk(f"{prefix}.q_norm", (cfg.q_lora_rank,), (None,),
+                     init="ones"),
+        "wq_b": mk(f"{prefix}.wq_b", (cfg.q_lora_rank, nh, qk),
+                   (None, h_ax, None)),
         # kv latent path (+ shared rope key)
-        "wkv_a": mk(f"{prefix}.wkv_a",
-                    (d, cfg.kv_lora_rank + cfg.qk_rope_dim)),
-        "kv_norm": mk(f"{prefix}.kv_norm", (cfg.kv_lora_rank,),
+        "wkv_a": mk(f"{prefix}.wkv_a", (d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                    ("dmodel", None)),
+        "kv_norm": mk(f"{prefix}.kv_norm", (cfg.kv_lora_rank,), (None,),
                       init="ones"),
-        "wk_b": mk(f"{prefix}.wk_b", (cfg.kv_lora_rank, nh, cfg.qk_nope_dim)),
-        "wv_b": mk(f"{prefix}.wv_b", (cfg.kv_lora_rank, nh, cfg.v_head_dim)),
-        "wo": mk(f"{prefix}.wo", (nh, cfg.v_head_dim, d)),
+        "wk_b": mk(f"{prefix}.wk_b", (cfg.kv_lora_rank, nh, cfg.qk_nope_dim),
+                   (None, h_ax, None)),
+        "wv_b": mk(f"{prefix}.wv_b", (cfg.kv_lora_rank, nh, cfg.v_head_dim),
+                   (None, h_ax, None)),
+        "wo": mk(f"{prefix}.wo", (nh, cfg.v_head_dim, d),
+                 (h_ax, None, "dmodel")),
     }
 
 
 def _mla_q(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor):
-    qa = rms_norm(x @ p["wq_a"], p["q_norm"])
+           positions: torch.Tensor, grp=None):
+    qa = coll.copy_to(rms_norm(x @ p["wq_a"], p["q_norm"]), grp)
     q = _proj(qa, p["wq_b"])
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
@@ -479,17 +548,20 @@ def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   impl: str = "kernel"):
     """Train/prefill MLA: decompress per-head K/V from the latent. On the
     card the causal attention is the flash kernel's case at head dims
-    ``(qk_nope + qk_rope, v_head_dim)``."""
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ``(qk_nope + qk_rope, v_head_dim)``. Under a head split the heads are
+    this rank's; the latent path is replicated (module docstring)."""
+    grp, _ = head_split(cfg)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, grp)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
-    k_nope = _proj(c_kv, p["wk_b"])
-    v = _proj(c_kv, p["wv_b"])
+    ck, kr = coll.copy_to(c_kv, grp), coll.copy_to(k_rope, grp)
+    k_nope = _proj(ck, p["wk_b"])
+    v = _proj(ck, p["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+    k = torch.cat([k_nope, kr[:, :, None].expand(
         *k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
     out = chunked_attention(q, k, v, causal=True,
                             softmax_scale=_mla_scale(cfg), impl=impl)
-    y = _out_proj(out, p["wo"])
+    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
     if return_cache:
         return y, (c_kv, k_rope)
     return y
@@ -512,8 +584,10 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     """Absorbed-matrix MLA decode: attention runs entirely in the latent
     space — the cache stores only (c_kv, k_rope) per token. ``pos`` is a
     0-d tensor, or a per-sequence ``[B]`` vector for slot-pool decode. The
-    new rows are written into ``cache`` in place."""
+    new rows are written into ``cache`` in place. Under a head split the
+    heads are this rank's and the latent cache is whole on every rank."""
     per_seq = pos.ndim == 1
+    grp, _ = head_split(cfg)
     if per_seq:
         posm = pos.to(torch.int32)[:, None]                  # [B, 1]
     else:
@@ -543,5 +617,5 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     a = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", a.to(ck.dtype), ck)
     out = torch.einsum("bshr,rhk->bshk", o_lat, p["wv_b"])
-    y = _out_proj(out, p["wo"])
+    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
     return y, {"c_kv": ck, "k_rope": kr}

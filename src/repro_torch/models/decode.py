@@ -38,7 +38,10 @@ from repro_torch.models import model as model_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import gated_mlp, rms_norm
+from repro_torch.models.common import (axis_size, current_mesh,
+                                       current_rules, default_rules,
+                                       gated_mlp, rms_norm)
+from repro_torch.parallel.sharding import NamedSharding
 from repro_torch.models.transformer import Runtime
 
 #: families whose decode state is a position-indexed cache, so padding past a
@@ -52,46 +55,103 @@ def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def init_decode_state(cfg: ModelConfig, rt: Runtime, batch: int,
-                      max_len: int, device=None) -> Dict:
-    """Zeroed decode state for ``batch`` sequences of up to ``max_len``
-    tokens on ``device`` (default: the card)."""
-    tfm.check_family(cfg)
-    L, dev, dt = cfg.n_layers, as_device(device), _cache_dtype(cfg)
+class CacheMaker:
+    """``mk(shape, axes, dtype)``: one leaf of the decode state at its
+    global ``shape`` with logical ``axes``. ``mode`` ``"array"``: zeros of
+    this rank's shard (the shard the installed rules and mesh give the
+    leaf; all of it without a mesh) on ``device``; ``"spec"``: the leaf's
+    PartitionSpec under ``rules``; ``"meta"``: a ``meta`` tensor of the
+    global shape."""
+
+    def __init__(self, mode: str, device=None, rules=None):
+        self.mode, self.device = mode, device
+        self.rules = rules or default_rules()
+
+    def __call__(self, shape, axes, dtype):
+        if self.mode == "spec":
+            return self.rules.mesh_axes(axes)
+        if self.mode == "meta":
+            return torch.empty(shape, dtype=dtype, device="meta")
+        mesh, rules = current_mesh(), current_rules()
+        if mesh is not None and rules is not None:
+            shape = NamedSharding(mesh, rules.mesh_axes(axes)).local_shape(
+                shape)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+
+def _kv_axes(cfg: ModelConfig, rt: Runtime):
+    nkv = cfg.padded_kv_heads(rt.tp)
+    kv_ax = "kv_heads" if (rt.tp > 1 and nkv % rt.tp == 0) else None
+    return nkv, kv_ax
+
+
+def _build_state(mk: CacheMaker, cfg: ModelConfig, rt: Runtime, B: int,
+                 M: int) -> Dict:
+    """The decode state of ``B`` sequences of up to ``M`` tokens, each
+    leaf made by ``mk`` (module docstring for the layout)."""
+    L, dt = cfg.n_layers, _cache_dtype(cfg)
     hd = cfg.resolved_head_dim
+    nkv, kv_ax = _kv_axes(cfg, rt)
     if cfg.family == "hybrid":
-        win = min(cfg.local_window, max_len)
-        kv = (batch, win, cfg.padded_kv_heads(rt.tp), hd)
+        win = min(cfg.local_window, M)
+        w = cfg.lru_width or cfg.d_model
+        K = rglru_mod.CONV_K
+        kv = ((B, win, nkv, hd), ("batch", None, kv_ax, None), dt)
         return {"layers": [
-            {"k": torch.zeros(kv, dtype=dt, device=dev),
-             "v": torch.zeros(kv, dtype=dt, device=dev)}
-            if kind == "attn" else
-            rglru_mod.init_rglru_cache(cfg, batch, dtype=dt, device=dev)
+            {"k": mk(*kv), "v": mk(*kv)} if kind == "attn" else
+            {"h": mk((B, w), ("batch", "lru"), torch.float32),
+             "conv": mk((B, K - 1, w), ("batch", None, "lru"), dt)}
             for kind in tfm.hybrid_kinds(cfg)]}
     if cfg.family == "ssm":
         d_in, H, shd, ds = ssm_mod.ssm_dims(cfg)
         C = d_in + 2 * cfg.ssm_n_groups * ds
         return {"layers": {
-            "h": torch.zeros((L, batch, H, shd, ds), dtype=torch.float32,
-                             device=dev),
-            "conv": torch.zeros((L, batch, cfg.ssm_conv_kernel - 1, C),
-                                dtype=dt, device=dev)}}
+            "h": mk((L, B, H, shd, ds), (None, "batch", "heads", None, None),
+                    torch.float32),
+            "conv": mk((L, B, cfg.ssm_conv_kernel - 1, C),
+                       (None, "batch", None, "lru"), dt)}}
     if cfg.family in ("vlm", "encdec"):
-        kv = (L, batch, max_len, cfg.padded_kv_heads(rt.tp), hd)
         n_cross = (L // cfg.cross_attn_every if cfg.family == "vlm" else L)
-        mem = (n_cross, batch, cfg.frontend_seq,
-               cfg.padded_kv_heads(rt.tp), hd)
-        return {part: {name: torch.zeros(shape, dtype=dt, device=dev)
-                       for name in ("k", "v")}
-                for part, shape in (("self", kv), ("cross", mem))}
+        parts = {"self": ((L, B, M, nkv, hd),
+                          (None, "batch", None, kv_ax, None)),
+                 "cross": ((n_cross, B, cfg.frontend_seq, nkv, hd),
+                           (None, "batch", None, kv_ax, None))}
+        return {part: {name: mk(shape, axes, dt) for name in ("k", "v")}
+                for part, (shape, axes) in parts.items()}
     if cfg.use_mla:
-        shapes = {"c_kv": (L, batch, max_len, cfg.kv_lora_rank),
-                  "k_rope": (L, batch, max_len, cfg.qk_rope_dim)}
-    else:
-        kv = (L, batch, max_len, cfg.padded_kv_heads(rt.tp), hd)
-        shapes = {"k": kv, "v": kv}
-    return {"layers": {name: torch.zeros(shape, dtype=dt, device=dev)
-                       for name, shape in shapes.items()}}
+        leaves = {"c_kv": (L, B, M, cfg.kv_lora_rank),
+                  "k_rope": (L, B, M, cfg.qk_rope_dim)}
+        return {"layers": {name: mk(shape, (None, "batch", None, None), dt)
+                           for name, shape in leaves.items()}}
+    kv = ((L, B, M, nkv, hd), (None, "batch", None, kv_ax, None), dt)
+    return {"layers": {"k": mk(*kv), "v": mk(*kv)}}
+
+
+def init_decode_state(cfg: ModelConfig, rt: Runtime, batch: int,
+                      max_len: int, device=None) -> Dict:
+    """Zeroed decode state for ``batch`` sequences of up to ``max_len``
+    tokens on ``device`` (default: the card). Under a sharding context
+    ``batch`` is the global batch and each leaf is this rank's shard."""
+    tfm.check_family(cfg)
+    return _build_state(CacheMaker("array", as_device(device)), cfg, rt,
+                        batch, max_len)
+
+
+def decode_state_specs(cfg: ModelConfig, rt: Runtime, batch: int,
+                       max_len: int, rules=None) -> Dict:
+    """The PartitionSpec of every leaf of :func:`init_decode_state`'s
+    state, in the same structure."""
+    tfm.check_family(cfg)
+    return _build_state(CacheMaker("spec", rules=rules), cfg, rt, batch,
+                        max_len)
+
+
+def abstract_decode_state(cfg: ModelConfig, rt: Runtime, batch: int,
+                          max_len: int) -> Dict:
+    """:func:`init_decode_state`'s state as ``meta`` tensors of the global
+    shapes."""
+    tfm.check_family(cfg)
+    return _build_state(CacheMaker("meta"), cfg, rt, batch, max_len)
 
 
 def _pad_to(x: torch.Tensor, M: int, axis: int) -> torch.Tensor:
@@ -164,8 +224,16 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     keeps positions < length clean; the pad rows the cache still holds are
     masked later by per-sequence decode positions). Only meaningful for
     :data:`CAUSAL_CACHE_FAMILIES`: the recurrent families raise
-    ``ValueError``."""
-    tfm.check_family(cfg)
+    ``ValueError``. Under a mesh the batch, the state and the parameters
+    are this rank's shards, and the logits are whole over the vocab."""
+    with tfm.runtime_ctx(rt):
+        return _prefill(cfg, rt, p, batch, max_len, lengths)
+
+
+def _prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
+             max_len: int, lengths: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict]:
+    tfm.check_tp_family(cfg)
     if lengths is not None and cfg.family not in CAUSAL_CACHE_FAMILIES:
         raise ValueError(
             f"per-sequence prefill lengths need a position-indexed "
@@ -175,7 +243,8 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     B, S = tokens.shape
     x = model_mod.embed(p, cfg, tokens)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
-    state = init_decode_state(cfg, rt, B, max_len, device=x.device)
+    state = init_decode_state(cfg, rt, B * axis_size("batch"), max_len,
+                              device=x.device)
 
     if cfg.family == "vlm":
         memory, k_in = batch["frontend"], cfg.cross_attn_every
@@ -268,7 +337,13 @@ def decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
     (:data:`CAUSAL_CACHE_FAMILIES` only: the recurrent families have no
     position to index). Returns (logits [B,1,V], state), the state updated
     in place."""
-    tfm.check_family(cfg)
+    with tfm.runtime_ctx(rt):
+        return _decode_step(cfg, rt, p, token, pos, state)
+
+
+def _decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
+                 pos: torch.Tensor, state: Dict) -> Tuple[torch.Tensor, Dict]:
+    tfm.check_tp_family(cfg)
     x = model_mod.embed(p, cfg, token)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     if cfg.family in ("vlm", "encdec"):

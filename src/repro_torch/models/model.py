@@ -29,6 +29,17 @@ decoder layers that also hold ``ln_x`` and ``xattn``. Those two families
 read ``batch["frontend"] [B, F, d]``, the precomputed patch or frame
 embeddings. Logits span the padded vocab, as in the reference; callers
 slice ``[..., :vocab_size]``.
+
+Under a mesh (``Runtime.mesh``, or :func:`~repro_torch.models.common.
+sharding_ctx`) each rank holds the shards :func:`param_specs` gives it and
+the entry points run on them: the embedding and the unembedding split the
+padded vocab over ``model`` (a token outside this rank's rows embeds to
+zero and the ranks' rows are summed; the loss reduces the max, the sum of
+exponentials and the target logit over ``model``; serving's logits are
+gathered whole), the layers split their heads, ffn columns and experts
+(:mod:`~repro_torch.models.attention`, :mod:`~repro_torch.models.moe`),
+and the loss's numerator and label count are summed over the batch's ranks,
+so every rank holds the loss of the whole batch.
 """
 from __future__ import annotations
 
@@ -41,8 +52,10 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import as_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import ParamMaker, rms_norm
-from repro_torch.models.transformer import Runtime
+from repro_torch.models.common import (ParamMaker, ShardingRules, axis_group,
+                                       default_rules, rms_norm, shard)
+from repro_torch.models.transformer import Runtime, runtime_ctx
+from repro_torch.parallel import collectives as coll
 
 CE_CHUNK = 512
 
@@ -52,11 +65,12 @@ def _build(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
     V = cfg.padded_vocab(rt.tp)
     d = cfg.d_model
     p: Dict[str, Any] = {
-        "emb": mk("emb", (V, d), scale=0.02),
-        "ln_f": mk("ln_f", (d,), init="ones"),
+        "emb": mk("emb", (V, d), ("vocab", "dmodel"), scale=0.02),
+        "ln_f": mk("ln_f", (d,), (None,), init="ones"),
     }
     if not cfg.tie_embeddings:
-        p["unemb"] = mk("unemb", (d, V), scale=d ** -0.5)
+        p["unemb"] = mk("unemb", (d, V), ("dmodel", "vocab"),
+                        scale=d ** -0.5)
     if cfg.family == "ssm":
         p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers, "ssm")
     elif cfg.family == "hybrid":
@@ -72,9 +86,9 @@ def _build(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
         p["layers"] = tfm.trunk_params(mk, cfg, rt, cfg.n_layers, "decoder")
     if cfg.mtp_depth:
         p["mtp"] = {
-            "ln_h": mk("mtp.ln_h", (d,), init="ones"),
-            "ln_e": mk("mtp.ln_e", (d,), init="ones"),
-            "w_proj": mk("mtp.w_proj", (2 * d, d)),
+            "ln_h": mk("mtp.ln_h", (d,), (None,), init="ones"),
+            "ln_e": mk("mtp.ln_e", (d,), (None,), init="ones"),
+            "w_proj": mk("mtp.w_proj", (2 * d, d), (None, "dmodel")),
             "block": tfm.decoder_layer_params(mk, cfg, rt),
         }
     return p
@@ -82,28 +96,58 @@ def _build(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
 
 def init_params(cfg: ModelConfig, rt: Runtime,
                 generator: Optional[torch.Generator] = None,
-                device=None, seed: int = 0) -> Dict:
+                device=None, seed: int = 0,
+                rules: Optional[ShardingRules] = None) -> Dict:
     """Random parameters in ``cfg.dtype`` on ``device`` (default: the
-    card), drawn from ``generator`` (default: a generator on ``device``
-    seeded with ``seed``). The reference also returns a PartitionSpec tree;
-    one card has no mesh, so the port returns the parameters alone."""
-    dev = as_device(device)
-    if generator is None:
+    mesh's device under ``rt.mesh``, else the card), drawn from
+    ``generator`` (default: a generator on ``device`` seeded with
+    ``seed``). Under ``rt.mesh`` each leaf is drawn whole and this rank
+    keeps its shard under ``rules`` (default: :func:`default_rules` of the
+    mesh), so every mesh cuts the same parameters from one seed. The
+    reference also returns the PartitionSpec tree; here that is
+    :func:`param_specs`. On the ``meta`` device nothing is drawn."""
+    mesh = rt.mesh
+    dev = as_device(device if device is not None or mesh is None
+                    else mesh.device)
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-    return _build(ParamMaker(generator, cfg.dtype, dev), cfg, rt)
+    if mesh is not None and rules is None:
+        rules = default_rules("pod" in mesh.axis_names)
+    return _build(ParamMaker(generator, cfg.dtype, dev, rules=rules,
+                             mesh=mesh), cfg, rt)
+
+
+def param_specs(cfg: ModelConfig, rt: Runtime,
+                rules: Optional[ShardingRules] = None) -> Dict:
+    """The PartitionSpec of every leaf of :func:`init_params`' tree, in the
+    same structure, under ``rules`` (default: :func:`default_rules`)."""
+    return _build(ParamMaker(None, cfg.dtype, spec_mode=True,
+                             rules=rules or default_rules()), cfg, rt)
 
 
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 def embed(p: Dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["emb"][tokens.long()]
+    """The tokens' rows of ``emb``; under a vocab split over ``model``,
+    each rank looks up the tokens of its own rows and the ranks' rows are
+    summed."""
+    grp = axis_group("vocab")
+    if grp is None:
+        x = p["emb"][tokens.long()]
+    else:
+        rows = p["emb"].shape[0]
+        t = tokens.long() - coll.rank(grp) * rows
+        mine = (t >= 0) & (t < rows)
+        x = p["emb"][torch.where(mine, t, 0)].masked_fill(
+            ~mine[..., None], 0)
+        x = coll.reduce_from(x, grp)
     if cfg.family == "hybrid":
         # gemma-style embedding scale, rounded to the embedding dtype first
         # as the reference does (sqrt(2560) = 50.596 is 50.5 in bf16)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
-    return x
+    return shard(x, "batch", None, None, full=(None, None, cfg.d_model))
 
 
 def _unemb_w(p: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -111,18 +155,35 @@ def _unemb_w(p: Dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def logits_fn(p: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, p["ln_f"], cfg.norm_eps)
-    return h @ _unemb_w(p, cfg)
+    """Logits over the padded vocab (gathered whole under a vocab
+    split)."""
+    grp = axis_group("vocab")
+    h = coll.copy_to(rms_norm(h, p["ln_f"], cfg.norm_eps), grp)
+    return coll.gather_from(h @ _unemb_w(p, cfg), -1, grp)
 
 
-def _ce_chunk(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor):
+def _ce_chunk(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor,
+              grp=None):
     """(sum of the NLL over the valid labels, their count) of one chunk;
     the gold logit gathered, which is the reference's one-hot contraction
-    exactly."""
+    exactly. Under a vocab split (``grp``, ``w`` this rank's columns) the
+    max, the sum of exponentials and the gold logit are reduced over the
+    ranks."""
     logits = (hc @ w).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    lab = torch.clamp(lc, min=0).long()
+    if grp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    else:
+        cols = logits.shape[-1]
+        m = coll.all_reduce(logits.detach().amax(dim=-1), grp, op="max")
+        se = coll.reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1),
+                              grp)
+        lse = m + torch.log(se)
+        t = lab - coll.rank(grp) * cols
+        mine = (t >= 0) & (t < cols)
+        gold = torch.gather(logits, -1, torch.where(mine, t, 0)[..., None])
+        gold = coll.reduce_from(gold[..., 0].masked_fill(~mine, 0.0), grp)
     mask = (lc >= 0).float()
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
@@ -132,9 +193,12 @@ def lm_loss(p: Dict, cfg: ModelConfig, h: torch.Tensor,
     """Chunked cross-entropy over the padded vocab: chunks of
     :data:`CE_CHUNK` tokens (halved until they divide S), each chunk's
     logits recomputed in the backward (``torch.utils.checkpoint``), so
-    ``[B, S, V]`` is never materialised whole."""
+    ``[B, S, V]`` is never materialised whole. Under a mesh the sums run
+    over the vocab's ranks (:func:`_ce_chunk`) and the batch's, so the
+    mean is the whole batch's."""
     S = h.shape[1]
-    h = rms_norm(h, p["ln_f"], cfg.norm_eps)
+    grp = axis_group("vocab")
+    h = coll.copy_to(rms_norm(h, p["ln_f"], cfg.norm_eps), grp)
     w = _unemb_w(p, cfg)
     c = CE_CHUNK
     while S % c:
@@ -142,8 +206,11 @@ def lm_loss(p: Dict, cfg: ModelConfig, h: torch.Tensor,
     tot = cnt = 0.0
     for i in range(0, S, c):
         t, n = ckpt.checkpoint(_ce_chunk, h[:, i:i + c], labels[:, i:i + c],
-                               w, use_reentrant=False)
+                               w, grp, use_reentrant=False)
         tot, cnt = tot + t, cnt + n
+    bgrp = axis_group("batch")
+    if bgrp is not None:
+        tot, cnt = coll.reduce_both(tot, bgrp), coll.all_reduce(cnt, bgrp)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -158,7 +225,7 @@ def trunk_hidden(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
                  inputs: Optional[torch.Tensor] = None):
     """Returns (hidden, aux_loss, inputs). ``inputs`` defaults to the
     teacher-forcing slice tokens[:, :-1]."""
-    tfm.check_family(cfg)
+    tfm.check_tp_family(cfg)
     tokens = batch["tokens"]
     if inputs is None:
         inputs = tokens[:, :-1]
@@ -197,7 +264,14 @@ def loss_fn(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict
     """``(total, metrics)``: total = CE + ``router_aux_coef`` * aux, plus
     ``rt.mtp_coef`` times the multi-token-prediction loss for a config with
     ``mtp_depth``; metrics ``ce``, ``aux``, ``mtp`` (where there is one) and
-    ``loss``, each a 0-d tensor. ``batch["tokens"]`` is ``[B, S + 1]``."""
+    ``loss``, each a 0-d tensor. ``batch["tokens"]`` is ``[B, S + 1]``
+    (under a mesh: this rank's rows)."""
+    with runtime_ctx(rt):
+        return _loss_fn(cfg, rt, p, batch)
+
+
+def _loss_fn(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict
+             ) -> Tuple[torch.Tensor, Dict]:
     tokens = batch["tokens"]
     labels = tokens[:, 1:]
     h, aux, inputs = trunk_hidden(cfg, rt, p, batch)
@@ -227,5 +301,6 @@ def loss_fn(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict
 def forward_logits(cfg: ModelConfig, rt: Runtime, p: Dict,
                    batch: Dict) -> torch.Tensor:
     """Full-sequence logits (small configs / tests only)."""
-    h, _, _ = trunk_hidden(cfg, rt, p, batch)
-    return logits_fn(p, cfg, h)
+    with runtime_ctx(rt):
+        h, _, _ = trunk_hidden(cfg, rt, p, batch)
+        return logits_fn(p, cfg, h)

@@ -30,16 +30,16 @@ def rglru_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
                  tp: int = 1) -> Dict:
     d, w = cfg.d_model, cfg.lru_width or cfg.d_model
     return {
-        "w_x": mk(f"{prefix}.w_x", (d, w)),
-        "w_gate": mk(f"{prefix}.w_gate", (d, w)),
-        "conv_w": mk(f"{prefix}.conv_w", (CONV_K, w), scale=0.5),
-        "conv_b": mk(f"{prefix}.conv_b", (w,), init="zeros"),
-        "w_a": mk(f"{prefix}.w_a", (w, w), scale=0.02),
-        "b_a": mk(f"{prefix}.b_a", (w,), init="zeros"),
-        "w_i": mk(f"{prefix}.w_i", (w, w), scale=0.02),
-        "b_i": mk(f"{prefix}.b_i", (w,), init="zeros"),
-        "lam": mk(f"{prefix}.lam", (w,), init="ones"),
-        "w_out": mk(f"{prefix}.w_out", (w, d)),
+        "w_x": mk(f"{prefix}.w_x", (d, w), ("dmodel", "lru")),
+        "w_gate": mk(f"{prefix}.w_gate", (d, w), ("dmodel", "lru")),
+        "conv_w": mk(f"{prefix}.conv_w", (CONV_K, w), (None, "lru"), scale=0.5),
+        "conv_b": mk(f"{prefix}.conv_b", (w,), ("lru",), init="zeros"),
+        "w_a": mk(f"{prefix}.w_a", (w, w), ("lru", None), scale=0.02),
+        "b_a": mk(f"{prefix}.b_a", (w,), (None,), init="zeros"),
+        "w_i": mk(f"{prefix}.w_i", (w, w), ("lru", None), scale=0.02),
+        "b_i": mk(f"{prefix}.b_i", (w,), (None,), init="zeros"),
+        "lam": mk(f"{prefix}.lam", (w,), (None,), init="ones"),
+        "w_out": mk(f"{prefix}.w_out", (w, d), ("lru", "dmodel")),
     }
 
 

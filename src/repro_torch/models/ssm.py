@@ -43,15 +43,16 @@ def ssm_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
     conv_dim = d_in + 2 * G * ds
     return {
         # fused input projection: [z (gate), x, B, C, dt]
-        "w_in": mk(f"{prefix}.w_in", (d, 2 * d_in + 2 * G * ds + nheads)),
+        "w_in": mk(f"{prefix}.w_in", (d, 2 * d_in + 2 * G * ds + nheads),
+                   ("dmodel", "lru")),
         "conv_w": mk(f"{prefix}.conv_w", (cfg.ssm_conv_kernel, conv_dim),
-                     scale=0.5),
-        "conv_b": mk(f"{prefix}.conv_b", (conv_dim,), init="zeros"),
-        "A_log": mk(f"{prefix}.A_log", (nheads,), init="zeros"),
-        "D": mk(f"{prefix}.D", (nheads,), init="ones"),
-        "dt_bias": mk(f"{prefix}.dt_bias", (nheads,), init="zeros"),
-        "norm_g": mk(f"{prefix}.norm_g", (d_in,), init="ones"),
-        "w_out": mk(f"{prefix}.w_out", (d_in, d)),
+                     (None, "lru"), scale=0.5),
+        "conv_b": mk(f"{prefix}.conv_b", (conv_dim,), ("lru",), init="zeros"),
+        "A_log": mk(f"{prefix}.A_log", (nheads,), ("lru",), init="zeros"),
+        "D": mk(f"{prefix}.D", (nheads,), ("lru",), init="ones"),
+        "dt_bias": mk(f"{prefix}.dt_bias", (nheads,), ("lru",), init="zeros"),
+        "norm_g": mk(f"{prefix}.norm_g", (d_in,), ("lru",), init="ones"),
+        "w_out": mk(f"{prefix}.w_out", (d_in, d), ("lru", "dmodel")),
     }
 
 

@@ -24,9 +24,10 @@ recomputed).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -36,8 +37,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamMaker, apply_rope, gated_mlp,
-                                       gated_mlp_params, rms_norm)
+from repro_torch.models.common import (ParamMaker, apply_rope, axis_size,
+                                       current_mesh, default_rules,
+                                       gated_mlp, gated_mlp_params, rms_norm,
+                                       sharding_ctx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,18 +52,48 @@ class Runtime:
     the kernel's case on the card to the hand-written kernel, ``"plain"``
     keeps it on the plain chunked loops. While autograd records, attention
     takes the differentiable route whatever ``attn_impl`` says
-    (:func:`repro_torch.models.attention.chunked_attention`)."""
+    (:func:`repro_torch.models.attention.chunked_attention`).
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) and ``batch_axes``
+    place the model on several ranks: ``tp`` is the mesh's ``model`` size,
+    the parameters are this rank's shards (``model.param_specs``), and the
+    batch is split over ``batch_axes``. The ``moe_*`` knobs belong to the
+    expert-parallel path (``moe_impl="ep"``)."""
     tp: int = 1
-    moe_impl: str = "local"       # dense | local
+    mesh: Optional[Any] = None
+    batch_axes: Tuple[str, ...] = ("data",)
+    moe_impl: str = "local"       # dense | local | ep
     remat: str = "none"           # none | full | dots
     mtp_coef: float = 0.1
     decode_impl: str = "chunked"  # chunked | dense (single einsum)
+    moe_dispatch_dtype: str = "bfloat16"  # bfloat16 | f8 (fp8 dispatch)
+    moe_capacity_factor: float = 1.25
+    moe_ep2d_decode: bool = False  # 2D expert sharding for decode
     attn_impl: str = "kernel"     # kernel | plain
+
+
+def runtime_ctx(rt: Runtime):
+    """The sharding context the model's entry points run in: with
+    ``rt.mesh`` and none installed, ``rt.mesh`` under the default rules of
+    its axes; else the installed one (or none). ``rt.tp`` must be the
+    mesh's ``model`` size, which the parameters' shapes were built for."""
+    mesh = current_mesh() or rt.mesh
+    if mesh is not None and mesh.shape.get("model", 1) != rt.tp:
+        raise ValueError(f"Runtime(tp={rt.tp}) on a mesh of "
+                         f"model={mesh.shape.get('model', 1)}")
+    if rt.mesh is None or current_mesh() is not None:
+        return contextlib.nullcontext()
+    return sharding_ctx(default_rules("pod" in rt.mesh.axis_names), rt.mesh)
 
 
 #: the families the port serves: dense and MoE (GQA or MLA attention), SSM,
 #: hybrid RG-LRU, VLM and enc-dec
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+
+
+#: the families whose forward runs with the heads / ffn / experts / vocab
+#: split over a mesh's model axis (tp > 1)
+TP_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -69,6 +102,19 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; the families are "
                          f"{FAMILIES}")
+
+
+def check_tp_family(cfg: ModelConfig) -> None:
+    """:func:`check_family`, and ``NotImplementedError`` for a family
+    outside :data:`TP_FAMILIES` run under a mesh whose model axis has two
+    or more ranks (the forward entry points call it)."""
+    check_family(cfg)
+    if cfg.family not in TP_FAMILIES and axis_size("heads") > 1:
+        raise NotImplementedError(
+            f"the {cfg.family} family's forward at tp > 1 is ROADMAP queue "
+            f"A item 8 (the SSM, RG-LRU, VLM and enc-dec forwards split "
+            f"over a mesh's model axis); its param_specs are there, and it "
+            f"runs data-parallel at tp = 1")
 
 
 #: the products whose outputs ``remat="dots"`` keeps: 2-D matrix products,
@@ -107,8 +153,8 @@ def decoder_layer_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime,
     """One decoder layer; ``cross`` adds the enc-dec decoder's
     cross-attention (``ln_x``, ``xattn``)."""
     check_family(cfg)
-    p = {"ln1": mk("ln1", (cfg.d_model,), init="ones"),
-         "ln2": mk("ln2", (cfg.d_model,), init="ones")}
+    p = {"ln1": mk("ln1", (cfg.d_model,), (None,), init="ones"),
+         "ln2": mk("ln2", (cfg.d_model,), (None,), init="ones")}
     if cfg.use_mla:
         p["attn"] = attn.mla_params(mk, "attn", cfg, rt.tp)
     else:
@@ -118,7 +164,7 @@ def decoder_layer_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime,
     else:
         p["mlp"] = gated_mlp_params(mk, "mlp", cfg.d_model, cfg.d_ff)
     if cross:
-        p["ln_x"] = mk("ln_x", (cfg.d_model,), init="ones")
+        p["ln_x"] = mk("ln_x", (cfg.d_model,), (None,), init="ones")
         p["xattn"] = attn.attention_params(mk, "xattn", cfg, rt.tp,
                                            cross=True)
     return p
@@ -139,8 +185,11 @@ def _ffn(p, cfg: ModelConfig, rt: Runtime, x, decode: bool = False
     loss is a 0-d tensor; a dense FFN's is 0.0."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        return moe_mod.moe_block(p["mlp"], cfg, h, impl=rt.moe_impl,
-                                 decode=decode)
+        return moe_mod.moe_block(
+            p["mlp"], cfg, h, impl=rt.moe_impl,
+            mesh=current_mesh() or rt.mesh, batch_axes=rt.batch_axes,
+            decode=decode, dispatch_dtype=rt.moe_dispatch_dtype,
+            capacity_factor=rt.moe_capacity_factor, ep2d=rt.moe_ep2d_decode)
     return gated_mlp(p["mlp"], h, cfg.act), 0.0
 
 
@@ -159,7 +208,7 @@ def decoder_layer(p, cfg: ModelConfig, rt: Runtime, x, positions,
 # Homogeneous trunks (dense / moe decoder, ssm)
 # ---------------------------------------------------------------------------
 def _ssm_layer_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
-    return {"ln1": mk("ln1", (cfg.d_model,), init="ones"),
+    return {"ln1": mk("ln1", (cfg.d_model,), (None,), init="ones"),
             "ssm": ssm_mod.ssm_params(mk, "ssm", cfg, rt.tp)}
 
 
@@ -238,8 +287,8 @@ def hybrid_kinds(cfg: ModelConfig) -> List[str]:
 
 def _rg_block_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime,
                      kind: str) -> Dict:
-    p = {"ln1": mk("ln1", (cfg.d_model,), init="ones"),
-         "ln2": mk("ln2", (cfg.d_model,), init="ones"),
+    p = {"ln1": mk("ln1", (cfg.d_model,), (None,), init="ones"),
+         "ln2": mk("ln2", (cfg.d_model,), (None,), init="ones"),
          "mlp": gated_mlp_params(mk, "mlp", cfg.d_model, cfg.d_ff)}
     if kind == "attn":
         p["attn"] = attn.attention_params(mk, "attn", cfg, rt.tp)
@@ -296,12 +345,12 @@ def vlm_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
     ``mlp``."""
     n_groups = cfg.n_layers // cfg.cross_attn_every
     d = cfg.d_model
-    cross = [{"ln_x": mk("ln_x", (d,), init="ones"),
-              "ln_m": mk("ln_m", (d,), init="ones"),
+    cross = [{"ln_x": mk("ln_x", (d,), (None,), init="ones"),
+              "ln_m": mk("ln_m", (d,), (None,), init="ones"),
               "xattn": attn.attention_params(mk, "xattn", cfg, rt.tp,
                                              cross=True),
-              "gate_a": mk("gate_a", (1,), init="zeros"),
-              "gate_m": mk("gate_m", (1,), init="zeros"),
+              "gate_a": mk("gate_a", (1,), (None,), init="zeros"),
+              "gate_m": mk("gate_m", (1,), (None,), init="zeros"),
               "mlp": gated_mlp_params(mk, "xmlp", d, cfg.d_ff)}
              for _ in range(n_groups)]
     return {"self": trunk_params(mk, cfg, rt,

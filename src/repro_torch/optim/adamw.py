@@ -3,15 +3,16 @@ clipping, warmup + cosine schedule, decoupled weight decay on matrices.
 
 Parameters, gradients and moments are trees of tensors (nested dicts and
 lists, :mod:`repro_torch.tree`). The update is out of place: it returns new
-trees and leaves its inputs as they were, as the reference's does. The
-reference's ``opt_state_specs`` (moment shardings over a mesh) belongs to
-the multi-device half of ROADMAP queue A item 6.
+trees and leaves its inputs as they were, as the reference's does. On a
+ZeRO-1 shard (:func:`repro_torch.launch.steps.make_train_step`) the trees
+are this rank's shards and the caller hands over the global gradient norm;
+the update itself is elementwise.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -57,19 +58,28 @@ def init_opt_state(params: Any, moment_dtype: str = "float32") -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_specs(param_specs: Any) -> Dict:
+    """The moments' specs are the parameters' (``zero1_specs`` shards them
+    further); ``step`` is replicated."""
+    from repro_torch.parallel.sharding import P
+    return {"m": param_specs, "v": param_specs, "step": P()}
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """The 2-norm of every leaf together, summed in f32."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree_leaves(tree)))
 
 
-def apply_updates(params: Any, grads: Any, opt: Dict, cfg: OptConfig
+def apply_updates(params: Any, grads: Any, opt: Dict, cfg: OptConfig, *,
+                  grad_norm: Optional[torch.Tensor] = None
                   ) -> Tuple[Any, Dict, Dict]:
     """One AdamW step. Returns (new_params, new_opt_state, metrics) with
     metrics ``grad_norm`` and ``lr`` (0-d f32 tensors); the inputs are not
-    changed."""
+    changed. ``grad_norm``: the norm to clip by, where ``grads`` is a shard
+    of the gradient (default: ``global_norm(grads)``)."""
     step = opt["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_schedule(cfg, step)

@@ -10,17 +10,21 @@ single-device run does.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor absmax int8. Returns (q int8, scale f32 0-d)."""
+def quantize_int8(g: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor absmax int8 (``absmax``: the whole tensor's, where ``g``
+    is a shard of it). Returns (q int8, scale f32 0-d)."""
     gf = g.float()
-    scale = torch.max(torch.abs(gf)) / 127.0 + 1e-12
+    if absmax is None:
+        absmax = torch.max(torch.abs(gf))
+    scale = absmax / 127.0 + 1e-12
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -35,16 +39,20 @@ def init_error_state(params: Any) -> Any:
                                           device=p.device), params)
 
 
-def compress_grads(grads: Any, error: Any) -> Tuple[Any, Any]:
+def compress_grads(grads: Any, error: Any, absmax: Any = None
+                   ) -> Tuple[Any, Any]:
     """Error-feedback compression: g_eff = Q(g + e); e' = (g + e) - g_eff.
-    Returns (compressed-and-dequantized grads, new error state)."""
-    def one(g, e):
+    ``absmax``: a tree of each leaf's ``max |g + e|`` over the whole tensor,
+    where the leaves are shards of it (tensor parallelism). Returns
+    (compressed-and-dequantized grads, new error state)."""
+    def one(g, e, m=None):
         acc = g.float() + e
-        q, scale = quantize_int8(acc)
+        q, scale = quantize_int8(acc, m)
         deq = dequantize(q, scale)
         return deq.to(g.dtype), acc - deq
 
-    out = tree_map(one, grads, error)
+    out = (tree_map(one, grads, error) if absmax is None
+           else tree_map(one, grads, error, absmax))
     return (tree_map(lambda _, o: o[0], grads, out),
             tree_map(lambda _, o: o[1], grads, out))
 

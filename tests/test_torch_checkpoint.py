@@ -23,6 +23,7 @@ from repro.models.transformer import Runtime as RefRuntime
 from repro.optim import adamw as ref_adamw
 from repro_torch import convert
 from repro_torch.checkpoint import Checkpointer, latest_step, restore, save
+from repro_torch.checkpoint.checkpointer import saved_dtypes
 from repro_torch.configs import SHAPES_BY_NAME, get_config
 from repro_torch.launch.train import TrainConfig, Trainer
 from repro_torch.models.transformer import Runtime
@@ -104,8 +105,22 @@ def test_restore_takes_the_dtype_of_like(tmp_path):
     out = restore(tmp_path, 1, {"w": torch.zeros(2)})
     assert out["w"].dtype == torch.float32
     assert out["w"].tolist() == [1.5, -2.0]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        restore(tmp_path, 1, {"w": torch.zeros(2)}, shardings={"w": None})
+    # a None sharding places the leaf as ``like`` does (the sharded
+    # restore runs in tests/test_torch_distributed.py)
+    out = restore(tmp_path, 1, {"w": torch.zeros(2)}, shardings={"w": None})
+    assert out["w"].dtype == torch.float32
+    assert out["w"].tolist() == [1.5, -2.0]
+
+
+def test_saved_dtypes_reads_each_leaf_dtype(tmp_path):
+    """saved_dtypes gives every leaf's dtype as written, bf16 included,
+    without loading the arrays (elastic restore reads the moments')."""
+    save(tmp_path, 2, {"p": {"w": torch.zeros(3, 2)},
+                       "m": [torch.zeros(4).bfloat16()],
+                       "step": torch.zeros((), dtype=torch.int32)})
+    assert saved_dtypes(tmp_path, 2) == {"p/w": torch.float32,
+                                         "m/0": torch.bfloat16,
+                                         "step": torch.int32}
 
 
 def test_a_failed_background_save_raises_from_wait(tmp_path):

@@ -1,0 +1,446 @@
+"""The multi-rank half of tests/test_torch_distributed.py (no tests of its
+own): eight gloo ranks on the CPU, a (data=2, model=4) mesh (and a (4, 2)
+one for the serving case), started with torch.multiprocessing.
+
+    python tests/test_torch_distributed_worker.py WORKDIR
+
+reads ``WORKDIR/case_<name>.npz`` (the reference's parameters and inputs,
+written by the test), runs every case on the port twice — on one device
+(no mesh) and on the 2 x 4 mesh — and rank 0 writes ``WORKDIR/out.npz``:
+per case the losses (or logits) of both runs and every gradient leaf of
+both, the mesh's gathered whole. This module imports torch and the port
+only (no jax), so the eight ranks start light.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "..", "src"))
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint import restore, save  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.elastic import elastic_restore, shrink_mesh  # noqa
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.common import ShardingRules, default_rules  # noqa
+from repro_torch.models.transformer import Runtime  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.optim.compression import init_error_state  # noqa: E402
+from repro_torch.parallel import collectives as coll  # noqa: E402
+from repro_torch.parallel.sharding import (NamedSharding,  # noqa: E402
+                                           named_sharding_tree)
+from repro_torch.tree import (leaves_with_paths, tree_leaves,  # noqa: E402
+                              tree_map)
+
+WORLD, DATA, MODEL = 8, 2, 4
+#: the reference's multi-device tests inflate the capacity (no drops), so
+#: the expert-parallel and the single-device dispatch keep the same pairs
+CAPACITY = 8.0
+LR = 1e-3
+
+
+def reduced(arch):
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+
+
+def unflatten(flat: dict) -> dict:
+    """{"a/b/c": array} -> nested dicts."""
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def load(workdir, name):
+    with np.load(os.path.join(workdir, f"case_{name}.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    params = unflatten({k[len("params/"):]: v for k, v in flat.items()
+                        if k.startswith("params/")})
+    rest = {k: torch.from_numpy(v) for k, v in flat.items()
+            if not k.startswith("params/")}
+    return params, rest
+
+
+def rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """this rank's rows of a global batch tensor"""
+    return NamedSharding(mesh, default_rules().mesh_axes(["batch"])).shard(t)
+
+
+def rank_of(mesh) -> int:
+    """this rank's flattened index on ``mesh``"""
+    return mesh.axis_index(mesh.axis_names)
+
+
+def grads_of(cfg, rt, params, batch):
+    """(gradient, loss) of the whole batch's loss; under a mesh each leaf
+    is averaged over the data axis, as the train step averages it."""
+    g, metrics = steps._grads(cfg, rt, params, batch)
+    if rt.mesh is not None and rt.mesh.shape["data"] > 1:
+        grp, n = rt.mesh.group("data"), rt.mesh.shape["data"]
+        g = tree_map(lambda t: coll.all_reduce(t, grp) / n, g)
+    return g, float(metrics["loss"])
+
+
+def gathered(tree, specs, mesh):
+    shards = named_sharding_tree(specs, mesh)
+    return tree_map(lambda t, sh: sh.gather(t), tree, shards)
+
+
+def flat_np(tree, prefix):
+    return {f"{prefix}/{k}": v.detach().numpy()
+            for k, v in leaves_with_paths(tree)}
+
+
+def case_loss(name, arch, workdir, mesh, out, impl="local"):
+    """loss and gradients at the reference's parameters: one device, and
+    the 2 x 4 mesh (vocab, heads, ffn and experts split over model, the
+    batch's rows over data)."""
+    cfg = reduced(arch)
+    ref, rest = load(workdir, name)
+    full = convert.params_from_jax(ref, cfg, device="cpu")
+    batch = {"tokens": rest["tokens"]}
+    g1, l1 = grads_of(cfg, Runtime(), full, batch)
+    rt = Runtime(tp=MODEL, mesh=mesh, moe_impl=impl,
+                 moe_capacity_factor=CAPACITY)
+    specs = M.param_specs(cfg, rt)
+    mine = tree_map(lambda t, sh: sh.shard(t), full,
+                    named_sharding_tree(specs, mesh))
+    local = {"tokens": rows(batch["tokens"], mesh)}
+    g4, l4 = grads_of(cfg, rt, mine, local)
+    out[f"{name}/loss_1"] = np.float64(l1)
+    out[f"{name}/loss_mesh"] = np.float64(l4)
+    out.update(flat_np(g1, f"{name}/grad_1"))
+    out.update(flat_np(gathered(g4, specs, mesh), f"{name}/grad_mesh"))
+    if impl == "ep":
+        f8 = dataclasses.replace(rt, moe_dispatch_dtype="f8")
+        out[f"{name}/loss_mesh_f8"] = np.float64(
+            float(M.loss_fn(cfg, f8, mine, local)[0]))
+    return cfg, full, rt, specs, mine, local
+
+
+def case_train(workdir, mesh, out):
+    """two ZeRO-1 train steps on the mesh against two on one device."""
+    cfg, full, rt, specs, mine, local = case_loss(
+        "train", "deepseek-v3-671b", workdir, mesh, out, impl="ep")
+    _, rest = load(workdir, "train")
+    batch = {"tokens": rest["tokens"]}
+    opt = OptConfig(lr=LR)
+    s1 = steps.init_train_state(cfg, Runtime(), full)
+    s4 = steps.init_train_state(cfg, rt, mine)
+    step1 = steps.make_train_step(cfg, Runtime(), opt)
+    step4 = steps.make_train_step(cfg, rt, opt)
+    for i in range(2):
+        s1, m1 = step1(s1, batch)
+        s4, m4 = step4(s4, local)
+        out[f"train/step_loss_1/{i}"] = np.float64(float(m1["loss"]))
+        out[f"train/step_loss_mesh/{i}"] = np.float64(float(m4["loss"]))
+        out[f"train/grad_norm_1/{i}"] = np.float64(float(m1["grad_norm"]))
+        out[f"train/grad_norm_mesh/{i}"] = np.float64(float(m4["grad_norm"]))
+    out.update(flat_np(s1["params"], "train/params_1"))
+    out.update(flat_np(gathered(s4["params"], specs, mesh),
+                       "train/params_mesh"))
+    # int8 error-feedback compression: each leaf quantized at its whole
+    # tensor's scale on the mesh, as on one device
+    opt8 = OptConfig(lr=LR, grad_compression="int8")
+    s1 = {**steps.init_train_state(cfg, Runtime(), full),
+          "grad_error": init_error_state(full)}
+    s4 = {**steps.init_train_state(cfg, rt, mine),
+          "grad_error": init_error_state(mine)}
+    step1 = steps.make_train_step(cfg, Runtime(), opt8)
+    step4 = steps.make_train_step(cfg, rt, opt8)
+    for i in range(2):
+        s1, m1 = step1(s1, batch)
+        s4, m4 = step4(s4, local)
+        out[f"train/int8_loss_1/{i}"] = np.float64(float(m1["loss"]))
+        out[f"train/int8_loss_mesh/{i}"] = np.float64(float(m4["loss"]))
+
+
+def case_elastic(workdir, mesh, out):
+    """save on 2 x 4, lose half the ranks, elastic_restore onto 1 x 4: the
+    reference test's initial state (zero moments), and a state one ZeRO-1
+    step on, whose moments must come back bit for bit."""
+    cfg, full, rt, specs, mine, local = case_loss(
+        "elastic", "stablelm-12b", workdir, mesh, out)
+    stepped_sh = steps.train_state_shardings(cfg, rt)
+    state = steps.init_train_state(cfg, rt, mine)
+    save(os.path.join(workdir, "ckpt"), 5, state, shardings=stepped_sh)
+    state, _ = steps.make_train_step(cfg, rt, OptConfig(lr=LR))(state, local)
+    save(os.path.join(workdir, "ckpt_step"), 6, state, shardings=stepped_sh)
+    whole = tree_map(lambda t, sh: sh.gather(t), state, stepped_sh)
+    if rank_of(mesh) == 0:
+        # the 2 x 4 checkpoint restores whole on one device (no shardings)
+        back1 = restore(os.path.join(workdir, "ckpt_step"), 6,
+                        tree_map(torch.empty_like, whole))
+        out["elastic/restored_1x1_bit_for_bit"] = np.bool_(all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                leaves_with_paths(whole), leaves_with_paths(back1))))
+    small = shrink_mesh(range(6), model_axis=MODEL)
+    if small.coordinate is None:
+        return
+    _, rest = load(workdir, "elastic")
+    st, step, rt_new = elastic_restore(os.path.join(workdir, "ckpt"), cfg,
+                                       rt, small)
+    new_specs = M.param_specs(cfg, rt_new)
+    g, loss = grads_of(cfg, rt_new, st["params"],
+                       {"tokens": rows(rest["tokens"], small)})
+    back, step6, _ = elastic_restore(os.path.join(workdir, "ckpt_step"), cfg,
+                                     rt, small)
+    back_sh = steps.train_state_shardings(cfg, rt_new)
+    back_whole = gathered(back["params"], new_specs, small)
+    mom = {k: tree_map(lambda t, sh: sh.gather(t), back["opt"][k],
+                       back_sh["opt"][k]) for k in "mv"}
+    params_small = gathered(st["params"], new_specs, small)
+    grad_small = gathered(g, new_specs, small)
+    if rank_of(small) == 0:
+        out["elastic/restored_step"] = np.int64(step)
+        out["elastic/restored_tp"] = np.int64(rt_new.tp)
+        out["elastic/small_mesh"] = np.array(list(small.shape.values()))
+        out["elastic/loss_small"] = np.float64(loss)
+        out.update(flat_np(params_small, "elastic/params_small"))
+        out.update(flat_np(grad_small, "elastic/grad_small"))
+        def equal(a, b):
+            b = dict(leaves_with_paths(b))
+            return [torch.equal(t, b[k]) for k, t in leaves_with_paths(a)]
+        same = equal(whole["params"], back_whole)
+        for k in "mv":
+            same += equal(whole["opt"][k], mom[k])
+        out["elastic/stepped_bit_for_bit"] = np.bool_(
+            all(same) and step6 == 6
+            and int(back["opt"]["step"]) == int(whole["opt"]["step"]))
+
+
+def case_elastic_dp(workdir, out):
+    """save a ZeRO-1 state with bf16 moments on a (data=4, model=2) mesh
+    after one step, lose two of eight ranks, elastic_restore onto the
+    (2, 2) mesh left: every leaf back bit for bit in its dtype, each moment
+    as the (2, 2) mesh's ZeRO-1 shard; then a second step there against
+    two steps on one device."""
+    mesh = make_host_mesh(4, 2)
+    cfg = reduced("stablelm-12b")
+    ref, rest = load(workdir, "elastic")
+    full = convert.params_from_jax(ref, cfg, device="cpu")
+    batches = [{"tokens": rest["tokens"]}, {"tokens": rest["tokens"].flip(0)}]
+    opt = OptConfig(lr=LR, moment_dtype="bfloat16")
+    s1 = steps.init_train_state(cfg, Runtime(), full, moment_dtype="bfloat16")
+    step1 = steps.make_train_step(cfg, Runtime(), opt)
+    for i, batch in enumerate(batches):
+        s1, m1 = step1(s1, batch)
+        out[f"elastic_dp/loss_1/{i}"] = np.float64(float(m1["loss"]))
+    rt = Runtime(tp=2, mesh=mesh)
+    sh = steps.train_state_shardings(cfg, rt)
+    state = steps.init_train_state(
+        cfg, rt, tree_map(lambda t, s: s.shard(t), full, sh["params"]),
+        moment_dtype="bfloat16")
+    state, m = steps.make_train_step(cfg, rt, opt)(
+        state, {"tokens": rows(batches[0]["tokens"], mesh)})
+    out["elastic_dp/loss_mesh/0"] = np.float64(float(m["loss"]))
+    ckpt = os.path.join(workdir, "ckpt_dp")
+    save(ckpt, 1, state, shardings=sh)
+    whole = tree_map(lambda t, s: s.gather(t), state, sh)
+    small = shrink_mesh(range(6), model_axis=2)
+    if small.coordinate is None:
+        return
+    back, step, rt_new = elastic_restore(ckpt, cfg, rt, small)
+    back_sh = steps.train_state_shardings(cfg, rt_new)
+    back_whole = tree_map(lambda t, s: s.gather(t), back, back_sh)
+    local_shapes = [tuple(t.shape) for t in tree_leaves(back["opt"]["m"])]
+    state2, m = steps.make_train_step(cfg, rt_new, opt)(
+        back, {"tokens": rows(batches[1]["tokens"], small)})
+    params2 = tree_map(lambda t, s: s.gather(t), state2["params"],
+                       back_sh["params"])
+    if rank_of(small) == 0:
+        out["elastic_dp/small_mesh"] = np.array(list(small.shape.values()))
+        out["elastic_dp/restored_step"] = np.int64(step)
+        out["elastic_dp/loss_mesh/1"] = np.float64(float(m["loss"]))
+        have = dict(leaves_with_paths(back_whole))
+        out["elastic_dp/bit_for_bit"] = np.bool_(all(
+            torch.equal(t, have[k]) and t.dtype == have[k].dtype
+            for k, t in leaves_with_paths(whole)))
+        out["elastic_dp/moment_dtypes"] = np.array(sorted({
+            str(t.dtype) for t in tree_leaves(back["opt"]["m"])}))
+        # the moments of a leaf split over data come back as its shard
+        full_shapes = [tuple(t.shape)
+                       for t in tree_leaves(back_whole["opt"]["m"])]
+        out["elastic_dp/moments_split"] = np.int64(sum(
+            a != b for a, b in zip(local_shapes, full_shapes)))
+        out.update(flat_np(s1["params"], "elastic_dp/params_1"))
+        out.update(flat_np(params2, "elastic_dp/params_mesh"))
+
+
+def case_ep2d(workdir, mesh, out):
+    """one decode step on the mesh with 2D expert sharding (experts over
+    model, their ffn over data) from the single-device prefill's state."""
+    cfg = reduced("deepseek-v3-671b")
+    ref, rest = load(workdir, "ep2d")
+    full = convert.params_from_jax(ref, cfg, device="cpu")
+    toks = rest["tokens"]
+    rt1 = Runtime()
+    with torch.no_grad():
+        _, st1 = D.prefill(cfg, rt1, full, {"tokens": toks}, 16)
+        st_copy = tree_map(torch.clone, st1)
+        want, _ = D.decode_step(cfg, rt1, full, toks[:, :1], torch.tensor(8),
+                                st1)
+        rules = ShardingRules(rules={**default_rules().rules,
+                                     "expert_ff": "data"})
+        rt = Runtime(tp=MODEL, mesh=mesh, moe_impl="ep",
+                     moe_ep2d_decode=True, moe_capacity_factor=CAPACITY)
+        specs = M.param_specs(cfg, rt, rules=rules)
+        mine = tree_map(lambda t, sh: sh.shard(t), full,
+                        named_sharding_tree(specs, mesh))
+        st_specs = D.decode_state_specs(cfg, rt, 4, 16, rules=rules)
+        st = tree_map(lambda t, sh: sh.shard(t), st_copy,
+                      named_sharding_tree(st_specs, mesh))
+        step = steps.make_decode_step(cfg, rt, rules)
+        logits, _ = step(mine, rows(toks[:, :1], mesh), torch.tensor(8), st)
+        logits = NamedSharding(mesh, rules.mesh_axes(["batch"])).gather(
+            logits)
+    out["ep2d/logits_1"] = want.numpy()
+    out["ep2d/logits_mesh"] = logits.numpy()
+
+
+def case_serve(workdir, out):
+    """dbrx-132b reduced on a (data=4, model=2) mesh, two experts a rank:
+    loss and gradients through the all-to-all, then a prefill (impl="ep")
+    and two decode steps (ep2d: the experts' ffn split over data) against
+    one device."""
+    mesh = make_host_mesh(4, 2)
+    cfg = reduced("dbrx-132b")
+    ref, rest = load(workdir, "serve")
+    full = convert.params_from_jax(ref, cfg, device="cpu")
+    g1, l1 = grads_of(cfg, Runtime(), full, {"tokens": rest["tokens"]})
+    rt = Runtime(tp=2, mesh=mesh, moe_impl="ep", moe_ep2d_decode=True,
+                 moe_capacity_factor=CAPACITY)
+    specs = M.param_specs(cfg, rt)
+    mine = tree_map(lambda t, sh: sh.shard(t), full,
+                    named_sharding_tree(specs, mesh))
+    g4, l4 = grads_of(cfg, rt, mine, {"tokens": rows(rest["tokens"], mesh)})
+    out["serve/loss_1"] = np.float64(l1)
+    out["serve/loss_mesh"] = np.float64(l4)
+    out.update(flat_np(g1, "serve/grad_1"))
+    out.update(flat_np(gathered(g4, specs, mesh), "serve/grad_mesh"))
+    prompt = rest["prompt"]
+    rules2d = ShardingRules(rules={**default_rules().rules,
+                                   "expert_ff": "data"})
+    with torch.no_grad():
+        want, st1 = D.prefill(cfg, Runtime(), full, {"tokens": prompt}, 24)
+        got, st = steps.make_prefill_step(cfg, rt, 24)(
+            mine, {"tokens": rows(prompt, mesh)})
+        want_steps, got_steps = [want], [got]
+        dgrp = mesh.group("data")
+        for layer in mine["layers"]:
+            ex = layer["mlp"]["experts"]
+            ex["wi"], ex["wg"] = (coll.chunk(ex[n], 2, dgrp)
+                                  for n in ("wi", "wg"))
+            ex["wo"] = coll.chunk(ex["wo"], 1, dgrp)
+        decode = steps.make_decode_step(cfg, rt, rules2d)
+        for i in range(2):
+            tok = want_steps[-1][:, -1:].argmax(-1).to(torch.int32)
+            want, st1 = D.decode_step(cfg, Runtime(), full, tok,
+                                      torch.tensor(prompt.shape[1] + i), st1)
+            got, st = decode(mine, rows(tok, mesh),
+                             torch.tensor(prompt.shape[1] + i), st)
+            want_steps.append(want)
+            got_steps.append(got)
+    by_rows = NamedSharding(mesh, default_rules().mesh_axes(["batch"]))
+    for i, (w, g) in enumerate(zip(want_steps, got_steps)):
+        out[f"serve/logits_1/{i}"] = w.numpy()
+        out[f"serve/logits_mesh/{i}"] = by_rows.gather(g).numpy()
+
+
+#: the families that run data-parallel only (their tp > 1 forwards are
+#: ROADMAP item 8)
+DP_ONLY = ("mamba2-2.7b", "recurrentgemma-2b", "llama-3.2-vision-11b",
+           "seamless-m4t-large-v2")
+
+
+def case_dp_only(out):
+    """Each of DP_ONLY reduced on a (data=8, model=1) mesh: the batch's
+    rows over eight ranks against one device (loss and gradients)."""
+    mesh = make_host_mesh(8, 1)
+    for arch in DP_ONLY:
+        cfg = reduced(arch)
+        g = torch.Generator().manual_seed(7)
+        full = M.init_params(cfg, Runtime(), g, device="cpu")
+        if cfg.family == "vlm":
+            # the tanh gates start at zero, which zeroes the cross blocks'
+            # gradients on every route; drawn N(0, 1) they carry some
+            for c in full["layers"]["cross"]:
+                c["gate_a"], c["gate_m"] = (torch.randn(1, generator=g)
+                                            for _ in range(2))
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 33),
+                                         generator=g)}
+        if cfg.frontend_seq:
+            batch["frontend"] = torch.randn(
+                (8, cfg.frontend_seq, cfg.d_model), generator=g) * 0.02
+        g1, l1 = grads_of(cfg, Runtime(), full, batch)
+        rt = Runtime(mesh=mesh)
+        local = {k: rows(v, mesh) for k, v in batch.items()}
+        g8, l8 = grads_of(cfg, rt, full, local)
+        out[f"dp_only/{arch}/loss_1"] = np.float64(l1)
+        out[f"dp_only/{arch}/loss_mesh"] = np.float64(l8)
+        out.update(flat_np(g1, f"dp_only/{arch}/grad_1"))
+        out.update(flat_np(g8, f"dp_only/{arch}/grad_mesh"))
+
+
+def run(rank: int, workdir: str) -> None:
+    torch.set_num_threads(1)
+    moe.CAPACITY_FACTOR = CAPACITY
+    store = dist.FileStore(os.path.join(workdir, "store"), WORLD)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=WORLD)
+    try:
+        mesh = make_host_mesh(DATA, MODEL)
+        out: dict = {"mesh": np.array(list(mesh.shape.values()))}
+        with open(os.path.join(workdir, "cases.json")) as f:
+            cases = json.load(f)
+        if "dp_tp" in cases:
+            case_loss("dp_tp", "qwen2.5-14b", workdir, mesh, out)
+        if "ep" in cases:
+            case_loss("ep", "dbrx-132b", workdir, mesh, out, impl="ep")
+        if "train" in cases:
+            case_train(workdir, mesh, out)
+        if "elastic" in cases:
+            case_elastic(workdir, mesh, out)
+        if "elastic_dp" in cases:
+            case_elastic_dp(workdir, out)
+        if "ep2d" in cases:
+            case_ep2d(workdir, mesh, out)
+        if "serve" in cases:
+            case_serve(workdir, out)
+        if "dp_only" in cases:
+            case_dp_only(out)
+        dist.barrier()
+        if rank == 0:
+            np.savez(os.path.join(workdir, "out.npz"), **out)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def main(workdir: str) -> int:
+    mp.spawn(run, args=(workdir,), nprocs=WORLD, join=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1]))

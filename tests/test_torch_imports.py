@@ -185,8 +185,40 @@ def test_parallel_modules_import_no_jax_and_no_reference():
                          "dedup='auto', isa='AVX')")
 
 
-#: the multi-device half of ROADMAP queue A item 6
-MULTI_DEVICE = "item 6: the multi-device half"
+MULTI_DEVICE_SLICE = (
+    "repro_torch.parallel.collectives", "repro_torch.parallel.sharding",
+    "repro_torch.parallel", "repro_torch.launch.mesh",
+    "repro_torch.models.common", "repro_torch.models.moe",
+    "repro_torch.launch.steps", "repro_torch.checkpoint.checkpointer",
+    "repro_torch.launch.elastic")
+
+
+def test_multi_device_modules_import_no_jax_and_no_reference():
+    """The multi-device modules (collectives, specs, meshes, the sharded
+    steps, the checkpointer, elastic restore), one after the other in a
+    fresh interpreter, each checked right after its own import; then a
+    spec bound to an abstract mesh."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    probe = ("import importlib, sys\n"
+             f"for m in {MULTI_DEVICE_SLICE!r}:\n"
+             "    importlib.import_module(m)\n"
+             "    bad = sorted(n for n in sys.modules if n.split('.')[0]\n"
+             "                 in ('jax', 'jaxlib', 'repro'))\n"
+             "    print(m, bad)\n"
+             "from repro_torch.launch.mesh import AbstractMesh\n"
+             "from repro_torch.parallel import P, NamedSharding\n"
+             "ns = NamedSharding(AbstractMesh((2, 4), ('data', 'model')),\n"
+             "                   P(None, 'model'))\n"
+             "print('LOCAL', ns.local_shape((6, 8)))\n")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert [l.split()[0] for l in lines[:-1]] == list(MULTI_DEVICE_SLICE)
+    assert all(l.endswith(" []") for l in lines[:-1]), lines
+    assert lines[-1] == "LOCAL (6, 2)"
+
 
 #: public names of a ported reference module that its counterpart does not
 #: have yet, each with the ROADMAP queue A item that brings it
@@ -200,17 +232,23 @@ STILL_MISSING = {
     "repro.power.stream": {},
     "repro.power.broker": {},
     "repro.core.telemetry": {},
-    "repro.optim.adamw": {"opt_state_specs": MULTI_DEVICE},
+    "repro.optim.adamw": {},
     "repro.optim.compression": {},
     "repro.data.synthetic": {},
     "repro.checkpoint.checkpointer": {},
-    "repro.launch.steps": dict.fromkeys(
-        ("abstract_params", "batch_specs", "abstract_state",
-         "abstract_decode_state", "input_specs", "rules_for_shape"),
-        MULTI_DEVICE),
+    "repro.launch.steps": {},
     "repro.launch.train": {},
-    "repro.models.model": {"param_specs": MULTI_DEVICE},
+    "repro.models.model": {},
     "repro.parallel.executor": {},
+    "repro.parallel.sharding": {},
+    "repro.launch.mesh": {},
+    "repro.launch.elastic": {},
+    "repro.models.common": {},
+    "repro.models.decode": {},
+    "repro.models.moe": {},
+    "repro.models.attention": {},
+    "repro.parallel": {},
+    "repro.optim": {},
 }
 
 
