@@ -90,6 +90,20 @@ call:
       4 steps of 2 x 4096 tokens under an energy-aware EnergySession. No
       kernel launches in training, as the reference's training never
       reaches its Pallas kernel
+    the dry run and its cost model (repro_torch.launch.dryrun,
+      repro_torch.core.hlo_cost / roofline): (a) stablelm-12b train_4k and
+      dbrx-132b prefill_32k on the 256-rank mesh, deepseek-v3-671b
+      decode_32k on the 512-rank one, each in a process of its own on a
+      fake process group and meta tensors, off the card: records written,
+      finite and positive, the model's flops at most 1.05x the counted;
+      (b) one more step of the training cell counted on the card and on
+      meta tensors: dot flops and collective bytes equal, bytes and
+      elementwise flops equal or the ops that differ named; its roofline on
+      H100_SXM beside the measured step and max_memory_allocated; (c)
+      qwen2.5-14b's prefill counted on the kernel and the plain attention
+      route: equal outside attention, the kernel's charge its launches
+      times its work at the call's shape; (d) PowerGovernor.choose on (b)'s
+      profile equal to EnergyAwarePolicy's decision
     the multi-device path (repro_torch.parallel, repro_torch.launch.mesh /
       elastic) with NCCL at world 1 on a 1 x 1 mesh: (a) dbrx-132b (8 of
       40 layers) prefill through impl="ep" (the all-to-all path) and decode
@@ -1409,28 +1423,18 @@ def broker_phase(device, sizes: dict) -> dict:
 
 
 # ------------------------------------------------------- flash attention
-def attention_entries(Sq: int, Skv: int, causal: bool) -> int:
-    """Score entries one (batch, head) of attention needs: every (q, kv)
-    pair, or under the top-left causal mask the keys 0..qpos of each query
-    row, sum of min(qpos + 1, Skv)."""
-    if not causal:
-        return Sq * Skv
-    if Sq <= Skv:
-        return Sq * (Sq + 1) // 2
-    return Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
-
-
 def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, itemsize, causal, Dv=None):
-    """Least time for one call: bytes (q and k of head dim D, v and o of
-    Dv, each read or written once) over the HBM rate against the flops the
-    function needs (2 D for q.k and 2 Dv for p.v per unmasked score entry)
-    over the rate of the tensor-core products the kernel does them with:
-    bf16 at the bf16 peak; f32 as 3xTF32, three TF32 products for each f32
-    one, at the TF32 peak. As kernels/flash_attention.py's
-    flash_attention_work counts them."""
+    """Least time for one call: the bytes and flops the attention function
+    needs (kernels/flash_attention.py's attention_need: q and k of head
+    dim D, v and o of Dv, each read or written once; 2 D for q.k and 2 Dv
+    for p.v per unmasked score entry), the bytes over the HBM rate against
+    the flops over the rate of the tensor-core products the kernel does
+    them with: bf16 at the bf16 peak; f32 as 3xTF32, three TF32 products
+    for each f32 one, at the TF32 peak."""
+    from repro_torch.kernels import flash_attention as fa
     Dv = D if Dv is None else Dv
-    flops = 2.0 * B * Hq * attention_entries(Sq, Skv, causal) * (D + Dv)
-    byts = itemsize * (B * Sq * Hq * (D + Dv) + B * Skv * Hkv * (D + Dv))
+    flops, byts = fa.attention_need(B, Hq, Hkv, Sq, Skv, D, Dv, itemsize,
+                                    causal)
     by_bytes = byts / HBM_BYTES_PER_S * 1e3
     by_ops = (3 * flops / TF32_TENSOR_FLOPS if itemsize == 4 else
               flops / BF16_TENSOR_FLOPS) * 1e3
@@ -2859,14 +2863,16 @@ def train_card_vs_host(device, sizes: dict) -> dict:
     return out
 
 
-def train_phase(device, sizes: dict, timer: Timer) -> dict:
+def train_phase(device, sizes: dict, timer: Timer, keep=None) -> dict:
     """``Trainer.run()`` of TRAIN_ARCH at full width in bf16 (f32 AdamW
     moments), cut to TRAIN_CUTS, at train_4k's length and a batch cut to
     ``sizes["train_batch"]``, energy-aware, no checkpoints: each step's ms,
     tokens/s over the steps after the first, peak memory, the session's
     energy and the losses. Then, on the trained state: one forward and
     backward of the loss alone, and one attention forward and backward at
-    the step's shape, timed, for where the step's time goes."""
+    the step's shape, timed, for where the step's time goes. ``keep``
+    receives the trainer (``"trainer"``) for the dry-run phase's count of
+    one more step."""
     import dataclasses
 
     from repro_torch.configs import SHAPES_BY_NAME
@@ -2946,8 +2952,317 @@ def train_phase(device, sizes: dict, timer: Timer) -> dict:
                         "pieces by CUDA events, median of 2"}
     check(all(math.isfinite(x) for x in out["losses"]),
           f"the training losses are not finite: {report}")
+    if keep is not None:
+        keep["trainer"] = t
     return report
 
+
+
+# ---------------------------------------------------------------- dry run
+#: (a): cells of the dry run (repro_torch.launch.dryrun), each in a fresh
+#: process on a fake world of the production mesh's size; the rehearsal
+#: runs their reduced configs on a fake (2, 4) mesh
+DRYRUN_CELLS = (("stablelm-12b", "train_4k", "single"),
+                ("dbrx-132b", "prefill_32k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"))
+#: (a)'s cells on the host: the longest (dbrx-132b's prefill, 40 layers of
+#: the plain blocked attention at 32k tokens) takes about 40 s
+DRYRUN_CELL_TIMEOUT_S = 600
+#: (a)'s gate: the model's flops over the counted flops of the whole
+#: world; above this the counter missed model flops
+DRYRUN_USEFUL_MAX = 1.05
+#: (c): SERVE_ARCH's prefill counted on both attention routes, (batch,
+#: tokens)
+DRYRUN_PREFILL = (4, 1024)
+#: (d): the governor's slowdown budget
+DRYRUN_BUDGET = 0.05
+
+
+def _dryrun_cells(sizes: dict, out_dir: str):
+    """Start (a)'s cells, one process each, all at once, off the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-W", "ignore", "-m",
+               "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--mesh", mesh, "--out", out_dir] + sizes["dryrun_flags"]
+        if mesh in sizes["dryrun_mesh_shapes"]:
+            cmd += ["--mesh-shape", sizes["dryrun_mesh_shapes"][mesh]]
+        log = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.log")
+        with open(log, "w") as f:
+            procs.append(((arch, shape, mesh), time.perf_counter(),
+                          subprocess.Popen(cmd, cwd=HERE, env=env, stdout=f,
+                                           stderr=subprocess.STDOUT)))
+    return procs
+
+
+def _count(fn, *args):
+    """(``fn(*args)``, the CostCounter that counted it)."""
+    from repro_torch.core.hlo_cost import CostCounter
+    with CostCounter() as c:
+        c.arguments(*args)
+        out = fn(*args)
+    return out, c
+
+
+def _abstract(tree):
+    """``meta`` tensors of ``tree``'s shapes and dtypes (the dry run's)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
+
+
+def _table_diff(a: dict, b: dict) -> dict:
+    """{op: [a, b]} where two per-op tables differ."""
+    return {k: [a.get(k, 0.0), b.get(k, 0.0)] for k in sorted(set(a) | set(b))
+            if a.get(k, 0.0) != b.get(k, 0.0)}
+
+
+def _dryrun_real_step(device, trainer) -> dict:
+    """(b): one more step of the train phase's trainer counted on the card,
+    untimed, and the same step on ``meta`` tensors (the dry run's way): the
+    counts side by side, the abstract one priced on H100_SXM beside the
+    train phase's measured step."""
+    from repro_torch.core import roofline as rl
+    from repro_torch.core.hardware import H100_SXM
+    t = trainer
+    batch = t._device_batch(t.tcfg.steps)
+    meta_out, counted = _count(t._step_fn, *_abstract((t.state, batch)))
+    meta_mem = counted.memory(meta_out)
+    del meta_out
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (state, metrics), real = _count(t._step_fn, t.state, batch)
+    _sync(device)
+    real_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    t.state = state
+    a, b = real.totals, counted.totals
+    # where the card's count and the abstract one differ, by op (an op the
+    # card dispatches and the meta device does not, say)
+    diffs = {"bytes_accessed": _table_diff(a.bytes_table, b.bytes_table),
+             "elementwise_flops": _table_diff(real.elementwise_table,
+                                              counted.elementwise_table)}
+    check(math.isfinite(float(metrics["loss"])),
+          "the counted step's loss is not finite")
+    check(a.dot_flops == b.dot_flops
+          and a.collective_bytes == b.collective_bytes,
+          f"the card's step and the meta step count different dot flops "
+          f"or collective bytes: {a.to_dict()} vs {b.to_dict()}")
+    check((a.bytes_accessed == b.bytes_accessed
+           or bool(diffs["bytes_accessed"]))
+          and (a.elementwise_flops == b.elementwise_flops
+               or bool(diffs["elementwise_flops"])),
+          f"the bytes or elementwise flops differ by no op named: {diffs}")
+    mf = rl.model_flops(t.cfg, t.shape)
+    rep = rl.roofline_from_artifacts(
+        {"flops": b.flops, "bytes accessed": b.bytes_accessed},
+        rl.collective_bytes(b), 1, mf, H100_SXM)
+    walls = [h["wall_s"] for h in t.history]
+    step_s = statistics.median(walls[1:]) if len(walls) > 1 else walls[0]
+    return {"cell": {"arch": t.cfg.name, "n_layers": t.cfg.n_layers,
+                     "tokens": [t.shape.global_batch, t.shape.seq_len],
+                     "dtype": t.cfg.dtype},
+            "card": a.to_dict(), "meta": b.to_dict(),
+            "ops": {"card": real.ops, "meta": counted.ops},
+            "equal": {"dot_flops": a.dot_flops == b.dot_flops,
+                      "collective_bytes": a.collective_bytes
+                      == b.collective_bytes,
+                      "bytes_accessed": a.bytes_accessed == b.bytes_accessed,
+                      "elementwise_flops": a.elementwise_flops
+                      == b.elementwise_flops},
+            "differences_by_op": diffs,
+            "counted_step_s": real_s,
+            "roofline": rep.to_dict(),
+            "measured_step_ms": step_s * 1e3,
+            "measured_mfu": mf / (step_s * H100_SXM.peak_flops),
+            "roofline_mfu": rep.mfu,
+            "memory_estimate_bytes": meta_mem["argument_bytes"]
+            + meta_mem["temp_bytes"],
+            "memory_estimate": meta_mem, "card_memory": real.memory(state),
+            "max_memory_allocated": peak}
+
+
+def _dtype_of(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _dryrun_prefill_routes(device, sizes: dict) -> dict:
+    """(c): SERVE_ARCH's prefill counted on the kernel route and on the
+    plain route, its attention calls also under a counter of their own:
+    outside attention the counts must be equal, and the kernel route's
+    flash charge must be its launches times the kernel's work at the
+    call's shape."""
+    from repro_torch.core.hlo_cost import CostCounter
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode as decode_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import Runtime
+    cfg, reduced = serve_config(sizes, SERVE_ARCH)
+    B, S = sizes["dryrun_prefill"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    params = model_mod.init_params(cfg, Runtime(), gen, device=device)
+    gen.manual_seed(24)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=device, dtype=torch.int32)
+    chunked = attn_mod.chunked_attention
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "tokens": [B, S],
+           "reduced": reduced}
+    for impl in ("kernel", "plain"):
+        inner = CostCounter()
+
+        def counted(*a, **kw):
+            with inner:
+                return chunked(*a, **kw)
+        ops.reset_launch_counts()
+        with patched(attn_mod, "chunked_attention", counted), \
+                CostCounter() as outer:
+            logits, _ = decode_mod.prefill(cfg, Runtime(attn_impl=impl),
+                                           params, {"tokens": toks}, S)
+        _sync(device)
+        o, i = outer.totals, inner.totals
+        out[impl] = {
+            "launches": ops.launch_counts()["flash_attention"],
+            "charged_launches": outer.kernel_launches.get(
+                "flash_attention", 0),
+            "outside_attention": {
+                "dot_flops": o.dot_flops - i.dot_flops,
+                "elementwise_flops": o.elementwise_flops
+                - i.elementwise_flops,
+                "bytes_accessed": o.bytes_accessed - i.bytes_accessed,
+                "collective_total": o.collective_total
+                - i.collective_total},
+            "attention_dot_flops": i.dot_flops,
+            "attention_bytes": i.bytes_accessed,
+            "flash_charge": [o.dot_table.get("flash_attention", 0.0),
+                             o.bytes_table.get("flash_attention", 0.0)],
+            "logits_finite": bool(torch.isfinite(logits).all())}
+        del logits
+    del params
+    k, p = out["kernel"], out["plain"]
+    hd, dt = cfg.resolved_head_dim, _dtype_of(cfg)
+    bq, bk = attn_mod.flash_tiles(dt, (hd, hd), True, S)
+    one = fa.flash_attention_cost(B * cfg.n_heads, S, S, hd, hd,
+                                  dt.itemsize, causal=True, block_q=bq,
+                                  block_k=bk)
+    want = [k["launches"] * one[0], k["launches"] * one[1]]
+    out.update(flash_tiles=[bq, bk], flash_charge_expected=want)
+    check(k["logits_finite"] and p["logits_finite"],
+          f"a counted prefill's logits are not finite: {out}")
+    check(k["outside_attention"] == p["outside_attention"],
+          f"the two prefill routes count differently outside attention: "
+          f"{k['outside_attention']} vs {p['outside_attention']}")
+    check(k["charged_launches"] == k["launches"]
+          and k["flash_charge"] == want and p["launches"] == 0
+          and p["flash_charge"] == [0.0, 0.0],
+          f"the flash charge is not its launches times the kernel's work: "
+          f"{k}, expected {want}")
+    return out
+
+
+def dryrun_phase(device, sizes: dict, keep: dict) -> dict:
+    """The dry run and its cost model: (a) DRYRUN_CELLS through
+    repro_torch.launch.dryrun, each in a fresh process (a fake world of the
+    mesh's 256 / 512 ranks, meta tensors, off the card), started first and
+    read last; (b) the train phase's step counted on the card and on meta
+    tensors; (c) SERVE_ARCH's prefill counted on both attention routes;
+    (d) the legacy governor on (b)'s roofline against EnergyAwarePolicy,
+    field for field. The records are counted and priced on H100_SXM's
+    datasheet peaks, not measured."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.power_model import profile_from_roofline
+    from repro_torch.power import (ChipModel, EnergyAwarePolicy,
+                                   GovernorConfig, PowerGovernor)
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "dryrun_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = _dryrun_cells(sizes, out_dir)
+    report = {}
+    try:
+        t1 = time.perf_counter()
+        report["real_step"] = _dryrun_real_step(device, keep.pop("trainer"))
+        report["real_step"]["seconds"] = time.perf_counter() - t1
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        report["prefill_routes"] = _dryrun_prefill_routes(device, sizes)
+        report["prefill_routes"]["seconds"] = time.perf_counter() - t1
+        r = report["real_step"]["roofline"]
+        profile = profile_from_roofline(r["compute_s"], r["memory_s"],
+                                        r["collective_s"])
+        gov = PowerGovernor(GovernorConfig(slowdown_budget=DRYRUN_BUDGET),
+                            chip=H100_SXM).choose(profile)
+        pol = EnergyAwarePolicy(slowdown_budget=DRYRUN_BUDGET).decide(
+            profile, ChipModel(H100_SXM))
+        check(gov == pol, f"PowerGovernor.choose {gov} differs from "
+                          f"EnergyAwarePolicy.decide {pol}")
+        report["governor"] = {"profile": [profile.compute_s,
+                                          profile.memory_s,
+                                          profile.collective_s],
+                              "slowdown_budget": DRYRUN_BUDGET,
+                              "freq_mhz": gov.freq_mhz,
+                              "mode": gov.mode.name,
+                              "savings_pct": gov.savings_pct,
+                              "equal_to_policy": gov == pol}
+        # each cell's own seconds: its process polled until it exits
+        ended = {}
+        while len(ended) < len(procs):
+            check(time.perf_counter() - t0 < DRYRUN_CELL_TIMEOUT_S,
+                  f"the dry-run cells ran past {DRYRUN_CELL_TIMEOUT_S} s")
+            for i, (_, start, proc) in enumerate(procs):
+                if i not in ended and proc.poll() is not None:
+                    ended[i] = time.perf_counter() - start
+            time.sleep(0.1)
+        cells = []
+        for i, ((arch, shape, mesh), _, proc) in enumerate(procs):
+            seconds = ended[i]
+            tag = os.path.join(out_dir, f"{arch}__{shape}__{mesh}")
+            path = tag + ".json"
+            if proc.returncode or not os.path.exists(path):
+                with open(tag + ".log") as f:
+                    check(False, f"the dry-run cell {arch} {shape} {mesh} "
+                                 f"failed ({proc.returncode}): "
+                                 f"{f.read()[-2000:]}")
+            with open(path) as f:
+                rec = json.load(f)
+            ro = rec["roofline"]
+            row = {"arch": arch, "shape": shape, "mesh": mesh,
+                   "chips": rec["chips"], "dominant": ro["dominant"],
+                   "step_time_s": ro["step_time_s"], "mfu": ro["mfu"],
+                   "useful_flops_ratio": ro["useful_flops_ratio"],
+                   "fits_hbm": rec["fits_hbm"],
+                   "collective_total": rec["collectives"]["total"],
+                   "flops": rec["cost"]["flops"],
+                   "bytes": rec["cost"]["bytes accessed"],
+                   "ops": rec["ops"], "compile_s": rec["compile_s"],
+                   "seconds": seconds,
+                   "host_peak_rss_bytes": rec["host_peak_rss_bytes"]}
+            nums = [row[k] for k in ("step_time_s", "mfu",
+                                     "useful_flops_ratio",
+                                     "collective_total", "flops", "bytes")]
+            check(all(math.isfinite(x) and x > 0 for x in nums)
+                  and row["useful_flops_ratio"] <= DRYRUN_USEFUL_MAX,
+                  f"a dry-run record's numbers are not finite and positive, "
+                  f"or its useful flops ratio exceeds {DRYRUN_USEFUL_MAX}: "
+                  f"{row}")
+            cells.append(row)
+        report["cells"] = cells
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    report["priced_on"] = ("H100_SXM's datasheet peaks: counted, not "
+                           "measured")
+    report["seconds"] = time.perf_counter() - t0
+    return report
 
 
 # ------------------------------------------------------------ distributed
@@ -3689,7 +4004,11 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             dist_decode_batch=DIST_DECODE_BATCH,
             dist_decode_steps=DIST_DECODE_STEPS, dist_max_len=DIST_MAX_LEN,
             dist_train_steps=DIST_TRAIN_STEPS,
-            dist_gloo_prompt=DIST_GLOO_PROMPT, dist_turns=2)
+            dist_gloo_prompt=DIST_GLOO_PROMPT, dist_turns=2,
+            # the dry run: (a)'s extra flags and smaller meshes (none: the
+            # production meshes, full size); (c)'s prefill (batch, tokens)
+            dryrun_flags=[], dryrun_mesh_shapes={},
+            dryrun_prefill=DRYRUN_PREFILL)
 TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            membw_iters=8, fleet_rows=64, fleet_samples=300, jobs=300,
            stream_shard=2 ** 12, stream_job_shard=4096,
@@ -3715,7 +4034,10 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            train_batch=2, train_steps=3,
            dist_prefill_len=32, dist_decode_batch=2, dist_decode_steps=2,
            dist_max_len=64, dist_train_steps=2, dist_gloo_prompt=16,
-           dist_turns=1)
+           dist_turns=1,
+           dryrun_flags=["--reduced"],
+           dryrun_mesh_shapes={"single": "2,4", "multi": "2,2,2"},
+           dryrun_prefill=(2, 32))
 
 
 def main() -> int:
@@ -3901,11 +4223,13 @@ def main() -> int:
     # training never reaches its Pallas kernel; the flash kernel has no
     # backward)
     train_counts = {}
+    keep = {}
     for name, fn in (("train_attention_grad",
                       lambda: train_attention_grad(device, sizes, timer)),
                      ("train_card_vs_host",
                       lambda: train_card_vs_host(device, sizes)),
-                     ("train", lambda: train_phase(device, sizes, timer))):
+                     ("train", lambda: train_phase(device, sizes, timer,
+                                                   keep))):
         if device.type == "cuda":
             torch.cuda.empty_cache()
         ops.reset_launch_counts()
@@ -3914,6 +4238,12 @@ def main() -> int:
         emit(phase=name, **report, launches=train_counts[name])
         check(not any(train_counts[name].values()),
               f"the {name} phase launched a kernel: {train_counts[name]}")
+    # the dry run and its cost model: counts set to 0 just before it; its
+    # flash launches are (c)'s kernel route's, held there
+    ops.reset_launch_counts()
+    emit(phase="dryrun", **dryrun_phase(device, sizes, keep),
+         nvidia_smi=smi)
+    dryrun_counts = ops.launch_counts()
     # the multi-device path: counts set to 0 just before it, read after;
     # its flash launches are (a)'s two routes (the rank-local heads of a
     # 1 x 1 mesh are all the heads), (d)'s ranks count their own
@@ -3964,7 +4294,8 @@ def main() -> int:
          flash_attention_by_head_dims=by_dims,
          flash_attention_by_shape={a: c["flash_by_shape"]
                                    for a, c in cross_counts.items()},
-         train=train_counts, distributed=dist_counts)
+         train=train_counts, dryrun=dryrun_counts,
+         distributed=dist_counts)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

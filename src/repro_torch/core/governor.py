@@ -7,7 +7,9 @@ budget dT=0 reproduces the paper's "Energy Sav. (%) dT=0" column semantics:
 memory/latency-bound steps clock down for free, compute-bound steps stay at
 nominal.
 
-This is the scalar (python float) form;
+This is the scalar (python float) form, and :class:`PowerGovernor` its
+legacy entry point (new code selects the same sweep via
+``repro_torch.power.EnergyAwarePolicy`` inside an ``EnergySession``);
 :meth:`repro_torch.power.surface.TransferSurface.sweep_decisions` is the
 same accept/reject sequence over a tensor batch.
 
@@ -45,6 +47,17 @@ class SimulatedActuator:
 
     def current_mhz(self) -> int:
         return self._freq
+
+
+@dataclass(frozen=True)
+class GovernorConfig:
+    slowdown_budget: float = 0.0        # dT budget (0 = paper's dT=0 column)
+    n_freqs: int = 11                   # frequency grid resolution
+    power_cap_w: Optional[float] = None
+
+    def __post_init__(self):
+        if self.n_freqs < 1:
+            raise ValueError(f"n_freqs must be >= 1, got {self.n_freqs}")
 
 
 @dataclass
@@ -111,3 +124,27 @@ def sweep_decision(profile: StepProfile, chip: ChipModel,
         time_s=chip.step_time(profile, best_f),
         power_w=chip.power_w(profile, best_f),
         energy_j=best_e, baseline_energy_j=e0)
+
+
+class PowerGovernor:
+    """The legacy governor: :func:`sweep_decision` under a
+    :class:`GovernorConfig`, each decision applied to its actuator."""
+
+    def __init__(self, cfg: GovernorConfig = GovernorConfig(),
+                 chip: ChipSpec = H100_SXM,
+                 actuator: Optional[PowerActuator] = None):
+        self.cfg = cfg
+        self.chip = chip
+        self.model = ChipModel(chip)
+        self.actuator = actuator or SimulatedActuator(chip)
+
+    def freq_grid(self) -> List[float]:
+        return self.model.freq_grid(self.cfg.n_freqs)
+
+    def choose(self, profile: StepProfile) -> Decision:
+        d = sweep_decision(profile, self.model,
+                           slowdown_budget=self.cfg.slowdown_budget,
+                           n_freqs=self.cfg.n_freqs,
+                           power_cap_w=self.cfg.power_cap_w)
+        self.actuator.apply(d.freq_mhz)
+        return d

@@ -1,13 +1,108 @@
-"""Analytic roofline terms of a model step from its configuration.
+"""Roofline terms of a model step.
+
+The artifact half prices what :mod:`repro_torch.core.hlo_cost` counted on
+one rank (its flops, bytes and collective bytes) as the three roofline
+terms on a chip: :func:`roofline_from_artifacts` and
+:class:`RooflineReport`, the reference's arithmetic. The reference reads
+its counts from the compiled, partitioned XLA module; the port's come from
+the ops one rank's step dispatches.
 
 ``memory_floor_s`` and ``model_flops`` are the reference's formulas,
-copied: they read only the config and the chip spec. The reference's
-extraction of flops, bytes and collective traffic from compiled XLA
-artifacts has no counterpart yet (ROADMAP queue A item 7).
+copied: they read only the config and the chip spec.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Dict
+
 from repro_torch.core.hardware import ChipSpec, H100_SXM
+from repro_torch.core.hlo_cost import COLLECTIVE_OPS, CostTotals
+
+
+def collective_bytes(totals: CostTotals) -> Dict:
+    """Per-op-type operand bytes a rank's step put on the wire, from the
+    counter's totals: each collective type that ran, ``"__counts__"`` (its
+    number of calls) and ``"total"``, as the reference's dict."""
+    out: Dict = {op: totals.collective_bytes[op] for op in COLLECTIVE_OPS
+                 if totals.collective_counts.get(op)}
+    out["__counts__"] = {op: totals.collective_counts[op]
+                         for op in COLLECTIVE_OPS
+                         if totals.collective_counts.get(op)}
+    out["total"] = sum(v for k, v in out.items()
+                       if k not in ("__counts__", "total"))
+    return out
+
+
+@dataclass
+class RooflineReport:
+    """All three terms in *seconds per step*, per-chip basis. ``chip`` is
+    the spec the terms were priced on; ``mfu`` divides by its peak (the
+    reference divides by ``TPU_V5E``'s whatever chip it priced on; the two
+    agree at ``TPU_V5E``)."""
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops_per_dev: float
+    bytes_per_dev: float
+    coll_bytes_per_dev: float
+    model_flops_global: float
+    chips: int
+    chip: ChipSpec = H100_SXM
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Roofline (perfect-overlap) step time estimate."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / counted flops — catches remat/padding waste."""
+        counted_global = self.flops_per_dev * self.chips
+        return (self.model_flops_global / counted_global if counted_global
+                else 0.0)
+
+    @property
+    def mfu(self) -> float:
+        """Model-flops utilization at the roofline step time."""
+        denom = self.step_time_s * self.chips * self.chip.peak_flops
+        return self.model_flops_global / denom if denom else 0.0
+
+    def to_dict(self) -> Dict:
+        return {
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s, "dominant": self.dominant,
+            "step_time_s": self.step_time_s,
+            "flops_per_dev": self.flops_per_dev,
+            "bytes_per_dev": self.bytes_per_dev,
+            "coll_bytes_per_dev": self.coll_bytes_per_dev,
+            "model_flops_global": self.model_flops_global,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "mfu": self.mfu, "chips": self.chips,
+        }
+
+
+def roofline_from_artifacts(cost: Dict, coll: Dict, chips: int,
+                            model_flops_global: float,
+                            chip: ChipSpec = H100_SXM) -> RooflineReport:
+    """``cost`` (``"flops"``, ``"bytes accessed"``) and ``coll``
+    (``"total"``) are one rank's counts of its step."""
+    flops = float(cost.get("flops", 0.0))
+    byts = float(cost.get("bytes accessed", 0.0))
+    cbytes = float(coll.get("total", 0))
+    return RooflineReport(
+        compute_s=flops / chip.peak_flops,
+        memory_s=byts / chip.hbm_bw,
+        collective_s=cbytes / chip.ici_bw,
+        flops_per_dev=flops, bytes_per_dev=byts,
+        coll_bytes_per_dev=cbytes,
+        model_flops_global=model_flops_global,
+        chips=chips, chip=chip)
 
 
 def memory_floor_s(cfg, shape, chips: int,

@@ -160,6 +160,51 @@ def flash_attention_work(seq_q: int, seq_kv: int, *, causal: bool,
     return entries, kv_rows, pairs
 
 
+def flash_attention_cost(batch_heads: int, seq_q: int, seq_kv: int,
+                         head_dim: int, value_dim: int, itemsize: int, *,
+                         causal: bool, block_q: int, block_k: int
+                         ) -> Tuple[float, float]:
+    """``(flops, bytes)`` the kernel does over ``batch_heads`` (batch x q
+    heads) at these tiles (:func:`flash_attention_work`): ``2 (D + Dv)``
+    flops an evaluated score entry; q read and o written once, and each kv
+    row a q tile visits read for it. The tuner's candidates and the cost
+    counter's charge for a launch."""
+    entries, kv_rows, _ = flash_attention_work(
+        seq_q, seq_kv, causal=causal, block_q=block_q, block_k=block_k)
+    flops = 2.0 * batch_heads * entries * (head_dim + value_dim)
+    byts = float(itemsize * batch_heads * (seq_q * head_dim
+                                           + seq_q * value_dim
+                                           + kv_rows * (head_dim
+                                                        + value_dim)))
+    return flops, byts
+
+
+def attention_entries(seq_q: int, seq_kv: int, causal: bool) -> int:
+    """Score entries one (batch, head) of attention needs: every (q, kv)
+    pair, or under the top-left causal mask the keys 0..qpos of each query
+    row, sum of min(qpos + 1, Skv)."""
+    if not causal:
+        return seq_q * seq_kv
+    if seq_q <= seq_kv:
+        return seq_q * (seq_q + 1) // 2
+    return seq_kv * (seq_kv + 1) // 2 + (seq_q - seq_kv) * seq_kv
+
+
+def attention_need(B: int, Hq: int, Hkv: int, seq_q: int, seq_kv: int,
+                   head_dim: int, value_dim: int, itemsize: int,
+                   causal: bool) -> Tuple[float, float]:
+    """``(flops, bytes)`` the attention function needs, whatever computes
+    it: ``2 (D + Dv)`` flops an unmasked score entry
+    (:func:`attention_entries`); q and k of head dim D, v and o of Dv,
+    each read or written once. A kernel's roofline bound is priced on
+    these."""
+    flops = (2.0 * B * Hq * attention_entries(seq_q, seq_kv, causal)
+             * (head_dim + value_dim))
+    byts = itemsize * (B * seq_q * Hq * (head_dim + value_dim)
+                       + B * seq_kv * Hkv * (head_dim + value_dim))
+    return flops, byts
+
+
 def _positive(name: str, value) -> int:
     try:
         value = operator.index(value)
@@ -395,6 +440,10 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
     LAUNCHES += 1
     key = launch_key(D, Dv, causal, Sq, Skv)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    from repro_torch.core import hlo_cost
+    hlo_cost.charge_kernel("flash_attention", lambda: flash_attention_cost(
+        B * Hq, Sq, Skv, D, Dv, q.element_size(), causal=causal,
+        block_q=min(block_q, Sq), block_k=min(block_k, Skv)))
     return out
 
 

@@ -106,6 +106,9 @@ def _launch(x, n_chunks: int, n_iters: int) -> torch.Tensor:
     build.check_launch(code, f"membw(n_chunks={n_chunks}, "
                              f"n_iters={n_iters})")
     LAUNCHES += 1
+    from repro_torch.core import hlo_cost
+    hlo_cost.charge_kernel("membw", lambda: (0.0, membw_bytes(
+        chunk_rows * LANE * x.element_size(), n_iters)))
     return out
 
 

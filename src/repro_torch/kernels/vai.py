@@ -96,6 +96,9 @@ def _launch(a, b, c, loopsize: int, block_rows: int) -> torch.Tensor:
                              f"block_rows={block_rows})")
     LAUNCHES += 1
     LAUNCHES_BY_SHAPE[(loopsize, block_rows)] += 1
+    from repro_torch.core import hlo_cost
+    hlo_cost.charge_kernel("vai", lambda: vai_flops_bytes(a.numel(),
+                                                          loopsize))
     return out
 
 

@@ -44,8 +44,8 @@ scenarios  — the declarative what-if surface: :class:`Workload`,
              ``tables=`` spelling resolves through one
              :func:`resolve_tables`
 
-The reference's legacy ``PowerGovernor`` / ``GovernorConfig`` (ROADMAP
-queue A item 7) are not ported yet.
+The legacy entry point ``repro_torch.core.governor.PowerGovernor`` (with
+its ``GovernorConfig``) remains as a thin shim over this layer.
 
 Typical use:
 
@@ -58,7 +58,8 @@ Typical use:
     rows = sess.fleet().decompose().project([900])
 """
 from repro_torch.core.governor import (  # noqa: F401
-    Decision, PowerActuator, SimulatedActuator, sweep_decision)
+    Decision, GovernorConfig, PowerActuator, PowerGovernor,
+    SimulatedActuator, sweep_decision)
 from repro_torch.core.modal import (  # noqa: F401
     BatchModalDecomposition, decompose_batch)
 from repro_torch.core.projection import (  # noqa: F401
@@ -108,8 +109,9 @@ __all__ = [
     # policies
     "POLICIES", "PowerPolicy", "NominalPolicy", "StaticFrequencyPolicy",
     "PowerCapPolicy", "EnergyAwarePolicy", "get_policy",
-    # decisions / actuation
-    "Decision", "PowerActuator", "SimulatedActuator", "sweep_decision",
+    # decisions / actuation / legacy governor
+    "Decision", "GovernorConfig", "PowerActuator", "PowerGovernor",
+    "SimulatedActuator", "sweep_decision",
     # session + telemetry
     "EnergySession", "JobLog", "JobRecord", "StepSample", "TelemetryStore",
     # fleet pipeline

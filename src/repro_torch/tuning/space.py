@@ -502,12 +502,14 @@ class FlashAttentionSpace(KernelSpace):
         bq, bk = cfg["block_q"], cfg["block_k"]
         bh, sq = self.batch_heads, self.seq_q
         d, dv, it = self.head_dim, self.value_dim, self.itemsize
-        entries, kv_rows, pairs = fa.flash_attention_work(
+        _, _, pairs = fa.flash_attention_work(
             sq, self.seq_kv, causal=self.causal, block_q=bq, block_k=bk)
+        flops, hbm_bytes = fa.flash_attention_cost(
+            bh, sq, self.seq_kv, d, dv, it, causal=self.causal, block_q=bq,
+            block_k=bk)
         return Candidate(
             kernel=self.kernel, config=config,
-            flops=2.0 * bh * entries * (d + dv),
-            hbm_bytes=float(it * bh * (sq * d + sq * dv + kv_rows * (d + dv))),
+            flops=flops, hbm_bytes=hbm_bytes,
             vmem_bytes=fa.smem_bytes(it, d, bq, bk, dv),
             grid_steps=bh * pairs)
 

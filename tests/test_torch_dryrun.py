@@ -1,0 +1,373 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on fake worlds on the
+CPU, and the legacy governor shims against the reference's.
+
+Each arch's cells run in a subprocess of their own (a process holds one
+fake world), all started together: stablelm-12b and dbrx-132b reduced on a
+fake (2, 4) mesh (data 2 x model 4), every shape, and recurrentgemma-2b
+reduced at tp = 4, which fails with ROADMAP queue A item 8's error. The
+records carry the reference's keys (``ops`` where it has ``hlo_lines``);
+the input bytes a device holds equal the reference's
+``spec_bytes_per_device`` of the same cell; the collective bytes of the
+tensor-parallel prefill and of the ZeRO-1 train step equal Megatron's
+pattern counted by hand from the config, exactly.
+"""
+import ast
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import pytest
+from jax.sharding import AbstractMesh as RefAbstractMesh
+
+from repro.configs import get_config as ref_get_config
+from repro.launch import steps as ref_steps
+from repro.models.transformer import Runtime as RefRuntime
+from repro.parallel import sharding as ref_sharding
+
+from repro_torch.configs import SHAPES_BY_NAME, get_config
+from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.models import model as M
+from repro_torch.models.common import default_rules
+from repro_torch.models.transformer import Runtime
+from repro_torch.parallel.sharding import (NamedSharding, is_spec,
+                                           zero1_specs)
+from repro_torch.tree import tree_leaves
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MESH = (2, 4)
+#: run name -> (arch, shapes, extra flags)
+CELLS = {"stablelm-12b": ("stablelm-12b", "all", ()),
+         "dbrx-132b": ("dbrx-132b", "all", ()),
+         "recurrentgemma-2b": ("recurrentgemma-2b", "train_4k", ()),
+         "dbrx-132b-f8": ("dbrx-132b", "prefill_32k",
+                          ("--moe-dispatch", "f8")),
+         "refused": ("stablelm-12b", "train_4k,decode_32k",
+                     ("--no-zero1", "--decode-cache-shard", "seq"))}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{run: (exit code, stdout, out dir)} of one dry-run process per run
+    of CELLS, all run at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for name, (arch, shape, extra) in CELLS.items():
+        out = tmp_path_factory.mktemp(name)
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-m",
+             "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--reduced", "--mesh-shape", ",".join(map(str, MESH)),
+             "--out", str(out), *extra], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+    res = {}
+    for name, (p, out) in procs.items():
+        so, se = p.communicate(timeout=240)
+        res[name] = (p.returncode, so + se, out)
+    return res
+
+
+def _record(runs, arch, shape, run=None):
+    rc, log, out = runs[run or arch]
+    path = out / f"{arch}__{shape}__single.json"
+    assert path.exists(), log
+    return json.loads(path.read_text())
+
+
+def _reference_record_keys():
+    """The keys the reference's ``run_cell`` puts in its record: those of
+    its dict literal and of every ``rec[...] =``."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "run_cell")
+    keys = set()
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                           ast.Name)
+                and node.target.id == "rec"):
+            keys |= {k.value for k in node.value.keys}
+        if isinstance(node, ast.Assign):
+            for t in node.targets:
+                if (isinstance(t, ast.Subscript) and isinstance(t.value,
+                                                                ast.Name)
+                        and t.value.id == "rec"
+                        and isinstance(t.slice, ast.Constant)):
+                    keys.add(t.slice.value)
+    return keys
+
+
+ROOFLINE_KEYS = {"compute_s", "memory_s", "collective_s", "dominant",
+                 "step_time_s", "flops_per_dev", "bytes_per_dev",
+                 "coll_bytes_per_dev", "model_flops_global",
+                 "useful_flops_ratio", "mfu", "chips", "memory_s_floor"}
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "dbrx-132b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_records_carry_the_reference_keys(runs, arch, shape):
+    rc, log, _ = runs[arch]
+    assert rc == 0, log
+    rec = _record(runs, arch, shape)
+    want = _reference_record_keys()
+    assert "hlo_lines" in want and "fits_hbm" in want
+    assert (want - {"hlo_lines"}) | {"ops"} <= set(rec)
+    assert set(rec["roofline"]) == ROOFLINE_KEYS
+    assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
+                                  "temp_bytes", "generated_code_bytes"}
+    assert set(rec["cost"]) == {"flops", "bytes accessed"}
+    assert rec["chips"] == math.prod(MESH) and rec["mesh"] == "single"
+    assert rec["kind"] == SHAPES_BY_NAME[shape].kind
+    assert rec["ops"] > 0 and rec["cost"]["flops"] > 0
+    r = rec["roofline"]
+    assert r["step_time_s"] == max(r["compute_s"], r["memory_s"],
+                                   r["collective_s"]) > 0
+    assert rec["collectives"]["total"] == rec["parsed_cost"][
+        "collective_total"] > 0
+    assert rec["memory"]["argument_bytes"] == rec["input_bytes_per_device"]
+    if arch == "dbrx-132b" and shape != "decode_32k":
+        assert rec["collectives"]["__counts__"]["all-to-all"] > 0
+
+
+def _reference_input_bytes(arch, shape_name):
+    cfg = ref_get_config(arch).reduced()
+    shape = SHAPES_BY_NAME[shape_name].reduced()
+    mesh = RefAbstractMesh(MESH, ("data", "model"))
+    rules = ref_steps.rules_for_shape(shape, False, mesh)
+    args, _ = ref_steps.input_specs(
+        cfg, shape, RefRuntime(tp=MESH[1], mesh=mesh, batch_axes=("data",)),
+        mesh, rules)
+    specs = jax.tree.map(lambda s: s.sharding.spec, args,
+                         is_leaf=lambda x: isinstance(x,
+                                                      jax.ShapeDtypeStruct))
+    return ref_sharding.spec_bytes_per_device(args, specs, mesh)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "dbrx-132b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_input_bytes_match_the_reference(runs, arch, shape):
+    rec = _record(runs, arch, shape)
+    assert rec["input_bytes_per_device"] == _reference_input_bytes(arch,
+                                                                   shape)
+
+
+# ---------------------------------------------------------------------------
+# Megatron's pattern, counted by hand
+# ---------------------------------------------------------------------------
+def _dense_setup():
+    cfg = get_config("stablelm-12b").reduced()
+    dp, tp = MESH
+    return cfg, dp, tp
+
+
+def test_tp_prefill_collectives_are_megatrons(runs):
+    """Prefill on (data 2, model 4): the vocab-parallel embedding's
+    all-reduce of ``[tokens, d]``, two a layer (attention's and the mlp's
+    partial outputs), then the last position's logits gathered over the
+    vocab split: nothing else."""
+    cfg, dp, tp = _dense_setup()
+    shape = SHAPES_BY_NAME["prefill_32k"].reduced()
+    B = shape.global_batch // dp
+    T, d, L, bf16 = B * shape.seq_len, cfg.d_model, cfg.n_layers, 2
+    coll = _record(runs, "stablelm-12b", "prefill_32k")["collectives"]
+    assert coll["__counts__"] == {"all-reduce": 1 + 2 * L, "all-gather": 1}
+    assert coll["all-reduce"] == (1 + 2 * L) * T * d * bf16
+    assert coll["all-gather"] == B * cfg.padded_vocab(tp) // tp * bf16
+    assert coll["total"] == coll["all-reduce"] + coll["all-gather"]
+
+
+def _zero1_leaves(cfg, dp, tp):
+    """(reduce-scattered leaves' local bytes, their number, all-reduced
+    leaves' local bytes, their number): each parameter leaf's ZeRO-1 plan
+    from its spec (``zero1_specs`` splits its first free dim that divides
+    over data; a leaf it cannot split has its gradient all-reduced)."""
+    mesh = AbstractMesh(MESH, ("data", "model"))
+    rt = Runtime(tp=tp)
+    shapes = M.init_params(cfg, rt, device="meta")
+    p_specs = M.param_specs(cfg, rt, default_rules())
+    m_specs = zero1_specs(p_specs, shapes, mesh, ("data",))
+    rs = n_rs = ar = n_ar = 0
+    for t, ps, ms in zip(tree_leaves(shapes),
+                         tree_leaves(p_specs, is_leaf=is_spec),
+                         tree_leaves(m_specs, is_leaf=is_spec)):
+        local = math.prod(NamedSharding(mesh, ps).local_shape(t.shape))
+        b = local * t.element_size()
+        pad = tuple(ps) + (None,) * (len(ms) - len(ps))
+        if tuple(pad) != tuple(ms):
+            rs, n_rs = rs + b, n_rs + 1
+        else:
+            ar, n_ar = ar + b, n_ar + 1
+    return rs, n_rs, ar, n_ar
+
+
+def test_zero1_train_collectives_are_megatrons(runs):
+    """The ZeRO-1 train step on (data 2, model 4) with full remat, the
+    collectives counted by hand:
+
+    * ``[tokens, d]`` all-reduces: forward 1 + 2 a layer (the embedding's,
+      attention's and the mlp's partial sums); the recompute, one a layer
+      (attention's; the layer's last op, the mlp's sum, is not re-run:
+      checkpoint's early stop); backward 2 a layer (the gradients of the
+      activations entering the head- and ffn-split products) and 1 for the
+      loss's vocab-split head: 2 + 5 L;
+    * the vocab-parallel loss: max, sum of exponentials and gold logit of
+      each ``[B, chunk]`` (f32), forward and recompute: 6 a chunk;
+    * 0-d f32: the loss's numerator forward and backward and its count
+      over data, and the squared gradient norm over all ranks: 4;
+    * the kv projections, whose 2 heads are replicated over model's 4
+      ranks: their gradients summed over model, 2 a layer;
+    * ZeRO-1: each leaf's gradient reduce-scattered over data into its
+      moment shard and the updated shard all-gathered back; a leaf with no
+      dim to split all-reduced whole.
+    """
+    cfg, dp, tp = _dense_setup()
+    shape = SHAPES_BY_NAME["train_4k"].reduced()
+    B = shape.global_batch // dp
+    S, d, L, hd = shape.seq_len, cfg.d_model, cfg.n_layers, \
+        cfg.resolved_head_dim
+    T, bf16, f32 = B * S, 2, 4
+    assert cfg.padded_kv_heads(tp) < tp          # kv heads replicated
+    kv_local = cfg.padded_kv_heads(tp)
+    rs, n_rs, ar_z, n_ar_z = _zero1_leaves(cfg, dp, tp)
+    act = (2 + 5 * L) * T * d * bf16
+    loss = 6 * T * f32
+    scalars = 4 * f32
+    kv = 2 * L * d * kv_local * hd * bf16
+    coll = _record(runs, "stablelm-12b", "train_4k")["collectives"]
+    assert coll["__counts__"] == {
+        "all-reduce": (2 + 5 * L) + 6 * (S // min(S, 512)) + 4 + 2 * L
+        + n_ar_z,
+        "reduce-scatter": n_rs, "all-gather": n_rs}
+    assert coll["all-reduce"] == act + loss + scalars + kv + ar_z
+    assert coll["reduce-scatter"] == rs
+    assert coll["all-gather"] == rs // dp
+
+
+def test_f8_dispatch_puts_one_byte_an_element_on_the_wire(runs):
+    """``--moe-dispatch f8``: the dispatch all-to-all carries the tokens in
+    float8_e4m3fn, 1 B an element, the combine's all-to-all (as many
+    elements) stays bf16, as DeepSeek-V3 dispatches; nothing else
+    changes."""
+    bf16 = _record(runs, "dbrx-132b", "prefill_32k")["collectives"]
+    f8 = _record(runs, "dbrx-132b", "prefill_32k", "dbrx-132b-f8")
+    assert f8["overrides"]["moe_dispatch_dtype"] == "f8"
+    f8 = f8["collectives"]
+    assert f8["__counts__"] == bf16["__counts__"]
+    assert (bf16["all-to-all"] - f8["all-to-all"]) * 4 == bf16[
+        "all-to-all"] > 0
+    assert f8["all-reduce"] == bf16["all-reduce"]
+
+
+def test_options_without_a_counterpart_fail_by_name(runs):
+    """``--no-zero1`` for a train cell (the port's step keeps ZeRO-1
+    moments) and ``--decode-cache-shard seq`` (no sequence-split cache)
+    fail the cell with a reason, never with a wrong record."""
+    rc, log, out = runs["refused"]
+    assert rc != 0 and "2 dry-run failures" in log
+    for shape, why in (("train_4k", "zero1=False"),
+                       ("decode_32k", "decode_cache_shard='seq'")):
+        text = (out / f"stablelm-12b__{shape}__single.error").read_text()
+        assert "NotImplementedError" in text and why in text
+
+
+def test_item8_family_fails_by_name(runs):
+    """recurrentgemma-2b at tp = 4 raises ROADMAP queue A item 8's
+    NotImplementedError: the cell writes ``.error`` with it, and ``main``
+    exits non-zero listing the cell."""
+    rc, log, out = runs["recurrentgemma-2b"]
+    assert rc != 0
+    assert "1 dry-run failures" in log
+    err = out / "recurrentgemma-2b__train_4k__single.error"
+    text = err.read_text()
+    assert "NotImplementedError" in text and "item 8" in text
+    assert not (out / "recurrentgemma-2b__train_4k__single.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# the governor shims against the reference's (tests/test_power_api.py:33,
+# tests/test_modal_governor.py:93-124), at TPU_V5E
+# ---------------------------------------------------------------------------
+def _grid(mod):
+    return [mod.StepProfile(c, m, n) for c in (0.01, 0.2, 1.0)
+            for m in (0.01, 0.5, 1.0) for n in (0.0, 0.3)]
+
+
+def _fields(d):
+    return (d.freq_mhz, d.freq_frac, d.mode.idx, d.mode.name, d.time_s,
+            d.power_w, d.energy_j, d.baseline_energy_j, d.savings_pct)
+
+
+@pytest.mark.parametrize("budget,n_freqs,cap_w", [
+    (0.0, 11, None), (0.112, 11, None), (0.3, 7, None),
+    (0.0, 11, 150.0), (0.05, 21, 180.0),
+])
+def test_governor_matches_the_reference_and_the_policy(budget, n_freqs,
+                                                       cap_w):
+    import repro.power as rp
+    import repro_torch.power as tp
+    ref = rp.PowerGovernor(rp.GovernorConfig(
+        slowdown_budget=budget, n_freqs=n_freqs, power_cap_w=cap_w))
+    gov = tp.PowerGovernor(tp.GovernorConfig(
+        slowdown_budget=budget, n_freqs=n_freqs, power_cap_w=cap_w),
+        chip=tp.TPU_V5E)
+    pol = tp.EnergyAwarePolicy(slowdown_budget=budget, n_freqs=n_freqs,
+                               power_cap_w=cap_w)
+    chip = tp.ChipModel(tp.TPU_V5E)
+    assert gov.freq_grid() == ref.freq_grid()
+    for p, rp_ in zip(_grid(tp), _grid(rp)):
+        got = gov.choose(p)
+        assert _fields(got) == _fields(ref.choose(rp_))
+        assert got == pol.decide(p, chip)
+    assert gov.actuator.history == ref.actuator.history
+
+
+def test_governor_cases_of_the_reference():
+    """tests/test_modal_governor.py's fixed cases through the port at
+    TPU_V5E, beside the reference's decision."""
+    import repro.power as rp
+    import repro_torch.power as tp
+    from repro_torch.core.governor import SimulatedActuator
+
+    def both(budget, c, m):
+        g = tp.PowerGovernor(tp.GovernorConfig(slowdown_budget=budget),
+                             chip=tp.TPU_V5E)
+        r = rp.PowerGovernor(rp.GovernorConfig(slowdown_budget=budget))
+        d = g.choose(tp.StepProfile(compute_s=c, memory_s=m))
+        assert _fields(d) == _fields(r.choose(rp.StepProfile(
+            compute_s=c, memory_s=m)))
+        return d
+
+    down = both(0.0, 0.1, 1.0)              # memory-bound: clocks down
+    assert down.freq_mhz < 1700 and down.savings_pct > 5.0
+    assert down.mode.idx == 2
+    nominal = both(0.0, 1.0, 0.05)          # compute-bound: stays
+    assert nominal.freq_mhz == 1700
+    assert nominal.savings_pct == pytest.approx(0.0, abs=1e-6)
+    for budget in (0.0, 0.2, 0.5):
+        for c, m in ((1e-4, 5.0), (2.0, 0.3), (0.7, 0.7)):
+            d = both(budget, c, m)
+            t0 = tp.ChipModel(tp.TPU_V5E).step_time(
+                tp.StepProfile(compute_s=c, memory_s=m), 1.0)
+            assert d.time_s <= t0 * (1 + budget) * (1 + 1e-9)
+            assert d.energy_j <= d.baseline_energy_j + 1e-9
+    act = SimulatedActuator(tp.TPU_V5E)
+    gov = tp.PowerGovernor(tp.GovernorConfig(), chip=tp.TPU_V5E,
+                           actuator=act)
+    gov.choose(tp.StepProfile(0.1, 1.0))
+    gov.choose(tp.StepProfile(1.0, 0.1))
+    assert len(act.history) == 2
+
+
+def test_governor_defaults_and_refusals():
+    from repro_torch.core.hardware import H100_SXM
+    import repro_torch.power as tp
+    gov = tp.PowerGovernor()
+    assert gov.chip is H100_SXM and gov.actuator.chip is H100_SXM
+    assert len(gov.freq_grid()) == 11
+    with pytest.raises(ValueError, match="n_freqs must be >= 1"):
+        tp.GovernorConfig(n_freqs=0)
+    p = tp.StepProfile(0.2, 1.0)
+    assert gov.choose(p) == tp.EnergyAwarePolicy().decide(
+        p, tp.ChipModel(H100_SXM))
