@@ -91,9 +91,10 @@ call:
       kernel launches in training, as the reference's training never
       reaches its Pallas kernel
     the dry run and its cost model (repro_torch.launch.dryrun,
-      repro_torch.core.hlo_cost / roofline): (a) stablelm-12b train_4k and
-      dbrx-132b prefill_32k on the 256-rank mesh, deepseek-v3-671b
-      decode_32k on the 512-rank one, each in a process of its own on a
+      repro_torch.core.hlo_cost / roofline): (a) stablelm-12b train_4k,
+      dbrx-132b prefill_32k and mamba2-2.7b prefill_32k on the 256-rank
+      mesh, deepseek-v3-671b decode_32k on the 512-rank one, each in a
+      process of its own on a
       fake process group and meta tensors, off the card: records written,
       finite and positive, the model's flops at most 1.05x the counted;
       (b) one more step of the training cell counted on the card and on
@@ -119,7 +120,16 @@ call:
       decode in bf16 and in f32 (the same weights) against the local path
       on the card in both: the f32 mesh within a relative limit of the f32
       local path, the bf16 mesh no further from the f32 local path than a
-      factor times the bf16 local path is (times host-staged, reported)
+      factor times the bf16 local path is (times host-staged, reported);
+      (e) on the same four gloo processes the SSM, hybrid, VLM and enc-dec
+      families split over model at full width (mamba2-2.7b 4 layers,
+      recurrentgemma-2b one (rglru, rglru, attn) group, llama-3.2-vision-11b
+      5 self layers and a cross block, seamless-m4t-large-v2 2 + 2 layers):
+      a 512-token prefill a data row and 4 decode steps in bf16 and in f32,
+      and the f32 loss forward and backward, against the local path on
+      rank 0 (the same gates as (d); the loss rtol 1e-5, every gradient
+      leaf within 1e-4 * max|g| and nonzero; each rank's flash launches
+      by call shape equal to the local path's)
 
 Run it with no arguments from the root of the checkout:
 
@@ -2964,7 +2974,8 @@ def train_phase(device, sizes: dict, timer: Timer, keep=None) -> dict:
 #: runs their reduced configs on a fake (2, 4) mesh
 DRYRUN_CELLS = (("stablelm-12b", "train_4k", "single"),
                 ("dbrx-132b", "prefill_32k", "single"),
-                ("deepseek-v3-671b", "decode_32k", "multi"))
+                ("deepseek-v3-671b", "decode_32k", "multi"),
+                ("mamba2-2.7b", "prefill_32k", "single"))
 #: (a)'s cells on the host: the longest (dbrx-132b's prefill, 40 layers of
 #: the plain blocked attention at 32k tokens) takes about 40 s
 DRYRUN_CELL_TIMEOUT_S = 600
@@ -3314,6 +3325,32 @@ DIST_GLOO_COLLECTIVES = ("all_reduce", "all_to_all_single",
 DIST_GLOO_LEGS = {"ep_prefill": ("all_reduce", "all_to_all_single",
                                  "all_gather_into_tensor"),
                   "ep2d_decode": ("all_reduce", "all_gather_into_tensor")}
+
+
+#: (e): the SSM, hybrid, VLM and enc-dec families split over model on
+#: four gloo processes on the one card (DIST_GLOO_MESH), each at full width
+#: and cut in depth: arch -> its cuts
+DIST_FAMILIES = {"mamba2-2.7b": {"n_layers": 4},
+                 "recurrentgemma-2b": {"n_layers": 3},
+                 "llama-3.2-vision-11b": {"n_layers": 5},
+                 "seamless-m4t-large-v2": {"n_layers": 2,
+                                           "n_encoder_layers": 2}}
+DIST_FAMILIES_WHY = ("time and memory: four processes share one card, and "
+                     "rank 0 holds the local path's whole f32 weights and "
+                     "gradients beside its shards; RecurrentGemma keeps one "
+                     "(rglru, rglru, attn) group, Llama 3.2 Vision one group "
+                     "of 5 self layers and its cross block")
+#: (e)'s weights, tokens and frontends
+DIST_FAMILIES_SEED = 41
+#: (e)'s f32 loss and gradients against the local path's: the loss within
+#: this relative tolerance, each gathered gradient leaf within
+#: DIST_FAMILIES_GRAD_SHARE * max|local leaf| and nonzero
+DIST_FAMILIES_LOSS_RTOL = 1e-5
+DIST_FAMILIES_GRAD_SHARE = 1e-4
+#: the collectives (e)'s split forwards and their gradients call, probed on
+#: CUDA tensors first: gloo refusing one fails the run
+DIST_FAMILIES_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                             "reduce_scatter_tensor")
 
 
 def _flash_limit_share(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3779,6 +3816,54 @@ def _gloo_rank(rank: int, world: int, store_path: str, out_path: str,
         dist.destroy_process_group()
 
 
+def _spawn_gloo(target, name: str, device, sizes: dict):
+    """``target(rank, world, store, out_path, device_type, sizes)`` on the
+    DIST_GLOO_MESH ranks, spawned with torch.multiprocessing, a FileStore
+    and rank 0's ``out_path`` under ``build/<name>``: (rank 0's report,
+    the wall seconds, ``out_path``)."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    world = DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1]
+    work = os.path.join(HERE, "build", name)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out_path = os.path.join(work, "rank0.json")
+    t0 = time.perf_counter()
+    mp.start_processes(target, args=(
+        world, os.path.join(work, "store"), out_path, device.type, sizes),
+        nprocs=world, join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        return json.load(f), wall, out_path
+
+
+def _logit_gates(have: dict, l16: list, l32_wide: list, l32: list) -> dict:
+    """The gates of (d) and (e) on each step's logits: the f32 mesh
+    (``have["float32"]``) against the f32 local path ``l32`` within
+    DIST_GLOO_F32_RTOL * max|logits|, and the bf16 mesh's distance from the
+    f32 local path at its layers (``l32_wide``) at most
+    DIST_GLOO_BF16_FACTOR times the bf16 local path's (``l16``): the steps'
+    distances and each gate's worst share of its limit."""
+    amax = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    steps = [{"bf16_mesh_vs_local": amax(have["bfloat16"][i], l16[i]),
+              "bf16_mesh_vs_local_f32": amax(have["bfloat16"][i],
+                                             l32_wide[i]),
+              "bf16_local_vs_local_f32": amax(l16[i], l32_wide[i]),
+              "f32_mesh_vs_local": amax(have["float32"][i], l32[i]),
+              "max_abs_logit_f32": float(l32[i].abs().max())}
+             for i in range(len(l32))]
+    return {
+        "steps": steps,
+        "f32_share_of_limit": max(
+            r["f32_mesh_vs_local"]
+            / (DIST_GLOO_F32_RTOL * r["max_abs_logit_f32"]) for r in steps),
+        "bf16_share_of_limit": max(
+            r["bf16_mesh_vs_local_f32"]
+            / (DIST_GLOO_BF16_FACTOR * r["bf16_local_vs_local_f32"])
+            for r in steps)}
+
+
 def dist_gloo_on_card(device, sizes: dict) -> dict:
     """(d) four processes on the one card over gloo (DIST_GLOO_MESH),
     started with torch.multiprocessing; then the local path on the card
@@ -3793,30 +3878,17 @@ def dist_gloo_on_card(device, sizes: dict) -> dict:
     import dataclasses
     import shutil
 
-    import torch.multiprocessing as mp
-
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.transformer import Runtime
-    world = DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1]
-    work = os.path.join(HERE, "build", "dist_gloo")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    out_path = os.path.join(work, "rank0.json")
     parent_gb = None
     if device.type == "cuda":
         torch.cuda.empty_cache()
         parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
                      "reserved": torch.cuda.memory_reserved() / 1e9}
-    t0 = time.perf_counter()
-    mp.start_processes(_gloo_rank, args=(
-        world, os.path.join(work, "store"), out_path, device.type, sizes),
-        nprocs=world, join=True, start_method="spawn")
-    wall = time.perf_counter() - t0
-    with open(out_path) as f:
-        rep = json.load(f)
-    out = {"backend": "gloo", "world": world,
+    rep, wall, out_path = _spawn_gloo(_gloo_rank, "dist_gloo", device, sizes)
+    out = {"backend": "gloo", "world": DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1],
            "mesh": dict(zip(("data", "model"), DIST_GLOO_MESH)),
            "device": device.type, "probe": rep["probe"],
            "legs": rep["legs"], "wall_s": wall,
@@ -3863,29 +3935,12 @@ def dist_gloo_on_card(device, sizes: dict) -> dict:
                          drawn, True)
         l32 = local(*_gloo_cfg(cfg, "float32"), True)
         want = {"bfloat16": l16, "float32": l32}
-        amax = lambda a, b: float((a - b).abs().max())  # noqa: E731
-        per_step = []
-        for i in range(len(l32)):
-            m16, m32 = have["bfloat16"][i], have["float32"][i]
-            per_step.append({
-                "bf16_mesh_vs_local": amax(m16, l16[i]),
-                "bf16_mesh_vs_local_f32": amax(m16, l32_wide[i]),
-                "bf16_local_vs_local_f32": amax(l16[i], l32_wide[i]),
-                "f32_mesh_vs_local": amax(m32, l32[i]),
-                "max_abs_logit_f32": float(l32[i].abs().max())})
-        out["steps"] = per_step
-        out["max_abs_err"] = max(r["bf16_mesh_vs_local"] for r in per_step)
+        out.update(_logit_gates(have, l16, l32_wide, l32))
+        out["max_abs_err"] = max(r["bf16_mesh_vs_local"]
+                                 for r in out["steps"])
         out["share_of_bf16_flash_limit"] = max(
             _flash_limit_share(a, b)
             for a, b in zip(have["bfloat16"], want["bfloat16"]))
-        out["f32_share_of_limit"] = max(
-            r["f32_mesh_vs_local"]
-            / (DIST_GLOO_F32_RTOL * r["max_abs_logit_f32"])
-            for r in per_step)
-        out["bf16_share_of_limit"] = max(
-            r["bf16_mesh_vs_local_f32"]
-            / (DIST_GLOO_BF16_FACTOR * r["bf16_local_vs_local_f32"])
-            for r in per_step)
         out["tolerance"] = (
             f"each step: f32 mesh - f32 local <= {DIST_GLOO_F32_RTOL} * "
             f"max|f32 local|; bf16 mesh - f32 local <= "
@@ -3903,7 +3958,329 @@ def dist_gloo_on_card(device, sizes: dict) -> dict:
               and out["bf16_share_of_limit"] <= 1.0,
               f"(d) the gloo mesh's logits are further from the local "
               f"path's than rounding: {out}")
-    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    return out
+
+
+def _family_params(cfg, rt, device, rules=None):
+    """(e)'s weights of ``cfg`` in bf16 from DIST_FAMILIES_SEED (this
+    rank's shards under ``rt.mesh``, whole without), the VLM's tanh gates
+    drawn N(0, 1) (zeros at init, which would cut its cross blocks out of
+    the logits and the gradients), widened to f32 for an f32 ``cfg``."""
+    import dataclasses
+
+    from repro_torch.models import model as model_mod
+    drawn = dataclasses.replace(cfg, dtype=DIST_GLOO_DTYPES[0])
+    params = model_mod.init_params(drawn, rt, seed=DIST_FAMILIES_SEED,
+                                   device=device, rules=rules)
+    if cfg.family == "vlm":
+        g = torch.Generator().manual_seed(DIST_FAMILIES_SEED)
+        for block in params["layers"]["cross"]:
+            for name in ("gate_a", "gate_m"):
+                block[name].copy_(torch.randn(block[name].shape, generator=g))
+    if cfg.dtype == "float32":
+        _widen(params)
+    return params
+
+
+def _family_run(cfg, rt, params, batch, fed, greedy: bool, sizes, device,
+                rows=None) -> dict:
+    """A prefill of ``batch`` and DIST_GLOO_STEPS decode steps (each fed
+    the argmax of the last logits, appended to ``fed`` when ``greedy``, or
+    ``fed``'s token), on ``rt``'s route: the logits of each (gathered over
+    the batch's rows by ``rows``), the flash launches by call shape, and
+    the times (host clock, synchronised) after one untimed, uncounted
+    prefill."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    whole = (lambda t: t) if rows is None else rows.gather
+    local = (lambda t: t) if rows is None else rows.shard
+    out = {}
+    with torch.no_grad():
+        prefill = make_prefill_step(cfg, rt, sizes["dist_max_len"])
+        decode = make_decode_step(cfg, rt)
+        prefill(params, batch)
+        ops.reset_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, state = prefill(params, batch)
+        _sync(device)
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        steps_out = [whole(logits)]
+        pos = batch["tokens"].shape[1]
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(DIST_GLOO_STEPS):
+            if greedy:
+                fed.append(steps_out[-1][:, -1:].argmax(-1).to(torch.int32))
+            logits, state = decode(params, local(fed[i]),
+                                   torch.tensor(pos + i), state)
+            steps_out.append(whole(logits))
+        _sync(device)
+        out["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                     / DIST_GLOO_STEPS)
+    out["flash_launches_by_shape"] = dict(fa.LAUNCHES_BY_SHAPE)
+    out["logits"] = [t.float().cpu() for t in steps_out]
+    return out
+
+
+def _family_loss(cfg, rt, params, batch, device):
+    """(gradient, loss, ms) of ``loss_fn`` forward and backward, timed at
+    its second call; under a mesh each leaf averaged over the data axis,
+    as the train step does."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.tree import tree_map
+    steps_mod._grads(cfg, rt, params, batch)
+    _sync(device)
+    t0 = time.perf_counter()
+    g, metrics = steps_mod._grads(cfg, rt, params, batch)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if rt.mesh is not None:
+        grp, n = rt.mesh.group("data"), rt.mesh.shape["data"]
+        g = tree_map(lambda t: coll.all_reduce(t, grp) / n, g)
+    return g, float(metrics["loss"]), ms
+
+
+def _family_attn_impl(cfg, dtype: str) -> tuple:
+    """(attention route, why) of (e)'s ``dtype`` run: the kernel, or the
+    plain route where the flash kernel of that dtype is not built at the
+    config's head dim (f32 at RecurrentGemma's 256: ROADMAP later work
+    item 6), mesh and local path alike."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import flash_tiles
+    from repro_torch.models.common import torch_dtype
+    if not cfg.n_heads:
+        return "kernel", None
+    hd, dt = cfg.resolved_head_dim, torch_dtype(dtype)
+    why = fa.unsupported(dt.itemsize, hd, hd, *flash_tiles(dt, (hd, hd)))
+    return ("plain", why) if why else ("kernel", None)
+
+
+def _gloo_family(arch: str, rank: int, mesh, sizes, device) -> dict:
+    """One family of (e) on this rank: the mesh's bf16 prefill and greedy
+    decode steps, its f32 ones fed the same tokens, and its f32 loss
+    forward and backward; then rank 0 runs the local path (no mesh, whole
+    weights from the same seed) the same way, and holds each gathered
+    gradient leaf against its own. Returns rank 0's report (the others':
+    their launches and times)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import (NamedSharding,
+                                               named_sharding_tree)
+    from repro_torch.tree import leaves_with_paths, tree_leaves
+    cfg, reduced = serve_config(sizes, arch, DIST_FAMILIES[arch],
+                                DIST_FAMILIES_WHY)
+    tp, B = mesh.shape["model"], DIST_GLOO_MESH[0]
+    S = sizes["dist_gloo_prompt"]
+    rules = default_rules()
+    rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+    g = torch.Generator(device=device)
+    g.manual_seed(DIST_FAMILIES_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=device, dtype=torch.int32)
+    fe = (draw_frontend(dataclasses.replace(cfg, dtype="float32"), B, g,
+                        device) if cfg.frontend_seq else None)
+
+    def batch_of(dtype, tokens, shard):
+        b = {"tokens": tokens}
+        if fe is not None:
+            b["frontend"] = fe.to(getattr(torch, dtype))
+        return {k: rows.shard(v) for k, v in b.items()} if shard else b
+
+    rep = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "prompt_len": S, "batch": B,
+           "decode_steps": DIST_GLOO_STEPS}
+    mesh_runs, fed = {}, []
+    for dt in DIST_GLOO_DTYPES:
+        run_cfg = dataclasses.replace(cfg, dtype=dt)
+        impl, why = _family_attn_impl(cfg, dt)
+        rt = Runtime(tp=tp, mesh=mesh, attn_impl=impl)
+        params = _family_params(run_cfg, rt, device, rules)
+        mesh_runs[dt] = _family_run(run_cfg, rt, params,
+                                    batch_of(dt, toks[:, :S], True), fed,
+                                    dt == DIST_GLOO_DTYPES[0], sizes, device,
+                                    rows)
+        mesh_runs[dt]["attn_impl"] = impl
+        if why:
+            mesh_runs[dt]["attn_plain_why"] = why
+        if dt == "float32":
+            specs = model_mod.param_specs(run_cfg, rt)
+            g_mesh, loss_mesh, ms = _family_loss(
+                run_cfg, rt, params, batch_of(dt, toks, True), device)
+            mesh_runs[dt]["loss_fwd_bwd_ms"] = ms
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {
+        dt: {k: v for k, v in r.items() if k != "logits"}
+        for dt, r in mesh_runs.items()})
+    rep["mesh_by_rank"] = by_rank
+    local_runs, g_local = {}, None
+    if rank == 0:
+        for dt in DIST_GLOO_DTYPES:
+            run_cfg = dataclasses.replace(cfg, dtype=dt)
+            rt1 = Runtime(tp=tp, attn_impl=_family_attn_impl(cfg, dt)[0])
+            params = _family_params(run_cfg, rt1, device)
+            local_runs[dt] = _family_run(
+                run_cfg, rt1, params, batch_of(dt, toks[:, :S], False),
+                fed, False, sizes, device)
+            if dt == "float32":
+                g_local, loss_local, ms = _family_loss(
+                    run_cfg, rt1, params, batch_of(dt, toks, False), device)
+                local_runs[dt]["loss_fwd_bwd_ms"] = ms
+            del params
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    # each gradient leaf: averaged over data above, gathered whole over
+    # model here (every rank takes part), held against the local one on 0
+    local_leaves = dict(leaves_with_paths(g_local)) if rank == 0 else {}
+    shardings = tree_leaves(named_sharding_tree(specs, mesh))
+    worst, worst_leaf, leaves, zero = 0.0, None, 0, []
+    for (path, t), sh in zip(leaves_with_paths(g_mesh), shardings):
+        have = sh.gather(t)
+        if rank == 0:
+            want = local_leaves[path]
+            lim = DIST_FAMILIES_GRAD_SHARE * float(want.abs().max())
+            share = (float((have - want).abs().max()) / lim if lim > 0
+                     else math.inf)
+            if share >= worst:
+                worst, worst_leaf = share, path
+            leaves += 1
+            if not bool(have.abs().max() > 0):
+                zero.append(path)
+        del have
+    del g_mesh, g_local, local_leaves
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    rep["peak_memory_gb_by_rank"] = peaks
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    if rank != 0:
+        return rep
+    rep["local"] = {dt: {k: v for k, v in r.items() if k != "logits"}
+                    for dt, r in local_runs.items()}
+    have = {dt: r["logits"] for dt, r in mesh_runs.items()}
+    want = {dt: r["logits"] for dt, r in local_runs.items()}
+    rep.update(_logit_gates(have, want["bfloat16"], want["float32"],
+                            want["float32"]))
+    rep.update(_margin_tokens(want["bfloat16"], have["bfloat16"]))
+    rep["shapes_ok"] = all(
+        bool(torch.isfinite(a).all()) and a.shape == b.shape
+        for dt in DIST_GLOO_DTYPES for a, b in zip(have[dt], want[dt])) and (
+        len(have["float32"]) == len(want["float32"]) == DIST_GLOO_STEPS + 1)
+    rep["loss"] = {"mesh": loss_mesh, "local": loss_local,
+                   "rel_diff": abs(loss_mesh - loss_local) / abs(loss_local)}
+    rep["grads"] = {"leaves": leaves, "worst_share_of_limit": worst,
+                    "worst_leaf": worst_leaf, "zero_leaves": zero}
+    rep["flash_launches_equal_on_every_rank"] = {
+        dt: all(r[dt]["flash_launches_by_shape"]
+                == local_runs[dt]["flash_launches_by_shape"]
+                for r in by_rank) for dt in DIST_GLOO_DTYPES}
+    return rep
+
+
+def _gloo_family_rank(rank: int, world: int, store_path: str, out_path: str,
+                      device_type: str, sizes: dict) -> None:
+    """One of the (e) ranks: gloo over ``device_type`` tensors on the one
+    card (or the CPU in the rehearsal), TF32 off: probe
+    DIST_FAMILIES_COLLECTIVES, then, when gloo takes them all, each of
+    DIST_FAMILIES on a DIST_GLOO_MESH mesh (:func:`_gloo_family`); rank 0
+    writes the reports."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    report = {"rank": rank}
+    try:
+        probe = _probe_collectives(None, device)
+        report["probe"] = {n: probe[n] for n in DIST_FAMILIES_COLLECTIVES}
+        report["refused"] = [n for n, v in report["probe"].items()
+                             if v != "ok"]
+        if not report["refused"]:
+            mesh = make_host_mesh(*DIST_GLOO_MESH, device_type=device_type)
+            report["families"] = {}
+            for arch in DIST_FAMILIES:
+                t0 = time.perf_counter()
+                rep = _gloo_family(arch, rank, mesh, sizes, device)
+                rep["seconds"] = time.perf_counter() - t0
+                report["families"][arch] = rep
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gloo_families(device, sizes: dict) -> dict:
+    """(e) four processes on the one card over gloo (DIST_GLOO_MESH),
+    started with torch.multiprocessing: the SSM, hybrid, VLM and enc-dec
+    forwards split over model (:func:`_gloo_family`), each against the
+    local path on rank 0: every step's f32 logits within
+    DIST_GLOO_F32_RTOL * max|logits|, the bf16 logits' distance from the
+    local f32 path at most DIST_GLOO_BF16_FACTOR times the local bf16
+    path's, the bf16 tokens by the margin rule, the f32 loss within
+    DIST_FAMILIES_LOSS_RTOL and every gradient leaf within
+    DIST_FAMILIES_GRAD_SHARE * max|g| and nonzero, and each rank's flash
+    launches by call shape equal to the local path's. Times and peak
+    memory are reported, not gated."""
+    import shutil
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rep, wall, out_path = _spawn_gloo(_gloo_family_rank, "dist_families",
+                                      device, sizes)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    check(not rep["refused"],
+          f"(e) gloo refused {rep['refused']} on {device.type} tensors: "
+          f"{rep['probe']}")
+    out = {"backend": "gloo", "world": DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1],
+           "mesh": dict(zip(("data", "model"), DIST_GLOO_MESH)),
+           "device": device.type, "probe": rep["probe"], "wall_s": wall,
+           "families": rep["families"],
+           "tolerance": (
+               f"each step: f32 mesh - f32 local <= {DIST_GLOO_F32_RTOL} * "
+               f"max|f32 local|; bf16 mesh - f32 local <= "
+               f"{DIST_GLOO_BF16_FACTOR} * (bf16 local - f32 local); f32 "
+               f"loss rtol {DIST_FAMILIES_LOSS_RTOL}; each gradient leaf "
+               f"within {DIST_FAMILIES_GRAD_SHARE} * max|local leaf|"),
+           "timing_note": "host-staged gloo collectives: reported, not "
+                          "gated"}
+    for arch, r in rep["families"].items():
+        check(r["shapes_ok"] and r["tokens_equal"] == r["tokens_compared"],
+              f"(e) {arch}: the mesh's logits are malformed or its tokens "
+              f"differ from the local path's by the margin rule: {r}")
+        check(r["f32_share_of_limit"] <= 1.0
+              and r["bf16_share_of_limit"] <= 1.0,
+              f"(e) {arch}: the mesh's logits are further from the local "
+              f"path's than rounding: {r['steps']}")
+        check(r["loss"]["rel_diff"] <= DIST_FAMILIES_LOSS_RTOL
+              and r["grads"]["worst_share_of_limit"] <= 1.0
+              and not r["grads"]["zero_leaves"] and r["grads"]["leaves"] > 5,
+              f"(e) {arch}: the mesh's f32 loss or gradients differ from the "
+              f"local path's: {r['loss']} {r['grads']}")
+        check(all(r["flash_launches_equal_on_every_rank"].values()),
+              f"(e) {arch}: a rank's flash launches differ from the local "
+              f"path's: {[x for x in r['mesh_by_rank']]} {r['local']}")
     return out
 
 
@@ -3912,8 +4289,9 @@ def distributed_phase(device, sizes: dict, timer) -> dict:
     mesh (its FileStore under build/) for (a) the MoE's expert-parallel
     serving against its local path, (b) DP x TP training with ZeRO-1 and
     its f32 check, (c) elastic restore; then (d) four gloo ranks on the
-    card. The CPU rehearsal runs gloo at world 1 on CPU tensors, and (d)
-    on CPU tensors."""
+    card, and (e) the SSM, hybrid, VLM and enc-dec families split over
+    model on four gloo ranks. The CPU rehearsal runs gloo at world 1 on CPU
+    tensors, and (d) and (e) on CPU tensors."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -3939,10 +4317,12 @@ def distributed_phase(device, sizes: dict, timer) -> dict:
             os.remove(store)
     nccl_s = time.perf_counter() - t0
     gloo = dist_gloo_on_card(device, sizes)
+    families = dist_gloo_families(device, sizes)
     return {"backend": backend, "world": 1, "mesh": {"data": 1, "model": 1},
             "a_moe_ep": moe, "b_train": train, "c_elastic": elastic,
-            "d_gloo_on_card": gloo,
+            "d_gloo_on_card": gloo, "e_gloo_families": families,
             "seconds": {"world_1": nccl_s, "gloo": gloo["wall_s"],
+                        "gloo_families": families["wall_s"],
                         "phase": time.perf_counter() - t0}}
 
 

@@ -65,7 +65,10 @@ input enters through ``copy_to``, the output leaves through
 cache keeps them all, as the reference's replicated cache spec says), and
 attends its q head ``h`` to kv head ``h // G``; those weights pass through
 ``copy_to`` too, since each rank's gradient of them covers its own heads
-only. MLA splits its heads the same way; its latent path (``wq_a``,
+only. Cross-attention and the enc-dec encoder's non-causal self-attention
+split the same way, the cross-attention's memory entering through
+``copy_to`` as its queries' input does. MLA splits its heads the same way;
+its latent path (``wq_a``,
 ``wkv_a``, the norms, the shared rope key) is replicated, and the latent
 activations enter the head-split products through ``copy_to``.
 """
@@ -358,8 +361,9 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, window: int = 0,
                    use_rope: bool = True, return_cache: bool = False,
-                   impl: str = "kernel"):
-    """Training / prefill self-attention over a full sequence.
+                   impl: str = "kernel", causal: bool = True):
+    """Training / prefill self-attention over a full sequence (``causal``
+    ``False``: the enc-dec encoder's, over the whole sequence).
     ``return_cache`` additionally returns the (roped) K and V for caching.
     Under a head split the heads are this rank's (module docstring)."""
     grp, sel = head_split(cfg)
@@ -370,7 +374,7 @@ def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = chunked_attention(q, _pick(k, sel), _pick(v, sel), causal=True,
+    out = chunked_attention(q, _pick(k, sel), _pick(v, sel), causal=causal,
                             window=window, impl=impl)
     y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
     if return_cache:
@@ -384,25 +388,34 @@ def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Queries from ``x [B, S, d]``, keys and values from ``memory [B, F,
     d]``: no rope, non-causal over the whole memory (on the card the flash
     kernel's case). ``return_cache`` additionally returns the memory's K
-    and V, which decode reads from the cache."""
-    q, k, v = _qkv(p, x, kv_src=memory)
-    out = chunked_attention(q, k, v, causal=False, impl=impl)
-    y = _out_proj(out, p["wo"])
+    and V, which decode reads from the cache. Under a head split the heads
+    are this rank's, as in :func:`self_attention`; the memory is replicated
+    and enters through ``copy_to`` as ``x`` does."""
+    grp, sel = head_split(cfg)
+    x, memory = coll.copy_to(x, grp), coll.copy_to(memory, grp)
+    q, k, v = _qkv(p, x, kv_src=memory,
+                   kv_group=grp if sel is not None else None)
+    out = chunked_attention(q, _pick(k, sel), _pick(v, sel), causal=False,
+                            impl=impl)
+    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
     if return_cache:
         return y, (k, v)
     return y
 
 
-def decode_cross_attention(p: Dict, x: torch.Tensor, cache: Dict,
-                           impl: str = "kernel") -> torch.Tensor:
+def decode_cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                           cache: Dict, impl: str = "kernel") -> torch.Tensor:
     """One-token cross-attention: q from ``x [B, 1, d]`` against the
     memory's K and V held in ``cache`` (``{"k", "v": [B, F, Hkv, hd]}``),
     never recomputed; non-causal over the whole memory (on the card the
-    flash kernel at ``Sq = 1``)."""
+    flash kernel at ``Sq = 1``). Under a head split the cache holds this
+    rank's kv heads, or all of them where they do not split, and this
+    rank's q heads pick theirs."""
+    grp, sel = head_split(cfg)
     q = _proj(x, p["wq"])
-    out = chunked_attention(q, cache["k"], cache["v"], causal=False,
-                            impl=impl)
-    return _out_proj(out, p["wo"])
+    out = chunked_attention(q, _pick(cache["k"], sel), _pick(cache["v"], sel),
+                            causal=False, impl=impl)
+    return coll.reduce_from(_out_proj(out, p["wo"]), grp)
 
 
 # --- KV caches --------------------------------------------------------------

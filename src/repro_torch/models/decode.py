@@ -233,7 +233,7 @@ def prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
 def _prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
              max_len: int, lengths: Optional[torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict]:
-    tfm.check_tp_family(cfg)
+    tfm.check_family(cfg)
     if lengths is not None and cfg.family not in CAUSAL_CACHE_FAMILIES:
         raise ValueError(
             f"per-sequence prefill lengths need a position-indexed "
@@ -326,7 +326,7 @@ def _cross_decode(p_attn: Dict, ln: torch.Tensor, cfg: ModelConfig,
     cached K and V."""
     z = rms_norm(x, ln, cfg.norm_eps)
     return attn.decode_cross_attention(
-        p_attn, z, {"k": cache["k"][i], "v": cache["v"][i]},
+        p_attn, cfg, z, {"k": cache["k"][i], "v": cache["v"][i]},
         impl=rt.attn_impl)
 
 
@@ -343,7 +343,7 @@ def decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
 
 def _decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
                  pos: torch.Tensor, state: Dict) -> Tuple[torch.Tensor, Dict]:
-    tfm.check_tp_family(cfg)
+    tfm.check_family(cfg)
     x = model_mod.embed(p, cfg, token)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     if cfg.family in ("vlm", "encdec"):

@@ -225,7 +225,7 @@ def trunk_hidden(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
                  inputs: Optional[torch.Tensor] = None):
     """Returns (hidden, aux_loss, inputs). ``inputs`` defaults to the
     teacher-forcing slice tokens[:, :-1]."""
-    tfm.check_tp_family(cfg)
+    tfm.check_family(cfg)
     tokens = batch["tokens"]
     if inputs is None:
         inputs = tokens[:, :-1]

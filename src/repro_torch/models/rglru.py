@@ -11,6 +11,18 @@ state, written into the cache in place. The full residual block is:
 proj-in (2 branches) -> causal conv(4) -> RG-LRU -> gelu-gated merge ->
 proj-out. The scan sums in another order than the reference's, so the two
 differ in rounding only.
+
+Under a mesh that splits ``"lru"`` over two or more ranks each rank holds
+its own channels of ``w_x``, ``w_gate``, the conv, the rows of ``w_a``,
+``w_i`` and ``w_out`` and of the decode state: the input enters through
+``copy_to``, the gate products (row-split weights times this rank's
+channels) are partial sums over the whole width, summed and cut to this
+rank's channels by one reduce-scatter each
+(:func:`~repro_torch.parallel.collectives.reduce_scatter_from`), the
+replicated ``b_a``, ``b_i`` and ``lam`` enter through ``copy_to`` and are
+cut, the gates and the scan are elementwise per channel, and the output's
+partial sums are all-reduced. A layer pays two reduce-scatters of ``[tokens,
+lru_width]`` in f32 and an all-reduce of ``[tokens, d_model]`` forward.
 """
 from __future__ import annotations
 
@@ -20,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamMaker, conv_tail, softplus
+from repro_torch.models.common import (ParamMaker, axis_group, conv_tail,
+                                       softplus)
+from repro_torch.parallel import collectives as coll
 
 RG_C = 8.0
 CONV_K = 4
@@ -43,11 +57,21 @@ def rglru_params(mk: ParamMaker, prefix: str, cfg: ModelConfig,
     }
 
 
-def _gates(p: Dict, x: torch.Tensor):
-    """a_t and the gated input. x: [..., w] (f32)."""
-    ra = torch.sigmoid(x @ p["w_a"].float() + p["b_a"].float())
-    log_a = -RG_C * softplus(p["lam"].float()) * ra
-    i = torch.sigmoid(x @ p["w_i"].float() + p["b_i"].float())
+def _mine(t: torch.Tensor, grp) -> torch.Tensor:
+    """This rank's channels of a replicated per-channel leaf under a split
+    over ``grp`` (its gradient summed over ``grp``); ``t`` itself
+    without one."""
+    return t if grp is None else coll.chunk(coll.copy_to(t, grp), -1, grp)
+
+
+def _gates(p: Dict, x: torch.Tensor, grp=None):
+    """a_t and the gated input. x: [..., w] (f32; under a split over
+    ``grp``, this rank's channels)."""
+    ra = torch.sigmoid(coll.reduce_scatter_from(x @ p["w_a"].float(), -1, grp)
+                       + _mine(p["b_a"], grp).float())
+    log_a = -RG_C * softplus(_mine(p["lam"], grp).float()) * ra
+    i = torch.sigmoid(coll.reduce_scatter_from(x @ p["w_i"].float(), -1, grp)
+                      + _mine(p["b_i"], grp).float())
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x)
     return a, gated
@@ -77,15 +101,18 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
                   return_state: bool = False):
     """Full-sequence RG-LRU block through the doubling scan. u: [B, S, d].
-    ``return_state`` additionally returns (h_final, conv_tail) for decode.
+    ``return_state`` additionally returns (h_final, conv_tail) for decode
+    (under a split: this rank's channels).
     """
+    grp = axis_group("lru")
+    u = coll.copy_to(u, grp)
     x_raw = u @ p["w_x"]
     gate = u @ p["w_gate"]
     x = _causal_conv(x_raw, p["conv_w"], p["conv_b"])
-    a, gated = _gates(p, x.float())
+    a, gated = _gates(p, x.float(), grp)
     h = _linear_scan(a, gated)
     y = h.to(u.dtype) * F.gelu(gate, approximate="tanh")
-    out = y @ p["w_out"]
+    out = coll.reduce_from(y @ p["w_out"], grp)
     if return_state:
         return out, (h[:, -1], conv_tail(x_raw, CONV_K))
     return out
@@ -105,16 +132,19 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
 def rglru_decode_step(p: Dict, cfg: ModelConfig, u: torch.Tensor,
                       cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """u: [B, 1, d] single-token step. The new ``h`` and conv window are
-    written into ``cache``'s tensors in place; returns them."""
+    written into ``cache``'s tensors in place; returns them. Under a split
+    ``cache`` holds this rank's channels."""
+    grp = axis_group("lru")
+    u = coll.copy_to(u, grp)
     x = (u @ p["w_x"])[:, 0]
     gate = (u @ p["w_gate"])[:, 0]
     win = torch.cat([cache["conv"], x[:, None]], dim=1)           # [B,K,w]
     x = ((win.float() * p["conv_w"].float()).sum(dim=1)
          + p["conv_b"].float())
-    a, gated = _gates(p, x)
+    a, gated = _gates(p, x, grp)
     h = cache["h"] * a + gated
     y = h.to(u.dtype) * F.gelu(gate, approximate="tanh")
-    out = (y @ p["w_out"])[:, None]
+    out = coll.reduce_from(y @ p["w_out"], grp)[:, None]
     cache["h"].copy_(h)
     cache["conv"].copy_(win[:, 1:])
     return out, cache

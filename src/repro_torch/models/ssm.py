@@ -11,6 +11,24 @@ d_state]`` in f32 and a rolling window of the last ``ssm_conv_kernel - 1``
 pre-conv inputs, and :func:`ssd_decode_step` writes both into the cache it
 is given, in place.
 
+Under a mesh that splits ``"lru"`` / ``"heads"`` over two or more ranks
+each rank holds the shards ``ssm_params`` gives it: contiguous runs of the
+fused ``w_in``'s columns and of the conv channels ``[x | B | C]``, and its
+own heads' ``A_log``, ``D``, ``dt_bias``, ``norm_g`` and rows of ``w_out``.
+The runs do not line up with the heads, so the projection is gathered whole
+(:func:`~repro_torch.parallel.collectives.gather_to`: each rank reads other
+columns of it, so its gradient is summed and cut), the conv runs on this
+rank's own channels (and its own shard of the decode state's window), its
+output is gathered whole again, and each rank takes its heads' ``x``, ``z``
+and ``dt`` and all of ``B`` / ``C``. The scan runs on this rank's heads; the
+gated RMSNorm's sum of squares is summed over the ranks, since it spans the
+whole ``d_in``; the output's partial sums are all-reduced. A layer pays two
+all-gathers (``[tokens, 2 d_in + 2 G d_state + H]`` and ``[tokens,
+d_in + 2 G d_state]``), an all-reduce of ``[tokens, 1]`` in f32 and one of
+``[tokens, d_model]`` forward, and the reduce-scatters of the two gathers'
+gradients and the all-reduces of the norm's and the input's gradients
+backward.
+
 ``jax.nn.softplus`` is ``logaddexp(x, 0)`` at every ``x``;
 ``F.softplus`` returns ``x`` itself above its threshold of 20, so the port
 takes :func:`repro_torch.models.common.softplus`, the reference's formula.
@@ -23,8 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ParamMaker, conv_tail, rms_norm,
-                                       softplus)
+from repro_torch.models.common import (ParamMaker, axis_group, conv_tail,
+                                       rms_norm, softplus)
+from repro_torch.parallel import collectives as coll
 
 CHUNK = 128
 
@@ -62,6 +81,63 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_in, d_in, G * ds, G * ds, nheads], dim=-1)
 
 
+def _split_sizes(cfg: ModelConfig, grp) -> Tuple[int, int, int, int]:
+    """``(rank, heads, d_in, conv channels)`` of this rank under a split of
+    ``"lru"`` over ``grp`` (the whole at ``grp`` ``None``)."""
+    d_in, H, _, ds = ssm_dims(cfg)
+    conv_dim = d_in + 2 * cfg.ssm_n_groups * ds
+    tp = coll.size(grp)
+    if H % tp or conv_dim % tp:
+        raise ValueError(f"{H} SSD heads and {conv_dim} conv channels do not "
+                         f"split over {tp} ranks")
+    return coll.rank(grp), H // tp, d_in // tp, conv_dim // tp
+
+
+def _in_proj(p: Dict, cfg: ModelConfig, u: torch.Tensor, grp):
+    """``(z, conv input, dt)`` of ``u @ w_in`` (gathered whole over
+    ``grp``): this rank's heads' ``z`` and ``dt``, and its own conv
+    channels."""
+    d_in, _, _, _ = ssm_dims(cfg)
+    r, hl, dl, cl = _split_sizes(cfg, grp)
+    conv_dim = cl * coll.size(grp)
+    zxbcdt = coll.gather_to(u @ p["w_in"], -1, grp)
+    dt0 = d_in + conv_dim + r * hl
+    return (zxbcdt[..., r * dl:(r + 1) * dl],
+            zxbcdt[..., d_in + r * cl:d_in + (r + 1) * cl],
+            zxbcdt[..., dt0:dt0 + hl])
+
+
+def _conv_heads(cfg: ModelConfig, xbc: torch.Tensor, grp):
+    """``(x, B, C)`` of this rank's heads from its conv output (gathered
+    whole over ``grp``): ``x [..., heads * head_dim]``, ``B`` and ``C``
+    ``[..., heads, d_state]``, each head reading its group's."""
+    d_in, H, _, ds = ssm_dims(cfg)
+    G = cfg.ssm_n_groups
+    r, hl, dl, _ = _split_sizes(cfg, grp)
+    xbc = coll.gather_to(xbc, -1, grp)
+    lead = xbc.shape[:-1]
+    heads = slice(r * hl, (r + 1) * hl)
+    Bc = xbc[..., d_in:d_in + G * ds].reshape(*lead, G, ds)
+    Cc = xbc[..., d_in + G * ds:].reshape(*lead, G, ds)
+    Bh = Bc.repeat_interleave(H // G, dim=-2)[..., heads, :]
+    Ch = Cc.repeat_interleave(H // G, dim=-2)[..., heads, :]
+    return xbc[..., r * dl:(r + 1) * dl], Bh, Ch
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, g: torch.Tensor,
+                cfg: ModelConfig, grp) -> torch.Tensor:
+    """Mamba2's gated RMSNorm of ``y * silu(z)`` over the whole ``d_in``:
+    under a split the sum of squares is summed over ``grp`` (its gradient
+    too) and divided by the whole width."""
+    v = y * F.silu(z)
+    if grp is None:
+        return rms_norm(v, g, cfg.norm_eps)
+    vf = v.float()
+    ss = coll.reduce_both((vf * vf).sum(dim=-1, keepdim=True), grp)
+    var = ss / (vf.shape[-1] * coll.size(grp))
+    return (vf * torch.rsqrt(var + cfg.norm_eps)).to(v.dtype) * g
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along seq, then SiLU. x: [B, S, C], w: [K, C].
@@ -75,29 +151,23 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def ssd_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
                 return_state: bool = False):
     """Chunked SSD over a full sequence. u: [B, S, d_model].
-    ``return_state`` additionally returns (h_final, conv_tail) for decode.
+    ``return_state`` additionally returns (h_final, conv_tail) for decode
+    (under a split: this rank's heads and conv channels).
 
     A length that is not a multiple of :data:`CHUNK` runs as one chunk of
     length S, as in the reference."""
     Bsz, S, _ = u.shape
-    d_in, H, hd, ds = ssm_dims(cfg)
-    G = cfg.ssm_n_groups
+    _, _, hd, ds = ssm_dims(cfg)
     dt_act = u.dtype
-    conv_dim = d_in + 2 * G * ds
-    zxbcdt = u @ p["w_in"]
-    z, xbc_raw = zxbcdt[..., :d_in], zxbcdt[..., d_in:d_in + conv_dim]
-    dt = zxbcdt[..., d_in + conv_dim:]
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    x = xbc[..., :d_in]
-    Bc = xbc[..., d_in:d_in + G * ds].reshape(Bsz, S, G, ds)
-    Cc = xbc[..., d_in + G * ds:].reshape(Bsz, S, G, ds)
+    grp = axis_group("lru")
+    H = _split_sizes(cfg, grp)[1]
+    u = coll.copy_to(u, grp)
+    z, xbc_raw, dt = _in_proj(p, cfg, u, grp)
+    x, Bh, Ch = _conv_heads(
+        cfg, _causal_conv(xbc_raw, p["conv_w"], p["conv_b"]), grp)
     dt = softplus(dt.float() + p["dt_bias"])                     # [B,S,H]
     A = -torch.exp(p["A_log"].float())                            # [H]
     xh = x.reshape(Bsz, S, H, hd)
-    # broadcast groups to heads
-    hpg = H // G
-    Bh = Bc.repeat_interleave(hpg, dim=2)                         # [B,S,H,ds]
-    Ch = Cc.repeat_interleave(hpg, dim=2)
 
     N = S // CHUNK if S % CHUNK == 0 else 1
     L = S // N
@@ -141,10 +211,10 @@ def ssd_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
                            h_prev)
     y = (intra_y + inter_y).reshape(Bsz, S, H, hd)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
-    y = y.reshape(Bsz, S, d_in)
+    y = y.reshape(Bsz, S, H * hd)
     # gated RMSNorm (mamba2 norm-before-out)
-    y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
-    out = y @ p["w_out"]
+    y = _gated_norm(y, z, p["norm_g"], cfg, grp)
+    out = coll.reduce_from(y @ p["w_out"], grp)
     if return_state:
         return out, (h.float(), conv_tail(xbc_raw, cfg.ssm_conv_kernel))
     return out
@@ -169,24 +239,20 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
 def ssd_decode_step(p: Dict, cfg: ModelConfig, u: torch.Tensor, cache: Dict
                     ) -> Tuple[torch.Tensor, Dict]:
     """u: [B, 1, d_model] -> y: [B, 1, d_model]. The new ``h`` and conv
-    window are written into ``cache``'s tensors in place; returns them."""
+    window are written into ``cache``'s tensors in place; returns them.
+    Under a split ``cache`` holds this rank's heads and conv channels."""
     Bsz = u.shape[0]
-    d_in, H, hd, ds = ssm_dims(cfg)
-    G = cfg.ssm_n_groups
-    conv_dim = d_in + 2 * G * ds
-    zxbcdt = (u @ p["w_in"])[:, 0]
-    z, xbc = zxbcdt[..., :d_in], zxbcdt[..., d_in:d_in + conv_dim]
-    dt = zxbcdt[..., d_in + conv_dim:]
+    _, _, hd, ds = ssm_dims(cfg)
+    grp = axis_group("lru")
+    H = _split_sizes(cfg, grp)[1]
+    u = coll.copy_to(u, grp)
+    z, xbc, dt = (t[:, 0] for t in _in_proj(p, cfg, u, grp))
     # rolling conv window, the conv in f32
     win = torch.cat([cache["conv"], xbc[:, None]], dim=1)        # [B,K,C]
     conv_out = (win.float() * p["conv_w"].float()).sum(dim=1)
     xbc = F.silu(conv_out + p["conv_b"].float()).to(u.dtype)
-    x = xbc[..., :d_in].reshape(Bsz, H, hd)
-    Bc = xbc[..., d_in:d_in + G * ds].reshape(Bsz, G, ds)
-    Cc = xbc[..., d_in + G * ds:].reshape(Bsz, G, ds)
-    hpg = H // G
-    Bh = Bc.repeat_interleave(hpg, dim=1)
-    Ch = Cc.repeat_interleave(hpg, dim=1)
+    x, Bh, Ch = _conv_heads(cfg, xbc, grp)
+    x = x.reshape(Bsz, H, hd)
     dt = softplus(dt.float() + p["dt_bias"])                     # [B,H]
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A)                                        # [B,H]
@@ -195,9 +261,9 @@ def ssd_decode_step(p: Dict, cfg: ModelConfig, u: torch.Tensor, cache: Dict
         (dt[..., None] * xf)[..., None] * Bh.float()[:, :, None, :])
     y = torch.einsum("bhpd,bhd->bhp", h, Ch.float())
     y = y + xf * p["D"][None, :, None].float()
-    y = y.reshape(Bsz, d_in).to(u.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
-    out = (y @ p["w_out"])[:, None]
+    y = y.reshape(Bsz, H * hd).to(u.dtype)
+    y = _gated_norm(y, z, p["norm_g"], cfg, grp)
+    out = coll.reduce_from(y @ p["w_out"], grp)[:, None]
     cache["h"].copy_(h)
     cache["conv"].copy_(win[:, 1:])
     return out, cache

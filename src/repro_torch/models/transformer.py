@@ -37,9 +37,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamMaker, apply_rope, axis_size,
-                                       current_mesh, default_rules,
-                                       gated_mlp, gated_mlp_params, rms_norm,
+from repro_torch.models.common import (ParamMaker, current_mesh,
+                                       default_rules, gated_mlp,
+                                       gated_mlp_params, rms_norm,
                                        sharding_ctx)
 
 
@@ -91,30 +91,12 @@ def runtime_ctx(rt: Runtime):
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
-#: the families whose forward runs with the heads / ffn / experts / vocab
-#: split over a mesh's model axis (tp > 1)
-TP_FAMILIES = ("dense", "moe")
-
-
 def check_family(cfg: ModelConfig) -> None:
     """``ValueError`` for a family outside :data:`FAMILIES`, as the
     reference raises for one."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; the families are "
                          f"{FAMILIES}")
-
-
-def check_tp_family(cfg: ModelConfig) -> None:
-    """:func:`check_family`, and ``NotImplementedError`` for a family
-    outside :data:`TP_FAMILIES` run under a mesh whose model axis has two
-    or more ranks (the forward entry points call it)."""
-    check_family(cfg)
-    if cfg.family not in TP_FAMILIES and axis_size("heads") > 1:
-        raise NotImplementedError(
-            f"the {cfg.family} family's forward at tp > 1 is ROADMAP queue "
-            f"A item 8 (the SSM, RG-LRU, VLM and enc-dec forwards split "
-            f"over a mesh's model axis); its param_specs are there, and it "
-            f"runs data-parallel at tp = 1")
 
 
 #: the products whose outputs ``remat="dots"`` keeps: 2-D matrix products,
@@ -248,17 +230,15 @@ def encoder_layer_params(mk: ParamMaker, cfg: ModelConfig,
 def encoder_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime,
                     x) -> torch.Tensor:
     """The encoder over ``x [B, F, d]``: each layer roped at ``arange(F)``,
-    non-causal (on the card the flash kernel's case), then its FFN."""
+    non-causal (on the card the flash kernel's case; under a head split,
+    this rank's heads), then its FFN."""
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
 
     def body(x, p_layer):
         z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-        q, k, v = attn._qkv(p_layer["attn"], z)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        o = attn.chunked_attention(q, k, v, causal=False, impl=rt.attn_impl)
-        x = x + attn._out_proj(o, p_layer["attn"]["wo"])
+        x = x + attn.self_attention(p_layer["attn"], cfg, z, positions,
+                                    impl=rt.attn_impl, causal=False)
         y, _ = _ffn(p_layer, cfg, rt, x)
         return x + y
 

@@ -20,6 +20,8 @@ function                      forward                     backward
 :func:`reduce_both`           all-reduce sum              all-reduce sum
 :func:`split_to`              this rank's chunk of a dim  all-gather that dim
 :func:`gather_from`           all-gather a dim            this rank's chunk
+:func:`gather_to`             all-gather a dim            reduce-scatter it
+:func:`reduce_scatter_from`   reduce-scatter a dim        all-gather that dim
 :func:`all_to_all`            all-to-all of dim 0 chunks  all-to-all
 ============================  ==========================  ===================
 
@@ -30,6 +32,14 @@ summed back (its gradient is already whole). :func:`reduce_both` sums a
 value over the data axes whose gradient the train step averages over the
 same axes (a loss's numerator and count, the router's load statistics), so
 each rank's share of the gradient comes out whole after the average.
+
+:func:`gather_to` in place of :func:`gather_from`: a tensor whose ranks each
+read a different part of the gathered whole (the SSD's fused projection, a
+rank's own heads and all of ``B`` / ``C``), so each rank's gradient of the
+whole is partial and must be summed before it is cut.
+:func:`reduce_scatter_from` in place of :func:`reduce_from` then
+:func:`split_to`: a partial product of which each rank needs only its own
+chunk (the RG-LRU's gates, row-split weights times a column-split input).
 """
 from __future__ import annotations
 
@@ -169,6 +179,28 @@ class _GatherFrom(torch.autograd.Function):
         return chunk(g, ctx.dim, ctx.group), None, None
 
 
+class _GatherTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     """all-to-all of ``x``'s dim-0 chunks, the data on the wire in
     ``wire`` (``torch.float8_e4m3fn``: cast before, cast back after, the
@@ -220,6 +252,19 @@ def split_to(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
 def gather_from(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
     """The ranks' ``x`` gathered along ``dim``; the gradient chunked."""
     return x if _alone(group) else _GatherFrom.apply(x, dim, group)
+
+
+def gather_to(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """The ranks' ``x`` gathered along ``dim``; the gradient summed over
+    ``group`` and cut to this rank's chunk (reduce-scatter)."""
+    return x if _alone(group) else _GatherTo.apply(x, dim, group)
+
+
+def reduce_scatter_from(x: torch.Tensor, dim: int,
+                        group: Group) -> torch.Tensor:
+    """``x`` summed over ``group``, this rank's chunk along ``dim``; the
+    gradient gathered along ``dim``."""
+    return x if _alone(group) else _ReduceScatterFrom.apply(x, dim, group)
 
 
 def all_to_all(x: torch.Tensor, group: Group,

@@ -1,7 +1,8 @@
 """The port on eight gloo ranks (a data=2 x model=4 mesh, on the CPU): the
-five cases of tests/test_distributed.py, and serving on a data=4 x model=2
-mesh (two experts a rank, the prefill and decode paths), each held against
-the reference's
+five cases of tests/test_distributed.py, serving on a data=4 x model=2
+mesh (two experts a rank, the prefill and decode paths), and the SSM,
+hybrid, VLM and enc-dec families split over model (training, prefill and
+decode), each held against the reference's
 single-device ``Runtime(tp=1, moe_impl="local")`` outputs (the oracle those
 tests use; the reference's own 2 x 4 runs do not run on this jax) at their
 tolerances, and against the port on one device: losses rtol 1e-5, every
@@ -13,6 +14,7 @@ The reference computes in this process; the eight ranks run the port in
 all six cases, a FileStore under ``tmp_path``), which writes what they got
 for the tests below to check.
 """
+import dataclasses
 import json
 import os
 import signal
@@ -23,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.models.moe as ref_moe
 from repro.launch import steps as ref_steps
@@ -38,8 +41,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: the eight ranks' launch, all six cases (about 15 s here)
 RUN_TIMEOUT_S = 300
 TEST_TIMEOUT_S = RUN_TIMEOUT_S + 120
+#: the SSM, hybrid, VLM and enc-dec families on the 2 x 4 mesh: case -> arch
+TP_FAMILIES = {"tp_ssm": "mamba2-2.7b", "tp_hybrid": "recurrentgemma-2b",
+               "tp_vlm": "llama-3.2-vision-11b",
+               "tp_encdec": "seamless-m4t-large-v2"}
 CASES = ("dp_tp", "ep", "train", "elastic", "elastic_dp", "ep2d", "serve",
-         "dp_only")
+         "dp_only", *TP_FAMILIES, "tp_hybrid_padded", "pairs")
+#: the tp family cases' inputs: the loss's batch rows and tokens, the
+#: prompt's rows and length, the decode state's length and the decode steps
+TP_BATCH, TP_TOKENS, TP_PROMPT, TP_MAX_LEN, TP_STEPS = 4, 33, 16, 24, 2
 LOSS_RTOL = 1e-5
 GRAD_SHARE = 1e-4
 
@@ -120,9 +130,89 @@ def _reference(workdir):
                  **_flat(params, "params/"))
     finally:
         ref_moe.CAPACITY_FACTOR = old
+    for name, arch in TP_FAMILIES.items():
+        _tp_family_reference(workdir, ref, name, arch)
+    _tp_padded_case(workdir)
     with open(os.path.join(workdir, "cases.json"), "w") as f:
         json.dump(list(CASES), f)
     return ref
+
+
+def _tp_inputs(cfg, seed):
+    """(loss batch, prompt, decode tokens) as numpy arrays: tokens and,
+    for the VLM and enc-dec, a frontend at the residual stream's scale."""
+    rng = np.random.default_rng(seed)
+
+    def batch(rows, length):
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (rows, length),
+                                    dtype=np.int32)}
+        if cfg.frontend_seq:
+            b["frontend"] = rng.standard_normal(
+                (rows, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+        return b
+
+    nxt = [rng.integers(0, cfg.vocab_size, (TP_BATCH, 1), dtype=np.int32)
+           for _ in range(TP_STEPS)]
+    return batch(TP_BATCH, TP_TOKENS), batch(TP_BATCH, TP_PROMPT), nxt
+
+
+def _save_tp_case(workdir, name, params, batch, prompt, nxt, **cfg):
+    def tensors(b):
+        return {k: torch.from_numpy(v) for k, v in b.items()}
+    torch.save({"cfg": cfg, "params": params, "batch": tensors(batch),
+                "prompt": tensors(prompt), "max_len": TP_MAX_LEN,
+                "next": [torch.from_numpy(t) for t in nxt]},
+               os.path.join(workdir, f"case_{name}.pt"))
+
+
+def _tp_family_reference(workdir, ref, name, arch):
+    """The reference's tp=1 loss, prefill and decode logits of ``arch``
+    reduced (the VLM's tanh gates drawn N(0, 1), so its cross blocks
+    count); the port's parameters converted from its tree."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    cfg = reduced_f32(arch)
+    rt1 = RefRuntime(tp=1, moe_impl="local")
+    key = jax.random.PRNGKey(20 + len(ref))
+    params, _ = ref_M.init_params(cfg, rt1, key)
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(3)
+        cross = dict(params["layers"]["cross"])
+        for g in ("gate_a", "gate_m"):
+            cross[g] = jnp.asarray(rng.standard_normal(cross[g].shape),
+                                   jnp.float32)
+        params = {**params, "layers": {**params["layers"], "cross": cross}}
+    batch, prompt, nxt = _tp_inputs(cfg, len(ref))
+    jb = lambda b: {k: jnp.asarray(v) for k, v in b.items()}  # noqa: E731
+    ref[f"{name}/loss"] = float(ref_M.loss_fn(cfg, rt1, params,
+                                              jb(batch))[0])
+    logits, st = ref_D.prefill(cfg, rt1, params, jb(prompt), TP_MAX_LEN)
+    ref[f"{name}/logits/0"] = np.asarray(logits)
+    for i, tok in enumerate(nxt):
+        logits, st = ref_D.decode_step(cfg, rt1, params, jnp.asarray(tok),
+                                       jnp.int32(TP_PROMPT + i), st)
+        ref[f"{name}/logits/{i + 1}"] = np.asarray(logits)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    tree = jax.tree.map(lambda a: np.array(a, np.float32), params)
+    _save_tp_case(workdir, name, convert.params_from_jax(tree, tcfg,
+                                                         device="cpu"),
+                  batch, prompt, nxt)
+
+
+def _tp_padded_case(workdir):
+    """recurrentgemma-2b reduced with the full config's 10 q heads and its
+    one kv head: at model = 4 the q heads pad to 12 (as the full config's
+    pad to 16 at tp = 16); the port's parameters drawn at that padding."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    n_heads = get_config("recurrentgemma-2b").n_heads
+    cfg = dataclasses.replace(reduced_f32("recurrentgemma-2b"),
+                              n_heads=n_heads)
+    params = M.init_params(cfg, Runtime(tp=4),
+                           torch.Generator().manual_seed(9), device="cpu")
+    _save_tp_case(workdir, "tp_hybrid_padded", params,
+                  *_tp_inputs(cfg, 9), n_heads=n_heads)
 
 
 @pytest.fixture(scope="module")
@@ -320,14 +410,92 @@ def test_serving_on_a_4x2_mesh(run):
                                   "llama-3.2-vision-11b",
                                   "seamless-m4t-large-v2"])
 def test_data_parallel_only_families(run, arch):
-    """The families whose tp > 1 forward is ROADMAP item 8 run
-    data-parallel: reduced, on a (data=8, model=1) mesh, the loss rtol
-    1e-5 of one device's and every gradient leaf within 1e-4 * max|g|."""
+    """The SSM, hybrid, VLM and enc-dec families data-parallel only:
+    reduced, on a (data=8, model=1) mesh, the loss rtol 1e-5 of one
+    device's and every gradient leaf within 1e-4 * max|g|."""
     _, got = run
     one = float(got[f"dp_only/{arch}/loss_1"])
     assert abs(float(got[f"dp_only/{arch}/loss_mesh"]) - one) <= (
         LOSS_RTOL * abs(one))
     assert _check_grads(got, f"dp_only/{arch}") > 5
+
+
+def test_ssd_cut_is_misaligned_at_model_4():
+    """The SSD's shards at model = 4 do not line up with its heads (as at
+    tp = 16 at full width): ``w_in``'s columns and the conv channels cut
+    into runs that are not a rank's x channels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import ssm_dims
+    tp = 4
+    cfg = get_config("mamba2-2.7b").reduced()
+    d_in, H, hd, ds = ssm_dims(cfg)
+    G = cfg.ssm_n_groups
+    w_in, conv = 2 * d_in + 2 * G * ds + H, d_in + 2 * G * ds
+    assert (w_in // tp, conv // tp, d_in // tp) == (74, 40, 32)
+    assert G < tp and H % tp == 0
+
+
+@pytest.mark.parametrize("name", list(TP_FAMILIES))
+def test_tp_family_loss_and_grads(run, name):
+    """The SSM (its w_in / conv cut across heads), the hybrid RG-LRU, the
+    VLM and the enc-dec reduced on (data=2, model=4): the loss rtol 1e-5 of
+    the port's on one device and within 2e-4 of the reference's tp=1 loss;
+    every gradient leaf within 1e-4 * max|g| of one device's and
+    nonzero."""
+    ref, got = run
+    _check_loss(ref, got, name, 2e-4)
+    assert _check_grads(got, name) > 5
+
+
+def _check_logits(got, name, ref=None):
+    for i in range(1 + TP_STEPS):
+        one, mesh = got[f"{name}/logits_1/{i}"], got[f"{name}/logits_mesh/{i}"]
+        assert mesh.shape == one.shape == (TP_BATCH, 1, mesh.shape[-1]), i
+        assert np.isfinite(mesh).all()
+        assert np.abs(mesh - one).max() <= LOSS_RTOL * np.abs(one).max(), i
+        if ref is not None:
+            want = ref[f"{name}/logits/{i}"]
+            assert np.abs(mesh - want).max() < 5e-3, i
+
+
+@pytest.mark.parametrize("name", list(TP_FAMILIES))
+def test_tp_family_prefill_and_decode(run, name):
+    """A prefill of 16 tokens and two decode steps on (data=2, model=4),
+    each rank holding its shard of the parameters and of the decode state:
+    the logits within 1e-5 * max|logits| of the port's on one device, and
+    within 5e-3 of the reference's tp=1 logits."""
+    ref, got = run
+    _check_logits(got, name, ref)
+
+
+def test_recurrentgemma_padded_heads_on_model_4(run):
+    """recurrentgemma-2b reduced with its full config's 10 q heads and one
+    kv head, padded to 12 at model = 4 (the kv head picked by each rank's
+    q heads): loss, gradients, prefill and decode against one device."""
+    _, got = run
+    name = "tp_hybrid_padded"
+    loss_mesh, loss_1 = (float(got[f"{name}/loss_{w}"]) for w in ("mesh",
+                                                                   "1"))
+    assert abs(loss_mesh - loss_1) <= LOSS_RTOL * abs(loss_1)
+    assert got[f"{name}/grad_1/layers/2/attn/wq"].shape[1] == 12
+    assert _check_grads(got, name) > 5
+    _check_logits(got, name)
+
+
+@pytest.mark.parametrize("pair,which", [("gather_to", "forward"),
+                                        ("gather_to", "gradient"),
+                                        ("reduce_scatter_from", "forward"),
+                                        ("reduce_scatter_from", "gradient")])
+def test_collective_pairs_match_the_gathered_autograd(run, pair, which):
+    """gather_to (all-gather forward, reduce-scatter backward) and
+    reduce_scatter_from (reduce-scatter forward, all-gather backward) over
+    model's four ranks against autograd through the gathered whole: each
+    within 1e-6 of its scale on every rank."""
+    _, got = run
+    i = {("gather_to", "forward"): 0, ("gather_to", "gradient"): 1,
+         ("reduce_scatter_from", "forward"): 2,
+         ("reduce_scatter_from", "gradient"): 3}[(pair, which)]
+    assert got["pairs/errs"][i] <= 1e-6 * float(got["pairs/scale"])
 
 
 def test_a_2x4_checkpoint_restores_in_the_reference(run):

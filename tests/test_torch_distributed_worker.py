@@ -8,8 +8,11 @@ reads ``WORKDIR/case_<name>.npz`` (the reference's parameters and inputs,
 written by the test), runs every case on the port twice — on one device
 (no mesh) and on the 2 x 4 mesh — and rank 0 writes ``WORKDIR/out.npz``:
 per case the losses (or logits) of both runs and every gradient leaf of
-both, the mesh's gathered whole. This module imports torch and the port
-only (no jax), so the eight ranks start light.
+both, the mesh's gathered whole (the tp cases of the SSM, hybrid, VLM and
+enc-dec families read ``WORKDIR/case_<name>.pt``: the port's parameters,
+converted from the reference's by the test, and the inputs). This module
+imports torch and the port only (no jax), so the eight ranks start
+light.
 """
 from __future__ import annotations
 
@@ -365,10 +368,88 @@ def case_serve(workdir, out):
         out[f"serve/logits_mesh/{i}"] = by_rows.gather(g).numpy()
 
 
-#: the families that run data-parallel only (their tp > 1 forwards are
-#: ROADMAP item 8)
+#: the families run data-parallel on a (data=8, model=1) mesh
 DP_ONLY = ("mamba2-2.7b", "recurrentgemma-2b", "llama-3.2-vision-11b",
            "seamless-m4t-large-v2")
+#: the tp > 1 cases of the SSM, hybrid, VLM and enc-dec families: name ->
+#: arch (the config's overrides and inputs are in case_<name>.pt)
+TP_FAMILY_CASES = {"tp_ssm": "mamba2-2.7b", "tp_hybrid": "recurrentgemma-2b",
+                   "tp_vlm": "llama-3.2-vision-11b",
+                   "tp_encdec": "seamless-m4t-large-v2",
+                   "tp_hybrid_padded": "recurrentgemma-2b"}
+
+
+def case_tp_family(name, workdir, mesh, out):
+    """One family reduced on the 2 x 4 mesh (the SSD's ``w_in`` / conv
+    channels, the RG-LRU's width, the heads and ffn and vocab all split
+    over model): loss and gradients, then a prefill and two decode steps,
+    each against one device."""
+    case = torch.load(os.path.join(workdir, f"case_{name}.pt"))
+    cfg = dataclasses.replace(reduced(TP_FAMILY_CASES[name]), **case["cfg"])
+    full, batch = case["params"], case["batch"]
+    g1, l1 = grads_of(cfg, Runtime(), full, batch)
+    rt = Runtime(tp=MODEL, mesh=mesh)
+    specs = M.param_specs(cfg, rt)
+    mine = tree_map(lambda t, sh: sh.shard(t), full,
+                    named_sharding_tree(specs, mesh))
+    g4, l4 = grads_of(cfg, rt, mine,
+                      {k: rows(v, mesh) for k, v in batch.items()})
+    out[f"{name}/loss_1"] = np.float64(l1)
+    out[f"{name}/loss_mesh"] = np.float64(l4)
+    out.update(flat_np(g1, f"{name}/grad_1"))
+    out.update(flat_np(gathered(g4, specs, mesh), f"{name}/grad_mesh"))
+    prompt, max_len = case["prompt"], case["max_len"]
+    S = prompt["tokens"].shape[1]
+    by_rows = NamedSharding(mesh, default_rules().mesh_axes(["batch"]))
+    with torch.no_grad():
+        want, st1 = D.prefill(cfg, Runtime(), full, prompt, max_len)
+        got, st = steps.make_prefill_step(cfg, rt, max_len)(
+            mine, {k: rows(v, mesh) for k, v in prompt.items()})
+        pairs = [(want, got)]
+        decode = steps.make_decode_step(cfg, rt)
+        for i, tok in enumerate(case["next"]):
+            pos = torch.tensor(S + i)
+            want, st1 = D.decode_step(cfg, Runtime(), full, tok, pos, st1)
+            got, st = decode(mine, rows(tok, mesh), pos, st)
+            pairs.append((want, got))
+    for i, (w, g) in enumerate(pairs):
+        out[f"{name}/logits_1/{i}"] = w.numpy()
+        out[f"{name}/logits_mesh/{i}"] = by_rows.gather(g).numpy()
+
+
+def case_pairs(mesh, out):
+    """The two autograd pairs over the model axis against the gathered
+    computation's autograd on the whole tensors: each rank reads the
+    gathered whole through weights of its own (gather_to), or needs its
+    chunk of the sum of the ranks' partials (reduce_scatter_from)."""
+    grp = mesh.group("model")
+    r, n = coll.rank(grp), coll.size(grp)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(3, 7, 4 * n, generator=g)
+    W = torch.randn(n, 3, 7, 4 * n, generator=g)
+    xl = coll.chunk(x, -1, grp).requires_grad_()
+    y = coll.gather_to(xl, -1, grp)
+    (y * W[r]).sum().backward()
+    xw = x.clone().requires_grad_()
+    sum((xw * W[s]).sum() for s in range(n)).backward()
+    errs = [(y - x).abs().max(),
+            (coll.all_gather(xl.grad, -1, grp) - xw.grad).abs().max()]
+    P = torch.randn(n, 3, 7, 4 * n, generator=g)
+    V = torch.randn(n, 3, 7, 4, generator=g)
+    pl = P[r].clone().requires_grad_()
+    y = coll.reduce_scatter_from(pl, -1, grp)
+    (y * V[r]).sum().backward()
+    Pw = P.clone().requires_grad_()
+    tot = Pw.sum(dim=0)
+    sum((tot[..., 4 * s:4 * (s + 1)] * V[s]).sum()
+        for s in range(n)).backward()
+    errs += [(y - tot[..., 4 * r:4 * (r + 1)]).abs().max(),
+             (pl.grad - Pw.grad[r]).abs().max()]
+    errs = coll.all_reduce(torch.stack(errs).detach(), mesh.group(
+        mesh.axis_names), op="max")
+    out["pairs/errs"] = errs.numpy()
+    out["pairs/scale"] = np.float64(float(max(
+        xw.grad.abs().max(), tot.abs().max(), Pw.grad.abs().max())))
 
 
 def case_dp_only(out):
@@ -427,6 +508,11 @@ def run(rank: int, workdir: str) -> None:
             case_serve(workdir, out)
         if "dp_only" in cases:
             case_dp_only(out)
+        for name in TP_FAMILY_CASES:
+            if name in cases:
+                case_tp_family(name, workdir, mesh, out)
+        if "pairs" in cases:
+            case_pairs(mesh, out)
         dist.barrier()
         if rank == 0:
             np.savez(os.path.join(workdir, "out.npz"), **out)

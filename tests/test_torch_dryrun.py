@@ -2,14 +2,14 @@
 CPU, and the legacy governor shims against the reference's.
 
 Each arch's cells run in a subprocess of their own (a process holds one
-fake world), all started together: stablelm-12b and dbrx-132b reduced on a
-fake (2, 4) mesh (data 2 x model 4), every shape, and recurrentgemma-2b
-reduced at tp = 4, which fails with ROADMAP queue A item 8's error. The
-records carry the reference's keys (``ops`` where it has ``hlo_lines``);
-the input bytes a device holds equal the reference's
-``spec_bytes_per_device`` of the same cell; the collective bytes of the
-tensor-parallel prefill and of the ZeRO-1 train step equal Megatron's
-pattern counted by hand from the config, exactly.
+fake world), all started together: stablelm-12b, dbrx-132b, mamba2-2.7b,
+recurrentgemma-2b, llama-3.2-vision-11b and seamless-m4t-large-v2 reduced
+on a fake (2, 4) mesh (data 2 x model 4), every shape. The records carry
+the reference's keys (``ops`` where it has ``hlo_lines``); the input bytes
+a device holds equal the reference's ``spec_bytes_per_device`` of the same
+cell; the collective bytes of the tensor-parallel prefill (dense, the SSD
+and the RG-LRU) and of the ZeRO-1 train step equal the pattern counted by
+hand from the config, exactly.
 """
 import ast
 import json
@@ -28,21 +28,24 @@ from repro.launch import steps as ref_steps
 from repro.models.transformer import Runtime as RefRuntime
 from repro.parallel import sharding as ref_sharding
 
-from repro_torch.configs import SHAPES_BY_NAME, get_config
+from repro_torch.configs import SHAPES_BY_NAME, applicable_shapes, get_config
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model as M
 from repro_torch.models.common import default_rules
 from repro_torch.models.transformer import Runtime
 from repro_torch.parallel.sharding import (NamedSharding, is_spec,
                                            zero1_specs)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import leaves_with_paths, tree_leaves
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESH = (2, 4)
 #: run name -> (arch, shapes, extra flags)
 CELLS = {"stablelm-12b": ("stablelm-12b", "all", ()),
          "dbrx-132b": ("dbrx-132b", "all", ()),
-         "recurrentgemma-2b": ("recurrentgemma-2b", "train_4k", ()),
+         "mamba2-2.7b": ("mamba2-2.7b", "all", ()),
+         "recurrentgemma-2b": ("recurrentgemma-2b", "all", ()),
+         "llama-3.2-vision-11b": ("llama-3.2-vision-11b", "all", ()),
+         "seamless-m4t-large-v2": ("seamless-m4t-large-v2", "all", ()),
          "dbrx-132b-f8": ("dbrx-132b", "prefill_32k",
                           ("--moe-dispatch", "f8")),
          "refused": ("stablelm-12b", "train_4k,decode_32k",
@@ -153,6 +156,80 @@ def test_input_bytes_match_the_reference(runs, arch, shape):
                                                                    shape)
 
 
+#: the families whose forwards split the SSD's, the RG-LRU's and the cross
+#: blocks' widths over model
+SPLIT_ARCHS = ("mamba2-2.7b", "recurrentgemma-2b", "llama-3.2-vision-11b",
+               "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_split_families_write_every_record(runs, arch):
+    """Each of the SSM, hybrid, VLM and enc-dec families reduced at tp = 4
+    writes a record for every shape it applies to, and no ``.error``:
+    the reference's keys, flops, and collectives over model."""
+    rc, log, out = runs[arch]
+    assert rc == 0, log
+    assert not list(out.glob("*.error")), log
+    want = (_reference_record_keys() - {"hlo_lines"}) | {"ops"}
+    shapes = [s.name for s in applicable_shapes(get_config(arch))]
+    assert len(shapes) == (4 if arch in SPLIT_ARCHS[:2] else 3)
+    for shape in shapes:
+        rec = _record(runs, arch, shape)
+        assert want <= set(rec) and rec["cost"]["flops"] > 0
+        assert rec["collectives"]["__counts__"]["all-reduce"] > 0
+        assert rec["memory"]["argument_bytes"] == rec[
+            "input_bytes_per_device"]
+
+
+#: per family, the parameter leaves that ZeRO-1 keeps whole in the port
+#: (no dim of the per-layer leaf divides over data) where the reference's
+#: leaf, stacked over its layers (cross blocks), splits that stack dim
+WHOLE_MOMENT_LEAVES = {"mamba2-2.7b": ("A_log", "D", "dt_bias", "norm_g",
+                                       "conv_b"),
+                       "llama-3.2-vision-11b": ("gate_a", "gate_m")}
+
+
+def _whole_moment_bytes(arch):
+    """The f32 moments (m and v) the port holds beyond the reference's in a
+    train cell: each of WHOLE_MOMENT_LEAVES' leaves whole on every data
+    rank, where the reference's stacked leaf holds 1 / dp of it."""
+    cfg = get_config(arch).reduced()
+    dp, tp = MESH
+    mesh = AbstractMesh(MESH, ("data", "model"))
+    rt = Runtime(tp=tp)
+    shapes = M.init_params(cfg, rt, device="meta")
+    p_specs = M.param_specs(cfg, rt, default_rules())
+    m_specs = zero1_specs(p_specs, shapes, mesh, ("data",))
+    elems = 0
+    for (path, t), ps, ms in zip(
+            leaves_with_paths(shapes),
+            tree_leaves(p_specs, is_leaf=is_spec),
+            tree_leaves(m_specs, is_leaf=is_spec)):
+        if path.split("/")[-1] in WHOLE_MOMENT_LEAVES.get(arch, ()):
+            assert tuple(ms)[:len(ps)] == tuple(ps), path   # kept whole
+            elems += math.prod(NamedSharding(mesh, ps).local_shape(t.shape))
+    return elems * 2 * 4 * (dp - 1) // dp
+
+
+@pytest.mark.parametrize("arch,shape", [
+    (a, s.name) for a in SPLIT_ARCHS for s in applicable_shapes(get_config(a))])
+def test_split_families_input_bytes_match_the_reference(runs, arch, shape):
+    """The weights and decode state a device holds at tp = 4 (the SSD's
+    and the RG-LRU's shards, the cross blocks' heads) equal the
+    reference's ``spec_bytes_per_device`` of the same cell. A train cell
+    holds the ZeRO-1 moments too: those of the per-layer leaves with no
+    dim to split over data (the SSD's per-head and per-channel vectors, the
+    VLM's scalar gates) stay whole on each data rank, where the
+    reference's stacked leaf splits its layer dim; that difference is
+    counted by hand, and is the only one."""
+    rec = _record(runs, arch, shape)
+    extra = _whole_moment_bytes(arch) if shape == "train_4k" else 0
+    assert (extra > 0) == (shape == "train_4k"
+                           and arch in WHOLE_MOMENT_LEAVES)
+    assert rec["input_bytes_per_device"] == _reference_input_bytes(
+        arch, shape) + extra
+
+
 # ---------------------------------------------------------------------------
 # Megatron's pattern, counted by hand
 # ---------------------------------------------------------------------------
@@ -176,6 +253,68 @@ def test_tp_prefill_collectives_are_megatrons(runs):
     assert coll["all-reduce"] == (1 + 2 * L) * T * d * bf16
     assert coll["all-gather"] == B * cfg.padded_vocab(tp) // tp * bf16
     assert coll["total"] == coll["all-reduce"] + coll["all-gather"]
+
+
+def _prefill_tokens(cfg_arch):
+    cfg = get_config(cfg_arch).reduced()
+    dp, tp = MESH
+    shape = SHAPES_BY_NAME["prefill_32k"].reduced()
+    B = shape.global_batch // dp
+    return cfg, dp, tp, B, B * shape.seq_len
+
+
+def test_ssd_prefill_collectives_by_hand(runs):
+    """mamba2-2.7b's prefill on (data 2, model 4), the SSD split over
+    model with ``w_in`` cut across its heads:
+
+    * all-reduce: the vocab-parallel embedding's ``[tokens, d]``; a layer,
+      the gated RMSNorm's sum of squares ``[tokens, 1]`` in f32 and the
+      output's partial sums ``[tokens, d]``: 1 + 2 L;
+    * all-gather (this rank's operand): a layer, its columns of the fused
+      projection ``[tokens, (2 d_in + 2 G d_state + H) / tp]`` and its conv
+      channels ``[tokens, (d_in + 2 G d_state) / tp]``; then the last
+      position's logits over the vocab split: 2 L + 1;
+    * nothing else."""
+    cfg, dp, tp, B, T = _prefill_tokens("mamba2-2.7b")
+    from repro_torch.models.ssm import ssm_dims
+    d_in, H, _, ds = ssm_dims(cfg)
+    G, d, L, bf16, f32 = cfg.ssm_n_groups, cfg.d_model, cfg.n_layers, 2, 4
+    w_in, conv = 2 * d_in + 2 * G * ds + H, d_in + 2 * G * ds
+    coll = _record(runs, "mamba2-2.7b", "prefill_32k")["collectives"]
+    assert coll["__counts__"] == {"all-reduce": 1 + 2 * L,
+                                  "all-gather": 2 * L + 1}
+    assert coll["all-reduce"] == T * d * bf16 + L * T * (f32 + d * bf16)
+    assert coll["all-gather"] == (L * T * (w_in + conv) // tp * bf16
+                                  + B * cfg.padded_vocab(tp) // tp * bf16)
+    assert coll["total"] == coll["all-reduce"] + coll["all-gather"]
+
+
+def test_rglru_prefill_collectives_by_hand(runs):
+    """recurrentgemma-2b's prefill on (data 2, model 4), the RG-LRU split
+    over model:
+
+    * reduce-scatter (the whole operand): a recurrent layer, the partial
+      gate products ``x W_a`` and ``x W_i``, ``[tokens, lru_width]`` in
+      f32: 2 a recurrent layer;
+    * all-reduce ``[tokens, d]``: the embedding's; a recurrent layer, its
+      output's partial sums; an attention layer, attention's; every layer,
+      its mlp's: 1 + 2 L;
+    * all-gather: the last position's logits over the vocab split;
+    * nothing else."""
+    cfg, dp, tp, B, T = _prefill_tokens("recurrentgemma-2b")
+    from repro_torch.models.transformer import hybrid_kinds
+    n_rec = hybrid_kinds(cfg).count("rglru")
+    d, L, w, bf16, f32 = cfg.d_model, cfg.n_layers, cfg.lru_width, 2, 4
+    assert 0 < n_rec < L
+    coll = _record(runs, "recurrentgemma-2b", "prefill_32k")["collectives"]
+    assert coll["__counts__"] == {"all-reduce": 1 + 2 * L,
+                                  "reduce-scatter": 2 * n_rec,
+                                  "all-gather": 1}
+    assert coll["all-reduce"] == (1 + 2 * L) * T * d * bf16
+    assert coll["reduce-scatter"] == 2 * n_rec * T * w * f32
+    assert coll["all-gather"] == B * cfg.padded_vocab(tp) // tp * bf16
+    assert coll["total"] == (coll["all-reduce"] + coll["reduce-scatter"]
+                             + coll["all-gather"])
 
 
 def _zero1_leaves(cfg, dp, tp):
@@ -270,19 +409,6 @@ def test_options_without_a_counterpart_fail_by_name(runs):
                        ("decode_32k", "decode_cache_shard='seq'")):
         text = (out / f"stablelm-12b__{shape}__single.error").read_text()
         assert "NotImplementedError" in text and why in text
-
-
-def test_item8_family_fails_by_name(runs):
-    """recurrentgemma-2b at tp = 4 raises ROADMAP queue A item 8's
-    NotImplementedError: the cell writes ``.error`` with it, and ``main``
-    exits non-zero listing the cell."""
-    rc, log, out = runs["recurrentgemma-2b"]
-    assert rc != 0
-    assert "1 dry-run failures" in log
-    err = out / "recurrentgemma-2b__train_4k__single.error"
-    text = err.read_text()
-    assert "NotImplementedError" in text and "item 8" in text
-    assert not (out / "recurrentgemma-2b__train_4k__single.json").exists()
 
 
 # ---------------------------------------------------------------------------

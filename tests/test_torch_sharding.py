@@ -346,27 +346,3 @@ def test_rules_and_input_specs_match_the_reference(arch, shape_name,
                 assert tuple(w.spec) == tuple(p_specs[path]), path
             else:
                 assert tuple(spec_g) == tuple(w.spec), path
-
-
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b",
-                                  "llama-3.2-vision-11b",
-                                  "seamless-m4t-large-v2"])
-def test_other_families_refuse_tp_naming_their_item(arch):
-    """The SSM, hybrid, VLM and enc-dec forwards at tp > 1 are ROADMAP
-    queue A item 8: loss_fn, prefill and decode_step raise before they
-    compute (they run data-parallel at tp = 1,
-    tests/test_torch_distributed.py)."""
-    from repro_torch.models import decode
-    cfg = get_config(arch).reduced()
-    mesh = AbstractMesh((1, 4), ("data", "model"))
-    tokens = torch.zeros((1, 5), dtype=torch.int64)
-    with sharding_ctx(default_rules(), mesh):
-        for call in (lambda: M.loss_fn(cfg, Runtime(tp=4), {},
-                                       {"tokens": tokens}),
-                     lambda: decode.prefill(cfg, Runtime(tp=4), {},
-                                            {"tokens": tokens}, 8),
-                     lambda: decode.decode_step(cfg, Runtime(tp=4), {},
-                                                tokens[:, :1],
-                                                torch.tensor(0), {})):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                call()

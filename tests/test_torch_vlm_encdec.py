@@ -163,7 +163,7 @@ def test_cross_attention_matches(Sq, F, qkv_bias):
     assert tuple(k.shape) == tuple(v.shape) == (2, F, cfg.n_kv_heads,
                                                 cfg.resolved_head_dim)
     # one decode token against the cached K / V equals the whole-memory form
-    step = attn.decode_cross_attention(p, torch.from_numpy(x[:, -1:]),
+    step = attn.decode_cross_attention(p, cfg, torch.from_numpy(x[:, -1:]),
                                        {"k": k, "v": v})
     np.testing.assert_allclose(_np(step), np.asarray(want)[:, -1:], **TOL)
 
@@ -507,7 +507,7 @@ def test_cross_attention_reaches_the_kernel_op_at_its_tiles(recorded):
     x = torch.from_numpy(rng.standard_normal((2, 70, 64))).bfloat16()
     mem = torch.from_numpy(rng.standard_normal((2, 40, 64))).bfloat16()
     got, (k, v) = attn.cross_attention(p, cfg, x, mem, return_cache=True)
-    step = attn.decode_cross_attention(p, x[:, -1:], {"k": k, "v": v})
+    step = attn.decode_cross_attention(p, cfg, x[:, -1:], {"k": k, "v": v})
     assert [c[3:] for c in recorded] == [(128, 128), (64, 128)]
     want = attn.cross_attention(p, cfg, x, mem, impl="plain").float()
     for out, ref in ((got, want), (step, want[:, -1:])):
