@@ -91,12 +91,19 @@ call:
       kernel launches in training, as the reference's training never
       reaches its Pallas kernel
     the dry run and its cost model (repro_torch.launch.dryrun,
-      repro_torch.core.hlo_cost / roofline): (a) stablelm-12b train_4k,
-      dbrx-132b prefill_32k and mamba2-2.7b prefill_32k on the 256-rank
-      mesh, deepseek-v3-671b decode_32k on the 512-rank one, each in a
-      process of its own on a
+      repro_torch.core.hlo_cost / roofline): (a) stablelm-12b train_4k
+      (with ZeRO-1 and with whole moments, --no-zero1), dbrx-132b
+      prefill_32k, mamba2-2.7b prefill_32k and qwen2.5-14b decode_32k
+      (unsplit and with --decode-cache-shard seq) on the 256-rank mesh,
+      deepseek-v3-671b decode_32k on the 512-rank one, each in a process of
+      its own on a
       fake process group and meta tensors, off the card: records written,
-      finite and positive, the model's flops at most 1.05x the counted;
+      finite and positive, the model's flops at most 1.05x the counted; the
+      split cache's record the unsplit one's less (model - 1) / model of
+      its cache bytes, its dot flops equal and its collectives the
+      unsplit's plus the combine's, counted by hand; the whole-moment
+      record's dot flops the ZeRO-1 one's, its gradients all-reduced where
+      ZeRO-1 reduce-scatters them and its moments the parameters' shards;
       (b) one more step of the training cell counted on the card and on
       meta tensors: dot flops and collective bytes equal, bytes and
       elementwise flops equal or the ops that differ named; its roofline on
@@ -129,7 +136,19 @@ call:
       and the f32 loss forward and backward, against the local path on
       rank 0 (the same gates as (d); the loss rtol 1e-5, every gradient
       leaf within 1e-4 * max|g| and nonzero; each rank's flash launches
-      by call shape equal to the local path's)
+      by call shape equal to the local path's); (f) four more gloo
+      processes as a (data=1, model=4) mesh: deepseek-v3-671b at full
+      width (1 layer) with its MLA latent cache split over the sequence
+      (--decode-cache-shard seq), a 512-token prefill and 4 decode steps
+      (the first writes the first row of rank 1's shard; ranks 2 and 3
+      hold no valid row) in bf16 and f32 against the local path (the gates
+      of (d), and each rank's flash launches equal to the local path's);
+      (g) the same processes as a 2 x 2 mesh: seamless-m4t-large-v2 at full
+      width in f32 (2 + 2 layers), two train steps with whole moments
+      (zero1=False)
+      against two ZeRO-1 steps from the same weights (losses rtol 1e-5,
+      every parameter leaf within 1e-5 * max|p|, the moments of each
+      rank's parameter shard's shape)
 
 Run it with no arguments from the root of the checkout:
 
@@ -2975,7 +2994,14 @@ def train_phase(device, sizes: dict, timer: Timer, keep=None) -> dict:
 DRYRUN_CELLS = (("stablelm-12b", "train_4k", "single"),
                 ("dbrx-132b", "prefill_32k", "single"),
                 ("deepseek-v3-671b", "decode_32k", "multi"),
-                ("mamba2-2.7b", "prefill_32k", "single"))
+                ("mamba2-2.7b", "prefill_32k", "single"),
+                ("qwen2.5-14b", "decode_32k", "single"))
+#: (a)'s cells with a setting, each held against its cell of DRYRUN_CELLS
+#: (the same arch, shape and mesh): (tag, its flags)
+DRYRUN_SETTINGS = {("qwen2.5-14b", "decode_32k", "single"): (
+                       "seq", ("--decode-cache-shard", "seq")),
+                   ("stablelm-12b", "train_4k", "single"): (
+                       "no_zero1", ("--no-zero1",))}
 #: (a)'s cells on the host: the longest (dbrx-132b's prefill, 40 layers of
 #: the plain blocked attention at 32k tokens) takes about 40 s
 DRYRUN_CELL_TIMEOUT_S = 600
@@ -2994,18 +3020,125 @@ def _dryrun_cells(sizes: dict, out_dir: str):
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
                CUDA_VISIBLE_DEVICES="")
     procs = []
-    for arch, shape, mesh in DRYRUN_CELLS:
+    cells = [(c, "", ()) for c in DRYRUN_CELLS] + [
+        (c, tag, flags) for c, (tag, flags) in DRYRUN_SETTINGS.items()]
+    for (arch, shape, mesh), tag, flags in cells:
         cmd = [sys.executable, "-W", "ignore", "-m",
                "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-               "--mesh", mesh, "--out", out_dir] + sizes["dryrun_flags"]
+               "--mesh", mesh, "--out", out_dir, *flags] + sizes[
+                   "dryrun_flags"]
+        if tag:
+            cmd += ["--tag", tag]
         if mesh in sizes["dryrun_mesh_shapes"]:
             cmd += ["--mesh-shape", sizes["dryrun_mesh_shapes"][mesh]]
-        log = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.log")
-        with open(log, "w") as f:
-            procs.append(((arch, shape, mesh), time.perf_counter(),
+        name = f"{arch}__{shape}__{mesh}" + (f"__{tag}" if tag else "")
+        with open(os.path.join(out_dir, name + ".log"), "w") as f:
+            procs.append(((arch, shape, mesh, tag), time.perf_counter(),
                           subprocess.Popen(cmd, cwd=HERE, env=env, stdout=f,
                                            stderr=subprocess.STDOUT)))
     return procs
+
+
+def _dryrun_config(arch: str, shape: str, sizes: dict):
+    """(config, shape config, (data, model) of the single mesh) of a (a)
+    cell at the size the phase runs it."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.launch.mesh import PRODUCTION
+    cfg, sh = get_config(arch), SHAPES_BY_NAME[shape]
+    if "--reduced" in sizes["dryrun_flags"]:
+        cfg, sh = cfg.reduced(), sh.reduced()
+    mesh = sizes["dryrun_mesh_shapes"].get("single")
+    dims = (tuple(int(n) for n in mesh.split(",")) if mesh
+            else PRODUCTION[False][0])
+    return cfg, sh, dims
+
+
+def _dryrun_seq_cache_gates(base: dict, rec: dict, sizes: dict) -> dict:
+    """The split cache's record (--decode-cache-shard seq) against the
+    unsplit one of its cell, both on the single mesh: the input bytes a
+    device the unsplit ones less (model - 1) / model of the self cache's
+    bytes (K and V, whole over model: the kv heads do not split), the dot
+    flops equal, and the collectives the unsplit ones plus the combine's a
+    layer (q gathered over the heads, this rank's operand; the f32 maxima
+    all-reduced, [B, Hq]; the f32 partials reduce-scattered, [B, Hq, hd +
+    1]), all counted by hand from the config."""
+    cfg, sh, (dp, tp) = _dryrun_config(rec["arch"], rec["shape"], sizes)
+    B, M, L = sh.global_batch // dp, sh.seq_len, cfg.n_layers
+    hd, Hq = cfg.resolved_head_dim, cfg.padded_heads(tp)
+    cache = 2 * L * B * M * cfg.padded_kv_heads(tp) * hd * 2
+    add = {"all-gather": (L, L * B * Hq // tp * hd * 2),
+           "all-reduce": (L, L * B * Hq * 4),
+           "reduce-scatter": (L, L * B * Hq * (hd + 1) * 4)}
+    cb, cr = base["collectives"], rec["collectives"]
+    colls = {k: [cr["__counts__"].get(k, 0), cr.get(k, 0),
+                 cb["__counts__"].get(k, 0) + add.get(k, (0, 0))[0],
+                 cb.get(k, 0) + add.get(k, (0, 0))[1]]
+             for k in sorted(set(cb["__counts__"]) | set(cr["__counts__"])
+                             | set(add))}
+    out = {"cache_bytes_unsplit": cache,
+           "input_bytes_per_device": [base["input_bytes_per_device"],
+                                      rec["input_bytes_per_device"]],
+           "input_bytes_want": base["input_bytes_per_device"]
+           - cache * (tp - 1) // tp,
+           "dot_flops": [base["parsed_cost"]["dot_flops"],
+                         rec["parsed_cost"]["dot_flops"]],
+           "collectives_count_bytes_want": colls}
+    check(out["input_bytes_per_device"][1] == out["input_bytes_want"]
+          and out["dot_flops"][0] == out["dot_flops"][1] > 0
+          and all(v[0] == v[2] and v[1] == v[3] for v in colls.values()),
+          f"the split cache's dry-run record is not the unsplit one's less "
+          f"its cache's bytes, or its collectives are not the combine's: "
+          f"{out}")
+    return out
+
+
+def _dryrun_whole_moment_gates(base: dict, rec: dict, sizes: dict) -> dict:
+    """The whole-moment train record (--no-zero1) against the ZeRO-1 one of
+    its cell: the dot flops equal; no reduce-scatter, the all-gathers fewer
+    by the reduce-scattered leaves, each of them all-reduced instead (the
+    all-reduce bytes grow by the reduce-scatter's); the input bytes grow by
+    the f32 moments (m and v) the parameters' shards hold beyond their
+    ZeRO-1 shards, counted from the specs."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.parallel.sharding import (NamedSharding, is_spec,
+                                               zero1_specs)
+    from repro_torch.tree import tree_leaves
+    cfg, _, (dp, tp) = _dryrun_config(rec["arch"], rec["shape"], sizes)
+    mesh = AbstractMesh((dp, tp), ("data", "model"))
+    shapes = model_mod.init_params(cfg, Runtime(tp=tp), device="meta")
+    p_specs = model_mod.param_specs(cfg, Runtime(tp=tp), default_rules())
+    z_specs = zero1_specs(p_specs, shapes, mesh, ("data",))
+
+    def elems(specs):
+        return sum(math.prod(NamedSharding(mesh, sp).local_shape(t.shape))
+                   for t, sp in zip(tree_leaves(shapes),
+                                    tree_leaves(specs, is_leaf=is_spec)))
+    extra = 2 * 4 * (elems(p_specs) - elems(z_specs))
+    cb, cr = base["collectives"], rec["collectives"]
+    n_rs = cb["__counts__"].get("reduce-scatter", 0)
+    out = {"input_bytes_per_device": [base["input_bytes_per_device"],
+                                      rec["input_bytes_per_device"]],
+           "moment_bytes_extra_want": extra,
+           "dot_flops": [base["parsed_cost"]["dot_flops"],
+                         rec["parsed_cost"]["dot_flops"]],
+           "counts": [cb["__counts__"], cr["__counts__"]],
+           "all_reduce_bytes": [cb["all-reduce"], cr["all-reduce"]],
+           "reduce_scatter_bytes_zero1": cb.get("reduce-scatter", 0)}
+    check(out["dot_flops"][0] == out["dot_flops"][1] > 0 and n_rs > 0
+          and "reduce-scatter" not in cr["__counts__"]
+          and cr["__counts__"].get("all-gather", 0)
+          == cb["__counts__"].get("all-gather", 0) - n_rs
+          and cr["__counts__"]["all-reduce"]
+          == cb["__counts__"]["all-reduce"] + n_rs
+          and cr["all-reduce"] == cb["all-reduce"] + cb["reduce-scatter"]
+          and rec["input_bytes_per_device"]
+          == base["input_bytes_per_device"] + extra,
+          f"the whole-moment dry-run record is not the ZeRO-1 one's with "
+          f"all-reduced gradients and whole moments: {out}")
+    return out
 
 
 def _count(fn, *args):
@@ -3231,20 +3364,23 @@ def dryrun_phase(device, sizes: dict, keep: dict) -> dict:
                 if i not in ended and proc.poll() is not None:
                     ended[i] = time.perf_counter() - start
             time.sleep(0.1)
-        cells = []
-        for i, ((arch, shape, mesh), _, proc) in enumerate(procs):
+        cells, records = [], {}
+        for i, ((arch, shape, mesh, setting), _, proc) in enumerate(procs):
             seconds = ended[i]
-            tag = os.path.join(out_dir, f"{arch}__{shape}__{mesh}")
+            tag = os.path.join(out_dir, f"{arch}__{shape}__{mesh}" + (
+                f"__{setting}" if setting else ""))
             path = tag + ".json"
             if proc.returncode or not os.path.exists(path):
                 with open(tag + ".log") as f:
                     check(False, f"the dry-run cell {arch} {shape} {mesh} "
-                                 f"failed ({proc.returncode}): "
+                                 f"{setting} failed ({proc.returncode}): "
                                  f"{f.read()[-2000:]}")
             with open(path) as f:
                 rec = json.load(f)
+            records[(arch, shape, mesh, setting)] = rec
             ro = rec["roofline"]
             row = {"arch": arch, "shape": shape, "mesh": mesh,
+                   "setting": setting or None,
                    "chips": rec["chips"], "dominant": ro["dominant"],
                    "step_time_s": ro["step_time_s"], "mfu": ro["mfu"],
                    "useful_flops_ratio": ro["useful_flops_ratio"],
@@ -3265,6 +3401,13 @@ def dryrun_phase(device, sizes: dict, keep: dict) -> dict:
                   f"{row}")
             cells.append(row)
         report["cells"] = cells
+        gates = {"seq": _dryrun_seq_cache_gates,
+                 "no_zero1": _dryrun_whole_moment_gates}
+        report["settings"] = {
+            tag: {"cell": list(cell), "flags": list(flags),
+                  **gates[tag](records[(*cell, "")], records[(*cell, tag)],
+                               sizes)}
+            for cell, (tag, flags) in DRYRUN_SETTINGS.items()}
     finally:
         for _, _, proc in procs:
             if proc.poll() is None:
@@ -3351,6 +3494,44 @@ DIST_FAMILIES_GRAD_SHARE = 1e-4
 #: CUDA tensors first: gloo refusing one fails the run
 DIST_FAMILIES_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
                              "reduce_scatter_tensor")
+
+
+#: (f): the decode cache split over the sequence (--decode-cache-shard seq)
+#: on four gloo processes on the one card as a (data=1, model=4) mesh:
+#: DeepSeek-V3's MLA latent cache, which the split always takes, at full
+#: width and cut in depth; DIST_SEQ_BATCH sequences of the (d) prompt's
+#: length, DIST_GLOO_STEPS lock-step decode steps, the cache
+#: sizes["dist_max_len"] long (the first step writes the first row of rank
+#: 1's shard, ranks 2 and 3 hold no valid row)
+DIST_SEQ_MESH = (1, 4)
+DIST_SEQ_ARCH = "deepseek-v3-671b"
+DIST_SEQ_CUTS = {"n_layers": 1, "mtp_depth": 0}
+DIST_SEQ_WHY = ("memory: a layer holds ~11.5 B parameters (23.0 GB in "
+                "bf16, 46 GB in f32); the f32 run and the f32 local path "
+                "the bf16 gate reads hold a layer's whole f32 weights, so "
+                "one layer, where the serving phase keeps two in bf16")
+DIST_SEQ_BATCH = 2
+#: the GQA leg at full width: qwen2.5-14b on (data=1, model=3), where its 8
+#: kv heads do not divide over model (arch, model)
+DIST_SEQ_GQA = ("qwen2.5-14b", 3)
+#: (g): train steps with whole moments (zero1=False) against ZeRO-1 ones
+#: on the same four processes as a DIST_GLOO_MESH mesh, seamless-m4t-large-v2
+#: at full width in f32 cut in depth as (e) cuts it; a data row of the (d)
+#: prompt's length and its frontend
+DIST_WHOLE_ARCH = "seamless-m4t-large-v2"
+DIST_WHOLE_CUTS = DIST_FAMILIES[DIST_WHOLE_ARCH]
+DIST_WHOLE_WHY = ("memory: a whole-moment step holds about 7x a rank's f32 "
+                  "weights (weights, gradients, old and new moments, the "
+                  "updated weights); stablelm-12b's one layer and "
+                  "embeddings are 2.6 GB a rank, 18 GB in the step, past the "
+                  "card with four ranks; this model "
+                  "cut as (e) is 1.3 GB a rank")
+DIST_WHOLE_STEPS = 2
+DIST_WHOLE_LR = 1e-3
+#: (g)'s gates: the losses within this relative tolerance of the ZeRO-1
+#: run's, each parameter leaf within DIST_WHOLE_PARAM_SHARE * max|p|
+DIST_WHOLE_LOSS_RTOL = 1e-5
+DIST_WHOLE_PARAM_SHARE = 1e-5
 
 
 def _flash_limit_share(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3988,12 +4169,13 @@ def _family_run(cfg, rt, params, batch, fed, greedy: bool, sizes, device,
     """A prefill of ``batch`` and DIST_GLOO_STEPS decode steps (each fed
     the argmax of the last logits, appended to ``fed`` when ``greedy``, or
     ``fed``'s token), on ``rt``'s route: the logits of each (gathered over
-    the batch's rows by ``rows``), the flash launches by call shape, and
-    the times (host clock, synchronised) after one untimed, uncounted
-    prefill."""
+    the batch's rows by ``rows``), the flash launches by call shape, the
+    times (host clock, synchronised) after one untimed, uncounted
+    prefill, and the bytes of this rank's decode state."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.tree import tree_leaves
     whole = (lambda t: t) if rows is None else rows.gather
     local = (lambda t: t) if rows is None else rows.shard
     out = {}
@@ -4022,6 +4204,8 @@ def _family_run(cfg, rt, params, batch, fed, greedy: bool, sizes, device,
                                      / DIST_GLOO_STEPS)
     out["flash_launches_by_shape"] = dict(fa.LAUNCHES_BY_SHAPE)
     out["logits"] = [t.float().cpu() for t in steps_out]
+    out["state_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(state))
     return out
 
 
@@ -4045,17 +4229,20 @@ def _family_loss(cfg, rt, params, batch, device):
 
 
 def _family_attn_impl(cfg, dtype: str) -> tuple:
-    """(attention route, why) of (e)'s ``dtype`` run: the kernel, or the
-    plain route where the flash kernel of that dtype is not built at the
-    config's head dim (f32 at RecurrentGemma's 256: ROADMAP later work
-    item 6), mesh and local path alike."""
+    """(attention route, why) of an (e) or (f) ``dtype`` run: the kernel,
+    or the plain route where the flash kernel of that dtype is not built
+    at the config's head dims (f32 at RecurrentGemma's 256: ROADMAP later
+    work item 6; MLA's are (qk_nope + qk_rope, v_head_dim)), mesh and local
+    path alike."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import flash_tiles
     from repro_torch.models.common import torch_dtype
     if not cfg.n_heads:
         return "kernel", None
-    hd, dt = cfg.resolved_head_dim, torch_dtype(dtype)
-    why = fa.unsupported(dt.itemsize, hd, hd, *flash_tiles(dt, (hd, hd)))
+    dt = torch_dtype(dtype)
+    dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+            if cfg.use_mla else (cfg.resolved_head_dim,) * 2)
+    why = fa.unsupported(dt.itemsize, *dims, *flash_tiles(dt, dims))
     return ("plain", why) if why else ("kernel", None)
 
 
@@ -4284,14 +4471,331 @@ def dist_gloo_families(device, sizes: dict) -> dict:
     return out
 
 
+def _gloo_seq_cache(rank: int, mesh, sizes, device) -> dict:
+    """(f) on this rank: DIST_SEQ_ARCH with its cache split over the
+    sequence on ``mesh`` (the experts over model through impl="ep" at
+    DIST_GLOO_CAPACITY), a prefill and greedy decode steps in bf16 and the
+    same steps fed those tokens in f32; then rank 0 runs the local path
+    (no mesh, whole weights from the same seed, the local dispatch at the
+    same capacity) the same way. Returns rank 0's report (the others':
+    their launches, times and state bytes)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.parallel.sharding import NamedSharding
+    cfg, reduced = serve_config(sizes, DIST_SEQ_ARCH, DIST_SEQ_CUTS,
+                                DIST_SEQ_WHY)
+    tp, S = mesh.shape["model"], sizes["dist_gloo_prompt"]
+    rules = default_rules()
+    rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+    g = torch.Generator(device=device)
+    g.manual_seed(DIST_FAMILIES_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (DIST_SEQ_BATCH, S), generator=g,
+                         device=device, dtype=torch.int32)
+    moe = (dict(moe_impl="ep", moe_capacity_factor=DIST_GLOO_CAPACITY)
+           if cfg.family == "moe" else {})
+    rep = {"arch": cfg.name, "reduced": reduced, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "prompt_len": S, "batch": DIST_SEQ_BATCH,
+           "max_len": sizes["dist_max_len"], "decode_steps": DIST_GLOO_STEPS,
+           "positions_a_rank": sizes["dist_max_len"] // tp}
+    mesh_runs, local_runs, fed = {}, {}, []
+    for dt in DIST_GLOO_DTYPES:
+        run_cfg = dataclasses.replace(cfg, dtype=dt)
+        impl, why = _family_attn_impl(cfg, dt)
+        rt = Runtime(tp=tp, mesh=mesh, attn_impl=impl,
+                     decode_cache_shard="seq", **moe)
+        params = _family_params(run_cfg, rt, device, rules)
+        mesh_runs[dt] = _family_run(run_cfg, rt, params,
+                                    {"tokens": rows.shard(toks)}, fed,
+                                    dt == DIST_GLOO_DTYPES[0], sizes, device,
+                                    rows)
+        mesh_runs[dt]["attn_impl"] = impl
+        if why:
+            mesh_runs[dt]["attn_plain_why"] = why
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {
+        dt: {k: v for k, v in r.items() if k != "logits"}
+        for dt, r in mesh_runs.items()})
+    rep["mesh_by_rank"] = by_rank
+    if rank == 0:
+        with patched(moe_mod, "CAPACITY_FACTOR", DIST_GLOO_CAPACITY):
+            for dt in DIST_GLOO_DTYPES:
+                run_cfg = dataclasses.replace(cfg, dtype=dt)
+                rt1 = Runtime(tp=tp, attn_impl=_family_attn_impl(cfg, dt)[0])
+                params = _family_params(run_cfg, rt1, device)
+                local_runs[dt] = _family_run(run_cfg, rt1, params,
+                                             {"tokens": toks}, fed, False,
+                                             sizes, device)
+                del params
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    rep["peak_memory_gb_by_rank"] = peaks
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if rank != 0:
+        return rep
+    rep["local"] = {dt: {k: v for k, v in r.items() if k != "logits"}
+                    for dt, r in local_runs.items()}
+    have = {dt: r["logits"] for dt, r in mesh_runs.items()}
+    want = {dt: r["logits"] for dt, r in local_runs.items()}
+    rep.update(_logit_gates(have, want["bfloat16"], want["float32"],
+                            want["float32"]))
+    rep.update(_margin_tokens(want["bfloat16"], have["bfloat16"]))
+    rep["shapes_ok"] = all(
+        bool(torch.isfinite(a).all()) and a.shape == b.shape
+        for dt in DIST_GLOO_DTYPES for a, b in zip(have[dt], want[dt])) and (
+        len(have["float32"]) == len(want["float32"]) == DIST_GLOO_STEPS + 1)
+    rep["flash_launches_equal_on_every_rank"] = {
+        dt: all(r[dt]["flash_launches_by_shape"]
+                == local_runs[dt]["flash_launches_by_shape"]
+                for r in by_rank) for dt in DIST_GLOO_DTYPES}
+    rep["cache_bytes"] = {
+        dt: {"rank0_split": by_rank[0][dt]["state_bytes"],
+             "unsplit": local_runs[dt]["state_bytes"]}
+        for dt in DIST_GLOO_DTYPES}
+    rep["decode_ms_per_step"] = {
+        dt: {"mesh_rank0": mesh_runs[dt]["decode_ms_per_step"],
+             "local": local_runs[dt]["decode_ms_per_step"]}
+        for dt in DIST_GLOO_DTYPES}
+    return rep
+
+
+def _gloo_whole_moments(rank: int, mesh, sizes, device) -> dict:
+    """(g) on this rank: DIST_WHOLE_ARCH in f32 on ``mesh``,
+    DIST_WHOLE_STEPS train steps with ZeRO-1 moments and the same steps
+    with whole ones (zero1=False), each from the same weights (drawn from
+    DIST_FAMILIES_SEED): the losses, the steps' times, each rank's moment
+    shapes against its parameter shards, and every parameter leaf's
+    distance from the ZeRO-1 run's, taken shard by shard. Returns rank 0's
+    report."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.common import default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import NamedSharding
+    from repro_torch.tree import leaves_with_paths, tree_leaves
+    cfg, reduced = serve_config(sizes, DIST_WHOLE_ARCH, DIST_WHOLE_CUTS,
+                                DIST_WHOLE_WHY)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    rt = Runtime(tp=mesh.shape["model"], mesh=mesh)
+    rules = default_rules()
+    rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+    g = torch.Generator(device=device)
+    g.manual_seed(DIST_FAMILIES_SEED)
+    S, B = sizes["dist_gloo_prompt"], mesh.shape["data"]
+    batches = []
+    for _ in range(DIST_WHOLE_STEPS):
+        b = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=g, device=device,
+                                     dtype=torch.int32)}
+        if cfg.frontend_seq:
+            b["frontend"] = draw_frontend(cfg, B, g, device)
+        batches.append({k: rows.shard(v) for k, v in b.items()})
+    opt = OptConfig(lr=DIST_WHOLE_LR)
+    rep = {"arch": cfg.name, "reduced": reduced, "n_layers": cfg.n_layers,
+           "dtype": "float32", "tokens_a_step": [B, S + 1],
+           "frontend": cfg.frontend_seq, "steps": DIST_WHOLE_STEPS}
+    runs, finals = {}, {}
+    for zero1 in (True, False):
+        name = "zero1" if zero1 else "whole"
+        params = _family_params(cfg, rt, device, rules)
+        state = steps_mod.init_train_state(cfg, rt, params, zero1=zero1)
+        step = steps_mod.make_train_step(cfg, rt, opt, zero1=zero1)
+        losses, ms = [], []
+        for batch in batches:
+            _sync(device)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        moments = tree_leaves(state["opt"]["m"])
+        shapes = [tuple(p.shape) for p in tree_leaves(state["params"])]
+        runs[name] = {
+            "losses": losses, "step_ms": ms,
+            "moment_leaves_split_over_data": sum(
+                tuple(t.shape) != sh for t, sh in zip(moments, shapes)),
+            "moment_bytes_rank": 2 * sum(t.numel() * t.element_size()
+                                         for t in moments)}
+        finals[name] = {k: t.cpu() for k, t in leaves_with_paths(
+            state["params"])}
+        del params, state, moments
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    everyone = mesh.group(mesh.axis_names)
+    shares, worst_leaf = [], None
+    for k, want in finals["zero1"].items():
+        top = coll.all_reduce(want.abs().max(), everyone, op="max")
+        diff = coll.all_reduce((finals["whole"][k] - want).abs().max(),
+                               everyone, op="max")
+        shares.append(float(diff) / (DIST_WHOLE_PARAM_SHARE * float(top)))
+        if shares[-1] == max(shares):
+            worst_leaf = k
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    rep.update(runs=runs, peak_memory_gb_by_rank=peaks,
+               params={"leaves": len(shares),
+                       "worst_share_of_limit": max(shares),
+                       "worst_leaf": worst_leaf},
+               loss_rel_diff=max(
+                   abs(a - b) / abs(b) for a, b in zip(
+                       runs["whole"]["losses"], runs["zero1"]["losses"])))
+    return rep
+
+
+def _gloo_seq_rank(rank: int, world: int, store_path: str, out_path: str,
+                   device_type: str, sizes: dict) -> None:
+    """One of the (f) and (g) ranks: gloo over ``device_type`` tensors on
+    the one card (or the CPU in the rehearsal), TF32 off: probe the
+    collectives, then, when gloo takes them all, (f) on a DIST_SEQ_MESH
+    mesh and (g) on a DIST_GLOO_MESH one (every rank builds both); rank 0
+    writes the reports."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    report = {"rank": rank}
+    try:
+        report["probe"] = _probe_collectives(None, device)
+        report["refused"] = [n for n, v in report["probe"].items()
+                             if v != "ok"]
+        if not report["refused"]:
+            seq_mesh = make_host_mesh(*DIST_SEQ_MESH, device_type=device_type)
+            dp_mesh = make_host_mesh(*DIST_GLOO_MESH, device_type=device_type)
+            t0 = time.perf_counter()
+            report["f"] = _gloo_seq_cache(rank, seq_mesh, sizes, device)
+            report["f"]["seconds"] = time.perf_counter() - t0
+            if rank == 0:      # (f)'s report stays if (g) fails
+                with open(out_path, "w") as f:
+                    json.dump(report, f)
+            t0 = time.perf_counter()
+            report["g"] = _gloo_whole_moments(rank, dp_mesh, sizes, device)
+            report["g"]["seconds"] = time.perf_counter() - t0
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _seq_gqa_leg() -> dict:
+    """Why (f) has no GQA leg at full width: DIST_SEQ_GQA's arch at its
+    model size pads its q heads to a count its kv heads do not divide, so
+    no forward of it runs (the reference asserts ``Hq % Hkv == 0`` too)."""
+    from repro_torch.configs import get_config
+    arch, tp = DIST_SEQ_GQA
+    cfg = get_config(arch)
+    nh, nkv = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
+    check(nh % nkv != 0, f"{arch}'s {nh} q heads group over {nkv} kv heads "
+                         f"at model = {tp}: its (f) leg can run")
+    return {"arch": arch, "mesh": {"data": 1, "model": tp},
+            "q_heads": [cfg.n_heads, nh], "kv_heads": [cfg.n_kv_heads, nkv],
+            "not_run": f"at model = {tp} the {cfg.n_heads} q heads pad to "
+                       f"{nh}, which do not group over {nkv} kv heads; the "
+                       f"GQA split is held on the CPU "
+                       f"(tests/test_torch_distributed.py)"}
+
+
+def dist_gloo_seq_and_whole(device, sizes: dict) -> dict:
+    """(f) and (g) on four processes on the one card over gloo, started
+    with torch.multiprocessing: (f) the decode cache split over the
+    sequence (:func:`_gloo_seq_cache`): every step's f32 logits within
+    DIST_GLOO_F32_RTOL * max|logits| of the local path's, the bf16 ones no
+    further from the local f32 path than DIST_GLOO_BF16_FACTOR times the
+    local bf16 path, the bf16 tokens by the margin rule, each rank's flash
+    launches by call shape equal to the local path's; decode ms a step,
+    rank 0's peak memory and its cache bytes against the unsplit cache's
+    reported. (g) whole moments against ZeRO-1 (:func:`_gloo_whole_moments`):
+    losses within DIST_WHOLE_LOSS_RTOL, every parameter leaf within
+    DIST_WHOLE_PARAM_SHARE * max|p|, every moment of its parameter shard's
+    shape where ZeRO-1 splits some over data. Times are host-staged:
+    reported, not gated."""
+    import shutil
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rep, wall, out_path = _spawn_gloo(_gloo_seq_rank, "dist_seq", device,
+                                      sizes)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    check(not rep["refused"],
+          f"(f) / (g) gloo refused {rep['refused']} on {device.type} "
+          f"tensors: {rep['probe']}")
+    f, g = rep["f"], rep["g"]
+    check(f["shapes_ok"] and f["tokens_equal"] == f["tokens_compared"],
+          f"(f) the split cache's logits are malformed or its tokens differ "
+          f"from the local path's by the margin rule: {f}")
+    check(f["f32_share_of_limit"] <= 1.0 and f["bf16_share_of_limit"] <= 1.0,
+          f"(f) the split cache's logits are further from the local path's "
+          f"than rounding: {f['steps']}")
+    check(all(f["flash_launches_equal_on_every_rank"].values())
+          and (device.type != "cuda" or any(
+              f["local"]["bfloat16"]["flash_launches_by_shape"].values())),
+          f"(f) a rank's flash launches differ from the local path's, or "
+          f"the bf16 prefill launched none on the card: {f['mesh_by_rank']} "
+          f"{f['local']}")
+    check(all(c["rank0_split"] * DIST_SEQ_MESH[1] == c["unsplit"]
+              for c in f["cache_bytes"].values()),
+          f"(f) rank 0's cache is not 1 / {DIST_SEQ_MESH[1]} of the "
+          f"unsplit one: {f['cache_bytes']}")
+    check(g["loss_rel_diff"] <= DIST_WHOLE_LOSS_RTOL
+          and g["params"]["worst_share_of_limit"] <= 1.0
+          and g["runs"]["whole"]["moment_leaves_split_over_data"] == 0
+          and g["runs"]["zero1"]["moment_leaves_split_over_data"] > 0,
+          f"(g) the whole-moment steps differ from the ZeRO-1 ones, or a "
+          f"moment is not its parameter shard's shape: {g}")
+    return {"backend": "gloo",
+            "world": DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1],
+            "device": device.type, "probe": rep["probe"], "wall_s": wall,
+            "f_seq_cache": {"mesh": dict(zip(("data", "model"),
+                                             DIST_SEQ_MESH)), **f},
+            "f_gqa": _seq_gqa_leg(),
+            "g_whole_moments": {"mesh": dict(zip(("data", "model"),
+                                                 DIST_GLOO_MESH)), **g},
+            "tolerance": (
+                f"(f) each step: f32 mesh - f32 local <= {DIST_GLOO_F32_RTOL}"
+                f" * max|f32 local|; bf16 mesh - f32 local <= "
+                f"{DIST_GLOO_BF16_FACTOR} * (bf16 local - f32 local); (g) "
+                f"losses rtol {DIST_WHOLE_LOSS_RTOL}; each parameter leaf "
+                f"within {DIST_WHOLE_PARAM_SHARE} * max|p| of the ZeRO-1 "
+                f"run's"),
+            "timing_note": "host-staged gloo collectives: reported, not "
+                           "gated"}
+
+
 def distributed_phase(device, sizes: dict, timer) -> dict:
     """The multi-device path on the one card: NCCL at world 1 on a 1 x 1
     mesh (its FileStore under build/) for (a) the MoE's expert-parallel
     serving against its local path, (b) DP x TP training with ZeRO-1 and
     its f32 check, (c) elastic restore; then (d) four gloo ranks on the
-    card, and (e) the SSM, hybrid, VLM and enc-dec families split over
-    model on four gloo ranks. The CPU rehearsal runs gloo at world 1 on CPU
-    tensors, and (d) and (e) on CPU tensors."""
+    card, (e) the SSM, hybrid, VLM and enc-dec families split over model
+    on four gloo ranks, and (f) the decode cache split over the sequence
+    and (g) whole moments on four more. The CPU rehearsal runs gloo at
+    world 1 on CPU tensors, and (d) to (g) on CPU tensors."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -4318,11 +4822,14 @@ def distributed_phase(device, sizes: dict, timer) -> dict:
     nccl_s = time.perf_counter() - t0
     gloo = dist_gloo_on_card(device, sizes)
     families = dist_gloo_families(device, sizes)
+    seq = dist_gloo_seq_and_whole(device, sizes)
     return {"backend": backend, "world": 1, "mesh": {"data": 1, "model": 1},
             "a_moe_ep": moe, "b_train": train, "c_elastic": elastic,
             "d_gloo_on_card": gloo, "e_gloo_families": families,
+            "f_g_gloo_seq_and_whole": seq,
             "seconds": {"world_1": nccl_s, "gloo": gloo["wall_s"],
                         "gloo_families": families["wall_s"],
+                        "gloo_seq_and_whole": seq["wall_s"],
                         "phase": time.perf_counter() - t0}}
 
 

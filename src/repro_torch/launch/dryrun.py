@@ -111,22 +111,26 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh_shape = overrides.get("mesh_shape")
     if mesh_shape is not None:
         multi_pod = len(mesh_shape) == 3
-    if shape.kind == "train" and not overrides.get("zero1", True):
+    if overrides.get("seq_shard"):
         raise NotImplementedError(
-            "zero1=False: the port's train step keeps its AdamW moments as "
-            "ZeRO-1 shards over the batch axes (launch/steps.py "
-            "make_train_step); whole moments have no step to feed")
-    if overrides.get("decode_cache_shard", "none") != "none":
-        raise NotImplementedError(
-            "decode_cache_shard='seq' (the cache's sequence dim over the "
-            "model axis) has no counterpart in the port's decode state")
+            "seq_shard=True (the residual stream split over the sequence on "
+            "the model axis, ROADMAP A9 (e)): no module of the port reads a "
+            "'seq' rule, so the record would be the baseline's")
     mesh = _mesh(multi_pod, mesh_shape)
     chips = mesh.size
+    if (cfg.family == "moe" and overrides.get("moe_impl", "ep") == "local"
+            and mesh.shape["model"] > 1):
+        raise NotImplementedError(
+            "moe_impl='local' with the experts split over the model axis "
+            "(ROADMAP A9 (c)): the port's local dispatch needs every expert "
+            "on the rank")
+    if (cfg.family == "moe" and overrides.get("moe_ep2d_decode")
+            and shape.kind != "decode"):
+        raise NotImplementedError(
+            "moe_ep2d_decode=True on a train or prefill cell (ROADMAP A9 "
+            "(d)): the port's all-to-all path computes on whole expert ffn, "
+            "not on the ffn split over the data axes")
     rules = steps_mod.rules_for_shape(shape, multi_pod, mesh)
-    if overrides.get("seq_shard"):
-        d = dict(rules.rules)
-        d["seq"] = "model"        # Megatron-style sequence parallelism
-        rules = ShardingRules(rules=d)
     if overrides.get("moe_ep2d_decode"):
         d = dict(rules.rules)
         d["expert_ff"] = "data"   # 2D expert-weight layout for serving
@@ -141,6 +145,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         remat=overrides.get(
             "remat", "full" if shape.kind == "train" else "none"),
         decode_impl=overrides.get("decode_impl", "chunked"),
+        decode_cache_shard=overrides.get("decode_cache_shard", "none"),
         moe_dispatch_dtype=overrides.get("moe_dispatch_dtype", "bfloat16"),
         moe_capacity_factor=overrides.get("moe_capacity_factor", 1.25),
         moe_ep2d_decode=overrides.get("moe_ep2d_decode", False),
@@ -154,10 +159,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     t0 = time.time()
     if shape.kind == "train":
-        fn = steps_mod.make_train_step(cfg, rt, OptConfig(), rules)
+        zero1 = overrides.get("zero1", True)
+        fn = steps_mod.make_train_step(cfg, rt, OptConfig(), rules, zero1)
         (state, batch), _ = steps_mod.input_specs(
-            cfg, shape, rt, mesh, rules,
-            zero1=overrides.get("zero1", True),
+            cfg, shape, rt, mesh, rules, zero1=zero1,
             moment_dtype=overrides.get("moment_dtype", "float32"))
         args = (state, batch)
     elif shape.kind == "prefill":

@@ -49,12 +49,14 @@ def shrink_mesh(ranks: Optional[Sequence[int]] = None,
 
 
 def elastic_restore(ckpt_dir: str, cfg, rt_old: Runtime,
-                    new_mesh: Mesh) -> Tuple[dict, int, Runtime]:
+                    new_mesh: Mesh,
+                    zero1: bool = True) -> Tuple[dict, int, Runtime]:
     """Restore the latest checkpoint into a (possibly smaller) mesh: each
     leaf is cut to this rank's shard of ``new_mesh`` as the train step
     keeps it there (:func:`~repro_torch.launch.steps.train_state_shardings`:
     the parameters under their specs, the moments under their ZeRO-1 specs
-    of the new batch axes), the moments in the dtype they were saved in.
+    of the new batch axes, or the parameters' own with ``zero1`` false),
+    the moments in the dtype they were saved in.
 
     Returns (state, step, new_runtime)."""
     step = latest_step(ckpt_dir)
@@ -76,5 +78,5 @@ def elastic_restore(ckpt_dir: str, cfg, rt_old: Runtime,
                     "step": torch.empty((), dtype=torch.int32,
                                         device="meta")}}
     state = restore(ckpt_dir, step, like,
-                    train_state_shardings(cfg, rt_new, rules))
+                    train_state_shardings(cfg, rt_new, rules, zero1))
     return state, step, rt_new

@@ -8,7 +8,11 @@ over the batch axes. The train step is data x tensor parallel with ZeRO-1:
 each gradient leaf is averaged over the batch axes by a reduce-scatter into
 the shard of the moments :func:`~repro_torch.parallel.sharding.zero1_specs`
 gives it (an all-reduce where no dim divides), AdamW updates that shard of
-the parameter, and the updated shards are all-gathered back.
+the parameter, and the updated shards are all-gathered back. With
+``zero1=False`` (the reference's ``abstract_state(zero1=False)``) the
+moments take the parameters' specs: every gradient is all-reduced over the
+batch axes, AdamW updates the whole local parameter, and nothing is
+gathered after it.
 
 The abstract specs are ``meta`` tensors of the global shapes (nothing is
 allocated), each carrying ``.spec`` (its PartitionSpec) and ``.sharding``
@@ -74,9 +78,11 @@ class _Leaf:
 _WHOLE = _Leaf(None, 1, None)
 
 
-def _zero1_plan(cfg: ModelConfig, rt: Runtime, rules: ShardingRules):
+def _zero1_plan(cfg: ModelConfig, rt: Runtime, rules: ShardingRules,
+                zero1: bool = True):
     """(plan tree, moment spec tree, batch axes in mesh order). Without a
-    mesh every leaf is whole (and there are no specs)."""
+    mesh every leaf is whole (and there are no specs); with ``zero1``
+    false every leaf's moments take its parameter's spec."""
     mesh = rt.mesh
     shapes = _meta_params(cfg, rt)
     if mesh is None:
@@ -89,7 +95,8 @@ def _zero1_plan(cfg: ModelConfig, rt: Runtime, rules: ShardingRules):
                 f"a parameter split over the batch axes ({spec}): the "
                 f"train step averages gradients over them, which needs "
                 f"every parameter whole along them")
-    m_specs = zero1_specs(p_specs, shapes, mesh, batch_axes)
+    m_specs = (zero1_specs(p_specs, shapes, mesh, batch_axes) if zero1
+               else p_specs)
 
     def leaf(ps: P, ms: P):
         zdim = next((i for i, (a, b) in enumerate(zip(
@@ -107,20 +114,20 @@ def _zero1_plan(cfg: ModelConfig, rt: Runtime, rules: ShardingRules):
 
 
 def train_state_shardings(cfg: ModelConfig, rt: Runtime,
-                          rules: Optional[ShardingRules] = None
-                          ) -> Optional[Dict]:
+                          rules: Optional[ShardingRules] = None,
+                          zero1: bool = True) -> Optional[Dict]:
     """The :class:`~repro_torch.parallel.sharding.NamedSharding` tree of
     the state :func:`init_train_state` makes under ``rt.mesh``: the
     parameters' specs for ``params``, each leaf's ZeRO-1 moment spec for
-    ``opt["m"]`` and ``opt["v"]``, ``step`` replicated (``grad_error``
-    leaves, where there are any, take the parameters'). What
-    :func:`~repro_torch.checkpoint.save` gathers by and
-    :func:`~repro_torch.checkpoint.restore` cuts by. ``None`` without a
-    mesh: every leaf whole."""
+    ``opt["m"]`` and ``opt["v"]`` (the parameter's own with ``zero1``
+    false), ``step`` replicated (``grad_error`` leaves, where there are
+    any, take the parameters'). What :func:`~repro_torch.checkpoint.save`
+    gathers by and :func:`~repro_torch.checkpoint.restore` cuts by.
+    ``None`` without a mesh: every leaf whole."""
     if rt.mesh is None:
         return None
     rules = _rules_for(rt, rules)
-    _, m_specs, _ = _zero1_plan(cfg, rt, rules)
+    _, m_specs, _ = _zero1_plan(cfg, rt, rules, zero1)
     m_sh = named_sharding_tree(m_specs, rt.mesh)
     return {"params": named_sharding_tree(
                 model_mod.param_specs(cfg, rt, rules), rt.mesh),
@@ -130,12 +137,14 @@ def train_state_shardings(cfg: ModelConfig, rt: Runtime,
 
 def init_train_state(cfg: ModelConfig, rt: Runtime, params: Any,
                      rules: Optional[ShardingRules] = None,
-                     moment_dtype: str = "float32") -> Dict:
+                     moment_dtype: str = "float32",
+                     zero1: bool = True) -> Dict:
     """``{"params", "opt"}`` for :func:`make_train_step`: zero moments of
     the shapes the step keeps (under ``rt.mesh``: this rank's ZeRO-1 shard
-    of each leaf, see :func:`train_state_shardings`), ``step`` 0, on the
-    parameters' device."""
-    plan, _, batch_axes = _zero1_plan(cfg, rt, _rules_for(rt, rules))
+    of each leaf, or of its local parameter with ``zero1`` false, see
+    :func:`train_state_shardings`), ``step`` 0, on the parameters'
+    device."""
+    plan, _, batch_axes = _zero1_plan(cfg, rt, _rules_for(rt, rules), zero1)
     dp = rt.mesh.axis_size(batch_axes) if batch_axes else 1
     dt = torch_dtype(moment_dtype)
 
@@ -154,7 +163,8 @@ def init_train_state(cfg: ModelConfig, rt: Runtime, params: Any,
 
 
 def make_train_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig,
-                    rules: Optional[ShardingRules] = None) -> Callable:
+                    rules: Optional[ShardingRules] = None,
+                    zero1: bool = True) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``: ``loss_fn``,
     its gradient with respect to ``state["params"]``, the int8 error-
     feedback compression where ``opt_cfg.grad_compression`` says so (state
@@ -167,14 +177,15 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig,
     Under ``rt.mesh`` (module docstring): the parameters are this rank's
     shards under ``rules`` (default: the mesh's :func:`default_rules`),
     ``batch`` its rows, and ``state["opt"]`` the moments
-    :func:`init_train_state` makes (each leaf's ZeRO-1 shard).
+    :func:`init_train_state` makes with the same ``zero1`` (each leaf's
+    ZeRO-1 shard, or its whole local parameter's with ``zero1`` false).
     The loss is the whole batch's; gradients are averaged over the batch
     axes and clipped by their global norm. Without a mesh every group is
     ``None`` and every leaf whole, and the same body is one device's
     step."""
     mesh = rt.mesh
     rules = _rules_for(rt, rules)
-    plan, _, batch_axes = _zero1_plan(cfg, rt, rules)
+    plan, _, batch_axes = _zero1_plan(cfg, rt, rules, zero1)
     dp = mesh.axis_size(batch_axes) if batch_axes else 1
     dgrp = mesh.group(batch_axes) if dp > 1 else None
     everyone = None if mesh is None else mesh.group(mesh.axis_names)

@@ -71,6 +71,17 @@ split the same way, the cross-attention's memory entering through
 its latent path (``wq_a``,
 ``wkv_a``, the norms, the shared rope key) is replicated, and the latent
 activations enter the head-split products through ``copy_to``.
+
+A decode cache split over the sequence (``Runtime.decode_cache_shard=
+"seq"``: the kv heads do not split over ``model``, or MLA's latent cache)
+holds positions ``[r M / tp, (r + 1) M / tp)`` on rank ``r`` of the group
+given as ``seq_group``. Decode then writes a new row only on the rank that
+owns its position, and attends flash-decoding's way: q gathered over the
+head split, each rank's f32 partials over its own positions (the row max,
+the sum of ``exp(s - max)`` and the unnormalised ``P V``), the maxima
+all-reduced over ``model``, the rescaled sums reduce-scattered back onto
+each rank's own heads, then normalised. A rank that holds no valid
+position contributes exactly nothing (max ``-inf``, sums 0).
 """
 from __future__ import annotations
 
@@ -460,16 +471,96 @@ def _batch_scatter(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def _owned_write(cache: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor, lo: int) -> None:
+    """Write ``new [B, 1, ...]`` at the global positions ``pos [B]`` into
+    this rank's shard ``cache [B, Ms, ...]`` of positions ``[lo, lo +
+    Ms)``, in place: a sequence whose position another rank owns keeps its
+    rows as they are."""
+    Ms = cache.shape[1]
+    local = pos.long() - lo
+    mine = (local >= 0) & (local < Ms)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    idx = local.clamp(0, Ms - 1)
+    old = cache[rows, idx]
+    keep = mine.reshape((-1,) + (1,) * (old.ndim - 1))
+    cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype), old)
+
+
+def _local_softmax_parts(s: torch.Tensor, valid: torch.Tensor):
+    """``(m, p)`` of scores ``s [B, ..., Ms]`` (f32) over a shard's
+    positions, of which the first ``valid [B]`` are written: the row max
+    (``-inf`` where none is) and ``exp(s - m)``, 0 at every masked
+    position and on a row with none."""
+    Ms = s.shape[-1]
+    kv_pos = torch.arange(Ms, device=s.device)
+    mask = (kv_pos[None, :] < valid[:, None]).reshape(
+        (s.shape[0],) + (1,) * (s.ndim - 2) + (Ms,))
+    s = torch.where(mask, s, float("-inf"))
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return m, torch.exp(s - m_safe[..., None])
+
+
+def _combine_over_seq(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                      grp, seq_group) -> torch.Tensor:
+    """Flash-decoding's combine of the ranks' partials over ``seq_group``:
+    ``m``, ``l`` ``[B, H]`` and ``o [B, H, D]`` over all ``H`` q heads,
+    rescaled to the max over the ranks and summed; under a head split
+    (``grp``) reduce-scattered onto this rank's heads. Returns the
+    normalised ``[B, 1, H_local, D]`` (f32). Rank 0 always holds position
+    0, so the max over the ranks is finite."""
+    top = coll.all_reduce(m, seq_group, op="max")
+    a = torch.exp(m - top)                 # 0 where this rank holds none
+    part = torch.cat([o * a[..., None], (l * a)[..., None]], dim=-1)
+    part = (coll.all_reduce(part, seq_group) if grp is None
+            else coll.reduce_scatter(part, 1, seq_group))
+    return (part[..., :-1] / part[..., -1:])[:, None]
+
+
+def _shard_positions(cache: torch.Tensor, pos: torch.Tensor, seq_group):
+    """``(lo, pos [B], valid [B])``: the first global position of this
+    rank's shard, each sequence's position, and how many of the shard's
+    positions each sequence has written once ``pos`` is."""
+    B, Ms = cache.shape[:2]
+    lo = coll.rank(seq_group) * Ms
+    posb = pos.reshape(-1).expand(B) if pos.ndim == 0 else pos
+    valid = (posb.long() + 1 - lo).clamp(0, Ms)
+    return lo, posb, valid
+
+
+def _seq_split_attend(q, k, v, ck, cv, pos, grp, seq_group, scale):
+    """The GQA decode attention over a cache split over the sequence
+    (module docstring): the new rows written by their owner, q ``[B, 1,
+    H_local, Dk]`` gathered over the heads, this rank's partials over its
+    positions with every kv head whole, combined over ``seq_group``."""
+    B, Ms, Hkv, Dk = ck.shape
+    lo, posb, valid = _shard_positions(ck, pos, seq_group)
+    _owned_write(ck, k, posb, lo)
+    _owned_write(cv, v, posb, lo)
+    qa = coll.all_gather(q, 2, grp)[:, 0]               # [B, Hq, Dk]
+    Hq = qa.shape[1]
+    qg = qa.reshape(B, Hkv, Hq // Hkv, Dk).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, ck.float()) * scale
+    m, pr = _local_softmax_parts(s, valid)
+    o = torch.einsum("bhgs,bshd->bhgd", pr, cv.float())
+    out = _combine_over_seq(m.reshape(B, Hq), pr.sum(-1).reshape(B, Hq),
+                            o.reshape(B, Hq, -1), grp, seq_group)
+    return out.to(cv.dtype)
+
+
 def decode_self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                           cache: Dict, pos: torch.Tensor, window: int = 0,
-                          use_rope: bool = True,
-                          impl: str = "chunked") -> Tuple[torch.Tensor, Dict]:
+                          use_rope: bool = True, impl: str = "chunked",
+                          seq_group=None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. ``pos`` is the absolute position — a 0-d tensor for
     lock-step batches, or a per-sequence ``[B]`` vector (slot-pool decode:
     each sequence ropes, writes and masks at its own position). Keys are
     roped at write time; local attention uses a ring buffer of ``window``.
     The new K/V rows are written into ``cache`` in place; under a head
-    split the heads are this rank's (module docstring)."""
+    split the heads are this rank's (module docstring). ``seq_group``: the
+    group the cache's sequence dim is split over (``None``: whole), with
+    no window."""
     per_seq = pos.ndim == 1
     grp, sel = head_split(cfg)
     q, k, v = _qkv(p, x)                      # [B, 1, H(kv), hd]
@@ -480,6 +571,14 @@ def decode_self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             posm = pos.reshape(1).to(torch.int32)[None, :]   # [1, 1]
         q = apply_rope(q, posm, cfg.rope_theta)
         k = apply_rope(k, posm, cfg.rope_theta)
+    if coll.size(seq_group) > 1:
+        if window:
+            raise ValueError("a ring cache of a window does not split "
+                             "over the sequence")
+        out = _seq_split_attend(q, k, v, cache["k"], cache["v"], pos, grp,
+                                seq_group, cfg.resolved_head_dim ** -0.5)
+        y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
+        return y, cache
     slots = cache["k"].shape[1]
     slot = pos % slots
     ck, cv = cache["k"], cache["v"]
@@ -592,13 +691,36 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def _mla_seq_split(p: Dict, cfg: ModelConfig, q_nope, q_rope, c_new,
+                   kr_new, ck, kr, pos, grp, seq_group) -> torch.Tensor:
+    """The absorbed MLA decode over a latent cache split over the sequence
+    (module docstring): the new rows written by their owner, ``q_lat`` and
+    ``q_rope`` gathered over the heads, this rank's f32 partial of
+    ``o_lat`` over its positions, combined over ``seq_group`` before
+    ``wv_b``."""
+    lo, posb, valid = _shard_positions(ck, pos, seq_group)
+    _owned_write(ck, c_new, posb, lo)
+    _owned_write(kr, kr_new, posb, lo)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+    ql = coll.all_gather(q_lat, 2, grp)[:, 0].float()       # [B, H, r]
+    qr = coll.all_gather(q_rope, 2, grp)[:, 0].float()      # [B, H, rope]
+    s = (torch.einsum("bhr,btr->bht", ql, ck.float())
+         + torch.einsum("bhk,btk->bht", qr, kr.float())) * _mla_scale(cfg)
+    m, pr = _local_softmax_parts(s, valid)
+    o_lat = _combine_over_seq(m, pr.sum(-1),
+                              torch.einsum("bht,btr->bhr", pr, ck.float()),
+                              grp, seq_group).to(ck.dtype)
+    return torch.einsum("bshr,rhk->bshk", o_lat, p["wv_b"])
+
+
 def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
-               pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+               pos: torch.Tensor, seq_group=None) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-matrix MLA decode: attention runs entirely in the latent
     space — the cache stores only (c_kv, k_rope) per token. ``pos`` is a
     0-d tensor, or a per-sequence ``[B]`` vector for slot-pool decode. The
     new rows are written into ``cache`` in place. Under a head split the
-    heads are this rank's and the latent cache is whole on every rank."""
+    heads are this rank's and the latent cache is whole on every rank, or
+    split over the sequence on ``seq_group`` (module docstring)."""
     per_seq = pos.ndim == 1
     grp, _ = head_split(cfg)
     if per_seq:
@@ -608,6 +730,10 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     q_nope, q_rope = _mla_q(p, cfg, x, posm)          # [B,1,H,*]
     c_new, kr_new = _mla_latent(p, cfg, x, posm)      # [B,1,r], [B,1,rope]
     ck, kr = cache["c_kv"], cache["k_rope"]
+    if coll.size(seq_group) > 1:
+        out = _mla_seq_split(p, cfg, q_nope, q_rope, c_new, kr_new, ck, kr,
+                             pos, grp, seq_group)
+        return coll.reduce_from(_out_proj(out, p["wo"]), grp), cache
     if per_seq:
         _batch_scatter(ck, c_new, pos)
         _batch_scatter(kr, kr_new, pos)

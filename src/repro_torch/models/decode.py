@@ -24,6 +24,14 @@ otherwise); the recurrent ``h`` is always f32. :func:`decode_step` writes
 each layer's new row or state into those tensors in place and returns the
 same dict; the reference returns a new pytree (its jitted callers donate
 the old one).
+
+With ``Runtime.decode_cache_shard="seq"`` the self cache's sequence dim
+(``M``) takes the logical axis ``kv_seq`` (``model``) where its kv heads do
+not split over ``model``, and MLA's latent cache always does at ``tp >
+1`` (the reference's ``_seq_ax``): rank ``r`` holds positions ``[r M / tp,
+(r + 1) M / tp)``. The prefill writes the prompt's rows that fall there,
+and decode attends as :mod:`repro_torch.models.attention` says. The cross
+caches and the hybrid's rings stay as they are.
 """
 from __future__ import annotations
 
@@ -38,9 +46,10 @@ from repro_torch.models import model as model_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import (axis_size, current_mesh,
-                                       current_rules, default_rules,
-                                       gated_mlp, rms_norm)
+from repro_torch.models.common import (axis_group, axis_size,
+                                       current_mesh, current_rules,
+                                       default_rules, gated_mlp, rms_norm)
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import NamedSharding
 from repro_torch.models.transformer import Runtime
 
@@ -85,6 +94,34 @@ def _kv_axes(cfg: ModelConfig, rt: Runtime):
     return nkv, kv_ax
 
 
+#: the values of ``Runtime.decode_cache_shard``
+DECODE_CACHE_SHARDS = ("none", "seq")
+
+
+def _seq_ax(rt: Runtime, kv_ax):
+    """The logical axis of the self cache's sequence dim: ``kv_seq`` under
+    ``decode_cache_shard="seq"`` where the kv heads (``kv_ax``) do not
+    split and ``tp > 1``, else none (the reference's ``_seq_ax``)."""
+    if rt.decode_cache_shard not in DECODE_CACHE_SHARDS:
+        raise ValueError(f"decode_cache_shard must be one of "
+                         f"{DECODE_CACHE_SHARDS}, got "
+                         f"{rt.decode_cache_shard!r}")
+    if rt.decode_cache_shard == "seq" and kv_ax is None and rt.tp > 1:
+        return "kv_seq"
+    return None
+
+
+def seq_group(cfg: ModelConfig, rt: Runtime):
+    """The process group the self (or latent) cache's sequence dim is split
+    over under the installed mesh and rules; ``None`` where it is whole
+    (no split asked for, the kv heads split, a recurrent family, no mesh,
+    or one rank)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return None
+    kv_ax = None if cfg.use_mla else _kv_axes(cfg, rt)[1]
+    return axis_group("kv_seq") if _seq_ax(rt, kv_ax) else None
+
+
 def _build_state(mk: CacheMaker, cfg: ModelConfig, rt: Runtime, B: int,
                  M: int) -> Dict:
     """The decode state of ``B`` sequences of up to ``M`` tokens, each
@@ -92,6 +129,7 @@ def _build_state(mk: CacheMaker, cfg: ModelConfig, rt: Runtime, B: int,
     L, dt = cfg.n_layers, _cache_dtype(cfg)
     hd = cfg.resolved_head_dim
     nkv, kv_ax = _kv_axes(cfg, rt)
+    sq = _seq_ax(rt, None if cfg.use_mla else kv_ax)
     if cfg.family == "hybrid":
         win = min(cfg.local_window, M)
         w = cfg.lru_width or cfg.d_model
@@ -113,7 +151,7 @@ def _build_state(mk: CacheMaker, cfg: ModelConfig, rt: Runtime, B: int,
     if cfg.family in ("vlm", "encdec"):
         n_cross = (L // cfg.cross_attn_every if cfg.family == "vlm" else L)
         parts = {"self": ((L, B, M, nkv, hd),
-                          (None, "batch", None, kv_ax, None)),
+                          (None, "batch", sq, kv_ax, None)),
                  "cross": ((n_cross, B, cfg.frontend_seq, nkv, hd),
                            (None, "batch", None, kv_ax, None))}
         return {part: {name: mk(shape, axes, dt) for name in ("k", "v")}
@@ -121,9 +159,9 @@ def _build_state(mk: CacheMaker, cfg: ModelConfig, rt: Runtime, B: int,
     if cfg.use_mla:
         leaves = {"c_kv": (L, B, M, cfg.kv_lora_rank),
                   "k_rope": (L, B, M, cfg.qk_rope_dim)}
-        return {"layers": {name: mk(shape, (None, "batch", None, None), dt)
+        return {"layers": {name: mk(shape, (None, "batch", sq, None), dt)
                            for name, shape in leaves.items()}}
-    kv = ((L, B, M, nkv, hd), (None, "batch", None, kv_ax, None), dt)
+    kv = ((L, B, M, nkv, hd), (None, "batch", sq, kv_ax, None), dt)
     return {"layers": {"k": mk(*kv), "v": mk(*kv)}}
 
 
@@ -181,12 +219,27 @@ def _hybrid_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                          cfg.act)
 
 
+def _write_prompt(cache: torch.Tensor, rows: torch.Tensor, sgrp) -> None:
+    """The prompt's ``rows [B, S, ...]`` (positions ``0 .. S-1``) into
+    ``cache [B, M, ...]``; split over the sequence on ``sgrp``, the rows of
+    this rank's positions ``[r Ms, (r + 1) Ms)`` at their local offsets."""
+    if sgrp is None:
+        cache[:, :rows.shape[1]] = rows
+        return
+    Ms = cache.shape[1]
+    lo = coll.rank(sgrp) * Ms
+    hi = min(rows.shape[1], lo + Ms)
+    if hi > lo:
+        cache[:, :hi - lo] = rows[:, lo:hi]
+
+
 def _self_prefill(p_layer: Dict, cfg: ModelConfig, rt: Runtime,
-                  x: torch.Tensor, pos: torch.Tensor, caches, i: int
-                  ) -> torch.Tensor:
+                  x: torch.Tensor, pos: torch.Tensor, caches, i: int,
+                  sgrp=None) -> torch.Tensor:
     """``x`` plus layer ``i``'s self-attention (GQA or MLA) over the
     prompt, its K and V (or latent) rows written into row ``i`` of each of
-    ``caches``."""
+    ``caches`` (this rank's positions of them where ``sgrp`` splits the
+    sequence)."""
     z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         y, rows = attn.mla_attention(p_layer["attn"], cfg, z, pos,
@@ -195,7 +248,7 @@ def _self_prefill(p_layer: Dict, cfg: ModelConfig, rt: Runtime,
         y, rows = attn.self_attention(p_layer["attn"], cfg, z, pos,
                                       return_cache=True, impl=rt.attn_impl)
     for cache, r in zip(caches, rows):
-        cache[i, :, :r.shape[1]] = r
+        _write_prompt(cache[i], r, sgrp)
     return x + y
 
 
@@ -245,6 +298,7 @@ def _prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     state = init_decode_state(cfg, rt, B * axis_size("batch"), max_len,
                               device=x.device)
+    sgrp = seq_group(cfg, rt)
 
     if cfg.family == "vlm":
         memory, k_in = batch["frontend"], cfg.cross_attn_every
@@ -252,7 +306,7 @@ def _prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
         for g, p_cross in enumerate(p["layers"]["cross"]):
             for i in range(g * k_in, (g + 1) * k_in):
                 p_layer = p["layers"]["self"][i]
-                x = _self_prefill(p_layer, cfg, rt, x, pos, selfc, i)
+                x = _self_prefill(p_layer, cfg, rt, x, pos, selfc, i, sgrp)
                 x = x + tfm._ffn(p_layer, cfg, rt, x)[0]
             ca = _cross_prefill(p_cross["xattn"], p_cross["ln_x"], cfg, rt,
                                 x, memory, state["cross"], g)
@@ -261,7 +315,7 @@ def _prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
         memory = tfm.encoder_forward(p["encoder"], cfg, rt, batch["frontend"])
         selfc = list(state["self"].values())
         for i, p_layer in enumerate(p["layers"]):
-            x = _self_prefill(p_layer, cfg, rt, x, pos, selfc, i)
+            x = _self_prefill(p_layer, cfg, rt, x, pos, selfc, i, sgrp)
             x = x + _cross_prefill(p_layer["xattn"], p_layer["ln_x"], cfg,
                                    rt, x, memory, state["cross"], i)
             x = x + tfm._ffn(p_layer, cfg, rt, x)[0]
@@ -294,7 +348,7 @@ def _prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
     else:
         caches = list(state["layers"].values())  # (k, v) or (c_kv, k_rope)
         for i, p_layer in enumerate(p["layers"]):
-            x = _self_prefill(p_layer, cfg, rt, x, pos, caches, i)
+            x = _self_prefill(p_layer, cfg, rt, x, pos, caches, i, sgrp)
             x = x + tfm._ffn(p_layer, cfg, rt, x)[0]
 
     if lengths is None:
@@ -306,16 +360,19 @@ def _prefill(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
 
 
 def _self_decode(p_layer: Dict, cfg: ModelConfig, rt: Runtime,
-                 x: torch.Tensor, cache: Dict, pos: torch.Tensor
-                 ) -> torch.Tensor:
+                 x: torch.Tensor, cache: Dict, pos: torch.Tensor,
+                 sgrp=None) -> torch.Tensor:
     """``x`` plus one token's self-attention (GQA or MLA) of a layer, its
-    new row written into ``cache`` in place."""
+    new row written into ``cache`` in place (split over the sequence on
+    ``sgrp``)."""
     z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
     if cfg.use_mla:
-        y, _ = attn.mla_decode(p_layer["attn"], cfg, z, cache, pos)
+        y, _ = attn.mla_decode(p_layer["attn"], cfg, z, cache, pos,
+                               seq_group=sgrp)
     else:
         y, _ = attn.decode_self_attention(p_layer["attn"], cfg, z, cache, pos,
-                                          impl=rt.decode_impl)
+                                          impl=rt.decode_impl,
+                                          seq_group=sgrp)
     return x + y
 
 
@@ -346,6 +403,7 @@ def _decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
     tfm.check_family(cfg)
     x = model_mod.embed(p, cfg, token)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+    sgrp = seq_group(cfg, rt)
     if cfg.family in ("vlm", "encdec"):
         selfc, crossc = state["self"], state["cross"]
         if cfg.family == "vlm":
@@ -354,7 +412,8 @@ def _decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
                 for i in range(g * k_in, (g + 1) * k_in):
                     p_layer = p["layers"]["self"][i]
                     x = _self_decode(p_layer, cfg, rt, x,
-                                     {n: t[i] for n, t in selfc.items()}, pos)
+                                     {n: t[i] for n, t in selfc.items()}, pos,
+                                     sgrp)
                     x = x + tfm._ffn(p_layer, cfg, rt, x, decode=True)[0]
                 ca = _cross_decode(p_cross["xattn"], p_cross["ln_x"], cfg,
                                    rt, x, crossc, g)
@@ -362,7 +421,8 @@ def _decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
         else:
             for i, p_layer in enumerate(p["layers"]):
                 x = _self_decode(p_layer, cfg, rt, x,
-                                 {n: t[i] for n, t in selfc.items()}, pos)
+                                 {n: t[i] for n, t in selfc.items()}, pos,
+                                 sgrp)
                 x = x + _cross_decode(p_layer["xattn"], p_layer["ln_x"], cfg,
                                       rt, x, crossc, i)
                 x = x + tfm._ffn(p_layer, cfg, rt, x, decode=True)[0]
@@ -387,6 +447,6 @@ def _decode_step(cfg: ModelConfig, rt: Runtime, p: Dict, token: torch.Tensor,
             z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
             x = x + ssm_mod.ssd_decode_step(p_layer["ssm"], cfg, z, cache)[0]
             continue
-        x = _self_decode(p_layer, cfg, rt, x, cache, pos)
+        x = _self_decode(p_layer, cfg, rt, x, cache, pos, sgrp)
         x = x + tfm._ffn(p_layer, cfg, rt, x, decode=True)[0]
     return model_mod.logits_fn(p, cfg, x), state

@@ -58,7 +58,12 @@ class Runtime:
     place the model on several ranks: ``tp`` is the mesh's ``model`` size,
     the parameters are this rank's shards (``model.param_specs``), and the
     batch is split over ``batch_axes``. The ``moe_*`` knobs belong to the
-    expert-parallel path (``moe_impl="ep"``)."""
+    expert-parallel path (``moe_impl="ep"``). ``decode_cache_shard="seq"``
+    puts the decode cache's sequence dim on ``model`` where its kv heads do
+    not split there (and MLA's latent cache always, at ``tp > 1``): each
+    rank holds ``max_len / tp`` positions, and the decode attention combines
+    the ranks' partial softmax sums (flash-decoding,
+    :func:`repro_torch.models.attention.decode_self_attention`)."""
     tp: int = 1
     mesh: Optional[Any] = None
     batch_axes: Tuple[str, ...] = ("data",)
@@ -66,6 +71,7 @@ class Runtime:
     remat: str = "none"           # none | full | dots
     mtp_coef: float = 0.1
     decode_impl: str = "chunked"  # chunked | dense (single einsum)
+    decode_cache_shard: str = "none"  # none | seq (cache seq dim -> model)
     moe_dispatch_dtype: str = "bfloat16"  # bfloat16 | f8 (fp8 dispatch)
     moe_capacity_factor: float = 1.25
     moe_ep2d_decode: bool = False  # 2D expert sharding for decode

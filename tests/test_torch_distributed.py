@@ -1,8 +1,10 @@
 """The port on eight gloo ranks (a data=2 x model=4 mesh, on the CPU): the
 five cases of tests/test_distributed.py, serving on a data=4 x model=2
-mesh (two experts a rank, the prefill and decode paths), and the SSM,
-hybrid, VLM and enc-dec families split over model (training, prefill and
-decode), each held against the reference's
+mesh (two experts a rank, the prefill and decode paths), the SSM, hybrid,
+VLM and enc-dec families split over model (training, prefill and decode),
+the decode cache split over the sequence (``decode_cache_shard="seq"``)
+and the train step with whole moments (``zero1=False``), each held against
+the reference's
 single-device ``Runtime(tp=1, moe_impl="local")`` outputs (the oracle those
 tests use; the reference's own 2 x 4 runs do not run on this jax) at their
 tolerances, and against the port on one device: losses rtol 1e-5, every
@@ -11,7 +13,7 @@ them zero.
 
 The reference computes in this process; the eight ranks run the port in
 ``tests/test_torch_distributed_worker.py`` (one ``torch.multiprocessing`` launch for
-all six cases, a FileStore under ``tmp_path``), which writes what they got
+every case, a FileStore under ``tmp_path``), which writes what they got
 for the tests below to check.
 """
 import dataclasses
@@ -38,18 +40,31 @@ from repro.optim import init_opt_state as ref_init_opt
 from conftest import reduced_f32
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-#: the eight ranks' launch, all six cases (about 15 s here)
+#: the eight ranks' launch, every case (about 40 s here)
 RUN_TIMEOUT_S = 300
 TEST_TIMEOUT_S = RUN_TIMEOUT_S + 120
 #: the SSM, hybrid, VLM and enc-dec families on the 2 x 4 mesh: case -> arch
 TP_FAMILIES = {"tp_ssm": "mamba2-2.7b", "tp_hybrid": "recurrentgemma-2b",
                "tp_vlm": "llama-3.2-vision-11b",
                "tp_encdec": "seamless-m4t-large-v2"}
+#: the decode cache split over the sequence: case -> arch (reduced, 2 kv
+#: heads or MLA's latent cache on model = 4)
+SEQ_CACHE = {"seq_gqa": "stablelm-12b", "seq_mla": "deepseek-v3-671b",
+             "seq_vlm": "llama-3.2-vision-11b",
+             "seq_encdec": "seamless-m4t-large-v2"}
 CASES = ("dp_tp", "ep", "train", "elastic", "elastic_dp", "ep2d", "serve",
-         "dp_only", *TP_FAMILIES, "tp_hybrid_padded", "pairs")
+         "dp_only", *TP_FAMILIES, "tp_hybrid_padded", "pairs", *SEQ_CACHE,
+         "no_zero1")
 #: the tp family cases' inputs: the loss's batch rows and tokens, the
 #: prompt's rows and length, the decode state's length and the decode steps
 TP_BATCH, TP_TOKENS, TP_PROMPT, TP_MAX_LEN, TP_STEPS = 4, 33, 16, 24, 2
+#: the sequence-split cases: the cache's length (8 positions a rank of
+#: model's 4), the lock-step prompt (every step inside rank 0's shard: ranks
+#: 1 to 3 hold no valid row), the ragged prompts' lengths (the first ends
+#: inside rank 0's shard, the second's third step writes position 8, the
+#: first of rank 1's, the last ends in rank 3's; the longest a multiple of
+#: 4, as the MoE's all-to-all splits a prompt over model) and the steps
+SEQ_MAX_LEN, SEQ_PROMPT, SEQ_LENGTHS, SEQ_STEPS = 32, 4, (3, 6, 17, 28), 3
 LOSS_RTOL = 1e-5
 GRAD_SHARE = 1e-4
 
@@ -132,6 +147,8 @@ def _reference(workdir):
         ref_moe.CAPACITY_FACTOR = old
     for name, arch in TP_FAMILIES.items():
         _tp_family_reference(workdir, ref, name, arch)
+    for name, arch in SEQ_CACHE.items():
+        _seq_cache_reference(workdir, ref, name, arch)
     _tp_padded_case(workdir)
     with open(os.path.join(workdir, "cases.json"), "w") as f:
         json.dump(list(CASES), f)
@@ -197,6 +214,75 @@ def _tp_family_reference(workdir, ref, name, arch):
     _save_tp_case(workdir, name, convert.params_from_jax(tree, tcfg,
                                                          device="cpu"),
                   batch, prompt, nxt)
+
+
+def _seq_cache_reference(workdir, ref, name, arch):
+    """The reference's tp=1 logits of ``arch`` reduced for a sequence-split
+    case: a lock-step prompt of SEQ_PROMPT tokens and SEQ_STEPS decode
+    steps at one position, and right-padded prompts of SEQ_LENGTHS tokens
+    and SEQ_STEPS steps at each sequence's own position; the port's
+    parameters converted from its tree; the capacity inflated as the
+    worker's (no drops)."""
+    old = ref_moe.CAPACITY_FACTOR
+    ref_moe.CAPACITY_FACTOR = 8.0
+    try:
+        _seq_cache_run(workdir, ref, name, arch)
+    finally:
+        ref_moe.CAPACITY_FACTOR = old
+
+
+def _seq_cache_run(workdir, ref, name, arch):
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    cfg = reduced_f32(arch)
+    rt1 = RefRuntime(tp=1, moe_impl="local")
+    params, _ = ref_M.init_params(cfg, rt1, jax.random.PRNGKey(40 + len(ref)))
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(4)
+        cross = dict(params["layers"]["cross"])
+        for g in ("gate_a", "gate_m"):
+            cross[g] = jnp.asarray(rng.standard_normal(cross[g].shape),
+                                   jnp.float32)
+        params = {**params, "layers": {**params["layers"], "cross": cross}}
+    rng = np.random.default_rng(len(ref))
+    B = len(SEQ_LENGTHS)
+
+    def batch(length):
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (B, length),
+                                    dtype=np.int32)}
+        if cfg.frontend_seq:
+            b["frontend"] = rng.standard_normal(
+                (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+        return b
+
+    prompt, ragged = batch(SEQ_PROMPT), batch(max(SEQ_LENGTHS))
+    nxt = [rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
+           for _ in range(SEQ_STEPS)]
+    lengths = np.array(SEQ_LENGTHS, np.int32)
+    jb = lambda b: {k: jnp.asarray(v) for k, v in b.items()}  # noqa: E731
+    for leg, b, lens in (("lock", prompt, None), ("ragged", ragged,
+                                                  lengths)):
+        logits, st = ref_D.prefill(cfg, rt1, params, jb(b), SEQ_MAX_LEN,
+                                   lengths=None if lens is None
+                                   else jnp.asarray(lens))
+        ref[f"{name}/{leg}/logits/0"] = np.asarray(logits)
+        for i, tok in enumerate(nxt):
+            pos = (jnp.int32(SEQ_PROMPT + i) if lens is None
+                   else jnp.asarray(lens + i))
+            logits, st = ref_D.decode_step(cfg, rt1, params,
+                                           jnp.asarray(tok), pos, st)
+            ref[f"{name}/{leg}/logits/{i + 1}"] = np.asarray(logits)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    tree = jax.tree.map(lambda a: np.array(a, np.float32), params)
+
+    def tensors(b):
+        return {k: torch.from_numpy(v) for k, v in b.items()}
+    torch.save({"params": convert.params_from_jax(tree, tcfg, device="cpu"),
+                "prompt": tensors(prompt), "ragged": tensors(ragged),
+                "lengths": torch.from_numpy(lengths), "batch": B,
+                "max_len": SEQ_MAX_LEN,
+                "next": [torch.from_numpy(t) for t in nxt]},
+               os.path.join(workdir, f"case_{name}.pt"))
 
 
 def _tp_padded_case(workdir):
@@ -525,3 +611,75 @@ def test_a_2x4_checkpoint_restores_in_the_reference(run):
                                jax.tree.map(jnp.asarray, tree),
                                {"tokens": toks})[0])
     assert abs(loss - ref["elastic/loss"]) <= 1e-6, (loss, ref["elastic/loss"])
+
+
+@pytest.mark.parametrize("leg", ["lock", "ragged"])
+@pytest.mark.parametrize("name", list(SEQ_CACHE))
+def test_seq_split_decode_matches_one_device(run, name, leg):
+    """``decode_cache_shard="seq"`` on (data=2, model=4), the GQA, MLA,
+    VLM-self and enc-dec-self caches split over model's 4 ranks (8
+    positions each): a prefill and SEQ_STEPS decode steps, lock-step (ranks
+    1 to 3 hold no valid row) or at each sequence's own position (ragged:
+    one sequence inside rank 0's shard, one crossing into rank 1's). The
+    logits within 5e-3 of the reference's tp=1 logits and within 1e-5 *
+    max|logits| of the port's on one device."""
+    ref, got = run
+    key = f"{name}/{leg}"
+    for i in range(1 + SEQ_STEPS):
+        one, mesh = got[f"{key}/logits_1/{i}"], got[f"{key}/logits_mesh/{i}"]
+        assert mesh.shape == one.shape == (len(SEQ_LENGTHS), 1,
+                                           mesh.shape[-1]), i
+        assert np.isfinite(mesh).all(), i
+        assert np.abs(mesh - one).max() <= LOSS_RTOL * np.abs(one).max(), i
+        assert np.abs(mesh - ref[f"{key}/logits/{i}"]).max() < 5e-3, i
+
+
+@pytest.mark.parametrize("leg", ["lock", "ragged"])
+@pytest.mark.parametrize("name", list(SEQ_CACHE))
+def test_seq_split_cache_shards(run, name, leg):
+    """Each rank's shard of the split cache: after the prefill, bit for
+    bit the slice at its positions of the cache the same mesh holds
+    unsplit (the prompt's rows at their local offsets, nothing else);
+    after the decode steps, gathered over model, within 1e-5 * max of one
+    device's cache (every leaf, the unsplit cross caches included). Both
+    self-cache leaves (K and V, or the latent and its rope key) are split.
+    """
+    _, got = run
+    key = f"{name}/{leg}"
+    assert bool(got[f"{key}/prefill_shards_bit_for_bit"])
+    assert int(got[f"{key}/split_leaves"]) == 2
+    assert float(got[f"{key}/cache_rel_err"]) <= LOSS_RTOL
+
+
+def test_whole_moment_train_step_matches_zero1(run):
+    """stablelm-12b reduced (f32) on (data=2, model=4): two train steps with
+    whole moments (``zero1=False``) against two ZeRO-1 steps on the same
+    mesh and two on one device: losses rtol 1e-5, and every parameter leaf
+    within 1e-5 * max|p|."""
+    _, got = run
+    for i in range(2):
+        zero = float(got[f"no_zero1/loss_zero1/{i}"])
+        for other in ("whole", "1"):
+            have = float(got[f"no_zero1/loss_{other}/{i}"])
+            assert abs(have - zero) <= LOSS_RTOL * abs(zero), (i, other)
+    n = 0
+    for k in got:
+        if k.startswith("no_zero1/params_zero1/"):
+            want = got[k]
+            for other in ("whole", "1"):
+                have = got[k.replace("params_zero1", f"params_{other}")]
+                assert np.abs(have - want).max() <= (
+                    LOSS_RTOL * np.abs(want).max()), (k, other)
+            n += 1
+    assert n > 10
+
+
+def test_whole_moments_on_every_rank_and_restore(run):
+    """The whole-moment state: every rank's moments of its parameter
+    shard's shape, equal on both data rows (where ZeRO-1 splits most
+    leaves over data); saved by its shardings and restored by
+    ``elastic_restore(zero1=False)`` bit for bit, step included."""
+    _, got = run
+    assert bool(got["no_zero1/moments_whole_on_every_rank"])
+    assert int(got["no_zero1/zero1_moments_split"]) > 10
+    assert bool(got["no_zero1/restore_bit_for_bit"])

@@ -1,6 +1,8 @@
 """The multi-rank half of tests/test_torch_distributed.py (no tests of its
 own): eight gloo ranks on the CPU, a (data=2, model=4) mesh (and a (4, 2)
-one for the serving case), started with torch.multiprocessing.
+one for the serving case), started with torch.multiprocessing. The
+sequence-split cases also run the same mesh without the split, and the
+whole-moment case the ZeRO-1 step beside it.
 
     python tests/test_torch_distributed_worker.py WORKDIR
 
@@ -417,6 +419,157 @@ def case_tp_family(name, workdir, mesh, out):
         out[f"{name}/logits_mesh/{i}"] = by_rows.gather(g).numpy()
 
 
+#: the decode cache split over the sequence on the 2 x 4 mesh: case -> arch
+#: (each reduced config's 2 kv heads, or MLA's latent cache, do not split
+#: over model's 4 ranks, so the split is taken)
+SEQ_CACHE_CASES = {"seq_gqa": "stablelm-12b", "seq_mla": "deepseek-v3-671b",
+                   "seq_vlm": "llama-3.2-vision-11b",
+                   "seq_encdec": "seamless-m4t-large-v2"}
+
+
+def _seq_leg(cfg, full, mine, case, mesh, lengths, out, key, **moe):
+    """One leg of a sequence-split case: a prefill (of each sequence's
+    ``lengths`` tokens, or lock-step when ``None``) and decode steps fed
+    ``case["next"]``, on one device, on the mesh with the split and on the
+    mesh without it; the logits of each, and the caches held rank by
+    rank. ``moe``: the mesh runs' expert-parallel knobs."""
+    M, B = case["max_len"], case["batch"]
+    prompt = dict(case["prompt"] if lengths is None else case["ragged"])
+    S = prompt["tokens"].shape[1]
+    by_rows = NamedSharding(mesh, default_rules().mesh_axes(["batch"]))
+    rt_split = Runtime(tp=MODEL, mesh=mesh, decode_cache_shard="seq", **moe)
+    rt_whole = Runtime(tp=MODEL, mesh=mesh, **moe)
+    local = {k: rows(v, mesh) for k, v in prompt.items()}
+    lens = None if lengths is None else torch.as_tensor(lengths)
+    with torch.no_grad():
+        runs = {}
+        for name, rt, params, batch in (
+                ("1", Runtime(), full, prompt),
+                ("mesh", rt_split, mine, local),
+                ("whole", rt_whole, mine, local)):
+            on_mesh = rt.mesh is not None
+            ln = (None if lens is None else
+                  rows(lens, mesh) if on_mesh else lens)
+            logits, st = D.prefill(cfg, rt, params, batch, M, lengths=ln)
+            got = [by_rows.gather(logits) if on_mesh else logits]
+            after = {k: v.clone() for k, v in leaves_with_paths(st)}
+            for i, tok in enumerate(case["next"]):
+                pos = (torch.tensor(S + i) if lens is None
+                       else (lens + i).to(torch.int32))
+                logits, st = D.decode_step(
+                    cfg, rt, params, rows(tok, mesh) if on_mesh else tok,
+                    rows(pos, mesh) if on_mesh and pos.ndim else pos, st)
+                got.append(by_rows.gather(logits) if on_mesh else logits)
+            runs[name] = (got, st, after)
+    for i, (w, g) in enumerate(zip(runs["1"][0], runs["mesh"][0])):
+        out[f"{key}/logits_1/{i}"] = w.numpy()
+        out[f"{key}/logits_mesh/{i}"] = g.numpy()
+    # after the prefill, each rank's shard of the split cache equals, bit
+    # for bit, the slice at its positions of the cache the same mesh holds
+    # unsplit; after the steps, the gathered split cache against one
+    # device's
+    r = mesh.axis_index("model")
+    same, n_split = True, 0
+    for path, t in runs["mesh"][2].items():
+        w = runs["whole"][2][path]
+        if t.shape != w.shape:
+            dim = next(d for d in range(t.ndim) if t.shape[d] != w.shape[d])
+            w = w.narrow(dim, r * t.shape[dim], t.shape[dim])
+            n_split += 1
+        same = same and torch.equal(t, w)
+    differ = coll.all_reduce(torch.tensor(0.0 if same else 1.0),
+                             mesh.group(mesh.axis_names), op="max")
+    have = dict(leaves_with_paths(gathered(
+        runs["mesh"][1], D.decode_state_specs(cfg, rt_split, B, M), mesh)))
+    worst = 0.0
+    for path, w in leaves_with_paths(runs["1"][1]):
+        lim = float(w.abs().max())
+        worst = max(worst, float((have[path] - w).abs().max()) / lim)
+    out[f"{key}/prefill_shards_bit_for_bit"] = np.bool_(float(differ) == 0)
+    out[f"{key}/split_leaves"] = np.int64(n_split)
+    out[f"{key}/cache_rel_err"] = np.float64(worst)
+
+
+def case_seq_cache(name, workdir, mesh, out):
+    """The decode cache split over the sequence (``decode_cache_shard=
+    "seq"``) on the 2 x 4 mesh: a lock-step leg and a per-sequence ragged
+    leg, each a prefill and decode steps, against one device (and the
+    reference's tp=1 logits in the test)."""
+    case = torch.load(os.path.join(workdir, f"case_{name}.pt"))
+    cfg = reduced(SEQ_CACHE_CASES[name])
+    full = case["params"]
+    # the experts split over model take the all-to-all path (the local
+    # one needs every expert on the rank), at the inflated capacity
+    moe = (dict(moe_impl="ep", moe_capacity_factor=CAPACITY)
+           if cfg.family == "moe" else {})
+    rt = Runtime(tp=MODEL, mesh=mesh)
+    mine = tree_map(lambda t, sh: sh.shard(t), full,
+                    named_sharding_tree(M.param_specs(cfg, rt), mesh))
+    _seq_leg(cfg, full, mine, case, mesh, None, out, f"{name}/lock", **moe)
+    _seq_leg(cfg, full, mine, case, mesh, case["lengths"], out,
+             f"{name}/ragged", **moe)
+
+
+def case_no_zero1(workdir, mesh, out):
+    """stablelm-12b reduced (f32) on the 2 x 4 mesh from the elastic case's
+    parameters: two train steps with whole moments (``zero1=False``)
+    against two ZeRO-1 steps and two on one device; each rank's moments
+    against its parameter shard and the other data row's; a save and
+    ``elastic_restore`` of the whole-moment state."""
+    cfg = reduced("stablelm-12b")
+    ref, rest = load(workdir, "elastic")
+    full = convert.params_from_jax(ref, cfg, device="cpu")
+    batches = [rest["tokens"], rest["tokens"].flip(0)]
+    opt = OptConfig(lr=LR)
+    rt = Runtime(tp=MODEL, mesh=mesh)
+    specs = M.param_specs(cfg, rt)
+    mine = tree_map(lambda t, sh: sh.shard(t), full,
+                    named_sharding_tree(specs, mesh))
+    s1 = steps.init_train_state(cfg, Runtime(), full)
+    step1 = steps.make_train_step(cfg, Runtime(), opt)
+    runs = {z: (steps.init_train_state(cfg, rt, tree_map(torch.clone, mine),
+                                       zero1=z),
+                steps.make_train_step(cfg, rt, opt, zero1=z))
+            for z in (True, False)}
+    for i, toks in enumerate(batches):
+        s1, m1 = step1(s1, {"tokens": toks})
+        out[f"no_zero1/loss_1/{i}"] = np.float64(float(m1["loss"]))
+        for z, (st, step) in list(runs.items()):
+            st, m = step(st, {"tokens": rows(toks, mesh)})
+            runs[z] = (st, step)
+            out[f"no_zero1/loss_{'zero1' if z else 'whole'}/{i}"] = (
+                np.float64(float(m["loss"])))
+    out.update(flat_np(s1["params"], "no_zero1/params_1"))
+    for z, (st, _) in runs.items():
+        out.update(flat_np(gathered(st["params"], specs, mesh),
+                           f"no_zero1/params_{'zero1' if z else 'whole'}"))
+    whole, zero = runs[False][0], runs[True][0]
+    dgrp = mesh.group("data")
+    moments = tree_leaves(whole["opt"]["m"]) + tree_leaves(whole["opt"]["v"])
+    shapes = all(m.shape == p.shape for m, p in zip(
+        moments, tree_leaves(whole["params"]) * 2))
+    # the same whole moment on each data row: gathered over data, equal
+    rows_equal = all([torch.equal(*coll.all_gather(m[None], 0, dgrp))
+                      for m in moments])
+    split = sum(m.shape != p.shape for m, p in zip(
+        tree_leaves(zero["opt"]["m"]), tree_leaves(zero["params"])))
+    ckpt = os.path.join(workdir, "ckpt_whole")
+    save(ckpt, 2, whole, shardings=steps.train_state_shardings(
+        cfg, rt, zero1=False))
+    back, step, _ = elastic_restore(ckpt, cfg, rt, mesh, zero1=False)
+    have = dict(leaves_with_paths(back))
+    bit = step == 2 and all(torch.equal(t, have[k]) and t.dtype ==
+                            have[k].dtype
+                            for k, t in leaves_with_paths(whole))
+    flags = torch.tensor([float(not shapes), float(not rows_equal),
+                          float(not bit)])
+    flags = coll.all_reduce(flags, mesh.group(mesh.axis_names), op="max")
+    out["no_zero1/moments_whole_on_every_rank"] = np.bool_(
+        float(flags[0]) == 0 and float(flags[1]) == 0)
+    out["no_zero1/zero1_moments_split"] = np.int64(split)
+    out["no_zero1/restore_bit_for_bit"] = np.bool_(float(flags[2]) == 0)
+
+
 def case_pairs(mesh, out):
     """The two autograd pairs over the model axis against the gathered
     computation's autograd on the whole tensors: each rank reads the
@@ -513,6 +666,11 @@ def run(rank: int, workdir: str) -> None:
                 case_tp_family(name, workdir, mesh, out)
         if "pairs" in cases:
             case_pairs(mesh, out)
+        for name in SEQ_CACHE_CASES:
+            if name in cases:
+                case_seq_cache(name, workdir, mesh, out)
+        if "no_zero1" in cases:
+            case_no_zero1(workdir, mesh, out)
         dist.barrier()
         if rank == 0:
             np.savez(os.path.join(workdir, "out.npz"), **out)

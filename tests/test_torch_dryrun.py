@@ -48,8 +48,17 @@ CELLS = {"stablelm-12b": ("stablelm-12b", "all", ()),
          "seamless-m4t-large-v2": ("seamless-m4t-large-v2", "all", ()),
          "dbrx-132b-f8": ("dbrx-132b", "prefill_32k",
                           ("--moe-dispatch", "f8")),
-         "refused": ("stablelm-12b", "train_4k,decode_32k",
-                     ("--no-zero1", "--decode-cache-shard", "seq"))}
+         "refused": ("stablelm-12b", "train_4k", ("--seq-shard",)),
+         "deepseek-v3-671b": ("deepseek-v3-671b", "decode_32k", ()),
+         "seq_cache": (",".join(("stablelm-12b", "deepseek-v3-671b",
+                                 "llama-3.2-vision-11b",
+                                 "seamless-m4t-large-v2", "mamba2-2.7b",
+                                 "recurrentgemma-2b")), "decode_32k",
+                       ("--decode-cache-shard", "seq")),
+         "no_zero1": ("stablelm-12b,dbrx-132b", "train_4k", ("--no-zero1",)),
+         "refused_moe_local": ("dbrx-132b", "train_4k",
+                               ("--moe-impl", "local")),
+         "refused_moe_ep2d": ("dbrx-132b", "train_4k", ("--moe-ep2d",))}
 
 
 @pytest.fixture(scope="module")
@@ -400,15 +409,162 @@ def test_f8_dispatch_puts_one_byte_an_element_on_the_wire(runs):
 
 
 def test_options_without_a_counterpart_fail_by_name(runs):
-    """``--no-zero1`` for a train cell (the port's step keeps ZeRO-1
-    moments) and ``--decode-cache-shard seq`` (no sequence-split cache)
-    fail the cell with a reason, never with a wrong record."""
+    """``--seq-shard`` (sequence parallelism, ROADMAP A9 (e): no module of
+    the port reads a ``seq`` rule) fails the cell with a reason before
+    anything is counted, and the process exits non-zero: no record is
+    written under the baseline's numbers."""
     rc, log, out = runs["refused"]
-    assert rc != 0 and "2 dry-run failures" in log
-    for shape, why in (("train_4k", "zero1=False"),
-                       ("decode_32k", "decode_cache_shard='seq'")):
-        text = (out / f"stablelm-12b__{shape}__single.error").read_text()
-        assert "NotImplementedError" in text and why in text
+    assert rc != 0 and "1 dry-run failures" in log
+    assert not list(out.glob("*.json"))
+    text = (out / "stablelm-12b__train_4k__single.error").read_text()
+    assert "NotImplementedError" in text and "seq_shard" in text
+    assert "A9 (e)" in text
+
+
+@pytest.mark.parametrize("run,why", [
+    ("refused_moe_local", ("moe_impl='local'", "A9 (c)")),
+    ("refused_moe_ep2d", ("moe_ep2d_decode=True", "A9 (d)"))])
+def test_moe_settings_without_a_counterpart_fail_by_name(runs, run, why):
+    """``--moe-impl local`` on a mesh that splits the experts (A9 (c)) and
+    ``--moe-ep2d`` on a train cell (A9 (d)) fail the cell by name, and the
+    process exits non-zero, no record written."""
+    rc, log, out = runs[run]
+    assert rc != 0 and "1 dry-run failures" in log
+    assert not list(out.glob("*.json"))
+    text = (out / "dbrx-132b__train_4k__single.error").read_text()
+    assert "NotImplementedError" in text
+    assert all(w in text for w in why), text
+
+
+# ---------------------------------------------------------------------------
+# the decode cache split over the sequence; whole moments
+# ---------------------------------------------------------------------------
+#: the counted fields of a record: everything the counter and the roofline
+#: give (not the host's seconds and memory, nor the overrides)
+COUNTED = ("cost", "ops", "parsed_cost", "collectives", "roofline",
+           "input_bytes_per_device", "memory", "fits_hbm")
+
+
+def _self_cache_bytes(arch):
+    """The bytes of one data row's self (or MLA latent) cache, whole over
+    model: the cache the split divides over model's ranks."""
+    cfg = get_config(arch).reduced()
+    shape = SHAPES_BY_NAME["decode_32k"].reduced()
+    B, M = shape.global_batch // MESH[0], shape.seq_len
+    L = cfg.n_layers
+    if cfg.use_mla:
+        return L * B * M * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    return 2 * L * B * M * cfg.padded_kv_heads(MESH[1]) * \
+        cfg.resolved_head_dim * 2
+
+
+def _combine_collectives(arch):
+    """The combine's collectives a decode step, counted by hand: a layer,
+    q gathered over the heads (this rank's operand; MLA gathers ``q_lat``
+    and ``q_rope``), the f32 row maxima all-reduced ``[B, Hq]``, and the
+    f32 partial sums and ``P V`` ``[B, Hq, Dv + 1]`` reduce-scattered over
+    the heads (the whole operand)."""
+    cfg = get_config(arch).reduced()
+    B = SHAPES_BY_NAME["decode_32k"].reduced().global_batch // MESH[0]
+    tp, L = MESH[1], cfg.n_layers
+    Hq = cfg.padded_heads(tp)
+    if cfg.use_mla:
+        gather = 2 * L
+        gbytes = L * B * Hq // tp * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+        dv = cfg.kv_lora_rank
+    else:
+        gather = L
+        gbytes = L * B * Hq // tp * cfg.resolved_head_dim * 2
+        dv = cfg.resolved_head_dim
+    return ({"all-gather": gather, "all-reduce": L, "reduce-scatter": L},
+            {"all-gather": gbytes, "all-reduce": L * B * Hq * 4,
+             "reduce-scatter": L * B * Hq * (dv + 1) * 4})
+
+
+#: the archs whose reduced cache (2 kv heads, or MLA's latent) the split
+#: takes on model = 4; the recurrent families' states have no sequence dim
+SEQ_SPLIT = ("stablelm-12b", "deepseek-v3-671b", "llama-3.2-vision-11b",
+             "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("arch", SEQ_SPLIT)
+def test_seq_split_decode_record(runs, arch):
+    """``--decode-cache-shard seq`` on (data 2, model 4): the input bytes a
+    device holds fall by exactly (model - 1) / model of the self (or
+    latent) cache's, the dot flops are the default record's, and the
+    collectives are the default's plus the combine's, counted by hand."""
+    rc, log, _ = runs["seq_cache"]
+    assert rc == 0, log
+    seq = _record(runs, arch, "decode_32k", "seq_cache")
+    base = _record(runs, arch, "decode_32k")
+    assert seq["overrides"]["decode_cache_shard"] == "seq"
+    tp = MESH[1]
+    assert seq["input_bytes_per_device"] == (
+        base["input_bytes_per_device"]
+        - _self_cache_bytes(arch) * (tp - 1) // tp)
+    assert seq["parsed_cost"]["dot_flops"] == base["parsed_cost"][
+        "dot_flops"] > 0
+    counts, nbytes = _combine_collectives(arch)
+    have, want = seq["collectives"], base["collectives"]
+    for kind in set(have["__counts__"]) | set(want["__counts__"]):
+        assert have["__counts__"].get(kind, 0) == (
+            want["__counts__"].get(kind, 0) + counts.get(kind, 0)), kind
+        assert have.get(kind, 0) == want.get(kind, 0) + nbytes.get(kind, 0), \
+            kind
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_seq_split_leaves_recurrent_records_as_they_are(runs, arch):
+    """The SSM's state and the hybrid's rings have no sequence dim to
+    split: their ``--decode-cache-shard seq`` records equal the default
+    ones in every counted field."""
+    seq = _record(runs, arch, "decode_32k", "seq_cache")
+    base = _record(runs, arch, "decode_32k")
+    for k in COUNTED:
+        assert seq[k] == base[k], k
+
+
+def _moment_elems(cfg, zero1):
+    """The moment elements a device holds (m, or v): each leaf's shard
+    under its ZeRO-1 spec, or its parameter's."""
+    mesh = AbstractMesh(MESH, ("data", "model"))
+    rt = Runtime(tp=MESH[1])
+    shapes = M.init_params(cfg, rt, device="meta")
+    p_specs = M.param_specs(cfg, rt, default_rules())
+    specs = (zero1_specs(p_specs, shapes, mesh, ("data",)) if zero1
+             else p_specs)
+    return sum(math.prod(NamedSharding(mesh, s).local_shape(t.shape))
+               for t, s in zip(tree_leaves(shapes),
+                               tree_leaves(specs, is_leaf=is_spec)))
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "dbrx-132b"])
+def test_whole_moment_train_record(runs, arch):
+    """``--no-zero1`` on (data 2, model 4): the dot flops of the ZeRO-1
+    record; no reduce-scatter of gradients nor all-gather of parameters
+    over data, each such leaf's gradient all-reduced instead (its bytes the
+    reduce-scatter's); the moments' bytes a device those of the
+    parameters' shards, in f32."""
+    rc, log, _ = runs["no_zero1"]
+    assert rc == 0, log
+    whole = _record(runs, arch, "train_4k", "no_zero1")
+    zero = _record(runs, arch, "train_4k")
+    assert whole["overrides"]["zero1"] is False
+    assert whole["parsed_cost"]["dot_flops"] == zero["parsed_cost"][
+        "dot_flops"] > 0
+    cz, cw = zero["collectives"], whole["collectives"]
+    n_rs = cz["__counts__"]["reduce-scatter"]
+    assert n_rs > 0 and "reduce-scatter" not in cw["__counts__"]
+    assert cw["__counts__"].get("all-gather", 0) == (
+        cz["__counts__"]["all-gather"] - n_rs)
+    assert cw["__counts__"]["all-reduce"] == (cz["__counts__"]["all-reduce"]
+                                              + n_rs)
+    assert cw["all-reduce"] == cz["all-reduce"] + cz["reduce-scatter"]
+    cfg = get_config(arch).reduced()
+    extra = 2 * 4 * (_moment_elems(cfg, False) - _moment_elems(cfg, True))
+    assert extra > 0
+    assert whole["input_bytes_per_device"] == (zero["input_bytes_per_device"]
+                                               + extra)
 
 
 # ---------------------------------------------------------------------------

@@ -346,3 +346,115 @@ def test_rules_and_input_specs_match_the_reference(arch, shape_name,
                 assert tuple(w.spec) == tuple(p_specs[path]), path
             else:
                 assert tuple(spec_g) == tuple(w.spec), path
+
+
+# ---------------------------------------------------------------------------
+# the decode cache split over the sequence; whole moments (zero1=False)
+# ---------------------------------------------------------------------------
+#: the archs whose self (or latent) cache the split takes at tp = 16: the
+#: kv heads do not divide over model (8 of them), and MLA's latent cache
+SEQ_SPLIT_ARCHS = {"dbrx-132b", "stablelm-12b", "qwen2.5-14b",
+                   "deepseek-coder-33b", "llama-3.2-vision-11b",
+                   "deepseek-v3-671b"}
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_seq_split_decode_state_specs_match_the_reference(arch, multi_pod):
+    """``decode_state_specs(cfg, Runtime(tp=16, decode_cache_shard="seq"),
+    128, 32768)`` equals the reference's (spec mode, no devices), leaf for
+    leaf in the port's layout; the sequence dim takes ``model`` in exactly
+    SEQ_SPLIT_ARCHS, and every other spec is the unsplit state's."""
+    from repro.models import decode as ref_D
+    from repro_torch.models import decode as D
+    cfg, rcfg = _cfg(arch, False)
+    B, M = 128, 32768
+    rrt = RefRuntime(tp=16, decode_cache_shard="seq")
+    shapes = jax.eval_shape(lambda: ref_D.init_decode_state(rcfg, rrt, B, M))
+    specs = ref_D.decode_state_specs(rcfg, rrt, B, M,
+                                     rules=ref_rules(multi_pod))
+    leaves = jax.tree.map(
+        lambda s, sp: convert.AbstractLeaf(tuple(s.shape), s.dtype.name,
+                                           tuple(sp)),
+        shapes, specs, is_leaf=lambda x: isinstance(x, jax.ShapeDtypeStruct))
+    want = dict(leaves_with_paths(convert.abstract_from_jax(
+        leaves, cfg, "decode_state")))
+    rt = Runtime(tp=16, decode_cache_shard="seq")
+    got = dict(leaves_with_paths(D.decode_state_specs(
+        cfg, rt, B, M, rules=default_rules(multi_pod)), is_leaf=is_spec))
+    base = dict(leaves_with_paths(D.decode_state_specs(
+        cfg, Runtime(tp=16), B, M, rules=default_rules(multi_pod)),
+        is_leaf=is_spec))
+    assert got.keys() == want.keys() == base.keys()
+    meta = dict(leaves_with_paths(D.abstract_decode_state(cfg, rt, B, M)))
+    split = set()
+    for path, spec in got.items():
+        assert tuple(spec) == tuple(want[path].spec), path
+        assert tuple(meta[path].shape) == want[path].shape, path
+        if tuple(spec) != tuple(base[path]):
+            split.add(path)
+            seq = (2 if path.startswith(("layers/", "self/")) else None)
+            assert spec[seq] == "model" and base[path][seq] is None, path
+    assert bool(split) == (arch in SEQ_SPLIT_ARCHS), split
+    assert all(p.startswith(("layers/", "self/")) for p in split)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_seq_split_decode_input_specs_match_the_reference(arch, multi_pod):
+    """The decode_32k cell's abstract decode state under
+    ``decode_cache_shard="seq"``: the reference's ``input_specs`` (shapes,
+    dtypes, specs) in the port's layout, and bound to the mesh."""
+    cfg, rcfg = _cfg(arch, False)
+    shape = SHAPES_BY_NAME["decode_32k"]
+    shape_r, names = MESHES[multi_pod]
+    rmesh, mesh = RefAbstractMesh(shape_r, names), AbstractMesh(shape_r,
+                                                                 names)
+    rules = steps.rules_for_shape(shape, multi_pod, mesh)
+    batch_axes = ("pod", "data") if multi_pod else ("data",)
+    (ref_args, _) = ref_steps.input_specs(
+        rcfg, shape, RefRuntime(tp=16, mesh=rmesh, batch_axes=batch_axes,
+                                decode_cache_shard="seq"),
+        rmesh, ref_steps.rules_for_shape(shape, multi_pod, rmesh))
+    (args, _) = steps.input_specs(
+        cfg, shape, Runtime(tp=16, batch_axes=batch_axes,
+                            decode_cache_shard="seq"), mesh, rules)
+    want = dict(leaves_with_paths(_ref_tree(ref_args[3], cfg,
+                                            "decode_state")))
+    got = dict(leaves_with_paths(args[3]))
+    assert want.keys() == got.keys()
+    for path, w in want.items():
+        shape_g, dtype_g, spec_g, bound = _port(got[path])
+        assert (shape_g, dtype_g, tuple(spec_g)) == (w.shape, w.dtype,
+                                                     tuple(w.spec)), path
+        assert bound == spec_g
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_whole_moment_specs_match_the_reference(arch, multi_pod):
+    """``abstract_state(zero1=False)``: the moments take the parameters'
+    specs, as the reference's do, leaf for leaf (shapes, f32, specs)."""
+    cfg, rcfg = _cfg(arch, False)
+    shape_r, names = MESHES[multi_pod]
+    rmesh, mesh = RefAbstractMesh(shape_r, names), AbstractMesh(shape_r,
+                                                                 names)
+    rules = default_rules(multi_pod)
+    ref_state = ref_steps.abstract_state(
+        rcfg, RefRuntime(tp=16, mesh=rmesh), rmesh, ref_rules(multi_pod),
+        zero1=False)
+    state = steps.abstract_state(cfg, Runtime(tp=16), mesh, rules,
+                                 zero1=False)
+    p_specs = dict(leaves_with_paths(M.param_specs(cfg, Runtime(tp=16),
+                                                   rules=rules),
+                                     is_leaf=is_spec))
+    for k in ("m", "v"):
+        want = dict(leaves_with_paths(_ref_tree(ref_state["opt"][k], cfg,
+                                                "params")))
+        got = dict(leaves_with_paths(state["opt"][k]))
+        assert want.keys() == got.keys() == p_specs.keys()
+        for path, w in want.items():
+            shape_g, dtype_g, spec_g, _ = _port(got[path])
+            assert (shape_g, dtype_g) == (w.shape, w.dtype) == (
+                w.shape, "float32"), path
+            assert tuple(spec_g) == tuple(w.spec) == tuple(p_specs[path])
