@@ -148,7 +148,17 @@ call:
       (zero1=False)
       against two ZeRO-1 steps from the same weights (losses rtol 1e-5,
       every parameter leaf within 1e-5 * max|p|, the moments of each
-      rank's parameter shard's shape)
+      rank's parameter shard's shape); (h) the same processes as a 2 x 2
+      mesh, dbrx-132b (2 layers in bf16, 1 in f32) with its experts split
+      over model and its rows over data: a 512-token prefill a data row
+      and 4 decode steps through impl="local" (the reference's capacity
+      factor 1.25, global slots; the pairs it drops reported), "dense"
+      and "ep" under the ep2d rules (the experts' ffn stored over data,
+      gathered whole for the prefill) against the local path on rank 0
+      (the gates of (d), each rank's flash launches equal to the local
+      path's); then, cut in width, two ep2d train steps with whole moments
+      against the same steps with the experts' ffn whole (the gates of
+      (g)) and one device's losses
 
 Run it with no arguments from the root of the checkout:
 
@@ -3533,6 +3543,29 @@ DIST_WHOLE_LR = 1e-3
 DIST_WHOLE_LOSS_RTOL = 1e-5
 DIST_WHOLE_PARAM_SHARE = 1e-5
 
+#: (h): the MoE on split experts on the same four processes as a
+#: DIST_GLOO_MESH mesh (rows over data, experts over model): DBRX cut as (d)
+#: cuts it, a data row of the (d) prompt's length and DIST_GLOO_STEPS decode
+#: steps through each route, against the local path on rank 0: "local" at
+#: the reference's capacity factor (global slots: the same pairs dropped as
+#: on one device), "dense", and "ep2d" (impl="ep" under the rules
+#: --moe-ep2d installs: the experts' ffn stored over data, gathered whole
+#: for the prefill, split for decode) at DIST_GLOO_CAPACITY
+DIST_SPLIT_ROUTES = ("local", "dense", "ep2d")
+DIST_SPLIT_CAPACITY = 1.25
+#: (h)'s train leg: ep2d steps with whole moments (zero1=False) against
+#: the same steps on one device (rank 0, the local dispatch at
+#: DIST_GLOO_CAPACITY), in f32, cut in width; (g)'s gates
+DIST_SPLIT_TRAIN_CUTS = {"n_layers": 1, "d_ff": 1344, "vocab_size": 8192}
+DIST_SPLIT_TRAIN_WHY = (
+    "memory: a train step holds 16 B an f32 parameter element (weights, "
+    "gradients, two moments); one full-width layer with the embeddings is "
+    "4.49 B parameters, 23 GB a rank on the mesh (93 GB for the four) and "
+    "72 GB for the one-device step the gates read; the experts' ffn cut 8x "
+    "and the vocabulary to 8192 leave 0.59 B: 3.1 GB a rank, 9.4 GB for "
+    "one device")
+DIST_SPLIT_TRAIN_STEPS = 2
+
 
 def _flash_limit_share(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over the bf16 flash limit 2e-3 + 1e-2 |want|."""
@@ -4165,13 +4198,14 @@ def _family_params(cfg, rt, device, rules=None):
 
 
 def _family_run(cfg, rt, params, batch, fed, greedy: bool, sizes, device,
-                rows=None) -> dict:
+                rows=None, rules=None) -> dict:
     """A prefill of ``batch`` and DIST_GLOO_STEPS decode steps (each fed
     the argmax of the last logits, appended to ``fed`` when ``greedy``, or
     ``fed``'s token), on ``rt``'s route: the logits of each (gathered over
     the batch's rows by ``rows``), the flash launches by call shape, the
     times (host clock, synchronised) after one untimed, uncounted
-    prefill, and the bytes of this rank's decode state."""
+    prefill, and the bytes of this rank's decode state. ``rules``: the
+    steps' sharding rules (default: the mesh's)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -4180,8 +4214,8 @@ def _family_run(cfg, rt, params, batch, fed, greedy: bool, sizes, device,
     local = (lambda t: t) if rows is None else rows.shard
     out = {}
     with torch.no_grad():
-        prefill = make_prefill_step(cfg, rt, sizes["dist_max_len"])
-        decode = make_decode_step(cfg, rt)
+        prefill = make_prefill_step(cfg, rt, sizes["dist_max_len"], rules)
+        decode = make_decode_step(cfg, rt, rules)
         prefill(params, batch)
         ops.reset_launch_counts()
         _sync(device)
@@ -4787,15 +4821,393 @@ def dist_gloo_seq_and_whole(device, sizes: dict) -> dict:
                            "gated"}
 
 
+def _count_drops(run):
+    """(run(), the pairs the one-device local dispatch dropped in it)"""
+    from repro_torch.models import moe as moe_mod
+    dropped = []
+    combine = moe_mod._combine
+
+    def counting(out_buf, meta, w, T, k):
+        dropped.append(int((~meta[3]).sum()))
+        return combine(out_buf, meta, w, T, k)
+    with patched(moe_mod, "_combine", counting):
+        res = run()
+    return res, sum(dropped)
+
+
+def _gloo_split_serve(rank: int, mesh, sizes, device) -> dict:
+    """(h)'s serving legs on this rank: DIST_MOE_ARCH (cut as (d)) on
+    ``mesh``, its experts over model and its rows over data, drawn from
+    (d)'s seed; a prefill and greedy decode steps through the bf16 local
+    route, and the same steps fed those tokens through every
+    DIST_SPLIT_ROUTES route in each of DIST_GLOO_DTYPES; then rank 0 runs
+    the local path (no mesh, whole weights from the same seed) the same
+    way at DIST_SPLIT_CAPACITY (the pairs its prefill drops counted) and
+    at DIST_GLOO_CAPACITY (none dropped). Returns rank 0's report with
+    each route's gates (the others': their launches and times)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import ShardingRules, default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import NamedSharding
+    cfg, reduced = serve_config(sizes, DIST_MOE_ARCH, DIST_GLOO_CUTS,
+                                DIST_GLOO_WHY)
+    tp, S = mesh.shape["model"], sizes["dist_gloo_prompt"]
+    rules = default_rules()
+    rules2d = ShardingRules(rules={**rules.rules, "expert_ff": "data"})
+    rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+    g = torch.Generator(device=device)
+    g.manual_seed(32)
+    toks = torch.randint(0, cfg.vocab_size, (mesh.shape["data"], S),
+                         generator=g, device=device, dtype=torch.int32)
+    routes = {"local": (dict(moe_impl="local"), rules, DIST_SPLIT_CAPACITY),
+              "dense": (dict(moe_impl="dense"), rules, DIST_GLOO_CAPACITY),
+              "ep2d": (dict(moe_impl="ep", moe_ep2d_decode=True,
+                            moe_capacity_factor=DIST_GLOO_CAPACITY),
+                       rules2d, DIST_GLOO_CAPACITY)}
+    rep = {"arch": cfg.name, "reduced": reduced, "prompt_len": S,
+           "batch": mesh.shape["data"], "decode_steps": DIST_GLOO_STEPS,
+           "local_capacity_factor": DIST_SPLIT_CAPACITY,
+           "other_capacity_factor": DIST_GLOO_CAPACITY}
+    mesh_runs, fed = {r: {} for r in DIST_SPLIT_ROUTES}, []
+    dgrp = mesh.group("data")
+    for dt in DIST_GLOO_DTYPES:
+        run_cfg, drawn = _gloo_cfg(cfg, dt)
+        params = model_mod.init_params(drawn, Runtime(tp=tp, mesh=mesh),
+                                       seed=31, rules=rules)
+        if dt == "float32":
+            _widen(params)
+        for route in DIST_SPLIT_ROUTES:
+            kw, r_rules, cap = routes[route]
+            if route == "ep2d":
+                # the 2D layout: each rank keeps its data row's slice of
+                # its experts' ffn
+                for layer in params["layers"]:
+                    ex = layer["mlp"]["experts"]
+                    ex["wi"] = coll.chunk(ex["wi"], 2, dgrp)
+                    ex["wg"] = coll.chunk(ex["wg"], 2, dgrp)
+                    ex["wo"] = coll.chunk(ex["wo"], 1, dgrp)
+            with patched(moe_mod, "CAPACITY_FACTOR", cap):
+                mesh_runs[route][dt] = _family_run(
+                    run_cfg, Runtime(tp=tp, mesh=mesh, **kw), params,
+                    {"tokens": rows.shard(toks)}, fed,
+                    (dt, route) == (DIST_GLOO_DTYPES[0], "local"), sizes,
+                    device, rows, r_rules)
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {
+        route: {dt: {k: v for k, v in r.items() if k != "logits"}
+                for dt, r in runs.items()}
+        for route, runs in mesh_runs.items()})
+    local = {}
+    if rank == 0:
+        bf16_cfg, drawn = _gloo_cfg(cfg, "bfloat16")
+        for name, run_cfg, dr in (
+                ("bf16", bf16_cfg, drawn),
+                ("f32_wide", dataclasses.replace(bf16_cfg, dtype="float32"),
+                 drawn),
+                ("f32", *_gloo_cfg(cfg, "float32"))):
+            params = model_mod.init_params(dr, Runtime(tp=tp), seed=31,
+                                           device=device)
+            if run_cfg.dtype == "float32":
+                _widen(params)
+            for cap in (DIST_SPLIT_CAPACITY, DIST_GLOO_CAPACITY):
+                with patched(moe_mod, "CAPACITY_FACTOR", cap):
+                    local[name, cap] = _family_run(
+                        run_cfg, Runtime(), params, {"tokens": toks}, fed,
+                        False, sizes, device)
+                    if (name, cap) == ("bf16", DIST_SPLIT_CAPACITY):
+                        _, rep["local_pairs_dropped_in_prefill"] = \
+                            _count_drops(lambda: make_prefill_step(
+                                run_cfg, Runtime(), sizes["dist_max_len"])(
+                                params, {"tokens": toks}))
+            del params
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    rep["peak_memory_gb_by_rank"] = peaks
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if rank != 0:
+        return rep
+    rep["routes"] = {}
+    for route in DIST_SPLIT_ROUTES:
+        cap = routes[route][2]
+        have = {dt: mesh_runs[route][dt]["logits"]
+                for dt in DIST_GLOO_DTYPES}
+        l16, l32w, l32 = (local[n, cap]["logits"]
+                          for n in ("bf16", "f32_wide", "f32"))
+        want = {"bfloat16": l16, "float32": l32}
+        one = {"bfloat16": local["bf16", cap], "float32": local["f32", cap]}
+        r = {"capacity_factor": cap, **_logit_gates(have, l16, l32w, l32),
+             **_margin_tokens(l16, have["bfloat16"])}
+        r["shapes_ok"] = all(
+            bool(torch.isfinite(a).all()) and a.shape == b.shape
+            for dt in DIST_GLOO_DTYPES for a, b in zip(have[dt], want[dt])
+        ) and len(have["float32"]) == len(l32) == DIST_GLOO_STEPS + 1
+        r["flash_launches_equal_on_every_rank"] = {
+            dt: all(b[route][dt]["flash_launches_by_shape"]
+                    == one[dt]["flash_launches_by_shape"] for b in by_rank)
+            for dt in DIST_GLOO_DTYPES}
+        r["local_flash_launches_by_shape"] = {
+            dt: one[dt]["flash_launches_by_shape"] for dt in DIST_GLOO_DTYPES}
+        r["prefill_ms"] = {dt: {"mesh_rank0": mesh_runs[route][dt][
+            "prefill_ms"], "local": one[dt]["prefill_ms"]}
+            for dt in DIST_GLOO_DTYPES}
+        r["decode_ms_per_step"] = {dt: {"mesh_rank0": mesh_runs[route][dt][
+            "decode_ms_per_step"], "local": one[dt]["decode_ms_per_step"]}
+            for dt in DIST_GLOO_DTYPES}
+        rep["routes"][route] = r
+    return rep
+
+
+def _gloo_split_train(rank: int, mesh, sizes, device) -> dict:
+    """(h)'s train leg on this rank: DIST_MOE_ARCH cut by
+    DIST_SPLIT_TRAIN_CUTS, in f32, DIST_SPLIT_TRAIN_STEPS steps with whole
+    moments (zero1=False) through impl="ep", under the ep2d rules (the
+    experts' ffn stored over data and gathered whole a layer at a time,
+    its gradient reduce-scattered) and under the default ones (the ffn
+    whole, its gradient all-reduced), from the same weights; rank 0 then
+    takes the same steps on one device (the local dispatch, nothing
+    dropped on any route). Returns rank 0's report: the losses, the steps'
+    times, the moments' split, and every parameter leaf's distance from
+    the default layout's and from one device's."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import ShardingRules, default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel.sharding import NamedSharding, is_spec
+    from repro_torch.tree import leaves_with_paths, tree_leaves
+    cfg, reduced = serve_config(sizes, DIST_MOE_ARCH, DIST_SPLIT_TRAIN_CUTS,
+                                DIST_SPLIT_TRAIN_WHY)
+    drawn = dataclasses.replace(cfg, dtype=DIST_GLOO_DTYPES[0])
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    tp, S, B = mesh.shape["model"], sizes["dist_gloo_prompt"], \
+        mesh.shape["data"]
+    rules = default_rules()
+    layouts = {"ep2d": ShardingRules(rules={**rules.rules,
+                                            "expert_ff": "data"}),
+               "ep": rules}
+    rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+    rt = Runtime(tp=tp, mesh=mesh, moe_impl="ep", moe_ep2d_decode=True,
+                 moe_capacity_factor=DIST_GLOO_CAPACITY)
+    g = torch.Generator(device=device)
+    g.manual_seed(DIST_FAMILIES_SEED)
+    batches = [torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                             device=device, dtype=torch.int32)
+               for _ in range(DIST_SPLIT_TRAIN_STEPS)]
+    opt = OptConfig(lr=DIST_WHOLE_LR)
+    rep = {"arch": cfg.name, "reduced": reduced, "dtype": "float32",
+           "tokens_a_step": [B, S + 1], "steps": DIST_SPLIT_TRAIN_STEPS,
+           "runs": {}}
+    whole = {}
+    for name, r_rules in layouts.items():
+        params = model_mod.init_params(drawn, rt, seed=31, rules=r_rules)
+        _widen(params)
+        state = steps_mod.init_train_state(cfg, rt, params, r_rules,
+                                           zero1=False)
+        del params
+        step = steps_mod.make_train_step(cfg, rt, opt, r_rules, zero1=False)
+        losses, ms = [], []
+        for toks in batches:
+            _sync(device)
+            t0 = time.perf_counter()
+            state, m = step(state, {"tokens": rows.shard(toks)})
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        wi = state["opt"]["m"]["layers"][0]["mlp"]["experts"]["wi"]
+        rep["runs"][name] = {
+            "losses": losses, "step_ms": ms,
+            "moment_wi_local_shape": list(wi.shape),
+            "moments_as_params": all(
+                m.shape == p.shape for m, p in zip(
+                    tree_leaves(state["opt"]["m"]),
+                    tree_leaves(state["params"])))}
+        specs = dict(leaves_with_paths(model_mod.param_specs(cfg, rt,
+                                                             r_rules),
+                                       is_leaf=is_spec))
+        whole[name] = {k: NamedSharding(mesh, specs[k]).gather(t).cpu()
+                       for k, t in leaves_with_paths(state["params"])}
+        del state, wi
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    rep["peak_memory_gb_by_rank"] = peaks
+    if rank != 0:
+        return rep
+    params = model_mod.init_params(drawn, Runtime(tp=tp), seed=31,
+                                   device=device)
+    _widen(params)
+    with patched(moe_mod, "CAPACITY_FACTOR", DIST_GLOO_CAPACITY):
+        st1 = steps_mod.init_train_state(cfg, Runtime(), params)
+        del params
+        step1 = steps_mod.make_train_step(cfg, Runtime(), opt)
+        losses1, ms1 = [], []
+        for toks in batches:
+            _sync(device)
+            t0 = time.perf_counter()
+            st1, m = step1(st1, {"tokens": toks})
+            _sync(device)
+            ms1.append((time.perf_counter() - t0) * 1e3)
+            losses1.append(float(m["loss"]))
+    whole["one_device"] = {k: t.cpu()
+                           for k, t in leaves_with_paths(st1["params"])}
+
+    def distance(other: str) -> dict:
+        shares = {k: float((whole["ep2d"][k] - want).abs().max())
+                  / (DIST_WHOLE_PARAM_SHARE * float(want.abs().max()))
+                  for k, want in whole[other].items()}
+        worst = max(shares, key=shares.get)
+        return {"leaves": len(shares), "worst_share_of_limit": shares[worst],
+                "worst_leaf": worst}
+    mesh_losses = rep["runs"]["ep2d"]["losses"]
+    rep.update(one_device_losses=losses1, one_device_step_ms=ms1,
+               loss_rel_diff={other: max(abs(a - b) / abs(b) for a, b in zip(
+                   mesh_losses, want))
+                   for other, want in (("ep", rep["runs"]["ep"]["losses"]),
+                                       ("one_device", losses1))},
+               params_vs_ep=distance("ep"),
+               params_vs_one_device=distance("one_device"),
+               one_device_peak_memory_gb=(
+                   torch.cuda.max_memory_allocated(device) / 1e9
+                   if device.type == "cuda" else None))
+    return rep
+
+
+def _gloo_split_rank(rank: int, world: int, store_path: str, out_path: str,
+                     device_type: str, sizes: dict) -> None:
+    """One of the (h) ranks: gloo over ``device_type`` tensors on the one
+    card (or the CPU in the rehearsal), TF32 off: probe the collectives,
+    then, when gloo takes them all, the serving legs and the train leg on
+    a DIST_GLOO_MESH mesh; rank 0 writes the reports."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    report = {"rank": rank}
+    try:
+        report["probe"] = _probe_collectives(None, device)
+        report["refused"] = [n for n, v in report["probe"].items()
+                             if v != "ok"]
+        if not report["refused"]:
+            mesh = make_host_mesh(*DIST_GLOO_MESH, device_type=device_type)
+            for leg, fn in (("serve", _gloo_split_serve),
+                            ("train", _gloo_split_train)):
+                t0 = time.perf_counter()
+                report[leg] = fn(rank, mesh, sizes, device)
+                report[leg]["seconds"] = time.perf_counter() - t0
+                if rank == 0:      # each leg's report stays if the next fails
+                    with open(out_path, "w") as f:
+                        json.dump(report, f)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gloo_split_experts(device, sizes: dict) -> dict:
+    """(h) on four processes on the one card over gloo, started with
+    torch.multiprocessing: the MoE on split experts (:func:`_gloo_split_serve`):
+    for each of DIST_SPLIT_ROUTES every step's f32 logits within
+    DIST_GLOO_F32_RTOL * max|logits| of the local path's, the bf16 ones no
+    further from the local f32 path than DIST_GLOO_BF16_FACTOR times the
+    local bf16 path, the bf16 tokens by the margin rule, each rank's flash
+    launches by call shape equal to the local path's; then ep2d train steps
+    with whole moments (:func:`_gloo_split_train`): losses within
+    DIST_WHOLE_LOSS_RTOL of one device's and of the same steps under the
+    default layout (the experts' ffn whole), every parameter leaf within
+    DIST_WHOLE_PARAM_SHARE * max|p| of the default layout's (as (g) holds
+    two layouts on one mesh; each leaf's distance from one device's is
+    reported: at full width AdamW's normalised first steps turn the f32
+    noise of near-zero gradient elements into parameter differences of a
+    few 1e-6), every moment of its parameter shard's shape (the experts'
+    ffn over data). Times are host-staged: reported, not gated."""
+    import shutil
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rep, wall, out_path = _spawn_gloo(_gloo_split_rank, "dist_split", device,
+                                      sizes)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    check(not rep["refused"],
+          f"(h) gloo refused {rep['refused']} on {device.type} tensors: "
+          f"{rep['probe']}")
+    serve, train = rep["serve"], rep["train"]
+    for route, r in serve["routes"].items():
+        check(r["shapes_ok"] and r["tokens_equal"] == r["tokens_compared"],
+              f"(h) {route}: the mesh's logits are malformed or its tokens "
+              f"differ from the local path's by the margin rule: {r}")
+        check(r["f32_share_of_limit"] <= 1.0
+              and r["bf16_share_of_limit"] <= 1.0,
+              f"(h) {route}: the mesh's logits are further from the local "
+              f"path's than rounding: {r['steps']}")
+        check(all(r["flash_launches_equal_on_every_rank"].values())
+              and (device.type != "cuda" or any(
+                  r["local_flash_launches_by_shape"]["bfloat16"].values())),
+              f"(h) {route}: a rank's flash launches differ from the local "
+              f"path's, or the bf16 prefill launched none on the card: {r}")
+    check(max(train["loss_rel_diff"].values()) <= DIST_WHOLE_LOSS_RTOL
+          and train["params_vs_ep"]["worst_share_of_limit"] <= 1.0
+          and all(r["moments_as_params"] for r in train["runs"].values()),
+          f"(h) the ep2d whole-moment steps differ from the default "
+          f"layout's or one device's, or a moment is not its parameter "
+          f"shard's shape: {train}")
+    return {"backend": "gloo",
+            "world": DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1],
+            "mesh": dict(zip(("data", "model"), DIST_GLOO_MESH)),
+            "device": device.type, "probe": rep["probe"], "wall_s": wall,
+            "serve": serve, "train": train,
+            "tolerance": (
+                f"each route, each step: f32 mesh - f32 local <= "
+                f"{DIST_GLOO_F32_RTOL} * max|f32 local|; bf16 mesh - f32 "
+                f"local <= {DIST_GLOO_BF16_FACTOR} * (bf16 local - f32 "
+                f"local); train: losses rtol {DIST_WHOLE_LOSS_RTOL} of one "
+                f"device's and the default layout's, each parameter leaf "
+                f"within {DIST_WHOLE_PARAM_SHARE} * max|p| of the default "
+                f"layout's"),
+            "timing_note": "host-staged gloo collectives: reported, not "
+                           "gated"}
+
+
 def distributed_phase(device, sizes: dict, timer) -> dict:
     """The multi-device path on the one card: NCCL at world 1 on a 1 x 1
     mesh (its FileStore under build/) for (a) the MoE's expert-parallel
     serving against its local path, (b) DP x TP training with ZeRO-1 and
     its f32 check, (c) elastic restore; then (d) four gloo ranks on the
     card, (e) the SSM, hybrid, VLM and enc-dec families split over model
-    on four gloo ranks, and (f) the decode cache split over the sequence
-    and (g) whole moments on four more. The CPU rehearsal runs gloo at
-    world 1 on CPU tensors, and (d) to (g) on CPU tensors."""
+    on four gloo ranks, (f) the decode cache split over the sequence
+    and (g) whole moments on four more, and (h) the MoE on split experts
+    on four more. The CPU rehearsal runs gloo at world 1 on CPU tensors,
+    and (d) to (h) on CPU tensors."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -4823,13 +5235,15 @@ def distributed_phase(device, sizes: dict, timer) -> dict:
     gloo = dist_gloo_on_card(device, sizes)
     families = dist_gloo_families(device, sizes)
     seq = dist_gloo_seq_and_whole(device, sizes)
+    split = dist_gloo_split_experts(device, sizes)
     return {"backend": backend, "world": 1, "mesh": {"data": 1, "model": 1},
             "a_moe_ep": moe, "b_train": train, "c_elastic": elastic,
             "d_gloo_on_card": gloo, "e_gloo_families": families,
-            "f_g_gloo_seq_and_whole": seq,
+            "f_g_gloo_seq_and_whole": seq, "h_gloo_split_experts": split,
             "seconds": {"world_1": nccl_s, "gloo": gloo["wall_s"],
                         "gloo_families": families["wall_s"],
                         "gloo_seq_and_whole": seq["wall_s"],
+                        "gloo_split_experts": split["wall_s"],
                         "phase": time.perf_counter() - t0}}
 
 

@@ -118,22 +118,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "'seq' rule, so the record would be the baseline's")
     mesh = _mesh(multi_pod, mesh_shape)
     chips = mesh.size
-    if (cfg.family == "moe" and overrides.get("moe_impl", "ep") == "local"
-            and mesh.shape["model"] > 1):
-        raise NotImplementedError(
-            "moe_impl='local' with the experts split over the model axis "
-            "(ROADMAP A9 (c)): the port's local dispatch needs every expert "
-            "on the rank")
-    if (cfg.family == "moe" and overrides.get("moe_ep2d_decode")
-            and shape.kind != "decode"):
-        raise NotImplementedError(
-            "moe_ep2d_decode=True on a train or prefill cell (ROADMAP A9 "
-            "(d)): the port's all-to-all path computes on whole expert ffn, "
-            "not on the ffn split over the data axes")
     rules = steps_mod.rules_for_shape(shape, multi_pod, mesh)
     if overrides.get("moe_ep2d_decode"):
         d = dict(rules.rules)
-        d["expert_ff"] = "data"   # 2D expert-weight layout for serving
+        d["expert_ff"] = "data"   # 2D expert-weight layout, every cell
         rules = ShardingRules(rules=d)
     if overrides.get("rules"):
         rules = overrides["rules"]

@@ -21,7 +21,7 @@ from repro_torch.checkpoint.checkpointer import saved_dtypes
 from repro_torch.launch.mesh import Mesh, batch_axes_for, mesh_over
 from repro_torch.launch.steps import train_state_shardings
 from repro_torch.models import model as model_mod
-from repro_torch.models.common import default_rules
+from repro_torch.models.common import ShardingRules, default_rules
 from repro_torch.models.transformer import Runtime
 from repro_torch.tree import leaves_with_paths, tree_map
 
@@ -49,14 +49,17 @@ def shrink_mesh(ranks: Optional[Sequence[int]] = None,
 
 
 def elastic_restore(ckpt_dir: str, cfg, rt_old: Runtime,
-                    new_mesh: Mesh,
-                    zero1: bool = True) -> Tuple[dict, int, Runtime]:
+                    new_mesh: Mesh, zero1: bool = True,
+                    rules: Optional[ShardingRules] = None
+                    ) -> Tuple[dict, int, Runtime]:
     """Restore the latest checkpoint into a (possibly smaller) mesh: each
     leaf is cut to this rank's shard of ``new_mesh`` as the train step
     keeps it there (:func:`~repro_torch.launch.steps.train_state_shardings`:
     the parameters under their specs, the moments under their ZeRO-1 specs
     of the new batch axes, or the parameters' own with ``zero1`` false),
-    the moments in the dtype they were saved in.
+    the moments in the dtype they were saved in. ``rules``: the ones the
+    state was trained under (default: the new mesh's :func:`default_rules`;
+    ``--moe-ep2d``'s store the expert ffn over ``data``).
 
     Returns (state, step, new_runtime)."""
     step = latest_step(ckpt_dir)
@@ -65,7 +68,7 @@ def elastic_restore(ckpt_dir: str, cfg, rt_old: Runtime,
     rt_new = dataclasses.replace(
         rt_old, mesh=new_mesh, tp=new_mesh.shape["model"],
         batch_axes=batch_axes_for(new_mesh))
-    rules = default_rules("pod" in new_mesh.axis_names)
+    rules = rules or default_rules("pod" in new_mesh.axis_names)
     abstract = model_mod.init_params(
         cfg, dataclasses.replace(rt_new, mesh=None), device="meta")
     mdt = saved_dtypes(ckpt_dir, step)[

@@ -12,7 +12,11 @@ the parameter, and the updated shards are all-gathered back. With
 ``zero1=False`` (the reference's ``abstract_state(zero1=False)``) the
 moments take the parameters' specs: every gradient is all-reduced over the
 batch axes, AdamW updates the whole local parameter, and nothing is
-gathered after it.
+gathered after it. A parameter the rules split over a batch axis (the
+expert ffn over ``data`` under ``--moe-ep2d``) trains only so: the model
+gathers it with ``gather_to``, whose backward sums its gradient over that
+axis, so the step sums it only over the batch axes its spec does not hold
+(``pod``) before the mean. With ZeRO-1 it raises, as the reference does.
 
 The abstract specs are ``meta`` tensors of the global shapes (nothing is
 allocated), each carrying ``.spec`` (its PartitionSpec) and ``.sharding``
@@ -39,7 +43,8 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (NamedSharding, P, entry_axes,
                                            is_spec, named_sharding_tree,
                                            zero1_specs)
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (leaves_with_paths, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
 # ---------------------------------------------------------------------------
@@ -69,34 +74,58 @@ class _Leaf:
     """A parameter leaf's ZeRO-1 plan: the dim its moments split over the
     batch axes (``None``: kept whole, the gradient all-reduced), how many
     ranks hold each of its moment elements (the global norm counts each
-    once), and the group its parameter is split over (``None``: whole)."""
+    once), the group its parameter is split over (``None``: whole), and,
+    for a leaf split over batch axes itself (the expert ffn under
+    ``--moe-ep2d``), ``held``: its gradient comes summed over those axes
+    (``gather_to``'s reduce-scatter), and ``rest`` is the group of the
+    batch axes its spec does not hold, over which it is still summed."""
     zdim: Optional[int]
     copies: int
     group: Any
+    held: bool = False
+    rest: Any = None
 
 
 _WHOLE = _Leaf(None, 1, None)
 
 
+def _moment_specs(cfg: ModelConfig, rt: Runtime, rules: ShardingRules,
+                  zero1: bool = True):
+    """(parameter spec tree, moment spec tree, batch axes in mesh order)
+    under ``rt.mesh`` (any mesh with ``shape`` and ``axis_names``): with
+    ``zero1`` false every leaf's moments take its parameter's spec. A leaf
+    split over a batch axis takes ZeRO-1 as the reference does:
+    :func:`zero1_specs` puts the batch axes on its first free dim, and a
+    spec that names an axis twice raises ``ValueError`` naming the leaf
+    (where the reference's NamedSharding raises ``DuplicateSpecError``)."""
+    mesh = rt.mesh
+    batch_axes = tuple(a for a in mesh.axis_names if a in rt.batch_axes)
+    p_specs = model_mod.param_specs(cfg, rt, rules)
+    m_specs = (zero1_specs(p_specs, _meta_params(cfg, rt), mesh, batch_axes)
+               if zero1 else p_specs)
+    for (path, ps), ms in zip(leaves_with_paths(p_specs, is_leaf=is_spec),
+                              tree_leaves(m_specs, is_leaf=is_spec)):
+        named = [a for e in ms for a in entry_axes(e)]
+        twice = sorted({a for a in named if named.count(a) > 1})
+        if twice:
+            raise ValueError(
+                f"the ZeRO-1 moments of {path} ({ps}) take the spec {ms}, "
+                f"which names axis {twice[0]!r} twice: the parameter is "
+                f"split over a batch axis already (as the reference's "
+                f"zero1_specs gives, whose NamedSharding refuses it); "
+                f"run with zero1=False")
+    return p_specs, m_specs, batch_axes
+
+
 def _zero1_plan(cfg: ModelConfig, rt: Runtime, rules: ShardingRules,
                 zero1: bool = True):
     """(plan tree, moment spec tree, batch axes in mesh order). Without a
-    mesh every leaf is whole (and there are no specs); with ``zero1``
-    false every leaf's moments take its parameter's spec."""
+    mesh every leaf is whole (and there are no specs); else the specs of
+    :func:`_moment_specs`."""
     mesh = rt.mesh
-    shapes = _meta_params(cfg, rt)
     if mesh is None:
-        return tree_map(lambda _: _WHOLE, shapes), None, ()
-    batch_axes = tuple(a for a in mesh.axis_names if a in rt.batch_axes)
-    p_specs = model_mod.param_specs(cfg, rt, rules)
-    for spec in tree_leaves(p_specs, is_leaf=is_spec):
-        if any(a in batch_axes for e in spec for a in entry_axes(e)):
-            raise ValueError(
-                f"a parameter split over the batch axes ({spec}): the "
-                f"train step averages gradients over them, which needs "
-                f"every parameter whole along them")
-    m_specs = (zero1_specs(p_specs, shapes, mesh, batch_axes) if zero1
-               else p_specs)
+        return tree_map(lambda _: _WHOLE, _meta_params(cfg, rt)), None, ()
+    p_specs, m_specs, batch_axes = _moment_specs(cfg, rt, rules, zero1)
 
     def leaf(ps: P, ms: P):
         zdim = next((i for i, (a, b) in enumerate(zip(
@@ -107,7 +136,12 @@ def _zero1_plan(cfg: ModelConfig, rt: Runtime, rules: ShardingRules,
                       if any(a in entry_axes(e) for e in ps))
         group = (mesh.group(split) if split and mesh.axis_size(split) > 1
                  else None)
-        return _Leaf(zdim, copies, group)
+        if not any(a in batch_axes for a in split):
+            return _Leaf(zdim, copies, group)
+        rest = tuple(a for a in batch_axes if a not in split)
+        return _Leaf(zdim, copies, group, True,
+                     mesh.group(rest) if rest and mesh.axis_size(rest) > 1
+                     else None)
 
     plan = tree_map(leaf, p_specs, m_specs, is_leaf=is_spec)
     return plan, m_specs, batch_axes
@@ -126,11 +160,10 @@ def train_state_shardings(cfg: ModelConfig, rt: Runtime,
     ``None`` without a mesh: every leaf whole."""
     if rt.mesh is None:
         return None
-    rules = _rules_for(rt, rules)
-    _, m_specs, _ = _zero1_plan(cfg, rt, rules, zero1)
+    p_specs, m_specs, _ = _moment_specs(cfg, rt, _rules_for(rt, rules),
+                                        zero1)
     m_sh = named_sharding_tree(m_specs, rt.mesh)
-    return {"params": named_sharding_tree(
-                model_mod.param_specs(cfg, rt, rules), rt.mesh),
+    return {"params": named_sharding_tree(p_specs, rt.mesh),
             "opt": {"m": m_sh, "v": m_sh,
                     "step": NamedSharding(rt.mesh, P())}}
 
@@ -189,15 +222,24 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig,
     dp = mesh.axis_size(batch_axes) if batch_axes else 1
     dgrp = mesh.group(batch_axes) if dp > 1 else None
     everyone = None if mesh is None else mesh.group(mesh.axis_names)
+    if opt_cfg.grad_compression == "int8" and any(
+            pl.held for pl in tree_leaves(plan)):
+        raise NotImplementedError(
+            "int8 gradient compression with a parameter split over the "
+            "batch axes (the expert ffn under --moe-ep2d): its error "
+            "feedback needs the whole-batch mean of every leaf (ROADMAP)")
 
     def own(t: torch.Tensor, pl: _Leaf) -> torch.Tensor:
         """this rank's ZeRO-1 shard of a whole (data-replicated) leaf"""
         return t if pl.zdim is None else coll.chunk(t, pl.zdim, dgrp)
 
     def average(g: torch.Tensor, pl: _Leaf) -> torch.Tensor:
-        """the batch axes' mean of ``g``, this rank's ZeRO-1 shard of it"""
+        """the batch axes' mean of ``g``, this rank's ZeRO-1 shard of it
+        (a leaf split over batch axes: summed over them already)"""
         if dgrp is None:
             return g
+        if pl.held:
+            return coll.all_reduce(g, pl.rest) / dp
         return (coll.all_reduce(g, dgrp) if pl.zdim is None
                 else coll.reduce_scatter(g, pl.zdim, dgrp)) / dp
 

@@ -12,6 +12,14 @@ Three dispatch paths, as the reference's:
   ``[E, C, d]``, and the outputs are gathered back and combined with the
   router weights. Pairs past an expert's capacity are dropped and
   contribute exactly zero.
+
+  Under a mesh ``dense`` and ``local`` keep their one-device meaning, as
+  XLA keeps the reference's: the capacity is the global batch's, and a
+  pair's slot is its place in the stable sort over the global batch (its
+  place on this rank plus the pairs of its expert on the earlier batch
+  ranks, whose counts are all-gathered). Where the experts are split over
+  ``model``, each rank runs its own ``E / tp`` on every token of its rows
+  and the partial outputs are summed over ``model``.
 * ``ep`` (:func:`moe_block_ep`) — the experts split over the mesh's
   ``model`` axis, ``E / tp`` on each rank. Train and prefill
   (``_ep_a2a``): the sequence is split over ``model`` before dispatch,
@@ -25,7 +33,9 @@ Three dispatch paths, as the reference's:
   its own experts (the rest go to a drop bucket), and the partial outputs
   are summed over ``model``; with ``ep2d`` the experts' ffn dim is split
   over the data axes too, the tokens are gathered over them, the partial
-  sums run over both, and each rank keeps its own rows.
+  sums run over both, and each rank keeps its own rows. Off decode an
+  expert ffn stored split over ``data`` is gathered whole a layer at a
+  time.
 
 The load-balancing aux loss is computed from the router's statistics over
 every token of the step: where the tokens are split over ranks (the data
@@ -48,9 +58,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ParamMaker, axis_group, gated_mlp,
+from repro_torch.models.common import (ParamMaker, axis_group, axis_size,
+                                       current_rules, gated_mlp,
                                        gated_mlp_params)
 from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import entry_axes
 
 CAPACITY_FACTOR = 1.25
 
@@ -175,36 +187,109 @@ def _combine(out_buf: torch.Tensor, meta, w: torch.Tensor, T: int,
     return torch.sum(y_pairs.reshape(T, k, d) * w[..., None], dim=1)
 
 
+def _split_experts(experts: Dict, cfg: ModelConfig):
+    """(group, first, n) of the experts this rank holds: ``(None, 0, E)``
+    where it holds all of them; else the group the rule ``experts`` splits
+    them over, and this rank's ``n = E / tp`` from expert ``first``."""
+    E, n = cfg.n_experts, experts["wi"].shape[0]
+    if n == E:
+        return None, 0, E
+    grp = axis_group("experts")
+    if coll.size(grp) * n != E:
+        raise ValueError(f"{n} of {E} experts on this rank, and the "
+                         f"experts' axis has {coll.size(grp)} ranks")
+    return grp, coll.rank(grp) * n, n
+
+
+def _earlier_counts(idx: torch.Tensor, E: int, bgrp) -> torch.Tensor:
+    """``[E]`` int32: each expert's pairs on the batch ranks before this
+    one (in the order the batch's rows are laid out over them), from the
+    ranks' counts all-gathered over ``bgrp``."""
+    flat = idx.reshape(-1).long()
+    counts = torch.zeros(E, dtype=torch.int32, device=idx.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    every = coll.all_gather(counts[None], 0, bgrp)            # [dp, E]
+    return every[:coll.rank(bgrp)].sum(dim=0, dtype=torch.int32)
+
+
+def _dispatch_global(xt: torch.Tensor, idx: torch.Tensor, k: int,
+                     first: int, n_exp: int, capacity: int,
+                     offset: torch.Tensor, rows: int):
+    """:func:`_dispatch` at global slots: a pair is kept iff it is routed
+    to one of experts ``first .. first + n_exp - 1`` and its place among
+    its expert's pairs, counted on from ``offset`` (the earlier batch
+    ranks' pairs), is below ``capacity``. A kept pair's place on this rank
+    is below both ``capacity`` and the rank's token count, so
+    ``[n_exp, rows, d]`` (``rows = min(capacity, T)``) holds it there; the
+    other pairs land on a spare row or expert that the experts never
+    read."""
+    d = xt.shape[-1]
+    order, sorted_e, pos = _dispatch_indices(idx)
+    tok = order // k
+    e = sorted_e.long() - first
+    mine = (e >= 0) & (e < n_exp)
+    kept = mine & (pos + offset[sorted_e.long()] < capacity)
+    e = torch.where(mine, e, n_exp)
+    slot = torch.where(kept, pos, rows).long()
+    buf = torch.zeros((n_exp + 1, rows + 1, d), dtype=xt.dtype,
+                      device=xt.device)
+    buf[e, slot] = xt[tok]
+    return buf[:n_exp, :rows], (order, e, slot, kept)
+
+
 def _local_moe(x: torch.Tensor, router_w: torch.Tensor, experts: Dict,
                cfg: ModelConfig, capacity: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device MoE via sort-scatter dispatch (no collectives; under a
-    mesh the aux loss's statistics are summed over the batch's ranks).
-    x: [T, d]."""
+    """MoE via sort-scatter dispatch. x: [T, d], this rank's tokens.
+
+    With the batch whole and every expert on the rank (one device) no
+    collective runs. Else the aux loss's statistics are summed over the
+    batch's ranks, the slots are global (:func:`_earlier_counts`), and
+    where the experts are split over ``model`` the tokens enter the
+    experts through ``copy_to`` (their gradient summed over ``model``),
+    the router weights enter the combine the same way (each rank's
+    gradient covers only its own experts' pairs), and the partial outputs
+    are summed over ``model``. The routing runs alike on every model rank,
+    and its gradient is not summed."""
     T = x.shape[0]
     k, E = cfg.experts_per_token, cfg.n_experts
-    if experts["wi"].shape[0] != E:
-        raise ValueError(
-            f"{experts['wi'].shape[0]} of {E} experts on this rank: the "
-            f"experts are split over the mesh, which impl='ep' computes on")
-    w, idx, aux = _route(router_w, x, k, data_group=axis_group("batch"))
-    buf, meta = _dispatch(x, idx, k, E, capacity)
+    bgrp = axis_group("batch")
+    mgrp, first, n = _split_experts(experts, cfg)
+    w, idx, aux = _route(router_w, x, k, data_group=bgrp)
+    if bgrp is None and mgrp is None:
+        buf, meta = _dispatch(x, idx, k, E, capacity)
+        out_buf = _expert_ffn(experts, buf, cfg.act)
+        return _combine(out_buf, meta, w, T, k), aux
+    buf, meta = _dispatch_global(coll.copy_to(x, mgrp), idx, k, first, n,
+                                 capacity, _earlier_counts(idx, E, bgrp),
+                                 min(capacity, T))
     out_buf = _expert_ffn(experts, buf, cfg.act)
-    return _combine(out_buf, meta, w, T, k), aux
+    y = _combine(out_buf, meta, coll.copy_to(w, mgrp), T, k)
+    return coll.reduce_from(y, mgrp), aux
 
 
 def moe_block_dense(p: Dict, cfg: ModelConfig, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Oracle: every expert on every token (tests / tiny configs only)."""
+    """Oracle: every expert on every token (tests / tiny configs only).
+    Where the experts are split over ``model``, each rank applies its own
+    to every token, weighed by its columns of the dense weights, and the
+    partial outputs are summed over ``model`` (the f / g placement of
+    :func:`_local_moe`)."""
     B, S, d = x.shape
     xt = x.reshape(-1, d)
-    w, idx, aux = _route(p["router"], xt, cfg.experts_per_token)
+    w, idx, aux = _route(p["router"], xt, cfg.experts_per_token,
+                         data_group=axis_group("batch"))
     dense_w = torch.zeros((xt.shape[0], cfg.n_experts), dtype=x.dtype,
                           device=x.device)
     dense_w.scatter_add_(1, idx.long(), w)
-    ys = _expert_ffn(p["experts"], xt[None].expand(
-        (cfg.n_experts,) + tuple(xt.shape)), cfg.act)      # [E, T, d]
-    y = torch.einsum("etd,te->td", ys, dense_w)
+    mgrp, first, n = _split_experts(p["experts"], cfg)
+    xe = xt
+    if mgrp is not None:
+        xe = coll.copy_to(xt, mgrp)
+        dense_w = coll.copy_to(dense_w, mgrp)[:, first:first + n]
+    ys = _expert_ffn(p["experts"], xe[None].expand(
+        (n,) + tuple(xe.shape)), cfg.act)                  # [E_loc, T, d]
+    y = coll.reduce_from(torch.einsum("etd,te->td", ys, dense_w), mgrp)
     if cfg.n_shared_experts:
         y = y + gated_mlp(p["shared"], xt, cfg.act)
     return y.reshape(B, S, d), aux
@@ -219,11 +304,13 @@ def _capacity(tokens: int, cfg: ModelConfig,
 
 def moe_block_local(p: Dict, cfg: ModelConfig, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort-scatter MoE without expert parallelism (single device)."""
+    """Sort-scatter MoE without expert parallelism. x: [B, S, d], this
+    rank's rows; the capacity is the global batch's (``B`` times the
+    ranks the rule ``batch`` splits the rows over)."""
     B, S, d = x.shape
     xt = x.reshape(-1, d)
     y, aux = _local_moe(xt, p["router"], p["experts"], cfg,
-                        _capacity(B * S, cfg))
+                        _capacity(B * axis_size("batch") * S, cfg))
     if cfg.n_shared_experts:
         y = y + gated_mlp(p["shared"], xt, cfg.act)
     return y.reshape(B, S, d), aux
@@ -236,6 +323,16 @@ def _axes_in_order(mesh, axes) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in axes)
 
 
+def _stored_ff_axes(mesh, ff_axes) -> Tuple[str, ...]:
+    """The mesh axes the installed rules store the expert ffn over
+    (``expert_ff``), in mesh order; ``ff_axes`` where none are
+    installed."""
+    rules = current_rules()
+    if rules is None:
+        return ff_axes
+    return _axes_in_order(mesh, entry_axes(rules.rules.get("expert_ff")))
+
+
 def moe_block_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, mesh,
                  batch_axes: Tuple[str, ...], model_axis: str = "model",
                  decode: bool = False, dispatch_dtype: str = "bfloat16",
@@ -245,22 +342,49 @@ def moe_block_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, mesh,
     (split over ``batch_axes``), whole over ``model``. Expert weights split
     over ``model_axis``; with ``ep2d`` (decode) the expert FFN dim is also
     split over the data axes, a weight layout that fits 100B+ MoEs for
-    serving. Returns (y [B_loc, S, d], aux), both whole over ``model``."""
+    serving. Returns (y [B_loc, S, d], aux), both whole over ``model``.
+
+    The weights come as the rules store them: the expert ffn split over
+    the axes the rule ``expert_ff`` names (the reference's ``--moe-ep2d``
+    maps it to ``data`` for every cell), or over ``ff_axes`` where no rules
+    are installed. Where that is fewer axes than decode's ``ff_axes`` (the
+    multi-pod mesh: ``data`` of ``(pod, data)``) each rank takes its chunk
+    of the stored shard over the rest; off decode the shard is gathered to
+    the whole ffn, layer by layer, with ``gather_to`` (its gradient a
+    reduce-scatter: each data rank's gradient of the whole comes from its
+    own tokens), as the reference's ``shard_map`` takes it whole."""
     E = cfg.n_experts
     tp = mesh.shape[model_axis]
     if E % tp:
         raise ValueError(f"{E} experts do not split over {tp} ranks")
     ff_axes = _axes_in_order(mesh, batch_axes) if (decode and ep2d) else ()
-    ff_loc = cfg.d_ff // (mesh.axis_size(ff_axes) if ff_axes else 1)
-    want = (E // tp, cfg.d_model, ff_loc)
+    stored = _stored_ff_axes(mesh, ff_axes)
+    want = (E // tp, cfg.d_model, cfg.d_ff // mesh.axis_size(stored)
+            if stored else cfg.d_ff)
     if tuple(p["experts"]["wi"].shape) != want:
         raise ValueError(
             f"expert weights of local shape {tuple(p['experts']['wi'].shape)}"
             f"; this path ({'decode' if decode else 'train / prefill'}"
-            f"{', ep2d' if ff_axes else ''}) computes on {want}")
+            f"{', ep2d' if ff_axes else ''}, expert_ff stored over "
+            f"{stored or None}) computes on {want}")
+    ex = p["experts"]
+    if ff_axes and stored != ff_axes:
+        if not set(stored) <= set(ff_axes):
+            raise ValueError(f"expert_ff stored over {stored}, which decode's "
+                             f"ffn split over {ff_axes} does not hold")
+        rest = mesh.group(tuple(a for a in ff_axes if a not in stored))
+        ex = {"wi": coll.chunk(ex["wi"], 2, rest),
+              "wg": coll.chunk(ex["wg"], 2, rest),
+              "wo": coll.chunk(ex["wo"], 1, rest)}
+    elif not ff_axes and stored:
+        grp = mesh.group(stored)
+        ex = {"wi": coll.gather_to(ex["wi"], 2, grp),
+              "wg": coll.gather_to(ex["wg"], 2, grp),
+              "wo": coll.gather_to(ex["wo"], 1, grp)}
     body = _ep_gather if decode else _ep_a2a
-    y, aux = body(x, p, cfg, mesh, model_axis, batch_axes, ff_axes,
-                  dispatch_dtype, capacity_factor)
+    y, aux = body(x, {"router": p["router"], "experts": ex}, cfg, mesh,
+                  model_axis, batch_axes, ff_axes, dispatch_dtype,
+                  capacity_factor)
     if cfg.n_shared_experts:
         y = y + gated_mlp(p["shared"], x, cfg.act)
     return y, aux

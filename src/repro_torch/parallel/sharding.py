@@ -78,13 +78,16 @@ class NamedSharding:
     mesh: Any
     spec: P
 
+    def __post_init__(self):
+        # as the reference's NamedSharding refuses it when it is made
+        used = [a for e in self.spec for a in entry_axes(e)]
+        if len(set(used)) != len(used):
+            raise ValueError(f"spec {self.spec} names an axis twice")
+
     def _entries(self, ndim: int):
         if len(self.spec) > ndim:
             raise ValueError(f"spec {self.spec} has more entries than the "
                              f"tensor's {ndim} dims")
-        used = [a for e in self.spec for a in entry_axes(e)]
-        if len(set(used)) != len(used):
-            raise ValueError(f"spec {self.spec} names an axis twice")
         return tuple(self.spec) + (None,) * (ndim - len(self.spec))
 
     def local_shape(self, shape) -> Tuple[int, ...]:

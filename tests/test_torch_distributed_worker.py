@@ -37,11 +37,12 @@ from repro_torch.checkpoint import restore, save  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.elastic import elastic_restore, shrink_mesh  # noqa
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, mesh_over  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
-from repro_torch.models.common import ShardingRules, default_rules  # noqa
+from repro_torch.models.common import (ShardingRules,  # noqa: E402
+                                       default_rules, sharding_ctx)
 from repro_torch.models.transformer import Runtime  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.optim.compression import init_error_state  # noqa: E402
@@ -55,6 +56,9 @@ WORLD, DATA, MODEL = 8, 2, 4
 #: the reference's multi-device tests inflate the capacity (no drops), so
 #: the expert-parallel and the single-device dispatch keep the same pairs
 CAPACITY = 8.0
+#: the reference's own capacity factor, which the local-dispatch cases run
+#: at (their routers skewed, so the global capacity drops pairs)
+REF_CAPACITY = 1.25
 LR = 1e-3
 
 
@@ -370,6 +374,188 @@ def case_serve(workdir, out):
         out[f"serve/logits_mesh/{i}"] = by_rows.gather(g).numpy()
 
 
+#: the MoE dispatch on split experts on the 2 x 4 mesh: arch -> reference
+#: case (routers skewed, CAPACITY_FACTOR 1.25)
+SPLIT_EXPERT_ARCHS = ("dbrx-132b", "deepseek-v3-671b")
+
+
+def _count_drops(fn):
+    """(fn(), pairs the one-device dispatch dropped while it ran)"""
+    dropped = []
+    orig = moe._combine
+
+    def counting(out_buf, meta, w, T, k):
+        dropped.append(int((~meta[3]).sum()))
+        return orig(out_buf, meta, w, T, k)
+    moe._combine = counting
+    try:
+        return fn(), sum(dropped)
+    finally:
+        moe._combine = orig
+
+
+def case_split_experts(impl, workdir, mesh, out):
+    """``moe_impl`` "local" or "dense" with the experts split over model's
+    four ranks and the rows over data's two, at the reference's capacity
+    factor: loss and gradients against one device (the one-device pairs
+    the local dispatch drops counted), and for "local" the first layer's
+    block at the mesh's global slots against one device's on the whole
+    batch, beside the per-rank capacity and slots of each data rank's rows
+    alone (the witness that the check sees the fault)."""
+    old = moe.CAPACITY_FACTOR
+    moe.CAPACITY_FACTOR = REF_CAPACITY
+    try:
+        for arch in SPLIT_EXPERT_ARCHS:
+            name = f"moe_{impl}/{arch}"
+            cfg = reduced(arch)
+            ref, rest = load(workdir, f"moe_{arch}")
+            full = convert.params_from_jax(ref, cfg, device="cpu")
+            batch = {"tokens": rest["tokens"]}
+            rt1 = Runtime(moe_impl=impl)
+            (g1, l1), drops = _count_drops(
+                lambda: grads_of(cfg, rt1, full, batch))
+            rt = Runtime(tp=MODEL, mesh=mesh, moe_impl=impl)
+            specs = M.param_specs(cfg, rt)
+            mine = tree_map(lambda t, sh: sh.shard(t), full,
+                            named_sharding_tree(specs, mesh))
+            g4, l4 = grads_of(cfg, rt, mine, {"tokens": rows(batch["tokens"],
+                                                             mesh)})
+            out[f"{name}/loss_1"] = np.float64(l1)
+            out[f"{name}/loss_mesh"] = np.float64(l4)
+            out[f"{name}/dropped_1"] = np.int64(drops)
+            out.update(flat_np(g1, f"{name}/grad_1"))
+            out.update(flat_np(gathered(g4, specs, mesh), f"{name}/grad_mesh"))
+            if impl != "local":
+                continue
+            layer = next(i for i, lp in enumerate(full["layers"])
+                         if "router" in lp["mlp"])
+            x = full["emb"][batch["tokens"]]
+            with torch.no_grad():
+                whole, _ = moe.moe_block_local(full["layers"][layer]["mlp"],
+                                               cfg, x)
+                half = x.shape[0] // DATA
+                per_rank = torch.cat([moe.moe_block_local(
+                    full["layers"][layer]["mlp"], cfg,
+                    x[r * half:(r + 1) * half])[0] for r in range(DATA)])
+                with sharding_ctx(default_rules(), mesh):
+                    y, _ = moe.moe_block_local(mine["layers"][layer]["mlp"],
+                                               cfg, rows(x, mesh))
+                y = NamedSharding(mesh, default_rules().mesh_axes(
+                    ["batch"])).gather(y)
+            out[f"{name}/block_scale"] = np.float64(float(whole.abs().max()))
+            out[f"{name}/block_mesh_err"] = np.float64(
+                float((y - whole).abs().max()))
+            out[f"{name}/block_per_rank_err"] = np.float64(
+                float((per_rank - whole).abs().max()))
+    finally:
+        moe.CAPACITY_FACTOR = old
+
+
+def case_ep2d_train(workdir, mesh, out):
+    """dbrx-132b reduced on the 2 x 4 mesh under the ep2d rules (the
+    experts' ffn stored over data, as --moe-ep2d stores it for every cell):
+    a prefill through impl="ep" (each layer's ffn gathered whole) against
+    one device, two train steps with whole moments (zero1=False) against
+    two on one device, the moments' local shapes, a save and
+    elastic_restore bit for bit, and the refusals of ZeRO-1 and of int8
+    compression."""
+    cfg = reduced("dbrx-132b")
+    ref, rest = load(workdir, "serve")
+    full = convert.params_from_jax(ref, cfg, device="cpu")
+    rules = ShardingRules(rules={**default_rules().rules,
+                                 "expert_ff": "data"})
+    rt = Runtime(tp=MODEL, mesh=mesh, moe_impl="ep", moe_ep2d_decode=True,
+                 moe_capacity_factor=CAPACITY)
+    specs = M.param_specs(cfg, rt, rules=rules)
+    mine = tree_map(lambda t, sh: sh.shard(t), full,
+                    named_sharding_tree(specs, mesh))
+    prompt = rest["prompt"]
+    with torch.no_grad():
+        want, _ = D.prefill(cfg, Runtime(), full, {"tokens": prompt}, 24)
+        got, _ = steps.make_prefill_step(cfg, rt, 24, rules)(
+            mine, {"tokens": rows(prompt, mesh)})
+    out["ep2d_train/prefill_logits_1"] = want.numpy()
+    out["ep2d_train/prefill_logits_mesh"] = NamedSharding(
+        mesh, rules.mesh_axes(["batch"])).gather(got).numpy()
+    opt = OptConfig(lr=LR)
+    batches = [rest["tokens"], rest["tokens"].flip(0)]
+    s1 = steps.init_train_state(cfg, Runtime(), full)
+    step1 = steps.make_train_step(cfg, Runtime(), opt)
+    s4 = steps.init_train_state(cfg, rt, mine, rules, zero1=False)
+    step4 = steps.make_train_step(cfg, rt, opt, rules, zero1=False)
+    for i, toks in enumerate(batches):
+        s1, m1 = step1(s1, {"tokens": toks})
+        s4, m4 = step4(s4, {"tokens": rows(toks, mesh)})
+        out[f"ep2d_train/loss_1/{i}"] = np.float64(float(m1["loss"]))
+        out[f"ep2d_train/loss_mesh/{i}"] = np.float64(float(m4["loss"]))
+    out.update(flat_np(s1["params"], "ep2d_train/params_1"))
+    out.update(flat_np(gathered(s4["params"], specs, mesh),
+                       "ep2d_train/params_mesh"))
+    wi = s4["opt"]["m"]["layers"][0]["mlp"]["experts"]["wi"]
+    out["ep2d_train/moment_wi_shape"] = np.array(list(wi.shape))
+    out["ep2d_train/moments_as_params"] = np.bool_(all(
+        m.shape == p.shape for m, p in zip(
+            tree_leaves(s4["opt"]["m"]) + tree_leaves(s4["opt"]["v"]),
+            tree_leaves(s4["params"]) * 2)))
+    sh = steps.train_state_shardings(cfg, rt, rules, zero1=False)
+    ckpt = os.path.join(workdir, "ckpt_ep2d")
+    save(ckpt, 2, s4, shardings=sh)
+    back, step, _ = elastic_restore(ckpt, cfg, rt, mesh, zero1=False,
+                                    rules=rules)
+    have = dict(leaves_with_paths(back))
+    bit = step == 2 and all(torch.equal(t, have[k]) and t.dtype ==
+                            have[k].dtype for k, t in leaves_with_paths(s4))
+    differ = coll.all_reduce(torch.tensor(0.0 if bit else 1.0),
+                             mesh.group(mesh.axis_names), op="max")
+    out["ep2d_train/restore_bit_for_bit"] = np.bool_(float(differ) == 0)
+    refusals = []
+    for o, zero1 in ((opt, True),
+                     (OptConfig(lr=LR, grad_compression="int8"), False)):
+        try:
+            steps.make_train_step(cfg, rt, o, rules, zero1)
+            refusals.append("")
+        except (ValueError, NotImplementedError) as e:
+            refusals.append(f"{type(e).__name__}: {e}")
+    out["ep2d_train/refusals"] = np.array(refusals)
+
+
+def case_ep2d_multi(workdir, out):
+    """One ep2d decode step of deepseek-v3-671b reduced on a (pod=2,
+    data=2, model=2) mesh of the eight ranks, the experts' ffn stored over
+    data alone (as --moe-ep2d's rule stores it) and each rank computing on
+    its pod's half of its data shard, from the one-device prefill's
+    state."""
+    mesh = mesh_over(range(WORLD), (2, 2, 2), ("pod", "data", "model"))
+    cfg = reduced("deepseek-v3-671b")
+    ref, rest = load(workdir, "ep2d")
+    full = convert.params_from_jax(ref, cfg, device="cpu")
+    toks = rest["tokens"]
+    rules = ShardingRules(rules={**default_rules(True).rules,
+                                 "expert_ff": "data"})
+    by_rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+    with torch.no_grad():
+        _, st1 = D.prefill(cfg, Runtime(), full, {"tokens": toks}, 16)
+        st_copy = tree_map(torch.clone, st1)
+        want, _ = D.decode_step(cfg, Runtime(), full, toks[:, :1],
+                                torch.tensor(8), st1)
+        rt = Runtime(tp=2, mesh=mesh, batch_axes=("pod", "data"),
+                     moe_impl="ep", moe_ep2d_decode=True,
+                     moe_capacity_factor=CAPACITY)
+        specs = M.param_specs(cfg, rt, rules=rules)
+        mine = tree_map(lambda t, sh: sh.shard(t), full,
+                        named_sharding_tree(specs, mesh))
+        st = tree_map(lambda t, sh: sh.shard(t), st_copy,
+                      named_sharding_tree(D.decode_state_specs(
+                          cfg, rt, 4, 16, rules=rules), mesh))
+        logits, _ = steps.make_decode_step(cfg, rt, rules)(
+            mine, by_rows.shard(toks[:, :1]), torch.tensor(8), st)
+        logits = by_rows.gather(logits)
+    wi = mine["layers"][-1]["mlp"]["experts"]["wi"]
+    out["ep2d_multi/stored_wi_shape"] = np.array(list(wi.shape))
+    out["ep2d_multi/logits_1"] = want.numpy()
+    out["ep2d_multi/logits_mesh"] = logits.numpy()
+
+
 #: the families run data-parallel on a (data=8, model=1) mesh
 DP_ONLY = ("mamba2-2.7b", "recurrentgemma-2b", "llama-3.2-vision-11b",
            "seamless-m4t-large-v2")
@@ -671,6 +857,13 @@ def run(rank: int, workdir: str) -> None:
                 case_seq_cache(name, workdir, mesh, out)
         if "no_zero1" in cases:
             case_no_zero1(workdir, mesh, out)
+        for impl in ("local", "dense"):
+            if f"moe_{impl}" in cases:
+                case_split_experts(impl, workdir, mesh, out)
+        if "ep2d_train" in cases:
+            case_ep2d_train(workdir, mesh, out)
+        if "ep2d_multi" in cases:
+            case_ep2d_multi(workdir, out)
         dist.barrier()
         if rank == 0:
             np.savez(os.path.join(workdir, "out.npz"), **out)

@@ -49,16 +49,27 @@ CELLS = {"stablelm-12b": ("stablelm-12b", "all", ()),
          "dbrx-132b-f8": ("dbrx-132b", "prefill_32k",
                           ("--moe-dispatch", "f8")),
          "refused": ("stablelm-12b", "train_4k", ("--seq-shard",)),
-         "deepseek-v3-671b": ("deepseek-v3-671b", "decode_32k", ()),
+         "deepseek-v3-671b": ("deepseek-v3-671b", "prefill_32k,decode_32k",
+                              ()),
          "seq_cache": (",".join(("stablelm-12b", "deepseek-v3-671b",
                                  "llama-3.2-vision-11b",
                                  "seamless-m4t-large-v2", "mamba2-2.7b",
                                  "recurrentgemma-2b")), "decode_32k",
                        ("--decode-cache-shard", "seq")),
          "no_zero1": ("stablelm-12b,dbrx-132b", "train_4k", ("--no-zero1",)),
-         "refused_moe_local": ("dbrx-132b", "train_4k",
-                               ("--moe-impl", "local")),
-         "refused_moe_ep2d": ("dbrx-132b", "train_4k", ("--moe-ep2d",))}
+         "moe_local": ("dbrx-132b,deepseek-v3-671b", "all",
+                       ("--moe-impl", "local")),
+         "moe_dense": ("dbrx-132b,deepseek-v3-671b", "all",
+                       ("--moe-impl", "dense")),
+         "refused_moe_ep2d": ("dbrx-132b", "train_4k", ("--moe-ep2d",)),
+         "refused_moe_ep2d_multi": ("dbrx-132b", "train_4k",
+                                    ("--moe-ep2d", "--mesh-shape", "2,2,2")),
+         "ep2d_prefill": ("dbrx-132b,deepseek-v3-671b", "prefill_32k",
+                          ("--moe-ep2d",)),
+         "ep2d_train": ("dbrx-132b,deepseek-v3-671b", "train_4k",
+                        ("--moe-ep2d", "--no-zero1")),
+         "ep2d_multi": ("dbrx-132b,deepseek-v3-671b", "decode_32k",
+                        ("--moe-ep2d", "--mesh-shape", "2,2,2"))}
 
 
 @pytest.fixture(scope="module")
@@ -82,9 +93,9 @@ def runs(tmp_path_factory):
     return res
 
 
-def _record(runs, arch, shape, run=None):
+def _record(runs, arch, shape, run=None, mesh="single"):
     rc, log, out = runs[run or arch]
-    path = out / f"{arch}__{shape}__single.json"
+    path = out / f"{arch}__{shape}__{mesh}.json"
     assert path.exists(), log
     return json.loads(path.read_text())
 
@@ -421,19 +432,139 @@ def test_options_without_a_counterpart_fail_by_name(runs):
     assert "A9 (e)" in text
 
 
-@pytest.mark.parametrize("run,why", [
-    ("refused_moe_local", ("moe_impl='local'", "A9 (c)")),
-    ("refused_moe_ep2d", ("moe_ep2d_decode=True", "A9 (d)"))])
-def test_moe_settings_without_a_counterpart_fail_by_name(runs, run, why):
-    """``--moe-impl local`` on a mesh that splits the experts (A9 (c)) and
-    ``--moe-ep2d`` on a train cell (A9 (d)) fail the cell by name, and the
-    process exits non-zero, no record written."""
+@pytest.mark.parametrize("run,mesh", [("refused_moe_ep2d", "single"),
+                                      ("refused_moe_ep2d_multi", "multi")])
+def test_moe_settings_without_a_counterpart_fail_by_name(runs, run, mesh):
+    """``--moe-ep2d`` on a train cell with ZeRO-1 (the default) fails the
+    cell as the reference's does (its zero1_specs puts ``data`` on a spec
+    that holds it already: DuplicateSpecError), by a ValueError naming the
+    leaf and the axis, on both meshes; the process exits non-zero, no
+    record written."""
     rc, log, out = runs[run]
     assert rc != 0 and "1 dry-run failures" in log
     assert not list(out.glob("*.json"))
-    text = (out / "dbrx-132b__train_4k__single.error").read_text()
-    assert "NotImplementedError" in text
-    assert all(w in text for w in why), text
+    text = (out / f"dbrx-132b__train_4k__{mesh}.error").read_text()
+    assert "ValueError" in text and "'data' twice" in text, text
+    assert "experts/wi" in text and "zero1=False" in text
+
+
+# ---------------------------------------------------------------------------
+# the MoE on split experts: the local dispatch and the dense oracle on the
+# mesh, and the ep2d rules on prefill and train
+# ---------------------------------------------------------------------------
+def _moe_dims(arch):
+    """(reduced config, MoE layers, tokens a data rank, capacity of the
+    global batch, the all-to-all path's capacity a rank) of prefill_32k on
+    MESH"""
+    from repro_torch.models.moe import _capacity
+    cfg = get_config(arch).reduced()
+    shape = SHAPES_BY_NAME["prefill_32k"].reduced()
+    dp, tp = MESH
+    T = shape.global_batch * shape.seq_len
+    L = sum(1 for p, _ in leaves_with_paths(M.param_specs(cfg, Runtime(
+        tp=tp)), is_leaf=is_spec) if p.startswith("layers/")
+        and p.endswith("mlp/router"))
+    return (cfg, L, T // dp, _capacity(T, cfg, 1.25),
+            _capacity(T // dp // tp, cfg, 1.25))
+
+
+def _expert_bytes(arch, layers_only=False):
+    """one device's bytes of the experts' weights, split over model only:
+    every MoE block's (the MTP block's too), or the decoder layers' alone
+    (what a prefill runs)"""
+    cfg = get_config(arch).reduced()
+    n = sum(1 for p, _ in leaves_with_paths(M.param_specs(cfg, Runtime(
+        tp=MESH[1])), is_leaf=is_spec) if p.endswith("experts/wi")
+        and (p.startswith("layers/") or not layers_only))
+    return n * 3 * cfg.n_experts // MESH[1] * cfg.d_model * cfg.d_ff * 2
+
+
+@pytest.mark.parametrize("impl", ["local", "dense"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_split_expert_records(runs, arch, impl):
+    """``--moe-impl local`` / ``dense`` on (data 2, model 4), one expert a
+    rank: every shape's record is written; on prefill_32k the dot flops
+    exceed the all-to-all path's by the experts' rows and the router's
+    tokens counted by hand: each local expert runs ``min(C, T_loc)`` rows
+    (local; C the global batch's capacity) or ``T_loc`` (dense), where the
+    all-to-all path runs ``tp * C_a2a``, and the router reads all
+    ``T_loc`` tokens, not ``T_loc / tp``."""
+    rc, log, _ = runs[f"moe_{impl}"]
+    assert rc == 0, log
+    for shape in [s.name for s in applicable_shapes(get_config(arch))]:
+        rec = _record(runs, arch, shape, f"moe_{impl}")
+        assert rec["overrides"]["moe_impl"] == impl
+        assert rec["parsed_cost"]["dot_flops"] > 0
+    cfg, L, T_loc, C, C_a2a = _moe_dims(arch)
+    dp, tp = MESH
+    rows = min(C, T_loc) if impl == "local" else T_loc
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    extra = L * (6 * d * ff * E // tp * (rows - tp * C_a2a)
+                 + 2 * d * E * (T_loc - T_loc // tp))
+    have = _record(runs, arch, "prefill_32k", f"moe_{impl}")
+    base = _record(runs, arch, "prefill_32k",
+                   None if arch == "dbrx-132b" else "deepseek-v3-671b")
+    assert have["parsed_cost"]["dot_flops"] == base["parsed_cost"][
+        "dot_flops"] + extra
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_ep2d_prefill_record(runs, arch):
+    """``--moe-ep2d`` on prefill_32k, (data 2, model 4): the input bytes a
+    device holds are the ``ep`` record's less exactly (data - 1) / data of
+    the experts' bytes; the dot flops are equal; each MoE layer gathers
+    its three expert weights over data (the all-gather bytes, charged
+    their local shard, up by the decoder layers' stored expert shards: the
+    MTP block's experts are held but not run)."""
+    rc, log, _ = runs["ep2d_prefill"]
+    assert rc == 0, log
+    have = _record(runs, arch, "prefill_32k", "ep2d_prefill")
+    base = _record(runs, arch, "prefill_32k",
+                   None if arch == "dbrx-132b" else "deepseek-v3-671b")
+    dp = MESH[0]
+    cut = _expert_bytes(arch) * (dp - 1) // dp
+    assert have["input_bytes_per_device"] == (
+        base["input_bytes_per_device"] - cut)
+    assert have["parsed_cost"]["dot_flops"] == base["parsed_cost"][
+        "dot_flops"] > 0
+    L = _moe_dims(arch)[1]
+    hc, bc = have["collectives"], base["collectives"]
+    assert hc["__counts__"]["all-gather"] == (
+        bc["__counts__"].get("all-gather", 0) + 3 * L)
+    assert hc["all-gather"] == bc.get("all-gather", 0) + (
+        _expert_bytes(arch, layers_only=True) // dp)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_ep2d_train_and_multi_pod_decode_records(runs, arch):
+    """``--moe-ep2d --no-zero1`` on train_4k writes its record: for
+    dbrx-132b the dot flops of the whole-moment ``ep`` record, and the
+    input bytes less (data - 1) / data of the experts' parameters (bf16)
+    and of their two f32 moments; the experts' gradients are
+    reduce-scattered over data (gather_to's backward), not all-reduced.
+    ``--moe-ep2d`` on decode_32k on (pod 2, data 2, model 2) writes its
+    record."""
+    for run in ("ep2d_train", "ep2d_multi"):
+        rc, log, _ = runs[run]
+        assert rc == 0, log
+    rec = _record(runs, arch, "decode_32k", "ep2d_multi", mesh="multi")
+    assert rec["chips"] == 8 and rec["parsed_cost"]["dot_flops"] > 0
+    have = _record(runs, arch, "train_4k", "ep2d_train")
+    assert have["overrides"]["zero1"] is False
+    if arch != "dbrx-132b":
+        assert have["parsed_cost"]["dot_flops"] > 0
+        return
+    base = _record(runs, arch, "train_4k", "no_zero1")
+    assert have["parsed_cost"]["dot_flops"] == base["parsed_cost"][
+        "dot_flops"] > 0
+    dp, L = MESH[0], _moe_dims(arch)[1]
+    cut = _expert_bytes(arch) * (dp - 1) // dp
+    assert have["input_bytes_per_device"] == (
+        base["input_bytes_per_device"] - cut - 2 * 2 * cut)
+    hc, bc = have["collectives"]["__counts__"], base["collectives"][
+        "__counts__"]
+    assert hc.get("reduce-scatter", 0) == bc.get("reduce-scatter", 0) + 3 * L
+    assert hc["all-reduce"] == bc["all-reduce"] - 3 * L
 
 
 # ---------------------------------------------------------------------------

@@ -458,3 +458,48 @@ def test_whole_moment_specs_match_the_reference(arch, multi_pod):
             assert (shape_g, dtype_g) == (w.shape, w.dtype) == (
                 w.shape, "float32"), path
             assert tuple(spec_g) == tuple(w.spec) == tuple(p_specs[path])
+
+
+# ---------------------------------------------------------------------------
+# the ep2d rules (--moe-ep2d: the expert ffn stored over data) on train
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_ep2d_train_state_specs_match_the_reference(arch, multi_pod):
+    """Under the rules ``--moe-ep2d`` installs (``expert_ff -> data``):
+    ``train_state_shardings(zero1=False)`` binds the moments to the specs
+    of the reference's ``abstract_state(zero1=False)``, leaf for leaf, the
+    expert ffn split over data among them; with ZeRO-1 both sides raise
+    (the reference's DuplicateSpecError, the port's ValueError naming the
+    leaf and the axis)."""
+    cfg, rcfg = _cfg(arch, False)
+    shape_r, names = MESHES[multi_pod]
+    rmesh, mesh = RefAbstractMesh(shape_r, names), AbstractMesh(shape_r,
+                                                                 names)
+    batch_axes = ("pod", "data") if multi_pod else ("data",)
+    rrules = ref_rules(multi_pod)
+    rrules = type(rrules)(rules={**rrules.rules, "expert_ff": "data"})
+    rules = default_rules(multi_pod)
+    rules = type(rules)(rules={**rules.rules, "expert_ff": "data"})
+    rt = Runtime(tp=16, mesh=mesh, batch_axes=batch_axes)
+    ref_state = ref_steps.abstract_state(
+        rcfg, RefRuntime(tp=16, mesh=rmesh), rmesh, rrules, zero1=False)
+    sh = steps.train_state_shardings(cfg, rt, rules, zero1=False)
+    split = 0
+    for k in ("m", "v"):
+        want = dict(leaves_with_paths(_ref_tree(ref_state["opt"][k], cfg,
+                                                "params")))
+        got = dict(leaves_with_paths(sh["opt"][k]))
+        assert want.keys() == got.keys()
+        for path, w in want.items():
+            assert tuple(got[path].spec) == tuple(w.spec), path
+            split += "data" in tuple(got[path].spec)
+    assert split == 2 * 3 * sum(1 for p in dict(leaves_with_paths(
+        sh["params"])) if p.endswith("experts/wi"))
+    with pytest.raises(Exception, match="(?i)duplicate"):
+        ref_steps.abstract_state(rcfg, RefRuntime(tp=16, mesh=rmesh), rmesh,
+                                 rrules, zero1=True)
+    with pytest.raises(ValueError, match="experts/wi.*'data' twice"):
+        steps.train_state_shardings(cfg, rt, rules, zero1=True)
+    with pytest.raises(ValueError, match="twice"):
+        steps.abstract_state(cfg, rt, mesh, rules, zero1=True)
