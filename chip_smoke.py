@@ -95,8 +95,9 @@ call:
       (with ZeRO-1 and with whole moments, --no-zero1), dbrx-132b
       prefill_32k, mamba2-2.7b prefill_32k and qwen2.5-14b decode_32k
       (unsplit and with --decode-cache-shard seq) on the 256-rank mesh,
-      deepseek-v3-671b decode_32k on the 512-rank one, each in a process of
-      its own on a
+      deepseek-v3-671b decode_32k on the 512-rank one, stablelm-12b
+      train_4k reduced on a (2, 4) mesh with and without --seq-shard, each
+      in a process of its own on a
       fake process group and meta tensors, off the card: records written,
       finite and positive, the model's flops at most 1.05x the counted; the
       split cache's record the unsplit one's less (model - 1) / model of
@@ -104,7 +105,9 @@ call:
       unsplit's plus the combine's, counted by hand; the whole-moment
       record's dot flops the ZeRO-1 one's, its gradients all-reduced where
       ZeRO-1 reduce-scatters them and its moments the parameters' shards;
-      (b) one more step of the training cell counted on the card and on
+      the --seq-shard record's dot flops and input bytes the default's,
+      its temp bytes lower, each activation all-reduce a reduce-scatter
+      and an all-gather, counted by hand; (b) one more step of the training cell counted on the card and on
       meta tensors: dot flops and collective bytes equal, bytes and
       elementwise flops equal or the ops that differ named; its roofline on
       H100_SXM beside the measured step and max_memory_allocated; (c)
@@ -158,7 +161,15 @@ call:
       (the gates of (d), each rank's flash launches equal to the local
       path's); then, cut in width, two ep2d train steps with whole moments
       against the same steps with the experts' ffn whole (the gates of
-      (g)) and one device's losses
+      (g)) and one device's losses; (i) the same processes as a 2 x 2 mesh
+      under the rule seq -> model (sequence parallelism, --seq-shard):
+      stablelm-12b (2 of 40 layers), dbrx-132b through impl="ep" (cut as
+      (h)'s train leg) and the four families of (e), in f32: the loss and
+      every gradient leaf against the same mesh without the rule and the
+      local path (the gates of (e); the norms' gains, which each rank
+      applies to its own rows, among the leaves), and
+      seamless-m4t-large-v2's prefill (its encoder split over the frames)
+      and 4 decode steps under the rule with (e)'s gates
 
 Run it with no arguments from the root of the checkout:
 
@@ -3012,6 +3023,11 @@ DRYRUN_SETTINGS = {("qwen2.5-14b", "decode_32k", "single"): (
                        "seq", ("--decode-cache-shard", "seq")),
                    ("stablelm-12b", "train_4k", "single"): (
                        "no_zero1", ("--no-zero1",))}
+#: (a)'s sequence-parallel pair at the reduced size on a fake (2, 4) mesh:
+#: the cell with --seq-shard (the rule seq -> model) and without, (cell,
+#: the flags both take); the gate counts the collectives by hand
+DRYRUN_SEQ_SHARD = (("stablelm-12b", "train_4k", "single"),
+                    ("--reduced", "--mesh-shape", "2,4"))
 #: (a)'s cells on the host: the longest (dbrx-132b's prefill, 40 layers of
 #: the plain blocked attention at 32k tokens) takes about 40 s
 DRYRUN_CELL_TIMEOUT_S = 600
@@ -3030,8 +3046,11 @@ def _dryrun_cells(sizes: dict, out_dir: str):
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
                CUDA_VISIBLE_DEVICES="")
     procs = []
+    sp_cell, sp_flags = DRYRUN_SEQ_SHARD
     cells = [(c, "", ()) for c in DRYRUN_CELLS] + [
-        (c, tag, flags) for c, (tag, flags) in DRYRUN_SETTINGS.items()]
+        (c, tag, flags) for c, (tag, flags) in DRYRUN_SETTINGS.items()] + [
+        (sp_cell, "reduced", sp_flags),
+        (sp_cell, "seq_shard", (*sp_flags, "--seq-shard"))]
     for (arch, shape, mesh), tag, flags in cells:
         cmd = [sys.executable, "-W", "ignore", "-m",
                "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
@@ -3099,6 +3118,52 @@ def _dryrun_seq_cache_gates(base: dict, rec: dict, sizes: dict) -> dict:
           f"the split cache's dry-run record is not the unsplit one's less "
           f"its cache's bytes, or its collectives are not the combine's: "
           f"{out}")
+    return out
+
+
+def _dryrun_seq_shard_gates(base: dict, rec: dict) -> dict:
+    """The --seq-shard record (the rule seq -> model) against its cell's
+    default record, both at the reduced size on a fake (2, 4) mesh, ZeRO-1
+    and full remat: the dot flops and the input bytes a device equal, the
+    peak of the step's live intermediates lower, and the collectives
+    counted by hand from the config. Each of the default's 2 + 5 L
+    activation all-reduces of ``W = [tokens, d]`` bf16 (the embedding's,
+    attention's and the mlp's forward sums, attention's again in the
+    recompute, the two entries' gradients backward, the loss head's
+    gradient) becomes a reduce-scatter charged ``W`` and an all-gather
+    charged its local shard ``W / tp`` (``core/hlo_cost.py``'s
+    convention); the recompute gathers each layer's mlp input again (L
+    all-gathers more); each norm's gain (2 L + 1) has its gradient
+    all-reduced over model."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    cfg = get_config(rec["arch"]).reduced()
+    sh = SHAPES_BY_NAME[rec["shape"]].reduced()
+    dp, tp = (int(n) for n in DRYRUN_SEQ_SHARD[1][-1].split(","))
+    L, d = cfg.n_layers, cfg.d_model
+    W = sh.global_batch // dp * sh.seq_len * d * 2
+    n_act, n_norm = 2 + 5 * L, 2 * L + 1
+    add = {"all-reduce": (n_norm - n_act, n_norm * d * 2 - n_act * W),
+           "reduce-scatter": (n_act, n_act * W),
+           "all-gather": (n_act + L, (n_act + L) * W // tp)}
+    cb, cr = base["collectives"], rec["collectives"]
+    colls = {k: [cr["__counts__"].get(k, 0), cr.get(k, 0),
+                 cb["__counts__"].get(k, 0) + add.get(k, (0, 0))[0],
+                 cb.get(k, 0) + add.get(k, (0, 0))[1]]
+             for k in sorted(set(cb["__counts__"]) | set(cr["__counts__"])
+                             | set(add))}
+    out = {"input_bytes_per_device": [base["input_bytes_per_device"],
+                                      rec["input_bytes_per_device"]],
+           "dot_flops": [base["parsed_cost"]["dot_flops"],
+                         rec["parsed_cost"]["dot_flops"]],
+           "temp_bytes": [base["memory"]["temp_bytes"],
+                          rec["memory"]["temp_bytes"]],
+           "collectives_count_bytes_want": colls}
+    check(out["input_bytes_per_device"][0] == out["input_bytes_per_device"][1]
+          and out["dot_flops"][0] == out["dot_flops"][1] > 0
+          and out["temp_bytes"][1] < out["temp_bytes"][0]
+          and all(v[0] == v[2] and v[1] == v[3] for v in colls.values()),
+          f"the --seq-shard dry-run record is not its default's with each "
+          f"activation all-reduce a reduce-scatter and an all-gather: {out}")
     return out
 
 
@@ -3418,6 +3483,11 @@ def dryrun_phase(device, sizes: dict, keep: dict) -> dict:
                   **gates[tag](records[(*cell, "")], records[(*cell, tag)],
                                sizes)}
             for cell, (tag, flags) in DRYRUN_SETTINGS.items()}
+        sp_cell, sp_flags = DRYRUN_SEQ_SHARD
+        report["settings"]["seq_shard"] = {
+            "cell": list(sp_cell), "flags": [*sp_flags, "--seq-shard"],
+            **_dryrun_seq_shard_gates(records[(*sp_cell, "reduced")],
+                                      records[(*sp_cell, "seq_shard")])}
     finally:
         for _, _, proc in procs:
             if proc.poll() is None:
@@ -3565,6 +3635,30 @@ DIST_SPLIT_TRAIN_WHY = (
     "and the vocabulary to 8192 leave 0.59 B: 3.1 GB a rank, 9.4 GB for "
     "one device")
 DIST_SPLIT_TRAIN_STEPS = 2
+
+#: (i): sequence parallelism (the rule seq -> model that --seq-shard
+#: installs: the training trunks and the encoder keep each rank's S / tp
+#: rows between their blocks) on the same four processes as a
+#: DIST_GLOO_MESH mesh, at full width: each family's f32 loss forward and
+#: backward under the rule, against the same mesh without it and the local
+#: path on rank 0; arch -> (cuts, the MoE route on the mesh)
+DIST_SP_FAMILIES = {"stablelm-12b": ({"n_layers": 2}, "local"),
+                    "dbrx-132b": (DIST_SPLIT_TRAIN_CUTS, "ep"),
+                    **{a: (c, "local") for a, c in DIST_FAMILIES.items()}}
+DIST_SP_WHY = ("time and memory: four processes share one card, and rank 0 "
+               "holds the local path's whole f32 weights and gradients "
+               "beside its shards (stablelm-12b at 2 of 40 layers with the "
+               "vocabulary whole: 6.3 GB of each); dbrx-132b cut as (h)'s "
+               "train leg, the SSM, hybrid, VLM and enc-dec as (e)")
+#: (i)'s serving leg: the family whose prefill reads the rule (its encoder
+#: splits the frames), a prefill and DIST_GLOO_STEPS decode steps in bf16
+#: and f32 under the rule, with (e)'s gates against the local path
+DIST_SP_SERVE = "seamless-m4t-large-v2"
+#: the leaves each rank applies to its own rows only under the rule (the
+#: residual norms' gains, the VLM's tanh gates, MTP's): their gradients are
+#: summed over model, and the report names the worst of them
+DIST_SP_ROW_LEAVES = ("ln1", "ln2", "ln_x", "ln_m", "ln_f", "gate_a",
+                      "gate_m", "ln_h", "ln_e", "w_proj")
 
 
 def _flash_limit_share(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4030,11 +4124,117 @@ def _gloo_rank(rank: int, world: int, store_path: str, out_path: str,
         dist.destroy_process_group()
 
 
+def _memory_now(device) -> dict:
+    """Free memory on the card (every process's use counted, by
+    cudaMemGetInfo; None off the card), the host's MemAvailable and this
+    container's cgroup use, in GB."""
+    out = {"device_free_gb": None, "host_available_gb": None,
+           "cgroup_used_gb": None}
+    if device.type == "cuda":
+        with contextlib.suppress(RuntimeError):
+            out["device_free_gb"] = torch.cuda.mem_get_info(device)[0] / 1e9
+    with contextlib.suppress(OSError, ValueError, IndexError):
+        with open("/proc/meminfo") as f:
+            kb = next(int(line.split()[1]) for line in f
+                      if line.startswith("MemAvailable:"))
+        out["host_available_gb"] = kb * 1024 / 1e9
+    with contextlib.suppress(OSError, ValueError):
+        with open("/sys/fs/cgroup/memory.current") as f:
+            out["cgroup_used_gb"] = int(f.read()) / 1e9
+    return out
+
+
+class _Headroom:
+    """The least free memory on the card and on the host, and the most the
+    container's cgroup held, while a gloo phase's ranks run: sampled every
+    0.2 s on a thread of the parent (:func:`_memory_now`)."""
+
+    def __init__(self, device):
+        import threading
+        self.device = device
+        self.samples = 0
+        self.worst = {"device_free_gb": None, "host_available_gb": None,
+                      "cgroup_used_gb": None}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _sample(self) -> None:
+        for k, v in _memory_now(self.device).items():
+            if v is not None:
+                w = self.worst[k]
+                pick = max if k == "cgroup_used_gb" else min
+                self.worst[k] = v if w is None else pick(w, v)
+        self.samples += 1
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.2):
+            self._sample()
+
+    def stop(self) -> dict:
+        if not self._stop.is_set():
+            self._stop.set()
+            self._thread.join()
+            self._sample()
+        return {**self.worst, "samples": self.samples}
+
+
+#: each gloo phase's memory headroom (:class:`_Headroom`), by its name
+GLOO_HEADROOM: dict = {}
+#: a gloo rank's error text that only says a peer went away first
+PEER_GONE = ("Connection closed by peer", "Connection reset by peer",
+             "Broken pipe")
+
+
+def _gloo_entry(rank: int, target, world: int, store_path: str,
+                out_path: str, device_type: str, sizes: dict) -> None:
+    """Run one gloo rank's ``target``; if it raises, write its traceback and
+    the memory it saw to ``<out_path>.rank<rank>.err`` first, so that the
+    parent can name the rank that failed first."""
+    try:
+        target(rank, world, store_path, out_path, device_type, sizes)
+    except BaseException:
+        import traceback
+        text = traceback.format_exc()
+        device = (torch.device("cuda", 0) if device_type == "cuda"
+                  else torch.device("cpu"))
+        with open(f"{out_path}.rank{rank}.err", "w") as f:
+            f.write(f"{text}memory when it failed: {_memory_now(device)}\n")
+        raise
+
+
+def _gloo_failure(name: str, out_path: str, codes: list,
+                  headroom: dict) -> str:
+    """Print every failed rank's traceback to stderr, the rank that failed
+    first (its error not one of PEER_GONE) last, and return one line that
+    names it, its error, each rank's exit code and the phase's headroom."""
+    errs = {}
+    for rank in range(len(codes)):
+        path = f"{out_path}.rank{rank}.err"
+        if os.path.exists(path):
+            with open(path) as f:
+                errs[rank] = f.read()
+    first = [r for r, t in errs.items() if not any(s in t for s in PEER_GONE)]
+    for rank in sorted(errs, key=lambda r: r in first):
+        print(f"== ({name}) rank {rank} (exit code {codes[rank]}):\n"
+              f"{errs[rank]}", file=sys.stderr)
+    lasts = {r: next((line for line in reversed(errs[r].splitlines())
+                      if line and not line.startswith("memory when")), "")
+             for r in first}
+    why = (f"rank {first[0]} failed first: {lasts[first[0]]}" if first else
+           "no rank left an error of its own (a rank killed, or every error "
+           "names a peer gone)")
+    return (f"({name}) a gloo rank failed: {why}; exit codes by rank "
+            f"{codes}; headroom over the phase {headroom}")
+
+
 def _spawn_gloo(target, name: str, device, sizes: dict):
     """``target(rank, world, store, out_path, device_type, sizes)`` on the
     DIST_GLOO_MESH ranks, spawned with torch.multiprocessing, a FileStore
     and rank 0's ``out_path`` under ``build/<name>``: (rank 0's report,
-    the wall seconds, ``out_path``)."""
+    the wall seconds, ``out_path``). The memory headroom while they run is
+    kept in GLOO_HEADROOM[name]; if a rank fails, the error names the rank
+    that failed first (:func:`_gloo_failure`)."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -4043,10 +4243,33 @@ def _spawn_gloo(target, name: str, device, sizes: dict):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     out_path = os.path.join(work, "rank0.json")
+    watch = _Headroom(device)
     t0 = time.perf_counter()
-    mp.start_processes(target, args=(
-        world, os.path.join(work, "store"), out_path, device.type, sizes),
-        nprocs=world, join=True, start_method="spawn")
+    # four ranks and the parent share the one card: each rank's allocator
+    # maps its blocks as expandable segments (unless the caller chose a
+    # setting), so that its cache holds little beyond what it has allocated
+    mine = "PYTORCH_CUDA_ALLOC_CONF" not in os.environ
+    if mine:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ctx = mp.start_processes(_gloo_entry, args=(
+            target, world, os.path.join(work, "store"), out_path,
+            device.type, sizes), nprocs=world, join=False,
+            start_method="spawn")
+    finally:
+        if mine:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    try:
+        while not ctx.join():
+            pass
+    except Exception as exc:
+        for p in ctx.processes:
+            p.join()
+        raise RuntimeError(_gloo_failure(
+            name, out_path, [p.exitcode for p in ctx.processes],
+            watch.stop())) from exc
+    finally:
+        GLOO_HEADROOM[name] = watch.stop()
     wall = time.perf_counter() - t0
     with open(out_path) as f:
         return json.load(f), wall, out_path
@@ -5198,6 +5421,362 @@ def dist_gloo_split_experts(device, sizes: dict) -> dict:
                            "gated"}
 
 
+def _seq_rules():
+    """The default rules with the sequence split over model, as the
+    reference's run_cell installs them for --seq-shard."""
+    from repro_torch.models.common import ShardingRules, default_rules
+    return ShardingRules(rules={**default_rules().rules, "seq": "model"})
+
+
+def _sp_grads(cfg, rt, params, batch, rules, device):
+    """(gradient, loss, ms, GB) of ``loss_fn`` forward and backward on
+    this rank under ``rules`` (``None``: no mesh); the GB are the peak of
+    ``max_memory_allocated`` during the call above what was allocated when
+    it started (its gradients and activations, not the weights or what
+    the caller holds)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.common import sharding_ctx
+    start = 0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        start = torch.cuda.memory_allocated(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    with sharding_ctx(rules, rt.mesh):
+        g, metrics = steps_mod._grads(cfg, rt, params, batch)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = ((torch.cuda.max_memory_allocated(device) - start) / 1e9
+            if device.type == "cuda" else None)
+    return g, float(metrics["loss"]), ms, peak
+
+
+def _row_leaf(path: str) -> bool:
+    return path.rsplit("/", 1)[-1] in DIST_SP_ROW_LEAVES
+
+
+def _leaf_stats(h, w):
+    return torch.stack([(h - w).abs().max().float(), w.abs().max().float(),
+                        h.abs().max().float()])
+
+
+def _sp_leaf_shares(pairs, group, device) -> dict:
+    """Each leaf's distance over ``GRAD_SHARE * max|want|``, from (path,
+    have, want) this rank's shards of the same leaf (the max over
+    ``group``, every rank taking part; ``have`` may wait on the host, and
+    is brought to ``want``'s device one leaf at a time): the worst leaf,
+    the worst of the row-applied leaves, the zero leaves of ``have``."""
+    import torch.distributed as dist
+    paths = [p for p, _, _ in pairs]
+    stats = torch.stack([_leaf_stats(h.to(w.device), w)
+                         for _, h, w in pairs]).to(device)
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX, group=group)
+    stats = stats.cpu()
+    shares = {p: float(d / (DIST_FAMILIES_GRAD_SHARE * m)) if m > 0
+              else math.inf for p, (d, m, _) in zip(paths, stats.tolist())}
+    return _shares_report(shares, [p for p, (_, _, h) in zip(
+        paths, stats.tolist()) if not h > 0])
+
+
+def _shares_report(shares: dict, zero: list) -> dict:
+    worst = max(shares, key=shares.get)
+    rows = {p: v for p, v in shares.items() if _row_leaf(p)}
+    worst_row = max(rows, key=rows.get) if rows else None
+    return {"leaves": len(shares), "worst_share_of_limit": shares[worst],
+            "worst_leaf": worst, "row_leaves": len(rows),
+            "worst_row_leaf": worst_row,
+            "worst_row_leaf_share": rows.get(worst_row),
+            "zero_leaves": zero}
+
+
+def _gloo_seq_parallel(arch: str, rank: int, mesh, sizes, device) -> dict:
+    """One family of (i) on this rank: the f32 loss forward and backward
+    under the rule seq -> model and without it on the mesh (each rank's
+    gradient shards held leaf by leaf, before the mean over data), then
+    rank 0's local path, against which the mean of the rule's gradients,
+    gathered whole, is held; for DIST_SP_SERVE, then a bf16 and an f32
+    prefill and greedy decode steps under the rule against the local path.
+    Returns rank 0's report (the others': their times and peaks)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import default_rules
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import (NamedSharding,
+                                               named_sharding_tree)
+    from repro_torch.tree import leaves_with_paths, tree_leaves, tree_map
+    cuts, impl = DIST_SP_FAMILIES[arch]
+    cfg, reduced = serve_config(sizes, arch, cuts, DIST_SP_WHY)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    tp, B = mesh.shape["model"], DIST_GLOO_MESH[0]
+    S = sizes["dist_gloo_prompt"]
+    rules, seq = default_rules(), _seq_rules()
+    everyone = mesh.group(mesh.axis_names)
+    rows = NamedSharding(mesh, rules.mesh_axes(["batch"]))
+    g = torch.Generator(device=device)
+    g.manual_seed(DIST_FAMILIES_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=device, dtype=torch.int32)
+    fe = (draw_frontend(cfg, B, g, device) if cfg.frontend_seq else None)
+
+    def batch_of(dtype, tokens, shard):
+        b = {"tokens": tokens}
+        if fe is not None:
+            b["frontend"] = fe.to(getattr(torch, dtype))
+        return {k: rows.shard(v) for k, v in b.items()} if shard else b
+
+    impl_attn = _family_attn_impl(cfg, "float32")[0]
+    rt = Runtime(tp=tp, mesh=mesh, attn_impl=impl_attn, moe_impl=impl,
+                 moe_capacity_factor=DIST_GLOO_CAPACITY)
+    rep = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "tokens_a_row": S, "batch": B,
+           "moe_impl": impl if cfg.family == "moe" else None}
+    params = _family_params(cfg, rt, device, rules)
+    specs = model_mod.param_specs(cfg, rt)
+    local = batch_of("float32", toks, True)
+    # the first call pays the family's warm-up: the rule's run is timed
+    # (and its peak read) again after the unsplit one. Its gradients wait
+    # on the host (an exact copy): four ranks holding two gradient trees
+    # beside their weights filled the card (the VLM's 4.7 GB a tree a rank)
+    g_seq, loss_seq, ms_first, _ = _sp_grads(cfg, rt, params, local, seq,
+                                             device)
+    g_seq = tree_map(lambda t: t.cpu(), g_seq)
+    g_un, loss_un, ms_un, peak_un = _sp_grads(cfg, rt, params, local, rules,
+                                              device)
+    vs_unsplit = _sp_leaf_shares(
+        [(p, h, w) for (p, h), w in zip(leaves_with_paths(g_seq),
+                                        tree_leaves(g_un))], everyone,
+        device)
+    del g_un
+    _, _, ms_seq, peak_seq = _sp_grads(cfg, rt, params, local, seq, device)
+    del params
+    if device.type == "cuda":
+        # every rank's cache freed before rank 0 runs the local path alone
+        torch.cuda.empty_cache()
+    mine = {"loss_fwd_bwd_ms": {"seq": ms_seq, "unsplit": ms_un,
+                                "seq_first_call": ms_first},
+            "peak_above_start_gb": {"seq": peak_seq, "unsplit": peak_un}}
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, mine)
+    rep["mesh_by_rank"] = by_rank
+    g_local = loss_local = None
+    if rank == 0:
+        rt1 = Runtime(tp=tp, attn_impl=impl_attn)
+        params1 = _family_params(cfg, rt1, device)
+        with patched(moe_mod, "CAPACITY_FACTOR", DIST_GLOO_CAPACITY):
+            g_local, loss_local, ms1, peak1 = _sp_grads(
+                cfg, rt1, params1, batch_of("float32", toks, False), None,
+                device)
+        del params1
+        rep["local"] = {"loss_fwd_bwd_ms": ms1, "peak_above_start_gb": peak1}
+    # the rule's gradients averaged over data, gathered whole over model,
+    # each held against the local path's leaf on rank 0
+    dgrp, n = mesh.group("data"), mesh.shape["data"]
+    local_leaves = dict(leaves_with_paths(g_local)) if rank == 0 else {}
+    shares, zero = {}, []
+    for (path, t), sh in zip(leaves_with_paths(g_seq),
+                             tree_leaves(named_sharding_tree(specs, mesh))):
+        have = sh.gather(coll.all_reduce(t.to(device), dgrp) / n)
+        if rank == 0:
+            want = local_leaves[path]
+            lim = DIST_FAMILIES_GRAD_SHARE * float(want.abs().max())
+            shares[path] = (float((have - want).abs().max()) / lim
+                            if lim > 0 else math.inf)
+            if not bool(have.abs().max() > 0):
+                zero.append(path)
+        del have
+    del g_seq, g_local, local_leaves
+    if rank == 0:
+        rep["loss"] = {"seq": loss_seq, "unsplit": loss_un,
+                       "local": loss_local,
+                       "rel_diff_unsplit": abs(loss_seq - loss_un)
+                       / abs(loss_un),
+                       "rel_diff_local": abs(loss_seq - loss_local)
+                       / abs(loss_local)}
+        rep["grads_vs_unsplit"] = vs_unsplit
+        rep["grads_vs_local"] = _shares_report(shares, zero)
+    if arch == DIST_SP_SERVE:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        rep.update(_sp_serve(cfg, rank, mesh, rows, batch_of, toks, sizes,
+                             device))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
+def _sp_serve(cfg, rank: int, mesh, rows, batch_of, toks, sizes,
+              device) -> dict:
+    """(i)'s serving leg on this rank: DIST_SP_SERVE's prefill and greedy
+    decode steps in bf16 and f32 under the rule seq -> model (the encoder
+    split over the frames), then rank 0's local path fed the same tokens;
+    (e)'s logit and token gates and each rank's flash launches by call
+    shape against the local path's."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import Runtime
+    tp, S = mesh.shape["model"], sizes["dist_gloo_prompt"]
+    mesh_runs, local_runs, fed = {}, {}, []
+    for dt in DIST_GLOO_DTYPES:
+        run_cfg = dataclasses.replace(cfg, dtype=dt)
+        impl, _ = _family_attn_impl(cfg, dt)
+        rt = Runtime(tp=tp, mesh=mesh, attn_impl=impl)
+        params = _family_params(run_cfg, rt, device)
+        mesh_runs[dt] = _family_run(run_cfg, rt, params,
+                                    batch_of(dt, toks[:, :S], True), fed,
+                                    dt == DIST_GLOO_DTYPES[0], sizes, device,
+                                    rows, rules=_seq_rules())
+        del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {
+        dt: r["flash_launches_by_shape"] for dt, r in mesh_runs.items()})
+    if rank != 0:
+        return {"serve_flash_launches_by_rank": by_rank}
+    for dt in DIST_GLOO_DTYPES:
+        run_cfg = dataclasses.replace(cfg, dtype=dt)
+        rt1 = Runtime(tp=tp, attn_impl=_family_attn_impl(cfg, dt)[0])
+        params = _family_params(run_cfg, rt1, device)
+        local_runs[dt] = _family_run(run_cfg, rt1, params,
+                                     batch_of(dt, toks[:, :S], False), fed,
+                                     False, sizes, device)
+        del params
+    have = {dt: r["logits"] for dt, r in mesh_runs.items()}
+    want = {dt: r["logits"] for dt, r in local_runs.items()}
+    out = {"serve": {
+        **_logit_gates(have, want["bfloat16"], want["float32"],
+                       want["float32"]),
+        **_margin_tokens(want["bfloat16"], have["bfloat16"]),
+        "shapes_ok": all(
+            bool(torch.isfinite(a).all()) and a.shape == b.shape
+            for dt in DIST_GLOO_DTYPES for a, b in zip(have[dt], want[dt]))
+        and len(have["float32"]) == DIST_GLOO_STEPS + 1,
+        "prefill_ms": {dt: [mesh_runs[dt]["prefill_ms"],
+                            local_runs[dt]["prefill_ms"]]
+                       for dt in DIST_GLOO_DTYPES},
+        "decode_ms_per_step": {dt: [mesh_runs[dt]["decode_ms_per_step"],
+                                    local_runs[dt]["decode_ms_per_step"]]
+                               for dt in DIST_GLOO_DTYPES},
+        "flash_launches_by_rank": by_rank,
+        "local_flash_launches_by_shape": {
+            dt: r["flash_launches_by_shape"] for dt, r in local_runs.items()},
+        "flash_launches_equal_on_every_rank": {
+            dt: all(r[dt] == local_runs[dt]["flash_launches_by_shape"]
+                    for r in by_rank) for dt in DIST_GLOO_DTYPES}}}
+    return out
+
+
+def _gloo_sp_rank(rank: int, world: int, store_path: str, out_path: str,
+                  device_type: str, sizes: dict) -> None:
+    """One of the (i) ranks: gloo over ``device_type`` tensors on the one
+    card (or the CPU in the rehearsal), TF32 off: probe the collectives,
+    then, when gloo takes them all, each of DIST_SP_FAMILIES on a
+    DIST_GLOO_MESH mesh (:func:`_gloo_seq_parallel`); rank 0 writes the
+    reports, after each family."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    report = {"rank": rank}
+    try:
+        probe = _probe_collectives(None, device)
+        report["probe"] = {n: probe[n] for n in DIST_FAMILIES_COLLECTIVES}
+        report["refused"] = [n for n, v in report["probe"].items()
+                             if v != "ok"]
+        if not report["refused"]:
+            mesh = make_host_mesh(*DIST_GLOO_MESH, device_type=device_type)
+            report["families"] = {}
+            for arch in DIST_SP_FAMILIES:
+                t0 = time.perf_counter()
+                rep = _gloo_seq_parallel(arch, rank, mesh, sizes, device)
+                rep["seconds"] = time.perf_counter() - t0
+                report["families"][arch] = rep
+                if rank == 0:
+                    with open(out_path, "w") as f:
+                        json.dump(report, f)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gloo_seq_parallel(device, sizes: dict) -> dict:
+    """(i) four processes on the one card over gloo (DIST_GLOO_MESH),
+    started with torch.multiprocessing: sequence parallelism (the rule
+    seq -> model) in the training trunks and the encoder
+    (:func:`_gloo_seq_parallel`), for each of DIST_SP_FAMILIES the f32 loss
+    within DIST_FAMILIES_LOSS_RTOL of the same mesh's without the rule and
+    of the local path's, every gradient leaf within
+    DIST_FAMILIES_GRAD_SHARE * max|g| of both and nonzero, the row-applied
+    leaves (DIST_SP_ROW_LEAVES) among them; DIST_SP_SERVE's prefill and
+    decode steps under the rule with (e)'s gates, each rank's flash
+    launches by call shape equal to the local path's (on the card the
+    encoder's non-causal launches among them). Times and each rank's peak
+    memory with and without the rule are reported, not gated."""
+    import shutil
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rep, wall, out_path = _spawn_gloo(_gloo_sp_rank, "dist_seq_parallel",
+                                      device, sizes)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    check(not rep["refused"],
+          f"(i) gloo refused {rep['refused']} on {device.type} tensors: "
+          f"{rep['probe']}")
+    for arch, r in rep["families"].items():
+        check(max(r["loss"]["rel_diff_unsplit"], r["loss"]["rel_diff_local"])
+              <= DIST_FAMILIES_LOSS_RTOL,
+              f"(i) {arch}: the loss under the rule differs from the "
+              f"unsplit mesh's or the local path's: {r['loss']}")
+        for side in ("grads_vs_unsplit", "grads_vs_local"):
+            gr = r[side]
+            check(gr["worst_share_of_limit"] <= 1.0 and not gr["zero_leaves"]
+                  and gr["leaves"] > 5 and gr["row_leaves"] > 0,
+                  f"(i) {arch}: a gradient leaf under the rule is zero or "
+                  f"differs ({side}): {gr}")
+    sv = rep["families"][DIST_SP_SERVE]["serve"]
+    check(sv["shapes_ok"] and sv["tokens_equal"] == sv["tokens_compared"]
+          and sv["f32_share_of_limit"] <= 1.0
+          and sv["bf16_share_of_limit"] <= 1.0,
+          f"(i) {DIST_SP_SERVE}: the prefill and decode under the rule "
+          f"differ from the local path's: {sv}")
+    check(all(sv["flash_launches_equal_on_every_rank"].values())
+          and (device.type != "cuda" or any(
+              "noncausal" in k for k in sv["local_flash_launches_by_shape"][
+                  "bfloat16"])),
+          f"(i) {DIST_SP_SERVE}: a rank's flash launches differ from the "
+          f"local path's, or the encoder launched no non-causal kernel: {sv}")
+    return {"backend": "gloo",
+            "world": DIST_GLOO_MESH[0] * DIST_GLOO_MESH[1],
+            "mesh": dict(zip(("data", "model"), DIST_GLOO_MESH)),
+            "rules": "default + seq -> model", "device": device.type,
+            "probe": rep["probe"], "wall_s": wall,
+            "families": rep["families"],
+            "tolerance": (
+                f"f32 loss rtol {DIST_FAMILIES_LOSS_RTOL} of the unsplit "
+                f"mesh's and the local path's; each gradient leaf within "
+                f"{DIST_FAMILIES_GRAD_SHARE} * max|g| of both; "
+                f"{DIST_SP_SERVE}'s steps: (e)'s gates"),
+            "timing_note": "host-staged gloo collectives: reported, not "
+                           "gated"}
+
+
 def distributed_phase(device, sizes: dict, timer) -> dict:
     """The multi-device path on the one card: NCCL at world 1 on a 1 x 1
     mesh (its FileStore under build/) for (a) the MoE's expert-parallel
@@ -5236,14 +5815,18 @@ def distributed_phase(device, sizes: dict, timer) -> dict:
     families = dist_gloo_families(device, sizes)
     seq = dist_gloo_seq_and_whole(device, sizes)
     split = dist_gloo_split_experts(device, sizes)
+    sp = dist_gloo_seq_parallel(device, sizes)
     return {"backend": backend, "world": 1, "mesh": {"data": 1, "model": 1},
             "a_moe_ep": moe, "b_train": train, "c_elastic": elastic,
             "d_gloo_on_card": gloo, "e_gloo_families": families,
             "f_g_gloo_seq_and_whole": seq, "h_gloo_split_experts": split,
+            "i_gloo_seq_parallel": sp,
+            "gloo_headroom": GLOO_HEADROOM,
             "seconds": {"world_1": nccl_s, "gloo": gloo["wall_s"],
                         "gloo_families": families["wall_s"],
                         "gloo_seq_and_whole": seq["wall_s"],
                         "gloo_split_experts": split["wall_s"],
+                        "gloo_seq_parallel": sp["wall_s"],
                         "phase": time.perf_counter() - t0}}
 
 

@@ -111,14 +111,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh_shape = overrides.get("mesh_shape")
     if mesh_shape is not None:
         multi_pod = len(mesh_shape) == 3
-    if overrides.get("seq_shard"):
-        raise NotImplementedError(
-            "seq_shard=True (the residual stream split over the sequence on "
-            "the model axis, ROADMAP A9 (e)): no module of the port reads a "
-            "'seq' rule, so the record would be the baseline's")
     mesh = _mesh(multi_pod, mesh_shape)
     chips = mesh.size
     rules = steps_mod.rules_for_shape(shape, multi_pod, mesh)
+    if overrides.get("seq_shard"):
+        d = dict(rules.rules)
+        d["seq"] = "model"        # Megatron-style sequence parallelism
+        rules = ShardingRules(rules=d)
     if overrides.get("moe_ep2d_decode"):
         d = dict(rules.rules)
         d["expert_ff"] = "data"   # 2D expert-weight layout, every cell

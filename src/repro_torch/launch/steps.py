@@ -222,26 +222,23 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig,
     dp = mesh.axis_size(batch_axes) if batch_axes else 1
     dgrp = mesh.group(batch_axes) if dp > 1 else None
     everyone = None if mesh is None else mesh.group(mesh.axis_names)
-    if opt_cfg.grad_compression == "int8" and any(
-            pl.held for pl in tree_leaves(plan)):
-        raise NotImplementedError(
-            "int8 gradient compression with a parameter split over the "
-            "batch axes (the expert ffn under --moe-ep2d): its error "
-            "feedback needs the whole-batch mean of every leaf (ROADMAP)")
 
     def own(t: torch.Tensor, pl: _Leaf) -> torch.Tensor:
         """this rank's ZeRO-1 shard of a whole (data-replicated) leaf"""
         return t if pl.zdim is None else coll.chunk(t, pl.zdim, dgrp)
 
-    def average(g: torch.Tensor, pl: _Leaf) -> torch.Tensor:
-        """the batch axes' mean of ``g``, this rank's ZeRO-1 shard of it
-        (a leaf split over batch axes: summed over them already)"""
+    def mean(g: torch.Tensor, pl: _Leaf) -> torch.Tensor:
+        """the batch axes' mean of ``g``, whole (a leaf split over batch
+        axes: summed over them already, this rank's shard of it)"""
         if dgrp is None:
             return g
-        if pl.held:
-            return coll.all_reduce(g, pl.rest) / dp
-        return (coll.all_reduce(g, dgrp) if pl.zdim is None
-                else coll.reduce_scatter(g, pl.zdim, dgrp)) / dp
+        return coll.all_reduce(g, pl.rest if pl.held else dgrp) / dp
+
+    def average(g: torch.Tensor, pl: _Leaf) -> torch.Tensor:
+        """:func:`mean`, this rank's ZeRO-1 shard of it"""
+        if dgrp is None or pl.held or pl.zdim is None:
+            return mean(g, pl)
+        return coll.reduce_scatter(g, pl.zdim, dgrp) / dp
 
     def sum_sq(g: torch.Tensor, pl: _Leaf) -> torch.Tensor:
         """``g``'s share of the squared global norm"""
@@ -253,15 +250,15 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig,
             grads, metrics = _grads(cfg, rt, state["params"], batch)
         extra = {}
         if opt_cfg.grad_compression == "int8":
-            # the averaged gradient, quantized at each whole tensor's scale
-            mean = tree_map(lambda g: g if dgrp is None
-                            else coll.all_reduce(g, dgrp) / dp, grads)
+            # the averaged gradient, quantized at each whole tensor's scale:
+            # the absmax over every axis that holds a shard of the leaf
+            avg = tree_map(mean, grads, plan)
             absmax = tree_map(lambda g, e, pl: coll.all_reduce(
                 torch.max(torch.abs(g.float() + e)), pl.group, op="max"),
-                mean, state["grad_error"], plan)
-            mean, extra["grad_error"] = compress_grads(
-                mean, state["grad_error"], absmax)
-            shards = tree_map(own, mean, plan)
+                avg, state["grad_error"], plan)
+            avg, extra["grad_error"] = compress_grads(
+                avg, state["grad_error"], absmax)
+            shards = tree_map(own, avg, plan)
         else:
             shards = tree_map(average, grads, plan)
         del grads

@@ -72,6 +72,14 @@ its latent path (``wq_a``,
 ``wkv_a``, the norms, the shared rope key) is replicated, and the latent
 activations enter the head-split products through ``copy_to``.
 
+Under a sequence split (``seq``, the training trunks' and the encoder's
+under the rule ``seq -> model``) the input is this rank's rows: it is
+gathered whole on the way in (``gather_to``; MLA ``gather_from``, since its
+latents' ``copy_to`` makes its gradient whole) and the output's partial
+sums are reduce-scattered back onto the rows (``reduce_scatter_from``), so
+attention itself runs on this rank's heads over the whole sequence, on the
+card through the flash kernel as on the local path.
+
 A decode cache split over the sequence (``Runtime.decode_cache_shard=
 "seq"``: the kv heads do not split over ``model``, or MLA's latent cache)
 holds positions ``[r M / tp, (r + 1) M / tp)`` on rank ``r`` of the group
@@ -92,7 +100,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.common import (ParamMaker, apply_rope, axis_group,
-                                       axis_size, rms_norm, shard)
+                                       axis_size, enter, leave, rms_norm,
+                                       shard)
 from repro_torch.parallel import collectives as coll
 
 NEG_INF = -1e30
@@ -372,13 +381,17 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, window: int = 0,
                    use_rope: bool = True, return_cache: bool = False,
-                   impl: str = "kernel", causal: bool = True):
+                   impl: str = "kernel", causal: bool = True, seq=None):
     """Training / prefill self-attention over a full sequence (``causal``
     ``False``: the enc-dec encoder's, over the whole sequence).
     ``return_cache`` additionally returns the (roped) K and V for caching.
-    Under a head split the heads are this rank's (module docstring)."""
+    Under a head split the heads are this rank's (module docstring).
+    ``seq``: ``x`` is this rank's rows of a sequence split over the head
+    split's ranks, gathered whole on the way in and reduce-scattered back
+    onto the rows on the way out (``positions`` span the whole
+    sequence)."""
     grp, sel = head_split(cfg)
-    x = coll.copy_to(x, grp)
+    x = enter(x, grp, seq)
     q, k, v = _qkv(p, x, kv_group=grp if sel is not None else None)
     shard(q, "batch", None, "heads", full=(None, None, cfg.padded_heads(
         axis_size("heads")), None))
@@ -387,7 +400,7 @@ def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
     out = chunked_attention(q, _pick(k, sel), _pick(v, sel), causal=causal,
                             window=window, impl=impl)
-    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
+    y = leave(_out_proj(out, p["wo"]), grp, seq)
     if return_cache:
         return y, (k, v)
     return y
@@ -395,20 +408,22 @@ def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                     memory: torch.Tensor, return_cache: bool = False,
-                    impl: str = "kernel"):
+                    impl: str = "kernel", seq=None):
     """Queries from ``x [B, S, d]``, keys and values from ``memory [B, F,
     d]``: no rope, non-causal over the whole memory (on the card the flash
     kernel's case). ``return_cache`` additionally returns the memory's K
     and V, which decode reads from the cache. Under a head split the heads
     are this rank's, as in :func:`self_attention`; the memory is replicated
-    and enters through ``copy_to`` as ``x`` does."""
+    and enters through ``copy_to`` as ``x`` does. ``seq``: ``x`` alone is
+    this rank's rows of a sequence split, as in :func:`self_attention`;
+    the memory is whole."""
     grp, sel = head_split(cfg)
-    x, memory = coll.copy_to(x, grp), coll.copy_to(memory, grp)
+    x, memory = enter(x, grp, seq), coll.copy_to(memory, grp)
     q, k, v = _qkv(p, x, kv_src=memory,
                    kv_group=grp if sel is not None else None)
     out = chunked_attention(q, _pick(k, sel), _pick(v, sel), causal=False,
                             impl=impl)
-    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
+    y = leave(_out_proj(out, p["wo"]), grp, seq)
     if return_cache:
         return y, (k, v)
     return y
@@ -657,12 +672,18 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, return_cache: bool = False,
-                  impl: str = "kernel"):
+                  impl: str = "kernel", seq=None):
     """Train/prefill MLA: decompress per-head K/V from the latent. On the
     card the causal attention is the flash kernel's case at head dims
     ``(qk_nope + qk_rope, v_head_dim)``. Under a head split the heads are
-    this rank's; the latent path is replicated (module docstring)."""
+    this rank's; the latent path is replicated (module docstring).
+    ``seq``: ``x`` is this rank's rows of a sequence split, gathered whole
+    before ``wq_a`` and ``wkv_a`` (so they and the latent norms see the
+    whole sequence; its gradient, whole once the latents' ``copy_to`` has
+    summed it, is cut back, ``gather_from``), and the output is
+    reduce-scattered back onto the rows."""
     grp, _ = head_split(cfg)
+    x = enter(x, None, seq)
     q_nope, q_rope = _mla_q(p, cfg, x, positions, grp)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     ck, kr = coll.copy_to(c_kv, grp), coll.copy_to(k_rope, grp)
@@ -673,7 +694,7 @@ def mla_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         *k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
     out = chunked_attention(q, k, v, causal=True,
                             softmax_scale=_mla_scale(cfg), impl=impl)
-    y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
+    y = leave(_out_proj(out, p["wo"]), grp, seq)
     if return_cache:
         return y, (c_kv, k_rope)
     return y

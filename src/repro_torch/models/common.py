@@ -11,6 +11,15 @@ and places its collectives itself (tensor parallelism over ``model``:
 :func:`axis_group` names the group), so :func:`shard` only checks a
 tensor's rank-local shape against what its spec implies, and is a no-op
 outside :func:`sharding_ctx`.
+
+Sequence parallelism (the rule ``seq -> model`` that the reference's
+``--seq-shard`` installs) is read only where the reference constrains the
+residual stream, the training trunks and the encoder: they take
+:func:`seq_split`'s group and pass it down to the blocks they call, which
+then take this rank's rows through :func:`enter` / :func:`leave` (a gather
+in, a reduce-scatter out) where they would take the whole sequence through
+``copy_to`` / ``reduce_from``. The blocks never read the rule themselves:
+serving's prefill shares them and runs whole, as in the reference.
 """
 from __future__ import annotations
 
@@ -119,6 +128,47 @@ def axis_size(logical: str) -> int:
         return 1
     axes = entry_axes(rules.rules.get(logical))
     return mesh.axis_size(axes) if axes else 1
+
+
+def seq_split(S: int):
+    """The group the rule ``seq`` splits the residual stream's ``S``
+    positions over (sequence parallelism, the reference's ``--seq-shard``:
+    ``seq -> model``), ``None`` where it splits nothing. Raises
+    ``ValueError`` naming ``S`` and the axis where ``S`` does not split
+    into equal chunks: nothing is padded."""
+    grp = axis_group("seq")
+    n = coll.size(grp)
+    if S % n:
+        axes = entry_axes(_CTX.rules.rules.get("seq"))
+        raise ValueError(f"a sequence of {S} positions does not split over "
+                         f"the {n} ranks of {axes} that the rule 'seq' maps "
+                         f"it to")
+    return grp
+
+
+def enter(x: torch.Tensor, grp, seq=None) -> torch.Tensor:
+    """A block's input ``x [B, S, d]`` as its ranks over ``grp`` (heads,
+    ffn columns, channels) read it: whole, through ``copy_to`` (Megatron's
+    f). Under a sequence split (``seq``, the same ranks as ``grp``) ``x``
+    is this rank's rows and is gathered whole along dim 1 with
+    ``gather_to`` (its partial gradient reduce-scattered back onto the
+    rows); where the block is replicated (``grp`` ``None``) with
+    ``gather_from``, since its gradient is whole already."""
+    if seq is None:
+        return coll.copy_to(x, grp)
+    return (coll.gather_from(x, 1, seq) if grp is None
+            else coll.gather_to(x, 1, seq))
+
+
+def leave(y: torch.Tensor, grp, seq=None) -> torch.Tensor:
+    """A block's output ``y [B, S, d]``, partial sums over ``grp``, summed
+    (``reduce_from``, Megatron's g). Under a sequence split, summed and
+    cut to this rank's rows along dim 1 (``reduce_scatter_from``); a
+    replicated block's whole output is only cut (``split_to``)."""
+    if seq is None:
+        return coll.reduce_from(y, grp)
+    return (coll.split_to(y, 1, seq) if grp is None
+            else coll.reduce_scatter_from(y, 1, seq))
 
 
 def shard(x: torch.Tensor, *logical: Optional[str],
@@ -282,20 +332,23 @@ def gated_mlp_params(mk: ParamMaker, prefix: str, d: int, ff: int,
     }
 
 
-def gated_mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def gated_mlp(p: Dict, x: torch.Tensor, act: str = "silu",
+              seq=None) -> torch.Tensor:
     """``(x W_i * act(x W_g)) W_o``. Under a mesh that splits ``ffn`` over
     two or more ranks, each rank holds a slice of the ffn columns: ``x``
     enters through :func:`~repro_torch.parallel.collectives.copy_to` and
     the partial outputs are summed with
     :func:`~repro_torch.parallel.collectives.reduce_from` (Megatron's
-    column- then row-parallel pair)."""
+    column- then row-parallel pair). ``seq``: ``x`` is this rank's rows of
+    a sequence split over that group, gathered on the way in and
+    reduce-scattered on the way out (:func:`enter`, :func:`leave`)."""
     grp = axis_group("ffn")
-    x = coll.copy_to(x, grp)
+    x = enter(x, grp, seq)
     a = x @ p["wi"]
     g = x @ p["wg"]
     # jax.nn.gelu defaults to the tanh approximation; F.gelu does not
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return coll.reduce_from((a * g) @ p["wo"], grp)
+    return leave((a * g) @ p["wo"], grp, seq)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

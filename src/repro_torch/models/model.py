@@ -39,7 +39,12 @@ exponentials and the target logit over ``model``; serving's logits are
 gathered whole), the layers split their heads, ffn columns and experts
 (:mod:`~repro_torch.models.attention`, :mod:`~repro_torch.models.moe`),
 and the loss's numerator and label count are summed over the batch's ranks,
-so every rank holds the loss of the whole batch.
+so every rank holds the loss of the whole batch. Under the rule ``seq ->
+model`` (sequence parallelism) the training path keeps each rank's rows of
+the sequence from the embedding (its vocab sum reduce-scattered) to the
+final norm, and gathers them whole for the vocab-split loss; the norms'
+gains and MTP's weights, applied to a rank's rows only, enter through
+``copy_to`` over the sequence's group (their gradients summed there).
 """
 from __future__ import annotations
 
@@ -53,7 +58,8 @@ from repro_torch import as_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ParamMaker, ShardingRules, axis_group,
-                                       default_rules, rms_norm, shard)
+                                       default_rules, enter, leave, rms_norm,
+                                       seq_split, shard)
 from repro_torch.models.transformer import Runtime, runtime_ctx
 from repro_torch.parallel import collectives as coll
 
@@ -129,10 +135,12 @@ def param_specs(cfg: ModelConfig, rt: Runtime,
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
-def embed(p: Dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def embed(p: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+          seq=None) -> torch.Tensor:
     """The tokens' rows of ``emb``; under a vocab split over ``model``,
     each rank looks up the tokens of its own rows and the ranks' rows are
-    summed."""
+    summed. ``seq`` (the training trunks under the rule ``seq``): the sum
+    is a reduce-scatter, and the result this rank's positions."""
     grp = axis_group("vocab")
     if grp is None:
         x = p["emb"][tokens.long()]
@@ -142,23 +150,33 @@ def embed(p: Dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
         mine = (t >= 0) & (t < rows)
         x = p["emb"][torch.where(mine, t, 0)].masked_fill(
             ~mine[..., None], 0)
-        x = coll.reduce_from(x, grp)
+    x = leave(x, grp, seq)
     if cfg.family == "hybrid":
         # gemma-style embedding scale, rounded to the embedding dtype first
         # as the reference does (sqrt(2560) = 50.596 is 50.5 in bf16)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
-    return shard(x, "batch", None, None, full=(None, None, cfg.d_model))
+    return shard(x, "batch", None if seq is None else "seq", None,
+                 full=(None, tokens.shape[1], cfg.d_model))
 
 
 def _unemb_w(p: Dict, cfg: ModelConfig) -> torch.Tensor:
     return p["emb"].T if cfg.tie_embeddings else p["unemb"]
 
 
-def logits_fn(p: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Logits over the padded vocab (gathered whole under a vocab
-    split)."""
+def _final_norm(p: Dict, cfg: ModelConfig, h: torch.Tensor, grp, seq=None):
+    """``rms_norm(h, ln_f)`` as the vocab-split head reads it
+    (:func:`~repro_torch.models.common.enter`): under a sequence split
+    normed on this rank's rows, then gathered whole."""
+    return enter(rms_norm(h, coll.copy_to(p["ln_f"], seq), cfg.norm_eps),
+                 grp, seq)
+
+
+def logits_fn(p: Dict, cfg: ModelConfig, h: torch.Tensor,
+              seq=None) -> torch.Tensor:
+    """Logits over the padded vocab (gathered whole under a vocab split;
+    ``seq``: ``h`` is this rank's rows, the logits every row's)."""
     grp = axis_group("vocab")
-    h = coll.copy_to(rms_norm(h, p["ln_f"], cfg.norm_eps), grp)
+    h = _final_norm(p, cfg, h, grp, seq)
     return coll.gather_from(h @ _unemb_w(p, cfg), -1, grp)
 
 
@@ -189,16 +207,18 @@ def _ce_chunk(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor,
 
 
 def lm_loss(p: Dict, cfg: ModelConfig, h: torch.Tensor,
-            labels: torch.Tensor) -> torch.Tensor:
+            labels: torch.Tensor, seq=None) -> torch.Tensor:
     """Chunked cross-entropy over the padded vocab: chunks of
     :data:`CE_CHUNK` tokens (halved until they divide S), each chunk's
     logits recomputed in the backward (``torch.utils.checkpoint``), so
     ``[B, S, V]`` is never materialised whole. Under a mesh the sums run
     over the vocab's ranks (:func:`_ce_chunk`) and the batch's, so the
-    mean is the whole batch's."""
-    S = h.shape[1]
+    mean is the whole batch's. ``seq``: ``h`` is this rank's rows of a
+    sequence split, normed there and gathered whole (``gather_to``) before
+    the vocab-split CE, so ``labels`` (every position's) line up."""
     grp = axis_group("vocab")
-    h = coll.copy_to(rms_norm(h, p["ln_f"], cfg.norm_eps), grp)
+    h = _final_norm(p, cfg, h, grp, seq)
+    S = h.shape[1]
     w = _unemb_w(p, cfg)
     c = CE_CHUNK
     while S % c:
@@ -224,13 +244,18 @@ def _positions(S: int, device) -> torch.Tensor:
 def trunk_hidden(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
                  inputs: Optional[torch.Tensor] = None):
     """Returns (hidden, aux_loss, inputs). ``inputs`` defaults to the
-    teacher-forcing slice tokens[:, :-1]."""
+    teacher-forcing slice tokens[:, :-1]. Under the rule ``seq`` (sequence
+    parallelism, the reference's ``--seq-shard``) the hidden state is this
+    rank's rows of the sequence (:func:`~repro_torch.models.common.
+    seq_split`): the embedding's vocab sum is reduce-scattered onto them,
+    and every trunk keeps them so."""
     tfm.check_family(cfg)
     tokens = batch["tokens"]
     if inputs is None:
         inputs = tokens[:, :-1]
-    x = embed(p, cfg, inputs)
-    pos = _positions(x.shape[1], x.device)
+    S = inputs.shape[1]
+    x = embed(p, cfg, inputs, seq=seq_split(S))
+    pos = _positions(S, x.device)
     aux = 0.0
     if cfg.family == "hybrid":
         x = tfm.hybrid_forward(p["layers"], cfg, rt, x, pos)
@@ -247,9 +272,15 @@ def trunk_hidden(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict,
 
 def _encdec_decoder(p: Dict, cfg: ModelConfig, rt: Runtime, x, pos, memory):
     """The enc-dec decoder over ``x``, each layer also attending to
-    ``memory``: (hidden, aux loss)."""
+    ``memory``: (hidden, aux loss). Under the rule ``seq`` ``x`` and the
+    hidden state are this rank's rows (``memory`` is whole)."""
+    S = pos.shape[-1]
+    seq = seq_split(S)
+
     def body(x, p_layer):
-        return tfm.decoder_layer(p_layer, cfg, rt, x, pos, memory=memory)
+        x, a = tfm.decoder_layer(p_layer, cfg, rt, tfm.residual(x, S), pos,
+                                 memory=memory, seq=seq)
+        return tfm.residual(x, S), a
 
     body = tfm._maybe_remat(body, rt)
     aux = 0.0
@@ -275,7 +306,9 @@ def _loss_fn(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict
     tokens = batch["tokens"]
     labels = tokens[:, 1:]
     h, aux, inputs = trunk_hidden(cfg, rt, p, batch)
-    loss = lm_loss(p, cfg, h, labels)
+    S = inputs.shape[1]
+    seq = seq_split(S)
+    loss = lm_loss(p, cfg, h, labels, seq)
     if not isinstance(aux, torch.Tensor):
         aux = loss.new_tensor(aux)
     metrics = {"ce": loss, "aux": aux}
@@ -283,15 +316,18 @@ def _loss_fn(cfg: ModelConfig, rt: Runtime, p: Dict, batch: Dict
     if cfg.mtp_depth and "mtp" in p:
         mtp = p["mtp"]
         # predict t+2: combine h_t with emb(x_{t+1}); keep the length S and
-        # mask the trailing position in the loss
-        h_in = rms_norm(h, mtp["ln_h"], cfg.norm_eps)
+        # mask the trailing position in the loss (under the rule seq, on
+        # this rank's rows, as the trunk left them)
+        h_in = rms_norm(h, coll.copy_to(mtp["ln_h"], seq), cfg.norm_eps)
         e_next = F.pad(inputs[:, 1:], (0, 1))
-        e_in = rms_norm(embed(p, cfg, e_next), mtp["ln_e"], cfg.norm_eps)
-        z = torch.cat([h_in, e_in], dim=-1) @ mtp["w_proj"]
+        e_in = rms_norm(embed(p, cfg, e_next, seq),
+                        coll.copy_to(mtp["ln_e"], seq), cfg.norm_eps)
+        z = (torch.cat([h_in, e_in], dim=-1)
+             @ coll.copy_to(mtp["w_proj"], seq))
         z, _ = tfm.decoder_layer(mtp["block"], cfg, rt, z,
-                                 _positions(z.shape[1], z.device))
+                                 _positions(S, z.device), seq=seq)
         mtp_labels = F.pad(labels[:, 1:], (0, 1), value=-1)
-        mtp_loss = lm_loss(p, cfg, z, mtp_labels)
+        mtp_loss = lm_loss(p, cfg, z, mtp_labels, seq)
         metrics["mtp"] = mtp_loss
         total = total + rt.mtp_coef * mtp_loss
     metrics["loss"] = total
@@ -302,5 +338,5 @@ def forward_logits(cfg: ModelConfig, rt: Runtime, p: Dict,
                    batch: Dict) -> torch.Tensor:
     """Full-sequence logits (small configs / tests only)."""
     with runtime_ctx(rt):
-        h, _, _ = trunk_hidden(cfg, rt, p, batch)
-        return logits_fn(p, cfg, h)
+        h, _, inputs = trunk_hidden(cfg, rt, p, batch)
+        return logits_fn(p, cfg, h, seq_split(inputs.shape[1]))

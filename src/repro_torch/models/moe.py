@@ -37,6 +37,11 @@ Three dispatch paths, as the reference's:
   expert ffn stored split over ``data`` is gathered whole a layer at a
   time.
 
+Under a sequence split (``seq``: training under the rule ``seq -> model``)
+``dense`` and ``local`` gather the rank's rows whole before the router and
+reduce-scatter the output back onto them; ``ep`` takes the rows as they
+come, the very chunk it would cut, and returns its own.
+
 The load-balancing aux loss is computed from the router's statistics over
 every token of the step: where the tokens are split over ranks (the data
 axes, and ``model`` inside ``_ep_a2a``), the per-expert counts and mean
@@ -59,8 +64,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (ParamMaker, axis_group, axis_size,
-                                       current_rules, gated_mlp,
-                                       gated_mlp_params)
+                                       current_rules, enter, gated_mlp,
+                                       gated_mlp_params, leave)
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import entry_axes
 
@@ -246,11 +251,12 @@ def _local_moe(x: torch.Tensor, router_w: torch.Tensor, experts: Dict,
     collective runs. Else the aux loss's statistics are summed over the
     batch's ranks, the slots are global (:func:`_earlier_counts`), and
     where the experts are split over ``model`` the tokens enter the
-    experts through ``copy_to`` (their gradient summed over ``model``),
+    experts through ``copy_to`` (their gradient summed over ``model``) and
     the router weights enter the combine the same way (each rank's
-    gradient covers only its own experts' pairs), and the partial outputs
-    are summed over ``model``. The routing runs alike on every model rank,
-    and its gradient is not summed."""
+    gradient covers only its own experts' pairs). The routing runs alike
+    on every model rank, and its gradient is not summed. Returns (the
+    output, partial over the group the experts split over, that group,
+    aux)."""
     T = x.shape[0]
     k, E = cfg.experts_per_token, cfg.n_experts
     bgrp = axis_group("batch")
@@ -259,24 +265,44 @@ def _local_moe(x: torch.Tensor, router_w: torch.Tensor, experts: Dict,
     if bgrp is None and mgrp is None:
         buf, meta = _dispatch(x, idx, k, E, capacity)
         out_buf = _expert_ffn(experts, buf, cfg.act)
-        return _combine(out_buf, meta, w, T, k), aux
+        return _combine(out_buf, meta, w, T, k), None, aux
     buf, meta = _dispatch_global(coll.copy_to(x, mgrp), idx, k, first, n,
                                  capacity, _earlier_counts(idx, E, bgrp),
                                  min(capacity, T))
     out_buf = _expert_ffn(experts, buf, cfg.act)
     y = _combine(out_buf, meta, coll.copy_to(w, mgrp), T, k)
-    return coll.reduce_from(y, mgrp), aux
+    return y, mgrp, aux
 
 
-def moe_block_dense(p: Dict, cfg: ModelConfig, x: torch.Tensor
+def _moe_out(p: Dict, cfg: ModelConfig, y: torch.Tensor, grp,
+             xt: torch.Tensor, x: torch.Tensor, seq=None) -> torch.Tensor:
+    """The routed experts' output ``y [T, d]`` of the tokens ``xt [T,
+    d]`` (``x`` reshaped, or gathered whole under ``seq``), partial over
+    ``grp``, summed, plus the shared experts' output (where the config has
+    them), in ``x``'s shape. Under a sequence split the sum is
+    reduce-scattered onto ``x``'s rows, where the shared experts run."""
+    if seq is None:
+        y = coll.reduce_from(y, grp)
+        if cfg.n_shared_experts:
+            y = y + gated_mlp(p["shared"], xt, cfg.act)
+        return y.reshape(x.shape)
+    y = leave(y.reshape(x.shape[0], -1, x.shape[-1]), grp, seq)
+    if cfg.n_shared_experts:
+        y = y + gated_mlp(p["shared"], x, cfg.act, seq=seq)
+    return y
+
+
+def moe_block_dense(p: Dict, cfg: ModelConfig, x: torch.Tensor, seq=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Oracle: every expert on every token (tests / tiny configs only).
     Where the experts are split over ``model``, each rank applies its own
     to every token, weighed by its columns of the dense weights, and the
     partial outputs are summed over ``model`` (the f / g placement of
-    :func:`_local_moe`)."""
-    B, S, d = x.shape
-    xt = x.reshape(-1, d)
+    :func:`_local_moe`). ``seq``: ``x`` is this rank's rows of a sequence
+    split over ``model``; the router and the experts take the gathered
+    whole, and the output is reduce-scattered back onto the rows."""
+    xs = enter(x, None, seq)
+    xt = xs.reshape(-1, xs.shape[-1])
     w, idx, aux = _route(p["router"], xt, cfg.experts_per_token,
                          data_group=axis_group("batch"))
     dense_w = torch.zeros((xt.shape[0], cfg.n_experts), dtype=x.dtype,
@@ -289,10 +315,8 @@ def moe_block_dense(p: Dict, cfg: ModelConfig, x: torch.Tensor
         dense_w = coll.copy_to(dense_w, mgrp)[:, first:first + n]
     ys = _expert_ffn(p["experts"], xe[None].expand(
         (n,) + tuple(xe.shape)), cfg.act)                  # [E_loc, T, d]
-    y = coll.reduce_from(torch.einsum("etd,te->td", ys, dense_w), mgrp)
-    if cfg.n_shared_experts:
-        y = y + gated_mlp(p["shared"], xt, cfg.act)
-    return y.reshape(B, S, d), aux
+    y = torch.einsum("etd,te->td", ys, dense_w)
+    return _moe_out(p, cfg, y, mgrp, xt, x, seq), aux
 
 
 def _capacity(tokens: int, cfg: ModelConfig,
@@ -302,18 +326,18 @@ def _capacity(tokens: int, cfg: ModelConfig,
     return max(8, ((c + 7) // 8) * 8)
 
 
-def moe_block_local(p: Dict, cfg: ModelConfig, x: torch.Tensor
+def moe_block_local(p: Dict, cfg: ModelConfig, x: torch.Tensor, seq=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-scatter MoE without expert parallelism. x: [B, S, d], this
     rank's rows; the capacity is the global batch's (``B`` times the
-    ranks the rule ``batch`` splits the rows over)."""
-    B, S, d = x.shape
-    xt = x.reshape(-1, d)
-    y, aux = _local_moe(xt, p["router"], p["experts"], cfg,
-                        _capacity(B * axis_size("batch") * S, cfg))
-    if cfg.n_shared_experts:
-        y = y + gated_mlp(p["shared"], xt, cfg.act)
-    return y.reshape(B, S, d), aux
+    ranks the rule ``batch`` splits the rows over). ``seq``: as in
+    :func:`moe_block_dense`."""
+    xs = enter(x, None, seq)
+    B, S, d = xs.shape
+    xt = xs.reshape(-1, d)
+    y, mgrp, aux = _local_moe(xt, p["router"], p["experts"], cfg,
+                              _capacity(B * axis_size("batch") * S, cfg))
+    return _moe_out(p, cfg, y, mgrp, xt, x, seq), aux
 
 
 # ---------------------------------------------------------------------------
@@ -336,10 +360,13 @@ def _stored_ff_axes(mesh, ff_axes) -> Tuple[str, ...]:
 def moe_block_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, mesh,
                  batch_axes: Tuple[str, ...], model_axis: str = "model",
                  decode: bool = False, dispatch_dtype: str = "bfloat16",
-                 capacity_factor: float = 1.25,
-                 ep2d: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                 capacity_factor: float = 1.25, ep2d: bool = False,
+                 seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE. x: [B_loc, S, d], this rank's rows of the batch
-    (split over ``batch_axes``), whole over ``model``. Expert weights split
+    (split over ``batch_axes``), whole over ``model`` (``seq``, train
+    only: this rank's chunk of the sequence over ``model``, the very
+    chunk the all-to-all path cuts, which it then takes as it comes and
+    returns as it is). Expert weights split
     over ``model_axis``; with ``ep2d`` (decode) the expert FFN dim is also
     split over the data axes, a weight layout that fits 100B+ MoEs for
     serving. Returns (y [B_loc, S, d], aux), both whole over ``model``.
@@ -381,12 +408,15 @@ def moe_block_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, mesh,
         ex = {"wi": coll.gather_to(ex["wi"], 2, grp),
               "wg": coll.gather_to(ex["wg"], 2, grp),
               "wo": coll.gather_to(ex["wo"], 1, grp)}
-    body = _ep_gather if decode else _ep_a2a
-    y, aux = body(x, {"router": p["router"], "experts": ex}, cfg, mesh,
-                  model_axis, batch_axes, ff_axes, dispatch_dtype,
-                  capacity_factor)
+    p_ep = {"router": p["router"], "experts": ex}
+    if decode:
+        y, aux = _ep_gather(x, p_ep, cfg, mesh, model_axis, batch_axes,
+                            ff_axes, dispatch_dtype, capacity_factor)
+    else:
+        y, aux = _ep_a2a(x, p_ep, cfg, mesh, model_axis, batch_axes,
+                         dispatch_dtype, capacity_factor, split=seq is None)
     if cfg.n_shared_experts:
-        y = y + gated_mlp(p["shared"], x, cfg.act)
+        y = y + gated_mlp(p["shared"], x, cfg.act, seq=seq)
     return y, aux
 
 
@@ -395,18 +425,20 @@ def _batch_group(mesh, batch_axes):
     return mesh.group(axes) if axes and mesh.axis_size(axes) > 1 else None
 
 
-def _ep_a2a(x, p, cfg, mesh, model_axis, batch_axes, ff_axes,
-            dispatch_dtype, capacity_factor):
+def _ep_a2a(x, p, cfg, mesh, model_axis, batch_axes, dispatch_dtype,
+            capacity_factor, split=True):
     """Per-rank body, train / prefill path: the sequence split over
-    ``model``, two all-to-alls over it."""
-    B, S, d = x.shape
+    ``model`` (``split`` false: ``x`` is this rank's chunk already, and
+    so is the output), two all-to-alls over it."""
     tp = mesh.shape[model_axis]
     mgrp = mesh.group(model_axis)
-    if S % tp:
-        raise ValueError(f"a sequence of {S} tokens does not split over "
-                         f"{tp} ranks of {model_axis!r}")
-    x_loc = coll.split_to(x, 1, mgrp)
-    Sl = S // tp
+    x_loc = x
+    if split:
+        if x.shape[1] % tp:
+            raise ValueError(f"a sequence of {x.shape[1]} tokens does not "
+                             f"split over {tp} ranks of {model_axis!r}")
+        x_loc = coll.split_to(x, 1, mgrp)
+    B, Sl, d = x_loc.shape
     T = B * Sl
     k, E = cfg.experts_per_token, cfg.n_experts
     E_loc = E // tp
@@ -425,7 +457,7 @@ def _ep_a2a(x, p, cfg, mesh, model_axis, batch_axes, ff_axes,
     out = out.reshape(E_loc, tp, C, d).transpose(0, 1)
     out = coll.all_to_all(out, mgrp).reshape(E, C, d)
     y = _combine(out, meta, w, T, k).reshape(B, Sl, d)
-    return coll.gather_from(y, 1, mgrp), aux
+    return (coll.gather_from(y, 1, mgrp) if split else y), aux
 
 
 def _ep_gather(x, p, cfg, mesh, model_axis, batch_axes, ff_axes,
@@ -467,16 +499,18 @@ def moe_block(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
               batch_axes: Tuple[str, ...] = ("data",),
               decode: bool = False,
               dispatch_dtype: str = "bfloat16",
-              capacity_factor: float = 1.25,
-              ep2d: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25, ep2d: bool = False,
+              seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``impl`` ``"dense"`` (the oracle), ``"local"`` or ``"ep"`` (needs
     ``mesh``). As in the reference, the local path sizes its buffers with
     the module's :data:`CAPACITY_FACTOR`; ``capacity_factor`` and the mesh
-    arguments belong to the expert-parallel path."""
+    arguments belong to the expert-parallel path. ``seq``: ``x`` is this
+    rank's rows of a sequence split over ``model`` (training), and so is
+    the output."""
     if impl == "dense":
-        return moe_block_dense(p, cfg, x)
+        return moe_block_dense(p, cfg, x, seq)
     if impl == "local":
-        return moe_block_local(p, cfg, x)
+        return moe_block_local(p, cfg, x, seq)
     if impl == "ep":
         if mesh is None:
             raise ValueError("impl='ep' splits the experts over a device "
@@ -484,5 +518,6 @@ def moe_block(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                              "sharding_ctx(rules, mesh)")
         return moe_block_ep(p, cfg, x, mesh=mesh, batch_axes=batch_axes,
                             decode=decode, dispatch_dtype=dispatch_dtype,
-                            capacity_factor=capacity_factor, ep2d=ep2d)
+                            capacity_factor=capacity_factor, ep2d=ep2d,
+                            seq=seq)
     raise ValueError(impl)

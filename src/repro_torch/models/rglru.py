@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (ParamMaker, axis_group, conv_tail,
-                                       softplus)
+                                       enter, leave, softplus)
 from repro_torch.parallel import collectives as coll
 
 RG_C = 8.0
@@ -99,20 +99,22 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
-                  return_state: bool = False):
+                  return_state: bool = False, seq=None):
     """Full-sequence RG-LRU block through the doubling scan. u: [B, S, d].
     ``return_state`` additionally returns (h_final, conv_tail) for decode
-    (under a split: this rank's channels).
+    (under a split: this rank's channels). ``seq``: ``u`` is this rank's
+    rows of a sequence split over the ``lru`` ranks, gathered whole on the
+    way in; the output is reduce-scattered back onto the rows.
     """
     grp = axis_group("lru")
-    u = coll.copy_to(u, grp)
+    u = enter(u, grp, seq)
     x_raw = u @ p["w_x"]
     gate = u @ p["w_gate"]
     x = _causal_conv(x_raw, p["conv_w"], p["conv_b"])
     a, gated = _gates(p, x.float(), grp)
     h = _linear_scan(a, gated)
     y = h.to(u.dtype) * F.gelu(gate, approximate="tanh")
-    out = coll.reduce_from(y @ p["w_out"], grp)
+    out = leave(y @ p["w_out"], grp, seq)
     if return_state:
         return out, (h[:, -1], conv_tail(x_raw, CONV_K))
     return out

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (ParamMaker, axis_group, conv_tail,
-                                       rms_norm, softplus)
+                                       enter, leave, rms_norm, softplus)
 from repro_torch.parallel import collectives as coll
 
 CHUNK = 128
@@ -149,19 +149,22 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def ssd_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
-                return_state: bool = False):
+                return_state: bool = False, seq=None):
     """Chunked SSD over a full sequence. u: [B, S, d_model].
     ``return_state`` additionally returns (h_final, conv_tail) for decode
-    (under a split: this rank's heads and conv channels).
+    (under a split: this rank's heads and conv channels). ``seq``: ``u``
+    is this rank's rows of a sequence split over the ``lru`` ranks,
+    gathered whole on the way in; the output is reduce-scattered back onto
+    the rows.
 
     A length that is not a multiple of :data:`CHUNK` runs as one chunk of
     length S, as in the reference."""
-    Bsz, S, _ = u.shape
     _, _, hd, ds = ssm_dims(cfg)
     dt_act = u.dtype
     grp = axis_group("lru")
     H = _split_sizes(cfg, grp)[1]
-    u = coll.copy_to(u, grp)
+    u = enter(u, grp, seq)
+    Bsz, S, _ = u.shape
     z, xbc_raw, dt = _in_proj(p, cfg, u, grp)
     x, Bh, Ch = _conv_heads(
         cfg, _causal_conv(xbc_raw, p["conv_w"], p["conv_b"]), grp)
@@ -214,7 +217,7 @@ def ssd_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
     y = y.reshape(Bsz, S, H * hd)
     # gated RMSNorm (mamba2 norm-before-out)
     y = _gated_norm(y, z, p["norm_g"], cfg, grp)
-    out = coll.reduce_from(y @ p["w_out"], grp)
+    out = leave(y @ p["w_out"], grp, seq)
     if return_state:
         return out, (h.float(), conv_tail(xbc_raw, cfg.ssm_conv_kernel))
     return out

@@ -21,6 +21,12 @@ pattern group, a VLM group): ``"full"`` saves a body's inputs only,
 dims (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
 weight products; attention's and the experts' batched products are
 recomputed).
+
+Under the rule ``seq -> model`` (sequence parallelism, the reference's
+``--seq-shard``) the trunks here, the training path's and the encoder,
+read :func:`~repro_torch.models.common.seq_split` and keep this rank's rows
+of the residual stream between the blocks, which they call with ``seq``;
+:func:`residual` checks the rows where the reference constrains them.
 """
 from __future__ import annotations
 
@@ -39,8 +45,9 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamMaker, current_mesh,
                                        default_rules, gated_mlp,
-                                       gated_mlp_params, rms_norm,
-                                       sharding_ctx)
+                                       gated_mlp_params, rms_norm, seq_split,
+                                       shard, sharding_ctx)
+from repro_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,38 +165,62 @@ def decoder_layer_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime,
     return p
 
 
-def _mixer(p, cfg: ModelConfig, rt: Runtime, x, positions, window=0):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+def _norm(x, w, cfg: ModelConfig, seq=None):
+    """``rms_norm(x, w)``. Under a sequence split (``seq``) the replicated
+    gain ``w`` meets this rank's rows only, so its gradient is partial and
+    it enters through ``copy_to`` (the ranks' gradients summed); without
+    one its gradient is whole on every rank already, and ``copy_to`` on
+    ``None`` is the identity. The VLM's tanh gates and MTP's weights take
+    the same ``copy_to``."""
+    return rms_norm(x, coll.copy_to(w, seq), cfg.norm_eps)
+
+
+def _mixer(p, cfg: ModelConfig, rt: Runtime, x, positions, window=0,
+           seq=None):
+    h = _norm(x, p["ln1"], cfg, seq)
     if cfg.use_mla:
         return attn.mla_attention(p["attn"], cfg, h, positions,
-                                  impl=rt.attn_impl)
+                                  impl=rt.attn_impl, seq=seq)
     return attn.self_attention(p["attn"], cfg, h, positions, window=window,
-                               impl=rt.attn_impl)
+                               impl=rt.attn_impl, seq=seq)
 
 
-def _ffn(p, cfg: ModelConfig, rt: Runtime, x, decode: bool = False
-         ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+def _ffn(p, cfg: ModelConfig, rt: Runtime, x, decode: bool = False,
+         seq=None) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """The layer's FFN on ``rms_norm(x)``: (output, aux loss). The MoE aux
-    loss is a 0-d tensor; a dense FFN's is 0.0."""
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    loss is a 0-d tensor; a dense FFN's is 0.0. ``seq``: ``x`` is this
+    rank's rows of a sequence split (the training trunks under the rule
+    ``seq``)."""
+    h = _norm(x, p["ln2"], cfg, seq)
     if cfg.family == "moe":
         return moe_mod.moe_block(
             p["mlp"], cfg, h, impl=rt.moe_impl,
             mesh=current_mesh() or rt.mesh, batch_axes=rt.batch_axes,
             decode=decode, dispatch_dtype=rt.moe_dispatch_dtype,
-            capacity_factor=rt.moe_capacity_factor, ep2d=rt.moe_ep2d_decode)
-    return gated_mlp(p["mlp"], h, cfg.act), 0.0
+            capacity_factor=rt.moe_capacity_factor, ep2d=rt.moe_ep2d_decode,
+            seq=seq)
+    return gated_mlp(p["mlp"], h, cfg.act, seq=seq), 0.0
 
 
 def decoder_layer(p, cfg: ModelConfig, rt: Runtime, x, positions,
-                  window: int = 0, memory=None) -> Tuple[torch.Tensor, float]:
-    x = x + _mixer(p, cfg, rt, x, positions, window)
+                  window: int = 0, memory=None, seq=None
+                  ) -> Tuple[torch.Tensor, float]:
+    """``seq``: ``x`` is this rank's rows of a sequence split, and so is
+    the output; ``positions`` and ``memory`` are whole."""
+    x = x + _mixer(p, cfg, rt, x, positions, window, seq)
     if memory is not None and "xattn" in p:
-        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        h = _norm(x, p["ln_x"], cfg, seq)
         x = x + attn.cross_attention(p["xattn"], cfg, h, memory,
-                                     impl=rt.attn_impl)
-    y, aux = _ffn(p, cfg, rt, x)
+                                     impl=rt.attn_impl, seq=seq)
+    y, aux = _ffn(p, cfg, rt, x, seq=seq)
     return x + y, aux
+
+
+def residual(h: torch.Tensor, S: int) -> torch.Tensor:
+    """``h`` as it is, its rank-local shape checked against the residual
+    stream's spec ``("batch", "seq", None)`` over ``S`` positions: where
+    the reference constrains the stream (its scan bodies' ``shard``)."""
+    return shard(h, "batch", "seq", None, full=(None, S, h.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -211,16 +242,26 @@ def trunk_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime,
 
 def trunk_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime, x,
                   positions, kind: str) -> Tuple[torch.Tensor, float]:
+    """The dense / MoE decoder or SSM layers over ``x``. Under the rule
+    ``seq`` (sequence parallelism) ``x`` and the output are this rank's
+    rows of the ``positions.shape[-1]`` positions, and every layer's
+    blocks gather and reduce-scatter them (:func:`seq_split`)."""
+    S = positions.shape[-1]
+    seq = seq_split(S)
+
     def body(x, p_layer):
+        x = residual(x, S)
         if kind == "ssm":
-            z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
-            return x + ssm_mod.ssd_forward(p_layer["ssm"], cfg, z), 0.0
-        return decoder_layer(p_layer, cfg, rt, x, positions)
+            z = _norm(x, p_layer["ln1"], cfg, seq)
+            return x + ssm_mod.ssd_forward(p_layer["ssm"], cfg, z,
+                                           seq=seq), 0.0
+        return decoder_layer(p_layer, cfg, rt, x, positions, seq=seq)
 
     body = _maybe_remat(body, rt)
     aux = 0.0
     for p_layer in params:
         x, a = body(x, p_layer)
+        x = residual(x, S)
         aux += a
     return x, aux
 
@@ -237,21 +278,29 @@ def encoder_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime,
                     x) -> torch.Tensor:
     """The encoder over ``x [B, F, d]``: each layer roped at ``arange(F)``,
     non-causal (on the card the flash kernel's case; under a head split,
-    this rank's heads), then its FFN."""
-    positions = torch.arange(x.shape[1], dtype=torch.int32,
-                             device=x.device)[None]
+    this rank's heads), then its FFN. Under the rule ``seq`` (training
+    and prefill alike, as in the reference) the frames are split over
+    its ranks between the blocks, each attention gathers them whole for
+    this rank's heads, and the output is gathered whole once at the end
+    (``gather_from``: the cross-attentions that read it take it through
+    ``copy_to``, so its gradient is whole on every rank already)."""
+    F = x.shape[1]
+    positions = torch.arange(F, dtype=torch.int32, device=x.device)[None]
+    seq = seq_split(F)
 
     def body(x, p_layer):
-        z = rms_norm(x, p_layer["ln1"], cfg.norm_eps)
+        x = residual(x, F)
+        z = _norm(x, p_layer["ln1"], cfg, seq)
         x = x + attn.self_attention(p_layer["attn"], cfg, z, positions,
-                                    impl=rt.attn_impl, causal=False)
-        y, _ = _ffn(p_layer, cfg, rt, x)
-        return x + y
+                                    impl=rt.attn_impl, causal=False, seq=seq)
+        y, _ = _ffn(p_layer, cfg, rt, x, seq=seq)
+        return residual(x + y, F)
 
     body = _maybe_remat(body, rt)
+    x = coll.split_to(x, 1, seq)
     for p_layer in params:
         x = body(x, p_layer)
-    return x
+    return coll.gather_from(x, 1, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -288,30 +337,36 @@ def hybrid_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime
     return [_rg_block_params(mk, cfg, rt, kind) for kind in hybrid_kinds(cfg)]
 
 
-def _rg_block(p, cfg: ModelConfig, rt: Runtime, x, positions, kind: str):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+def _rg_block(p, cfg: ModelConfig, rt: Runtime, x, positions, kind: str,
+              seq=None):
+    h = _norm(x, p["ln1"], cfg, seq)
     if kind == "attn":
         x = x + attn.self_attention(p["attn"], cfg, h, positions,
                                     window=cfg.local_window,
-                                    impl=rt.attn_impl)
+                                    impl=rt.attn_impl, seq=seq)
     else:
-        x = x + rglru_mod.rglru_forward(p["rglru"], cfg, h)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], h, cfg.act)
+        x = x + rglru_mod.rglru_forward(p["rglru"], cfg, h, seq=seq)
+    h = _norm(x, p["ln2"], cfg, seq)
+    return x + gated_mlp(p["mlp"], h, cfg.act, seq=seq)
 
 
 def hybrid_forward(params: List[Dict], cfg: ModelConfig, rt: Runtime, x,
                    positions) -> torch.Tensor:
     """The pattern groups (each one body for ``rt.remat``, as the
-    reference's scan over groups), then the remainder layers."""
+    reference's scan over groups), then the remainder layers. Under the
+    rule ``seq`` ``x`` and the output are this rank's rows, as in
+    :func:`trunk_forward`."""
     kinds = hybrid_kinds(cfg)
     n_groups, _ = hybrid_group_counts(cfg)
     n_pat = len(cfg.block_pattern)
+    S = positions.shape[-1]
+    seq = seq_split(S)
 
     def group(x, ps, ks):
+        x = residual(x, S)
         for p, kind in zip(ps, ks):
-            x = _rg_block(p, cfg, rt, x, positions, kind)
-        return x
+            x = _rg_block(p, cfg, rt, x, positions, kind, seq)
+        return residual(x, S)
 
     body = _maybe_remat(group, rt)
     for g in range(n_groups):
@@ -344,26 +399,37 @@ def vlm_params(mk: ParamMaker, cfg: ModelConfig, rt: Runtime) -> Dict:
             "cross": cross}
 
 
-def vlm_cross_tail(p: Dict, cfg: ModelConfig, x, ca) -> torch.Tensor:
+def vlm_cross_tail(p: Dict, cfg: ModelConfig, x, ca,
+                   seq=None) -> torch.Tensor:
     """The rest of a VLM cross block after its cross-attention output
     ``ca``: ``x + tanh(gate_a) ca``, then ``+ tanh(gate_m)`` times the
-    block's gated MLP of ``rms_norm(., ln_m)``."""
-    x = x + torch.tanh(p["gate_a"]) * ca
-    z = rms_norm(x, p["ln_m"], cfg.norm_eps)
-    return x + torch.tanh(p["gate_m"]) * gated_mlp(p["mlp"], z, cfg.act)
+    block's gated MLP of ``rms_norm(., ln_m)``. ``seq``: ``x`` and ``ca``
+    are this rank's rows of a sequence split (the gates scale those rows
+    only: :func:`_norm`)."""
+    x = x + torch.tanh(coll.copy_to(p["gate_a"], seq)) * ca
+    z = _norm(x, p["ln_m"], cfg, seq)
+    return x + torch.tanh(coll.copy_to(p["gate_m"], seq)) * gated_mlp(
+        p["mlp"], z, cfg.act, seq=seq)
 
 
 def vlm_forward(params: Dict, cfg: ModelConfig, rt: Runtime, x, positions,
                 memory) -> torch.Tensor:
+    """Under the rule ``seq`` ``x`` and the output are this rank's rows,
+    as in :func:`trunk_forward`; the memory (the frontend) is whole."""
     k = cfg.cross_attn_every
+    S = positions.shape[-1]
+    seq = seq_split(S)
 
     def group(x, p_self, p_cross):
+        x = residual(x, S)
         for p_layer in p_self:
-            x, _ = decoder_layer(p_layer, cfg, rt, x, positions)
-        z = rms_norm(x, p_cross["ln_x"], cfg.norm_eps)
+            x, _ = decoder_layer(p_layer, cfg, rt, residual(x, S), positions,
+                                 seq=seq)
+            x = residual(x, S)
+        z = _norm(x, p_cross["ln_x"], cfg, seq)
         ca = attn.cross_attention(p_cross["xattn"], cfg, z, memory,
-                                  impl=rt.attn_impl)
-        return vlm_cross_tail(p_cross, cfg, x, ca)
+                                  impl=rt.attn_impl, seq=seq)
+        return vlm_cross_tail(p_cross, cfg, x, ca, seq)
 
     group = _maybe_remat(group, rt)
     for g, p_cross in enumerate(params["cross"]):

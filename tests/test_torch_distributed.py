@@ -787,7 +787,8 @@ def test_ep2d_prefill_and_whole_moment_train(run):
     device (losses rtol 1e-5, parameters 1e-5 * max|p|), the moments split
     as the parameters (the expert ffn over data), a save and
     elastic_restore bit for bit; ZeRO-1 refused naming the axis twice, as
-    the reference's DuplicateSpecError, and int8 compression by name."""
+    the reference's DuplicateSpecError; int8 compression built (its steps
+    are held in tests/test_torch_seq_parallel.py)."""
     ref, got = run
     one, mesh = (got[f"ep2d_train/prefill_logits_{w}"] for w in ("1", "mesh"))
     assert mesh.shape == one.shape
@@ -813,7 +814,7 @@ def test_ep2d_prefill_and_whole_moment_train(run):
     zero1, int8 = got["ep2d_train/refusals"].tolist()
     assert zero1.startswith("ValueError") and "'data' twice" in zero1
     assert "experts/wi" in zero1
-    assert int8.startswith("NotImplementedError") and "int8" in int8
+    assert int8 == ""
 
 
 def test_ep2d_decode_on_a_multi_pod_mesh(run):

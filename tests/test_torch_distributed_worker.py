@@ -457,8 +457,8 @@ def case_ep2d_train(workdir, mesh, out):
     a prefill through impl="ep" (each layer's ffn gathered whole) against
     one device, two train steps with whole moments (zero1=False) against
     two on one device, the moments' local shapes, a save and
-    elastic_restore bit for bit, and the refusals of ZeRO-1 and of int8
-    compression."""
+    elastic_restore bit for bit, the refusal of ZeRO-1, and int8
+    compression built without one."""
     cfg = reduced("dbrx-132b")
     ref, rest = load(workdir, "serve")
     full = convert.params_from_jax(ref, cfg, device="cpu")
@@ -554,6 +554,132 @@ def case_ep2d_multi(workdir, out):
     out["ep2d_multi/stored_wi_shape"] = np.array(list(wi.shape))
     out["ep2d_multi/logits_1"] = want.numpy()
     out["ep2d_multi/logits_mesh"] = logits.numpy()
+
+
+#: the sequence-parallel cases (the rule ``seq -> model``, the reference's
+#: --seq-shard) on the 2 x 4 mesh: name -> (arch, moe_impl); the parameters
+#: and inputs are in case_<name>.pt, written by tests/test_torch_seq_parallel
+SEQ_PARALLEL_CASES = {"sp_ssm": ("mamba2-2.7b", "local"),
+                      "sp_hybrid": ("recurrentgemma-2b", "local"),
+                      "sp_vlm": ("llama-3.2-vision-11b", "local"),
+                      "sp_encdec": ("seamless-m4t-large-v2", "local"),
+                      "sp_dense": ("stablelm-12b", "local"),
+                      "sp_ep": ("dbrx-132b", "ep"),
+                      "sp_mla": ("deepseek-v3-671b", "local")}
+
+
+def seq_rules():
+    """The default rules with the sequence split over model, as the
+    reference's run_cell installs them for --seq-shard."""
+    return ShardingRules(rules={**default_rules().rules, "seq": "model"})
+
+
+def case_seq_parallel(name, workdir, mesh, out):
+    """One family reduced on the 2 x 4 mesh under the rule seq -> model:
+    loss and gradients against one device and the same mesh without the
+    rule, a ZeRO-1 train step under the rule against the same step
+    without it, a sequence that does not split into 4 refused; the
+    enc-dec's prefill and decode steps under the rule against one
+    device."""
+    case = torch.load(os.path.join(workdir, f"case_{name}.pt"))
+    arch, impl = SEQ_PARALLEL_CASES[name]
+    cfg = reduced(arch)
+    full, batch = case["params"], case["batch"]
+    g1, l1 = grads_of(cfg, Runtime(), full, batch)
+    rt = Runtime(tp=MODEL, mesh=mesh, moe_impl=impl,
+                 moe_capacity_factor=CAPACITY)
+    specs = M.param_specs(cfg, rt)
+    mine = tree_map(lambda t, sh: sh.shard(t), full,
+                    named_sharding_tree(specs, mesh))
+    local = {k: rows(v, mesh) for k, v in batch.items()}
+    gw, lw = grads_of(cfg, rt, mine, local)
+    with sharding_ctx(seq_rules(), mesh):
+        gs, ls = grads_of(cfg, rt, mine, local)
+    out[f"{name}/loss_1"] = np.float64(l1)
+    out[f"{name}/loss_whole"] = np.float64(lw)
+    out[f"{name}/loss_mesh"] = np.float64(ls)
+    out.update(flat_np(g1, f"{name}/grad_1"))
+    out.update(flat_np(gathered(gw, specs, mesh), f"{name}/grad_whole"))
+    out.update(flat_np(gathered(gs, specs, mesh), f"{name}/grad_mesh"))
+    opt = OptConfig(lr=LR)
+    out.update(flat_np(full, f"{name}/step_before"))
+    for tag, rules in (("whole", None), ("seq", seq_rules())):
+        st = steps.init_train_state(cfg, rt, tree_map(torch.clone, mine),
+                                    rules)
+        st, m = steps.make_train_step(cfg, rt, opt, rules)(st, local)
+        out[f"{name}/step_loss_{tag}"] = np.float64(float(m["loss"]))
+        out.update(flat_np(gathered(st["params"], specs, mesh),
+                           f"{name}/step_{tag}"))
+    short = {**local, "tokens": local["tokens"][:, :-3]}
+    try:
+        with sharding_ctx(seq_rules(), mesh):
+            M.loss_fn(cfg, rt, mine, short)
+        out[f"{name}/refusal"] = np.array("")
+    except ValueError as e:
+        out[f"{name}/refusal"] = np.array(f"ValueError: {e}")
+    if cfg.family != "encdec":
+        return
+    prompt, max_len = case["prompt"], case["max_len"]
+    S = prompt["tokens"].shape[1]
+    by_rows = NamedSharding(mesh, default_rules().mesh_axes(["batch"]))
+    with torch.no_grad():
+        want, st1 = D.prefill(cfg, Runtime(), full, prompt, max_len)
+        got, st = steps.make_prefill_step(cfg, rt, max_len, seq_rules())(
+            mine, {k: rows(v, mesh) for k, v in prompt.items()})
+        pairs = [(want, got)]
+        decode = steps.make_decode_step(cfg, rt, seq_rules())
+        for i, tok in enumerate(case["next"]):
+            pos = torch.tensor(S + i)
+            want, st1 = D.decode_step(cfg, Runtime(), full, tok, pos, st1)
+            got, st = decode(mine, rows(tok, mesh), pos, st)
+            pairs.append((want, got))
+    for i, (w, g) in enumerate(pairs):
+        out[f"{name}/logits_1/{i}"] = w.numpy()
+        out[f"{name}/logits_mesh/{i}"] = by_rows.gather(g).numpy()
+
+
+def case_ep2d_int8(mesh, out):
+    """dbrx-132b reduced on the 2 x 4 mesh, two whole-moment train steps
+    with int8 gradient compression under the ep2d rules (the experts' ffn
+    stored over data), against the same steps with the ffn whole (the
+    default rules) and against one device."""
+    cfg = reduced("dbrx-132b")
+    full = M.init_params(cfg, Runtime(), torch.Generator().manual_seed(12),
+                         device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 33),
+                         generator=torch.Generator().manual_seed(13))
+    batches = [toks, toks.flip(0)]
+    opt = OptConfig(lr=LR, grad_compression="int8")
+    rt = Runtime(tp=MODEL, mesh=mesh, moe_impl="ep",
+                 moe_capacity_factor=CAPACITY)
+    ep2d = ShardingRules(rules={**default_rules().rules,
+                                "expert_ff": "data"})
+    s1 = steps.init_train_state(cfg, Runtime(), full)
+    s1["grad_error"] = init_error_state(full)
+    step1 = steps.make_train_step(cfg, Runtime(), opt)
+    runs = {}
+    for tag, rules in (("ep2d", ep2d), ("whole", None)):
+        specs = M.param_specs(cfg, rt, rules=rules)
+        mine = tree_map(lambda t, sh: sh.shard(t), full,
+                        named_sharding_tree(specs, mesh))
+        st = steps.init_train_state(cfg, rt, mine, rules, zero1=False)
+        st["grad_error"] = init_error_state(mine)
+        runs[tag] = (specs, st, steps.make_train_step(cfg, rt, opt, rules,
+                                                      zero1=False))
+    for i, t in enumerate(batches):
+        s1, m1 = step1(s1, {"tokens": t})
+        out[f"ep2d_int8/loss_1/{i}"] = np.float64(float(m1["loss"]))
+        for tag, (specs, st, step) in list(runs.items()):
+            st, m = step(st, {"tokens": rows(t, mesh)})
+            runs[tag] = (specs, st, step)
+            out[f"ep2d_int8/loss_{tag}/{i}"] = np.float64(float(m["loss"]))
+    for tag, (specs, st, _) in runs.items():
+        out.update(flat_np(gathered(st["params"], specs, mesh),
+                           f"ep2d_int8/params_{tag}"))
+        out.update(flat_np(gathered(st["grad_error"], specs, mesh),
+                           f"ep2d_int8/error_{tag}"))
+    wi = runs["ep2d"][1]["grad_error"]["layers"][0]["mlp"]["experts"]["wi"]
+    out["ep2d_int8/error_wi_shape"] = np.array(list(wi.shape))
 
 
 #: the families run data-parallel on a (data=8, model=1) mesh
@@ -864,6 +990,11 @@ def run(rank: int, workdir: str) -> None:
             case_ep2d_train(workdir, mesh, out)
         if "ep2d_multi" in cases:
             case_ep2d_multi(workdir, out)
+        for name in SEQ_PARALLEL_CASES:
+            if name in cases:
+                case_seq_parallel(name, workdir, mesh, out)
+        if "ep2d_int8" in cases:
+            case_ep2d_int8(mesh, out)
         dist.barrier()
         if rank == 0:
             np.savez(os.path.join(workdir, "out.npz"), **out)

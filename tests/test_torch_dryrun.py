@@ -48,7 +48,8 @@ CELLS = {"stablelm-12b": ("stablelm-12b", "all", ()),
          "seamless-m4t-large-v2": ("seamless-m4t-large-v2", "all", ()),
          "dbrx-132b-f8": ("dbrx-132b", "prefill_32k",
                           ("--moe-dispatch", "f8")),
-         "refused": ("stablelm-12b", "train_4k", ("--seq-shard",)),
+         "seq_shard": ("stablelm-12b,seamless-m4t-large-v2", "all",
+                       ("--seq-shard",)),
          "deepseek-v3-671b": ("deepseek-v3-671b", "prefill_32k,decode_32k",
                               ()),
          "seq_cache": (",".join(("stablelm-12b", "deepseek-v3-671b",
@@ -419,17 +420,99 @@ def test_f8_dispatch_puts_one_byte_an_element_on_the_wire(runs):
     assert f8["all-reduce"] == bf16["all-reduce"]
 
 
-def test_options_without_a_counterpart_fail_by_name(runs):
-    """``--seq-shard`` (sequence parallelism, ROADMAP A9 (e): no module of
-    the port reads a ``seq`` rule) fails the cell with a reason before
-    anything is counted, and the process exits non-zero: no record is
-    written under the baseline's numbers."""
-    rc, log, out = runs["refused"]
-    assert rc != 0 and "1 dry-run failures" in log
-    assert not list(out.glob("*.json"))
-    text = (out / "stablelm-12b__train_4k__single.error").read_text()
-    assert "NotImplementedError" in text and "seq_shard" in text
-    assert "A9 (e)" in text
+#: the fields of a record the counter and the roofline give (those
+#: tools/dryrun_compare.py compares)
+COUNTED = ("cost", "ops", "parsed_cost", "collectives", "roofline",
+           "input_bytes_per_device", "memory", "fits_hbm")
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "seamless-m4t-large-v2"])
+def test_seq_shard_writes_every_record(runs, arch):
+    """``--seq-shard`` (the rule ``seq -> model``, sequence parallelism)
+    writes a record for every shape of the cell, marked with the setting,
+    and the process exits 0 with no ``.error``."""
+    rc, log, out = runs["seq_shard"]
+    assert rc == 0, log
+    assert not list(out.glob("*.error"))
+    for shape in [s.name for s in applicable_shapes(get_config(arch))]:
+        rec = _record(runs, arch, shape, "seq_shard")
+        assert rec["overrides"]["seq_shard"] is True
+        assert rec["parsed_cost"]["dot_flops"] > 0
+
+
+def test_seq_shard_train_collectives_by_hand(runs):
+    """stablelm-12b's ZeRO-1 train step with full remat on (data 2, model
+    4) under ``--seq-shard``, against its default record: the dot flops and
+    the input bytes a device equal, the peak of the step's live
+    intermediates lower (the saved layer inputs are a quarter), and the
+    collectives counted by hand. Each of the default's 2 + 5 L activation
+    all-reduces of ``W = [tokens, d]`` bf16 (:func:`test_zero1_train_
+    collectives_are_megatrons`) becomes a reduce-scatter charged ``W`` and
+    an all-gather charged its local shard ``W / 4``; the recompute also
+    gathers each layer's mlp input again (the default's ``copy_to`` moves
+    nothing forward): L all-gathers more. Each norm's gain (``ln1``,
+    ``ln2`` a layer and ``ln_f``), applied to this rank's rows only, has its
+    gradient all-reduced over model: 2 L + 1 all-reduces of ``d`` bf16."""
+    cfg, dp, tp = _dense_setup()
+    shape = SHAPES_BY_NAME["train_4k"].reduced()
+    T = shape.global_batch // dp * shape.seq_len
+    d, L = cfg.d_model, cfg.n_layers
+    W = T * d * 2
+    base = _record(runs, "stablelm-12b", "train_4k")
+    have = _record(runs, "stablelm-12b", "train_4k", "seq_shard")
+    assert have["parsed_cost"]["dot_flops"] == base["parsed_cost"][
+        "dot_flops"] > 0
+    assert have["input_bytes_per_device"] == base["input_bytes_per_device"]
+    assert have["memory"]["temp_bytes"] < base["memory"]["temp_bytes"]
+    hc, bc = have["collectives"], base["collectives"]
+    n_act, n_norm = 2 + 5 * L, 2 * L + 1
+    assert hc["__counts__"] == {
+        "all-reduce": bc["__counts__"]["all-reduce"] - n_act + n_norm,
+        "reduce-scatter": bc["__counts__"]["reduce-scatter"] + n_act,
+        "all-gather": bc["__counts__"]["all-gather"] + n_act + L}
+    assert hc["all-reduce"] == bc["all-reduce"] - n_act * W + n_norm * d * 2
+    assert hc["reduce-scatter"] == bc["reduce-scatter"] + n_act * W
+    assert hc["all-gather"] == bc["all-gather"] + (n_act + L) * W // tp
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("stablelm-12b", "prefill_32k"), ("stablelm-12b", "decode_32k"),
+    ("seamless-m4t-large-v2", "decode_32k")])
+def test_seq_shard_leaves_serving_records_as_they_are(runs, arch, shape):
+    """A prefill that runs no encoder and every decode step read no ``seq``
+    rule, as in the reference: the record equals the default's in every
+    counted field."""
+    base = _record(runs, arch, shape)
+    have = _record(runs, arch, shape, "seq_shard")
+    assert [k for k in COUNTED if have[k] != base[k]] == []
+
+
+def test_seq_shard_splits_the_encoder_of_a_prefill(runs):
+    """seamless-m4t-large-v2's prefill_32k under ``--seq-shard``: its
+    encoder splits the frames (the rule reaches it through the encoder, as
+    in the reference), so the record differs from the default's, with the
+    dot flops and the input bytes equal. Each encoder layer's two
+    all-reduces of ``[B F, d]`` become a reduce-scatter and an all-gather,
+    and the encoder's output is gathered once."""
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    shape = SHAPES_BY_NAME["prefill_32k"].reduced()
+    dp, tp = MESH
+    Le = cfg.n_encoder_layers
+    W = shape.global_batch // dp * cfg.frontend_seq * cfg.d_model * 2
+    base = _record(runs, "seamless-m4t-large-v2", "prefill_32k")
+    have = _record(runs, "seamless-m4t-large-v2", "prefill_32k",
+                   "seq_shard")
+    assert have["parsed_cost"]["dot_flops"] == base["parsed_cost"][
+        "dot_flops"] > 0
+    assert have["input_bytes_per_device"] == base["input_bytes_per_device"]
+    hc, bc = have["collectives"], base["collectives"]
+    assert hc["__counts__"] == {
+        "all-reduce": bc["__counts__"]["all-reduce"] - 2 * Le,
+        "reduce-scatter": 2 * Le,
+        "all-gather": bc["__counts__"]["all-gather"] + 2 * Le + 1}
+    assert hc["all-reduce"] == bc["all-reduce"] - 2 * Le * W
+    assert hc["reduce-scatter"] == 2 * Le * W
+    assert hc["all-gather"] == bc["all-gather"] + (2 * Le + 1) * W // tp
 
 
 @pytest.mark.parametrize("run,mesh", [("refused_moe_ep2d", "single"),

@@ -503,3 +503,44 @@ def test_ep2d_train_state_specs_match_the_reference(arch, multi_pod):
         steps.train_state_shardings(cfg, rt, rules, zero1=True)
     with pytest.raises(ValueError, match="twice"):
         steps.abstract_state(cfg, rt, mesh, rules, zero1=True)
+
+
+# ---------------------------------------------------------------------------
+# the rule --seq-shard installs (seq -> model): it moves no parameter
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_seq_rule_moves_no_parameter(arch, multi_pod):
+    """Under the rules the reference's ``run_cell`` installs for
+    ``--seq-shard`` (``rules_for_shape`` of train_4k, then ``seq ->
+    model``), each package's ``param_specs`` and ZeRO-1 moment specs equal
+    its own defaults', leaf for leaf: the rule constrains the residual
+    stream only."""
+    cfg, rcfg = _cfg(arch, False)
+    shape_r, names = MESHES[multi_pod]
+    rmesh, mesh = RefAbstractMesh(shape_r, names), AbstractMesh(shape_r,
+                                                                 names)
+    shape = SHAPES_BY_NAME["train_4k"]
+    rbase = ref_steps.rules_for_shape(shape, multi_pod, rmesh)
+    rseq = type(rbase)(rules={**rbase.rules, "seq": "model"})
+    base = steps.rules_for_shape(shape, multi_pod, mesh)
+    seq = type(base)(rules={**base.rules, "seq": "model"})
+    assert base.rules == rbase.rules
+    rrt = RefRuntime(tp=16, mesh=rmesh)
+
+    def ref_specs(rules):
+        state = ref_steps.abstract_state(rcfg, rrt, rmesh, rules)
+        return ([tuple(s) for s in jax.tree.leaves(ref_M.param_specs(
+                    rcfg, rrt, rules=rules), is_leaf=_is_ref_spec)],
+                [tuple(s.sharding.spec)
+                 for s in jax.tree.leaves(state["opt"]["m"])])
+
+    def specs(rules):
+        state = steps.abstract_state(cfg, Runtime(tp=16), mesh, rules)
+        return (dict(leaves_with_paths(M.param_specs(
+                    cfg, Runtime(tp=16), rules=rules), is_leaf=is_spec)),
+                {p: tuple(t.spec)
+                 for p, t in leaves_with_paths(state["opt"]["m"])})
+
+    assert ref_specs(rseq) == ref_specs(rbase)
+    assert specs(seq) == specs(base)
