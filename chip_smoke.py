@@ -245,13 +245,48 @@ MOE_SERVE = (
 MLA_HEAD_DIMS = (192, 128)
 #: q/k and v head dims of RecurrentGemma's local attention
 RG_HEAD_DIMS = (256, 256)
+#: check_flash's head-dim sweep, in f32 and bf16: (D, Dv) pairs whose
+#: widths round up to every kind of head-dim class (the kernels take any
+#: 1 <= D, Dv <= 256), each causal over a ragged length and non-causal
+#: with Sq != Skv; in f32 also MLA's and RecurrentGemma's pairs
+FLASH_SWEEP_DIMS = ((16, 16), (32, 32), (80, 80), (96, 96), (200, 200),
+                    (24, 16), (128, 64))
+FLASH_SWEEP_F32_DIMS = (MLA_HEAD_DIMS, RG_HEAD_DIMS)
+#: bf16 head dims whose rows (40 bytes at one head) break the kernels'
+#: 16-byte copy rule: the wrapper copies q, k and v into padded buffers
+FLASH_PADDED_DIMS = (20, 20)
+#: the head-dim classes added for any head dim, each timed at
+#: ``flash_class`` (batch, tokens, heads), causal: (dtype, width)
+FLASH_CLASS_ROWS = (("bf16", 32), ("bf16", 96), ("bf16", 192), ("f32", 32),
+                    ("f32", 96), ("f32", 192))
 #: the flash cases timed (every tile, beside the plain version and SDPA)
 TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16",
                      "rg_local_prefill_served_bf16", "rg_local_prefill_bf16",
                      "vlm_self_prefill_bf16", "vlm_cross_prefill_bf16",
                      "vlm_cross_decode_bf16", "encdec_encoder_bf16",
                      "encdec_self_prefill_bf16", "encdec_cross_prefill_bf16",
-                     "encdec_cross_decode_bf16")
+                     "encdec_cross_decode_bf16", "mla_prefill_f32",
+                     "rg_local_prefill_served_f32",
+                     *(f"class_{w}_{dt}" for dt, w in FLASH_CLASS_ROWS))
+#: check_flash's cases at head dims the kernels take since they take any
+ANY_HEAD_DIM_CASES = ("sweep_", "class_", "padded_")
+#: the f32 tuning spaces beside SPACES' head dim 128: (D, Dv)
+TUNE_HEAD_DIMS = ((32, 32), (96, 96), (256, 256), (192, 128))
+#: the models whose f32 prefill attends at head dims the f32 kernel now
+#: takes, at full width: (arch, the config's cuts, why)
+F32_PREFILL = (
+    ("deepseek-v3-671b", {"n_layers": 2, "mtp_depth": 0, "n_experts": 32},
+     "memory: in f32 a layer of 256 experts holds 46 GB; 32 experts (8 a "
+     "token, as published) keep a layer at 6.6 GB, and the attention, "
+     "which this run checks, is whole"),
+    ("recurrentgemma-2b", {}, ""),
+)
+#: the reduced() config of each attention family, served in bf16 on the
+#: kernel route; REDUCED_REQUESTS prompts of ``reduced_serve`` tokens
+REDUCED_SERVE = ("qwen2.5-14b", "dbrx-132b", "deepseek-v3-671b",
+                 "recurrentgemma-2b", "llama-3.2-vision-11b",
+                 "seamless-m4t-large-v2")
+REDUCED_REQUESTS = 2
 #: the recurrent models, served at full width and depth one after the other,
 #: each on this many requests of one length (``rec_prompt_len``) in one
 #: lock-step prefill
@@ -1520,6 +1555,36 @@ def ptxas_facts(log: str, kernel: str) -> dict:
     return facts
 
 
+def flash_sass_by_instantiation(build) -> dict:
+    """The tensor-core products in the SASS of every instantiation of both
+    flash kernels (HMMA for the f32 kernel, HGMMA for the bf16 one), keyed
+    ``"<f32|sm90> D<class D>_<class Dv>_<block_q>x<block_k>"``, from one
+    disassembly of the library."""
+    import re
+    out = {}
+    for chunk in build.sass("flash_fwd_").split("Function : ")[1:]:
+        m = re.search(r"flash_fwd_(f32|sm90)_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)E", chunk.split("\n", 1)[0])
+        if m:
+            out[f"{m[1]} D{m[2]}_{m[3]}_{m[4]}x{m[5]}"] = chunk.count(
+                "HMMA" if m[1] == "f32" else "HGMMA")
+    return out
+
+
+def flash_instantiations() -> list:
+    """The keys of flash_sass_by_instantiation that the kernels' rules
+    (``fa.unsupported``) say are built: every tile at every class pair."""
+    from repro_torch.kernels import flash_attention as fa
+    keys = []
+    for tag, itemsize in (("f32", 4), ("sm90", 2)):
+        q_opts, k_opts = fa.tile_options(itemsize)
+        for D, Dv in fa.HEAD_DIM_PAIRS:
+            keys += [f"{tag} D{D}_{Dv}_{bq}x{bk}" for bq in q_opts
+                     for bk in k_opts
+                     if fa.unsupported(itemsize, D, Dv, bq, bk) is None]
+    return keys
+
+
 def flash_error(got: torch.Tensor, want: torch.Tensor):
     """``(max abs error, worst share of the limit)`` of a flash kernel's
     output against its plain version's, the limit ``atol + rtol * |want|``
@@ -1554,11 +1619,21 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     cross-attention at prefill and at a decode step (Sq = 1),
     seamless-m4t-large-v2's encoder, its causal decoder self-attention at
     prefill and its cross-attention at prefill and at a decode step, each
-    at the model's tiles. Returns the kernels-line entries of
-    the bf16 kernel at D = Dv = 128, at (192, 128) and at (256, 256), and
-    of the f32 kernel, each from the first timed case at its head dims
-    (the rows of the VLM and enc-dec paths apart), then one entry for each
-    of those rows (CROSS_FLASH_ROWS)."""
+    at the model's tiles; f32 at MLA's and RecurrentGemma's prefills (the
+    f32 kernel takes their head dims since it takes any). Then the head
+    dims that the kernels take since they take any: the head-dim classes
+    32, 96 and 192 in both dtypes, timed (FLASH_CLASS_ROWS); the sweep of
+    FLASH_SWEEP_DIMS (and in f32 FLASH_SWEEP_F32_DIMS), causal over a
+    ragged length with GQA and non-causal with Sq != Skv; and a bf16 shape
+    whose rows break the 16-byte copy rule, which the wrapper copies
+    (every case's copies are counted against the tensors that break the
+    rule). Returns the kernels-line entries of the bf16 kernel at D = Dv =
+    128, at (192, 128) and at (256, 256), and of the f32 kernel, each from
+    the first timed case at its head dims (the rows of the VLM and enc-dec
+    paths and of any head dim apart), then one for each class a path of
+    this run reaches at head dims taken since the kernels take any, then
+    one entry for each row of the VLM and enc-dec paths
+    (CROSS_FLASH_ROWS)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
@@ -1672,7 +1747,36 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
          *attn.flash_tiles(bf16, (ehd, ehd), False, es)),
         ("encdec_cross_decode_bf16", eb, 1, ef, eh, eh, ehd, bf16, False,
          *attn.flash_tiles(bf16, (ehd, ehd), False, 1)),
+        # f32 at MLA's (192, 128) and at RecurrentGemma's (256, 256), as
+        # the bf16 rows (their f32 prefills reach the kernel now)
+        ("mla_prefill_f32", 1, mla_seq, mla_seq, mla_heads, mla_heads,
+         MLA_HEAD_DIMS, f32, True, *attn.flash_tiles(f32, MLA_HEAD_DIMS)),
+        ("rg_local_prefill_served_f32", REC_REQUESTS, rec_seq, rec_seq,
+         rg_heads, rg_kv, RG_HEAD_DIMS, f32, True,
+         *attn.flash_tiles(f32, RG_HEAD_DIMS)),
     ]
+    # the head-dim classes added for any head dim, timed; the sweep over
+    # head dims of every kind of class, causal and ragged, non-causal with
+    # Sq != Skv; and rows that break the 16-byte copy rule
+    cb, cs_, ch = sizes["flash_class"]
+    for dname, w in FLASH_CLASS_ROWS:
+        dt = f32 if dname == "f32" else bf16
+        cases.append((f"class_{w}_{dname}", cb, cs_, cs_, ch, ch, w, dt,
+                      True, *attn.flash_tiles(dt, (w, w))))
+    sw_s, sw_q, sw_kv = sizes["flash_sweep"]
+    for dt in (f32, bf16):
+        dname = "f32" if dt == f32 else "bf16"
+        for dims in FLASH_SWEEP_DIMS + (FLASH_SWEEP_F32_DIMS if dt == f32
+                                        else ()):
+            tag = "x".join(map(str, dims))
+            cases.append((f"sweep_causal_{tag}_{dname}", 1, sw_s, sw_s, 4,
+                          2, dims, dt, True,
+                          *attn.flash_tiles(dt, dims, True, sw_s)))
+            cases.append((f"sweep_noncausal_{tag}_{dname}", 2, sw_q, sw_kv,
+                          4, 4, dims, dt, False,
+                          *attn.flash_tiles(dt, dims, False, sw_q)))
+    cases.append(("padded_copy_bf16", 1, sw_s, sw_s, 1, 1, FLASH_PADDED_DIMS,
+                  bf16, True, *attn.flash_tiles(bf16, FLASH_PADDED_DIMS)))
     rows = []
     for name, B, Sq, Skv, Hq, Hkv, D, dt, causal, bq, bk in cases:
         D, Dv = (D, D) if isinstance(D, int) else D
@@ -1681,19 +1785,29 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
         v = rnd((B, Skv, Hkv, Dv), dt)
         if name == "zero_k_bf16":
             k.zero_()
+        copies = fa.PADDED_COPIES
         got = fa.flash_attention_bshd(q, k, v, causal=causal, block_q=bq,
                                       block_k=bk)
+        copies = fa.PADDED_COPIES - copies
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         block_q=bq, block_k=bk, round_p=True)
         err, share = flash_error(got, want)
         check(share <= 1.0 and bool(torch.isfinite(got).all()),
               f"flash_attention[{name}] differs from its plain version by "
               f"{err}, {share} of the limit {flash_tolerance(dt)}")
+        breaking = sum(not fa.copy_rule_holds(t) for t in (q, k, v))
+        check(device.type != "cuda" or copies == breaking,
+              f"flash_attention[{name}]: {copies} padded copies where "
+              f"{breaking} of q, k, v break the 16-byte rule")
+        check(name != "padded_copy_bf16" or breaking == 3,
+              f"flash_attention[{name}] keeps the 16-byte rule")
         row = {"case": name, "q": list(q.shape), "kv": list(k.shape),
                "v": list(v.shape), "head_dims": [D, Dv],
+               "head_dim_class": list(fa.head_dim_class(D, Dv)),
                "dtype": str(dt).replace("torch.", ""), "causal": causal,
                "blocks": [bq, bk], "max_abs_err": err,
-               "share_of_limit": share, "tolerance": flash_tolerance(dt)}
+               "share_of_limit": share, "tolerance": flash_tolerance(dt),
+               "padded_copies": copies}
         if name in TIMED_FLASH_CASES:
             bound, by, flops, byts = flash_bound_ms(
                 B, Hq, Hkv, Sq, Skv, D, q.element_size(), causal, Dv)
@@ -1764,41 +1878,66 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "library": library,
-            "timing": timing}
+            "timing": timing, "timed_case": main["case"]}
 
     entries = []
     other_dims = (list(MLA_HEAD_DIMS), list(RG_HEAD_DIMS))
     cross_cases = {case for _, case, _, _ in CROSS_FLASH_ROWS}
     for name, dt, dims, source, what in (
-            ("flash_attention", bf16, None, "flash_attention_sm90.cu",
+            ("flash_attention", bf16, None, "flash_attention_sm90.cuh",
              "(the served model's prefill)"),
             ("flash_attention_192x128", bf16, MLA_HEAD_DIMS,
-             "flash_attention_sm90.cu",
+             "flash_attention_sm90.cuh",
              "(deepseek-v3-671b's MLA prefill, q/k head dim 192, v 128)"),
             ("flash_attention_256x256", bf16, RG_HEAD_DIMS,
-             "flash_attention_sm90.cu",
+             "flash_attention_sm90.cuh",
              "(recurrentgemma-2b's local-attention prefill as served, "
              "head dim 256)"),
-            ("flash_attention_f32", f32, None, "flash_attention.cu",
+            ("flash_attention_f32", f32, None, "flash_attention_f32.cuh",
              "(the tuning space's shape, the model's f32 tiles)")):
         mine = [r for r in rows
                 if r["dtype"] == str(dt).replace("torch.", "")
                 and r["case"] not in cross_cases
+                and not r["case"].startswith(ANY_HEAD_DIM_CASES)
                 and (r["head_dims"] == list(dims) if dims
                      else r["head_dims"] not in other_dims)]
         main = next(r for r in mine if "ms" in r)
-        e = entry(name, dt, main, mine, source, what)
-        if dt == f32:
+        entries.append(entry(name, dt, main, mine, source, what))
+    # the classes that paths of this run reach at head dims the kernels
+    # took only since they take any: each entry's rows are those of its
+    # class and dtype, its time its timed case's
+    for name, dt, case, what in (
+            ("flash_attention_f32_192x128", f32, "mla_prefill_f32",
+             "(deepseek-v3-671b's MLA prefill in f32)"),
+            ("flash_attention_f32_256x256", f32,
+             "rg_local_prefill_served_f32",
+             "(recurrentgemma-2b's local-attention prefill in f32)"),
+            ("flash_attention_f32_96x96", f32, "class_96_f32",
+             "(the (96, 96) class: tuning at head dim 96)"),
+            ("flash_attention_f32_32x32", f32, "class_32_f32",
+             "(the (32, 32) class: tuning at head dim 32)"),
+            ("flash_attention_32x32", bf16, "class_32_bf16",
+             "(the (32, 32) class: the reduced configs' head dims 16 and "
+             "(24, 16))")):
+        main = next(r for r in rows if r["case"] == case)
+        mine = [r for r in rows if r["dtype"] == main["dtype"]
+                and r["head_dim_class"] == main["head_dim_class"]]
+        entries.append(entry(name, dt, main, mine,
+                             "flash_attention_f32.cuh" if dt == f32
+                             else "flash_attention_sm90.cuh", what))
+    for e in entries:
+        if "f32" in e["name"]:
             e.update(
                 bound="max(bytes / 3.35 TB/s, 3 x flops / 495 TFLOP/s): "
                       "the products run as 3xTF32 on the tensor cores",
-                ms_best_tile=min(main["ms_by_tile"].values()))
-        entries.append(e)
+                ms_best_tile=min(next(
+                    r for r in rows if r["case"] == e["timed_case"])[
+                        "ms_by_tile"].values()))
     # the calls of the VLM and enc-dec paths, one row each
     for name, case, _, what in CROSS_FLASH_ROWS:
         main = next(r for r in rows if r["case"] == case)
         entries.append(entry(name, bf16, main, [main],
-                             "flash_attention_sm90.cu", what))
+                             "flash_attention_sm90.cuh", what))
     entries[0]["cases"] = rows
     return entries
 
@@ -1858,6 +1997,182 @@ def model_prefill_f32(device, sizes: dict) -> dict:
             "causal": True, "blocks": list(attn.flash_tiles(torch.float32)),
             "max_abs_err": err, "share_of_limit": share,
             "tolerance": flash_tolerance(torch.float32)}
+
+
+def tune_flash_head_dims(device, sizes: dict) -> dict:
+    """tune() over the f32 flash tiles at the head dims of
+    TUNE_HEAD_DIMS (any head dim runs at its class), each with the
+    wall-clock harness and every candidate validated against the oracle;
+    the kernel's launches of each, counted from just before to just
+    after."""
+    import repro_torch.core.hardware as hw
+    from repro_torch.kernels import ops
+    from repro_torch.tuning import (FlashAttentionSpace, PerfParams,
+                                    WallClockBackend, tune)
+    bh, seq, _ = sizes["flash_space"]
+    out = {}
+    for D, Dv in TUNE_HEAD_DIMS:
+        space = FlashAttentionSpace(batch_heads=bh, seq_q=seq, head_dim=D,
+                                    value_dim=Dv, chip=hw.H100_SXM,
+                                    device=device)
+        backend = WallClockBackend(hw.H100_SXM, perf=PerfParams.ideal(),
+                                   repeats=3, device=device)
+        ops.reset_launch_counts()
+        result = tune(space, backend=backend, validate=True)
+        launches = ops.launch_counts()["flash_attention"]
+        meas = result.measurement
+        check(bool(meas.candidates)
+              and max(meas.validation_err) <= space.tol,
+              f"flash_attention tuning at head dims ({D}, {Dv}): no "
+              f"candidate, or one outside {space.tol} of kernels.ref")
+        out[f"{D}x{Dv}"] = {
+            "shape": [bh, seq, D, Dv],
+            "candidates": [c.label for c in meas.candidates],
+            "wall_ms": {c.label: w * 1e3
+                        for c, w in zip(meas.candidates, backend.wall_s)},
+            "validation_max_abs_err": max(meas.validation_err),
+            "best_time": repr(result.best("time")), "launches": launches}
+        space.release()
+    return out
+
+
+def _attention_dims(cfg) -> tuple:
+    """(D, Dv) of a config's self-attention at prefill."""
+    if cfg.use_mla:
+        return cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return (cfg.resolved_head_dim,) * 2
+
+
+def f32_model_prefills(device, sizes: dict) -> dict:
+    """The f32 prefill of each model of F32_PREFILL (deepseek-v3-671b's MLA
+    at (192, 128), recurrentgemma-2b's local attention at (256, 256)) on
+    the kernel route against the plain route (end_to_end_check: tokens by
+    margin, the MoE's routing, the hybrid's first attention layer), with
+    the flash kernel's launches by call shape counted from just before to
+    just after: each kernel-route prefill (the route, again, and on the
+    card broken on purpose) launches it once an attention layer at the
+    prompt's shape."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.transformer import Runtime
+    out = {}
+    for arch, cuts, why in F32_PREFILL:
+        cfg, reduced = serve_config(sizes, arch, cuts, why)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(4321)
+        params = model_mod.init_params(cfg, Runtime(tp=1), gen,
+                                       device=device)
+        ops.reset_launch_counts()
+        e2e = end_to_end_check(device, cfg, params, sizes)
+        by_shape = dict(fa.LAUNCHES_BY_SHAPE)
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        S = sizes["e2e_prompt_len"]
+        key = fa.launch_key(*_attention_dims(cfg), True, S, S)
+        layers = (tfm.hybrid_kinds(cfg).count("attn")
+                  if cfg.family == "hybrid" else cfg.n_layers)
+        expected = 3 * layers if device.type == "cuda" else 0
+        check(by_shape.get(key, 0) == expected
+              and sum(by_shape.values()) == expected,
+              f"{arch} f32: the kernel-route prefills launched the flash "
+              f"kernel {by_shape}, not {expected} times at {key}")
+        out[arch] = {"dtype": "float32", "reduced": reduced,
+                     "n_layers": cfg.n_layers,
+                     "head_dims": list(_attention_dims(cfg)),
+                     "flash_launches_by_shape": by_shape,
+                     "flash_launches_expected": {key: expected}, **e2e}
+    return out
+
+
+def serve_reduced_configs(device, sizes: dict) -> dict:
+    """The reduced() config of each attention family (REDUCED_SERVE: dense,
+    MoE, MLA, hybrid, VLM, enc-dec; head dim 16, MLA's (24, 16), the
+    (32, 32) class), in bf16 with random weights from a seed (the VLM's
+    gates drawn non-zero): ServeEngine.generate on REDUCED_REQUESTS greedy
+    requests (with a frontend in ``extra_batch`` for the VLM and the
+    enc-dec; no longer than the hybrid's local window, which would mask
+    keys, the plain route's case), its flash launches by head dims counted
+    from just before to just after; then the prefill and greedy decode steps on the kernel and
+    the plain route, whose tokens must agree at every step whose top-2
+    margin exceeds the routes' logit difference."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as decode_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serving import Request, ServeEngine
+    prompt, new, max_len = sizes["reduced_serve"]
+    out = {}
+    for arch in REDUCED_SERVE:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="bfloat16")
+        S = min(prompt, cfg.local_window or prompt)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(99)
+        params = model_mod.init_params(cfg, Runtime(tp=1), gen,
+                                       device=device)
+        if cfg.family == "vlm":
+            for block in params["layers"]["cross"]:
+                for name in ("gate_a", "gate_m"):
+                    block[name].copy_(torch.randn(
+                        block[name].shape, generator=gen, device=device))
+        B = REDUCED_REQUESTS
+        extra = ({"frontend": draw_frontend(cfg, B, gen, device)}
+                 if cfg.family in ("vlm", "encdec") else {})
+        rng = np.random.default_rng(3)
+        reqs = [Request(rng.integers(0, cfg.vocab_size, S, dtype=np.int32),
+                        max_new_tokens=new) for _ in range(B)]
+        engine = ServeEngine(cfg, Runtime(tp=1), params, max_len=max_len)
+        ops.reset_launch_counts()
+        outs = engine.generate(reqs, extra_batch=extra or None)
+        _sync(device)
+        by_dims = ops.flash_launches_by_head_dims()
+        check(all(o.shape == (new,) and o.min() >= 0
+                  and o.max() < cfg.vocab_size for o in outs),
+              f"{arch} reduced: generate returned malformed tokens")
+        key = "x".join(map(str, _attention_dims(cfg)))
+        check(device.type != "cuda" or by_dims.get(key, 0) > 0,
+              f"{arch} reduced: generate never launched the flash kernel "
+              f"at {key}: {by_dims}")
+        toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(
+            device)
+        steps = {}
+        for impl in ("kernel", "plain"):
+            rt = Runtime(tp=1, attn_impl=impl)
+
+            def pf(p, batch, rt=rt):
+                return decode_mod.prefill(cfg, rt, p, {**batch, **extra},
+                                          max_len)
+
+            def dec(p, tok, pos, state, rt=rt):
+                return decode_mod.decode_step(cfg, rt, p, tok, pos, state)
+            steps[impl], _, _ = _greedy(pf, dec, params, toks, new, device)
+        margin = _margin_tokens(steps["plain"], steps["kernel"])
+        check(margin["tokens_equal"] == margin["tokens_compared"],
+              f"{arch} reduced: greedy tokens differ between the kernel and "
+              f"the plain route where the margin exceeds the difference: "
+              f"{margin}")
+        out[arch] = {"family": cfg.family, "dtype": cfg.dtype,
+                     "head_dims": list(_attention_dims(cfg)),
+                     "requests": B, "prompt_len": S, "new_tokens": new,
+                     "generate_tokens": [o.tolist() for o in outs],
+                     "flash_launches_by_head_dims": by_dims,
+                     "prefill_logits_max_abs_diff": float(
+                         (steps["kernel"][0].float()
+                          - steps["plain"][0].float()).abs().max()),
+                     **margin}
+        del engine, params, steps
+    return out
 
 
 # ---------------------------------------------------------- serving path
@@ -4488,9 +4803,9 @@ def _family_loss(cfg, rt, params, batch, device):
 def _family_attn_impl(cfg, dtype: str) -> tuple:
     """(attention route, why) of an (e) or (f) ``dtype`` run: the kernel,
     or the plain route where the flash kernel of that dtype is not built
-    at the config's head dims (f32 at RecurrentGemma's 256: ROADMAP later
-    work item 6; MLA's are (qk_nope + qk_rope, v_head_dim)), mesh and local
-    path alike."""
+    at the config's head dims (MLA's are (qk_nope + qk_rope, v_head_dim));
+    both kernels take every head dim up to 256, so every family's run
+    takes the kernel, mesh and local path alike."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import flash_tiles
     from repro_torch.models.common import torch_dtype
@@ -5849,6 +6164,11 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             flash_space=(4, 1024, 128), flash_model=(1024, 40, 8, 128),
             flash_ragged=1000, flash_mla=(1024, 128),
             flash_rg=(1024, 10, 1),
+            # the head-dim sweep's (causal length, non-causal Sq, Skv);
+            # the new classes' timed (batch, tokens, heads); the reduced
+            # configs' (prompt, new tokens, max_len)
+            flash_sweep=(300, 200, 333), flash_class=(4, 1024, 16),
+            reduced_serve=(40, 6, 64),
             serve_reduced=False,
             serve_max_len=2048, serve_new_tokens=32,
             serve_prompt_lens=(100, 1000), serve_decode_steps=16,
@@ -5902,6 +6222,8 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            exec_big=2 ** 14, exec_big_shard=2 ** 12,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
            flash_ragged=61, flash_mla=(64, 4), flash_rg=(64, 2, 1),
+           flash_sweep=(40, 24, 37), flash_class=(1, 64, 2),
+           reduced_serve=(12, 3, 24),
            serve_reduced=True,
            serve_max_len=256, serve_new_tokens=6,
            serve_prompt_lens=(10, 100), serve_decode_steps=2,
@@ -5966,13 +6288,14 @@ def main() -> int:
                   "flash_bf16_256x256_hgmma_in_sass": (
                       "flash_fwd_sm90_kernelILi256ELi256E", "HGMMA")}
         in_sass = dict.fromkeys(counts)
-        vai_banks = {}
+        vai_banks, flash_sass = {}, {}
         try:
             for key, (kernel, op) in counts.items():
                 text = build.sass(kernel)
                 in_sass[key] = text.count(op)
                 (build.build_dir() / f"{kernel}.sass").write_text(text)
             vai_banks = vai_sass_banks(build)
+            flash_sass = flash_sass_by_instantiation(build)
         except (OSError, subprocess.CalledProcessError) as exc:
             print(f"chip_smoke: cuobjdump not usable: {exc}", file=sys.stderr)
         print(build.build_log(), file=sys.stderr)
@@ -5983,7 +6306,15 @@ def main() -> int:
              flash_f32_ptxas=ptxas_facts(build.build_log(),
                                          "flash_fwd_f32_kernel"),
              flash_bf16_ptxas=ptxas_facts(build.build_log(),
-                                          "flash_fwd_sm90_kernel"))
+                                          "flash_fwd_sm90_kernel"),
+             flash_tensor_core_products_by_instantiation=flash_sass)
+        built = flash_instantiations()
+        check(all(flash_sass.get(key, 0) > 0 for key in built)
+              and len(flash_sass) == len(built),
+              f"a flash instantiation shows no HMMA / HGMMA, or the library "
+              f"holds other instantiations than the rules build: "
+              f"{sorted(set(built) ^ set(flash_sass))}, "
+              f"{[k for k in built if not flash_sass.get(k)]}")
         check(bool(in_sass["flash_bf16_hgmma_in_sass"])
               and bool(in_sass["flash_bf16_utmaldg_in_sass"])
               and bool(in_sass["flash_bf16_256x256_hgmma_in_sass"]),
@@ -6024,6 +6355,9 @@ def main() -> int:
     dispatch = model_prefill_f32(device, sizes)
     dispatch_f32 = ops.launch_counts()["flash_attention"]
     emit(phase="model_dispatch_f32", **dispatch, launches=dispatch_f32)
+    # tune() at other head dims, each space's launches counted on its own
+    tuning_dims = tune_flash_head_dims(device, sizes)
+    emit(phase="flash_attention_tuning_head_dims", spaces=tuning_dims)
 
     ops.reset_launch_counts()
     report, jobs_raw = main_path(device, sizes)
@@ -6102,6 +6436,16 @@ def main() -> int:
         emit(phase="serve_cross_kernel_vs_plain", arch=arch, **e2e,
              witness=cross_witness(device, cfg, params, sizes))
         del params
+    # the f32 prefills at MLA's and RecurrentGemma's head dims, then the
+    # reduced configs, each with the counts set to 0 just before it
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    f32_prefills = f32_model_prefills(device, sizes)
+    emit(phase="f32_prefill", models=f32_prefills)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    reduced_serve = serve_reduced_configs(device, sizes)
+    emit(phase="serve_reduced", models=reduced_serve)
     # training, one phase after another, each with the counts set to 0
     # just before it: no kernel of the port's may launch (the reference's
     # training never reaches its Pallas kernel; the flash kernel has no
@@ -6164,6 +6508,19 @@ def main() -> int:
                 "flash_attention_256x256":
                     by_dims["recurrentgemma-2b"].get(rg_key, 0),
                 "flash_attention_f32": tuning_launches + dispatch_f32,
+                "flash_attention_f32_192x128":
+                    sum(f32_prefills["deepseek-v3-671b"][
+                        "flash_launches_by_shape"].values())
+                    + tuning_dims["192x128"]["launches"],
+                "flash_attention_f32_256x256":
+                    sum(f32_prefills["recurrentgemma-2b"][
+                        "flash_launches_by_shape"].values())
+                    + tuning_dims["256x256"]["launches"],
+                "flash_attention_f32_96x96": tuning_dims["96x96"]["launches"],
+                "flash_attention_f32_32x32": tuning_dims["32x32"]["launches"],
+                "flash_attention_32x32": sum(
+                    sum(r["flash_launches_by_head_dims"].values())
+                    for r in reduced_serve.values()),
                 **{name: served_launches(arch, case)
                    for name, case, arch, _ in CROSS_FLASH_ROWS}}
     emit(phase="launches", **launches,
@@ -6205,6 +6562,9 @@ def main() -> int:
     check(tuning_launches > 0 and dispatch_f32 == 1,
           f"the f32 path launched the f32 flash kernel {tuning_launches} "
           f"times in tuning and {dispatch_f32} in the model's dispatch")
+    check(all(launches[k["name"]] > 0 for k in kernels),
+          f"a kernel of the kernels line was not launched on its path: "
+          f"{launches}")
     torch.cuda.synchronize()
     emit(kernels=kernels)
     print(smi, flush=True)

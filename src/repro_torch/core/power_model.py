@@ -27,11 +27,13 @@ is :class:`repro_torch.power.surface.TransferSurface`.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Tuple, Union
 
 from repro_torch import DEFAULT_DEVICE
-from repro_torch.core.hardware import CHIPS, ChipSpec, H100_SXM, MODES, Mode
+from repro_torch.core.hardware import (CHIPS, ChipSpec, H100_SXM, MODES,
+                                       TPU_V5E, Mode)
 
 W_COMPUTE = 0.72
 W_MEMORY = 0.62
@@ -186,3 +188,63 @@ class ChipModel:
 def profile_from_roofline(compute_s: float, memory_s: float,
                           collective_s: float = 0.0) -> StepProfile:
     return StepProfile(compute_s, memory_s, collective_s)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated chip-threaded free functions: the reference's thin shims over
+# ChipModel, with its defaults (the TPU v5e where no chip is given), kept
+# for callers of the reference's names; in-tree code binds a ChipModel.
+# ---------------------------------------------------------------------------
+def _deprecated(name: str) -> None:
+    warnings.warn(
+        f"repro_torch.core.power_model.{name} is deprecated; use "
+        f"repro_torch.core.power_model.ChipModel.{name} instead",
+        DeprecationWarning, stacklevel=3)
+
+
+def step_time(profile: StepProfile, freq_frac: float) -> float:
+    _deprecated("step_time")
+    return ChipModel(TPU_V5E).step_time(profile, freq_frac)
+
+
+def utilizations(profile: StepProfile, freq_frac: float
+                 ) -> Tuple[float, float, float]:
+    _deprecated("utilizations")
+    return ChipModel(TPU_V5E).utilizations(profile, freq_frac)
+
+
+def power_w(profile: StepProfile, freq_frac: float,
+            chip: ChipSpec = TPU_V5E) -> float:
+    _deprecated("power_w")
+    return ChipModel(chip).power_w(profile, freq_frac)
+
+
+def energy_j(profile: StepProfile, freq_frac: float,
+             chip: ChipSpec = TPU_V5E) -> float:
+    _deprecated("energy_j")
+    return ChipModel(chip).energy_j(profile, freq_frac)
+
+
+def freq_for_power_cap(profile: StepProfile, cap_w: float,
+                       chip: ChipSpec = TPU_V5E, grid: int = 64) -> float:
+    _deprecated("freq_for_power_cap")
+    return ChipModel(chip).freq_for_power_cap(profile, cap_w, grid)
+
+
+def classify_mode(profile: StepProfile, chip: ChipSpec = TPU_V5E,
+                  freq_frac: float = 1.0) -> Mode:
+    _deprecated("classify_mode")
+    return ChipModel(chip).classify_mode(profile, freq_frac)
+
+
+def classify_mode_from_power(p_w: float, chip: ChipSpec = TPU_V5E) -> Mode:
+    _deprecated("classify_mode_from_power")
+    return ChipModel(chip).classify_mode_from_power(p_w)
+
+
+def vai_profile(ai: float, n_elems: int, loopsize: int,
+                chip: ChipSpec = TPU_V5E, itemsize: int = 4) -> StepProfile:
+    """The reference's historical ``(ai, ...)`` signature: ``ai`` is not
+    read, the loopsize sets the intensity (ChipModel.vai_profile)."""
+    _deprecated("vai_profile")
+    return ChipModel(chip).vai_profile(n_elems, loopsize, itemsize)

@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels of this package.
 
 The sources under ``csrc/`` have a plain C interface and include nothing of
-PyTorch, so ``nvcc`` compiles each in a few seconds. At first use every
-``*.cu`` file is compiled for ``sm_90a`` to an object file (one ``nvcc``
-process per source, all started together), the objects are linked into one
-shared library, and the library is loaded with :mod:`ctypes`. The library's
-name carries a hash of the sources and the flags, so an edited source is
-rebuilt and a stale library is never loaded.
+PyTorch. At first use every ``*.cu`` file is compiled for ``sm_90a`` to an
+object file (one ``nvcc`` process per source, all started together; a
+kernel with many instantiations spreads them over files that include its
+``*.cuh``), the objects are linked into one shared library, and the library
+is loaded with :mod:`ctypes`. The library's name carries a hash of the
+sources, their headers and the flags, so an edited source is rebuilt and a
+stale library is never loaded.
 
 The build directory is ``build/`` at the root of the checkout (or
 ``$REPRO_TORCH_BUILD_DIR``). A failed build raises; nothing here falls back
@@ -50,6 +51,10 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     candidates = [shutil.which("nvcc")]
     for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
@@ -75,7 +80,8 @@ def _digest(srcs: List[Path]) -> str:
 
 
 def library_path() -> Path:
-    return build_dir() / f"librepro_torch_kernels_{_digest(sources())}.so"
+    return build_dir() / (f"librepro_torch_kernels_"
+                          f"{_digest(sources() + headers())}.so")
 
 
 def build() -> Path:
@@ -178,17 +184,24 @@ def check_launch(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed ({code}: {msg})")
 
 
+#: ``cuobjdump -sass`` of each library disassembled so far, keyed by its
+#: path and modification time: one disassembly serves every query
+_disassembly: dict = {}
+
+
 def sass(function_substring: str, library: Optional[Path] = None) -> str:
     """Disassembly (``cuobjdump -sass``) of the kernels whose name contains
     ``function_substring`` — to check what the compiler made of a loop.
     ``library`` is the kernels' library by default, or a probe's."""
     lib = build() if library is None else library
-    tool = shutil.which("cuobjdump") or str(
-        Path(find_nvcc()).parent / "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(lib)], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True,
-                          check=True).stdout
-    chunks = text.split("\t\tFunction : ")
+    key = (str(lib), Path(lib).stat().st_mtime_ns)
+    if key not in _disassembly:
+        tool = shutil.which("cuobjdump") or str(
+            Path(find_nvcc()).parent / "cuobjdump")
+        _disassembly[key] = subprocess.run(
+            [tool, "-sass", str(lib)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, check=True).stdout
+    chunks = _disassembly[key].split("\t\tFunction : ")
     return "\n".join("Function : " + c for c in chunks[1:]
                      if function_substring in c.split("\n", 1)[0])
 

@@ -14,22 +14,31 @@ p.v as in the kernels (``round_p``), skipping the kv blocks
 that the causal mask covers wholly (exact: they add ``exp(-1e30 - m) = 0``).
 It also takes query offsets, local windows and kv masks, and is the model's
 plain attention route. Any other tensor goes to a hand-written kernel, or
-the call raises: f32 to the tensor-core kernel of ``csrc/flash_attention.cu``
-(3xTF32 products on ``mma.sync``, K/V through a ring of ``cp.async``
-copies), bf16 to the tensor-core kernel of ``csrc/flash_attention_sm90.cu``
-(wgmma fed by TMA copies), both behind the C entry point
-``repro_flash_attention``.
+the call raises: f32 to the tensor-core kernel of
+``csrc/flash_attention_f32.cuh`` (3xTF32 products on ``mma.sync``, K/V
+through a ring of ``cp.async`` copies), bf16 to the tensor-core kernel of
+``csrc/flash_attention_sm90.cuh`` (wgmma fed by TMA copies), both behind
+the C entry point ``repro_flash_attention`` of ``csrc/flash_attention.cu``
+(each kernel's instantiations are split over two ``.cu`` files that
+``nvcc`` builds in parallel).
 
 ``block_q`` / ``block_k`` are the kernel's tiles. The ``[B, S, H, D]`` form
 takes any sequence lengths: a ragged last tile runs masked. The
 reference-signature :func:`flash_attention` keeps the reference's rule that
-``min(block, S)`` divides the sequence (``ValueError`` otherwise). What
-the kernels are built for — the tiles of :func:`tile_options` and the head
-dims ``(D, Dv)`` of :func:`head_dims`, by dtype (f32 at :data:`HEAD_DIMS`
-with ``Dv == D``; bf16 there, at ``(192, 128)``, MLA's prefill, and at
-``(256, 256)``, RecurrentGemma's local attention), and the shared memory a
-block may have — is stated once, in :func:`unsupported`; a tile longer
-than the sequence runs with its tail masked.
+``min(block, S)`` divides the sequence (``ValueError`` otherwise). Both
+kernels take every pair of head dims ``1 <= D, Dv <= 256``, as the
+reference's kernel takes any: each call runs at its head-dim class
+(:func:`head_dim_class`: each width rounded up to one of
+:data:`HEAD_DIMS`, the pair to the square class of the larger where the
+pair is not one of :data:`HEAD_DIM_PAIRS`), its padded columns zero, its
+scale and its cost those of the true dims. What the kernels are built for
+— that range, the tiles of :func:`tile_options` at each class, and the
+shared memory and registers a block may have — is stated once, in
+:func:`unsupported`; a tile longer than the sequence runs with its tail
+masked. A tensor that breaks the kernels' 16-byte copy rule (a base that
+is not 16-byte aligned, a stride that is not a multiple of 16 bytes, a
+last dim that is not contiguous) is copied into a zero-padded buffer and
+the kernel runs on that (:data:`PADDED_COPIES` counts the copies).
 """
 from __future__ import annotations
 
@@ -47,18 +56,22 @@ BLOCK_K_OPTIONS = (64, 128)
 #: bf16 tiles (the tensor-core kernel): 64 query rows a consumer warpgroup
 BF16_BLOCK_Q_OPTIONS = (64, 128)
 BF16_BLOCK_K_OPTIONS = (64, 128)
-#: head dims of both kernels, with Dv == D
-HEAD_DIMS = (64, 128, 160)
-#: ``(D, Dv)`` of the bf16 kernel: HEAD_DIMS with Dv == D, MLA's prefill
-#: (q/k of qk_nope + qk_rope = 192, v of v_head_dim = 128) and
-#: RecurrentGemma's local attention (256, 256; only the 64-row kv tiles fit
-#: in shared memory there, and of those only 64 x 64 is built:
-#: :data:`BF16_SPILLING_TILES`)
-BF16_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (256, 256))
-#: ``(D, Dv, block_q, block_k)`` of the bf16 kernel that fit in shared
-#: memory but are not built (``kBuilt`` in the source): at (256, 256), 128 x
-#: 64 spills 216 bytes of registers (a 384-thread block leaves a thread 168
-#: at compile time) and ran 2.2x slower than 64 x 64 (PERF.md §6)
+#: the head-dim classes of both kernels: a width ``1..256`` runs at the
+#: least of these that holds it (multiples of 32: the bf16 kernel's 64- and
+#: 128-byte swizzles, the f32 kernel's 16-column steps)
+HEAD_DIMS = (32, 64, 96, 128, 160, 192, 256)
+#: the widest head dim either kernel takes; wider ones are ROADMAP queue B
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+#: ``(D, Dv)`` class pairs both kernels are instantiated for: the squares
+#: of HEAD_DIMS and MLA's prefill (q/k of qk_nope + qk_rope = 192, v of
+#: v_head_dim = 128); any other pair runs at the square class of its
+#: larger width (:func:`head_dim_class`)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+#: ``(D, Dv, block_q, block_k)`` class pairs and tiles of the bf16 kernel
+#: that fit in shared memory but are not built (``kBuilt`` in the source):
+#: at (256, 256), 128 x 64 spills 216 bytes of registers (a 384-thread
+#: block leaves a thread 168 at compile time) and ran 2.2x slower than 64 x
+#: 64 (PERF.md §6)
 BF16_SPILLING_TILES = frozenset({(256, 256, 128, 64)})
 #: stages of the bf16 kernel's K/V ring: three where they fit in shared
 #: memory, else two (``SmemSm90::kStages`` in the source)
@@ -75,6 +88,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: sums them by head dims and mask)
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: Dict[str, int] = {}
+#: q, k or v tensors the wrapper copied into a zero-padded buffer before a
+#: launch, because they broke the kernels' 16-byte copy rule
+PADDED_COPIES = 0
 
 
 def launch_key(D: int, Dv: int, causal: bool, Sq: int, Skv: int) -> str:
@@ -92,12 +108,32 @@ def tile_options(itemsize: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     return BLOCK_Q_OPTIONS, BLOCK_K_OPTIONS
 
 
-def head_dims(itemsize: int) -> Tuple[Tuple[int, int], ...]:
-    """``(D, Dv)`` pairs the kernel of this element size is instantiated
-    for: bf16 (2 bytes) or f32 (4)."""
-    if itemsize == 2:
-        return BF16_HEAD_DIMS
-    return tuple((d, d) for d in HEAD_DIMS)
+def _width_class(x: int) -> Optional[int]:
+    return next((c for c in HEAD_DIMS if x <= c), None)
+
+
+def head_dim_class(head_dim: int, value_dim: int
+                   ) -> Optional[Tuple[int, int]]:
+    """The class pair a call at head dims ``(D, Dv)`` runs at, or ``None``
+    outside ``1..MAX_HEAD_DIM``: each width rounded up to the least of
+    :data:`HEAD_DIMS`; a pair that is not one of :data:`HEAD_DIM_PAIRS`
+    takes the square class of its larger width. ``head_dim_class`` of
+    ``csrc/flash_attention.cu`` states the same rule."""
+    if head_dim < 1 or value_dim < 1:
+        return None
+    dc, dvc = _width_class(head_dim), _width_class(value_dim)
+    if dc is None or dvc is None:
+        return None
+    if (dc, dvc) not in HEAD_DIM_PAIRS:
+        dc = dvc = max(dc, dvc)
+    return dc, dvc
+
+
+def _class_dims(head_dim: int, value_dim: Optional[int]) -> Tuple[int, int]:
+    """The class pair of ``(head_dim, value_dim)`` (``value_dim`` defaults
+    to ``head_dim``), or the dims themselves outside the kernels' range."""
+    dv = head_dim if value_dim is None else value_dim
+    return head_dim_class(head_dim, dv) or (head_dim, dv)
 
 
 def _bf16_smem(head_dim: int, block_q: int, block_k: int, stages: int,
@@ -110,34 +146,36 @@ def _bf16_smem(head_dim: int, block_q: int, block_k: int, stages: int,
 
 def bf16_stages(head_dim: int, block_q: int, block_k: int,
                 value_dim: Optional[int] = None) -> int:
-    """Stages of the bf16 kernel's K/V ring at these tiles: three where
-    they fit in a block's shared memory, else two."""
-    fits = _bf16_smem(head_dim, block_q, block_k, BF16_MAX_STAGES,
-                      value_dim) <= SMEM_LIMIT_BYTES
+    """Stages of the bf16 kernel's K/V ring at these tiles and the class of
+    these head dims: three where they fit in a block's shared memory, else
+    two."""
+    dc, dvc = _class_dims(head_dim, value_dim)
+    fits = _bf16_smem(dc, block_q, block_k, BF16_MAX_STAGES,
+                      dvc) <= SMEM_LIMIT_BYTES
     return BF16_MAX_STAGES if fits else 2
 
 
 def smem_bytes(itemsize: int, head_dim: int, block_q: int,
                block_k: int, value_dim: Optional[int] = None) -> int:
-    """Shared memory of one thread block of the kernel.
+    """Shared memory of one thread block of the kernel, at the class
+    ``(D, Dv)`` of these head dims (:func:`head_dim_class`; ``value_dim``
+    defaults to ``head_dim``).
 
-    f32 (``TilesF32`` of ``csrc/flash_attention.cu``): Q split into Q_big
-    and Q_small (stored as the mma's A fragments), the K slot in rows of
-    ``D + 16`` floats and the V slot in rows of ``D + 4`` (the pitches that
-    keep the fragment loads free of bank conflicts); the merge of the kv
-    splits reuses the same bytes. bf16
-    (``SmemSm90`` of
-    ``csrc/flash_attention_sm90.cu``): the Q tile, :func:`bf16_stages` K and
-    V tiles (``value_dim`` wide, default ``head_dim``), ``2 * stages + 1``
-    8-byte mbarriers and 1024 bytes of slack that align the swizzled
-    tiles: ``2 (D (bq + stages bk) + Dv stages bk) + 8 (2 stages + 1) +
-    1024``."""
+    f32 (``TilesF32`` of ``csrc/flash_attention_f32.cuh``): Q split into
+    Q_big and Q_small (stored as the mma's A fragments), the K slot in rows of
+    ``D + 16`` floats and the V slot in rows of ``Dv + 4`` (the pitches
+    that keep the fragment loads free of bank conflicts); the merge of the
+    kv splits reuses the same bytes. bf16 (``SmemSm90`` of
+    ``csrc/flash_attention_sm90.cuh``): the Q tile, :func:`bf16_stages` K
+    and V tiles, ``2 * stages + 1`` 8-byte mbarriers and 1024 bytes of slack
+    that align the swizzled tiles: ``2 (D (bq + stages bk) + Dv stages bk)
+    + 8 (2 stages + 1) + 1024``."""
+    dc, dvc = _class_dims(head_dim, value_dim)
     if itemsize == 2:
-        return _bf16_smem(head_dim, block_q, block_k,
-                          bf16_stages(head_dim, block_q, block_k, value_dim),
-                          value_dim)
-    return itemsize * (2 * block_q * head_dim + block_k * (head_dim + 16)
-                       + block_k * (head_dim + 4))
+        return _bf16_smem(dc, block_q, block_k,
+                          bf16_stages(dc, block_q, block_k, dvc), dvc)
+    return itemsize * (2 * block_q * dc + block_k * (dc + 16)
+                       + block_k * (dvc + 4))
 
 
 def flash_attention_work(seq_q: int, seq_kv: int, *, causal: bool,
@@ -341,20 +379,21 @@ def _scale(scale: Optional[float], head_dim: int) -> float:
 def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
                 block_k: int) -> Optional[str]:
     """Why the kernel is not built for these head dims and tiles, or
-    ``None`` when it is: the one statement of what ``csrc/flash_attention.cu``
-    (f32, ``itemsize`` 4) and ``csrc/flash_attention_sm90.cu`` (bf16,
-    ``itemsize`` 2) instantiate, read by the wrapper and by the tuning
-    space's prune."""
-    dims = head_dims(itemsize)
-    if (head_dim, value_dim) not in dims:
-        why = (f"not-instantiated (the {itemsize}-byte kernel is built for "
-               f"head dims (D, Dv) in {dims}; got D {head_dim}, Dv "
-               f"{value_dim})")
-        if itemsize == 4:
-            why += ("; f32 attention at other head dims is ROADMAP queue B, "
-                    "later work item 6: the kernel contract narrower than "
-                    "the TPU kernel's")
-        return why
+    ``None`` when it is: the one statement of what the f32 kernel
+    (``csrc/flash_attention_f32.cuh``, ``itemsize`` 4) and the bf16 kernel
+    (``csrc/flash_attention_sm90.cuh``, ``itemsize`` 2) instantiate, read
+    by the wrapper and by the tuning space's prune. Head dims
+    ``1..MAX_HEAD_DIM`` run at their class (:func:`head_dim_class`), whose
+    tiles and shared memory are checked. The f32 kernel's tiles are built
+    wherever they fit, some spilling registers (its only tile at (256,
+    256), 32 x 64, spills 168 bytes); the bf16 kernel's but
+    :data:`BF16_SPILLING_TILES`."""
+    cls = head_dim_class(head_dim, value_dim)
+    if cls is None:
+        return (f"head-dim-range (the kernels take head dims 1 <= D, Dv <= "
+                f"{MAX_HEAD_DIM}; got D {head_dim}, Dv {value_dim}: wider "
+                f"heads are ROADMAP queue B, still to port)")
+    head_dim, value_dim = cls
     q_opts, k_opts = tile_options(itemsize)
     if block_q not in q_opts or block_k not in k_opts:
         return (f"not-instantiated (the {itemsize}-byte kernel is built for "
@@ -363,12 +402,12 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
     smem = smem_bytes(itemsize, head_dim, block_q, block_k, value_dim)
     if smem > SMEM_LIMIT_BYTES:
         return (f"smem-overflow (tiles ({block_q}, {block_k}) need {smem} B "
-                f"of shared memory at {itemsize}-byte elements, head dims "
-                f"({head_dim}, {value_dim}); a block has {SMEM_LIMIT_BYTES} "
-                f"B)")
+                f"of shared memory at {itemsize}-byte elements, head-dim "
+                f"class ({head_dim}, {value_dim}); a block has "
+                f"{SMEM_LIMIT_BYTES} B)")
     if itemsize == 2 and (head_dim, value_dim, block_q,
                           block_k) in BF16_SPILLING_TILES:
-        return (f"spills (tiles ({block_q}, {block_k}) at head dims "
+        return (f"spills (tiles ({block_q}, {block_k}) at head-dim class "
                 f"({head_dim}, {value_dim}) spill registers and are not "
                 f"built; see BF16_SPILLING_TILES)")
     return None
@@ -389,49 +428,67 @@ def tma_strides(t: torch.Tensor) -> Tuple[int, ...]:
 def _refusal(q, k, v, block_q: int, block_k: int) -> Optional[str]:
     """Why the CUDA kernel does not take these ``[B, S, H, D]`` tensors and
     tiles, or ``None`` when it does."""
-    if not q.is_cuda:
-        return (f"the flash_attention kernel takes CUDA tensors (or CPU "
-                f"tensors for the plain version); got device {q.device}")
     if q.dtype not in _DTYPE_CODES:
-        return f"the kernel takes float32 or bfloat16, got {q.dtype}"
+        return (f"the kernel takes float32 or bfloat16, got {q.dtype}"
+                + ("; float16 attention is ROADMAP queue B, still to port"
+                   if q.dtype == torch.float16 else ""))
     why = unsupported(q.element_size(), q.shape[-1], v.shape[-1], block_q,
                       block_k)
-    if why is not None:
-        return why
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        return "the last dim of q, k and v must be contiguous"
-    # 16-byte copies (TMA for bf16, cp.async and 16-byte loads for f32): a
-    # 16-byte aligned base and strides that are multiples of 16 bytes
-    copies = "TMA" if q.dtype == torch.bfloat16 else "cp.async"
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            return (f"the kernel's 16-byte {copies} copies need 16-byte "
-                    f"aligned tensors; {name} starts at {t.data_ptr():#x}")
-        if any(s * t.element_size() % 16 for s in tma_strides(t)[:3]):
-            return (f"the kernel's 16-byte {copies} copies need strides that "
-                    f"are multiples of 16 bytes; {name} has strides "
-                    f"{t.stride()}")
-    return None
+    if why is None and not q.is_cuda:
+        why = (f"the flash_attention kernel takes CUDA tensors (or CPU "
+               f"tensors for the plain version); got device {q.device}")
+    return why
+
+
+def copy_rule_holds(t: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte copies (TMA for bf16, cp.async and
+    16-byte loads for f32) can read ``t`` where it lies: a contiguous last
+    dim, a 16-byte aligned base and strides that are multiples of 16
+    bytes."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s * t.element_size() % 16
+                        for s in tma_strides(t)[:-1]))
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a zeroed buffer whose last dim is rounded up to 16
+    bytes: the buffer keeps the copy rule. The kernel reads only the first
+    ``t.shape[-1]`` columns of each row (its true width)."""
+    per = 16 // t.element_size()
+    width = -(-t.shape[-1] // per) * per
+    buf = t.new_zeros((*t.shape[:-1], width))
+    buf[..., :t.shape[-1]] = t
+    return buf
 
 
 def _launch(q, k, v, causal: bool, scale: float, block_q: int,
             block_k: int) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no synchronise)."""
-    global LAUNCHES
+    """Launch the CUDA kernel on PyTorch's current stream (no synchronise).
+    A tensor that breaks the copy rule (:func:`copy_rule_holds`) is copied
+    first (:func:`_padded`, counted in :data:`PADDED_COPIES`); the kernel
+    takes the true head dims and the copy's strides."""
+    global LAUNCHES, PADDED_COPIES
     why = _refusal(q, k, v, block_q, block_k)
     if why is not None:
         raise ValueError(why)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dv = v.shape
+    bufs = []
+    for t in (q, k, v):
+        if not copy_rule_holds(t):
+            t = _padded(t)
+            PADDED_COPIES += 1
+        bufs.append(t)
     from repro_torch.kernels import build
     lib = build.load_library()
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+    qb, kb, vb = bufs
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.repro_flash_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Hq, Hkv, Sq, Skv, D, Dv,
-            *tma_strides(q)[:3], *tma_strides(k)[:3], *tma_strides(v)[:3],
+            _DTYPE_CODES[q.dtype], qb.data_ptr(), kb.data_ptr(),
+            vb.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv, D, Dv,
+            *tma_strides(qb)[:3], *tma_strides(kb)[:3], *tma_strides(vb)[:3],
             *out.stride()[:3], int(bool(causal)), scale, block_q, block_k,
             stream)
     build.check_launch(code, f"flash_attention(q {tuple(q.shape)}, "

@@ -29,7 +29,9 @@ def flash_attention_op(q, k, v, *, causal: bool = True,
                        scale: Optional[float] = None):
     """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D/Dv] -> [B, Sq, Hq, Dv].
     GQA by indexing kv head ``h // (Hq // Hkv)``; nothing is repeated or
-    transposed.
+    transposed. Any head dims ``1 <= D, Dv <= 256``, as the reference's op
+    takes any (``fa.unsupported`` states the kernels' rules; wider heads
+    and float16 raise by name on the card).
 
     The kernel has no backward: inputs that require grad while autograd
     records raise, on every device (the output would carry no ``grad_fn``
@@ -69,3 +71,4 @@ def reset_launch_counts() -> None:
     mb.LAUNCHES = 0
     fa.LAUNCHES = 0
     fa.LAUNCHES_BY_SHAPE.clear()
+    fa.PADDED_COPIES = 0

@@ -22,8 +22,9 @@ farthest key a query at offset 0 must reach is ``Sq - 1`` positions back
 window). At ``Sq > w`` it masks keys, which the kernel does not do, and the
 call takes the plain route; so do query offsets and kv masks (the decode
 self-attention over a cache of written rows). That is the kernel's
-contract, not a fallback on failure: what the kernel is not built for (a
-head dim, a dtype) raises in its wrapper. Every call on CPU tensors takes
+contract, not a fallback on failure: what the kernels are not built for
+(head dims above 256, float16) raises in their wrapper; every head dim up
+to 256 runs at its head-dim class. Every call on CPU tensors takes
 the plain blocked online softmax,
 :func:`repro_torch.kernels.flash_attention.flash_attention_plain`.
 
@@ -34,7 +35,8 @@ cache of ``window`` slots is a ring (slot ``pos % window``).
 MLA (DeepSeek-V3): prefill decompresses per-head K and V from the latent
 and goes through :func:`chunked_attention` with q/k head dim
 ``qk_nope + qk_rope`` and v head dim ``v_head_dim`` (192 and 128 at full
-width: the bf16 kernel's ``(192, 128)`` instantiation); decode is the
+width: both kernels' ``(192, 128)`` instantiation; 24 and 16 in the
+reduced config, the ``(32, 32)`` class); decode is the
 absorbed form over the ``(c_kv, k_rope)`` cache, in plain PyTorch, as the
 reference computes it outside any kernel.
 
@@ -110,17 +112,24 @@ NEG_INF = -1e30
 #: the fastest tile of the wgmma kernel at the served model's prefill shape
 #: (and at head dim 160, where 128 x 128 keeps only two stages), for f32 the
 #: fastest tile of the 3xTF32 kernel at the SPACES shape, both on the H100
-#: (PERF.md); the f32 tile also fits at head dim 160, where Q split in two
-#: leaves room for 32 x 64, 32 x 128 and 64 x 64 only
+#: (PERF.md); the f32 tile is the one that fits at every head-dim class (at
+#: (256, 256) it is the only one), the bf16 tile at every class but (256,
+#: 256)
 FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 64)}
-#: the tiles at head dims ``(D, Dv)`` where FLASH_TILES' are not built: at
-#: (256, 256) the bf16 kernel has 64 x 64 only (its 128 x 64 would spill,
-#: ``fa.BF16_SPILLING_TILES``)
-FLASH_TILES_BY_HEAD_DIMS = {(torch.bfloat16, 256, 256): (64, 64)}
-#: the tiles of a non-causal call at head dims ``(D, Dv)`` where they beat
-#: the causal ones: bf16 at 128 and 64, where every q tile walks every kv
-#: tile, 128 x 128 beat 128 x 64 beyond the spread of five rounds on the
-#: H100 (the VLM's cross-attention at prefill by 7.2 %, the enc-dec's
+#: the tiles at a head-dim class ``(D, Dv)`` (``fa.head_dim_class``) where
+#: FLASH_TILES' are not built, or are slower: at (256, 256) the bf16 kernel
+#: has 64 x 64 only (its 128 x 64 would spill, ``fa.BF16_SPILLING_TILES``);
+#: the f32 kernel's fastest tile at 4 x 1024 tokens of 16 heads at (96, 96)
+#: (1.40x 32 x 64) and (192, 192) (1.17x), and at MLA's prefill (1.21x),
+#: on the H100 (tools/flash_head_dims_check.py; PERF.md §6)
+FLASH_TILES_BY_HEAD_DIMS = {(torch.bfloat16, 256, 256): (64, 64),
+                            (torch.float32, 96, 96): (128, 64),
+                            (torch.float32, 192, 192): (64, 64),
+                            (torch.float32, 192, 128): (64, 64)}
+#: the tiles of a non-causal call at a head-dim class ``(D, Dv)`` where
+#: they beat the causal ones: bf16 at 128 and 64, where every q tile walks
+#: every kv tile, 128 x 128 beat 128 x 64 beyond the spread of five rounds
+#: on the H100 (the VLM's cross-attention at prefill by 7.2 %, the enc-dec's
 #: encoder by 5.2 %; PERF.md §6)
 NONCAUSAL_FLASH_TILES = {(torch.bfloat16, 128, 128): (128, 128),
                          (torch.bfloat16, 64, 64): (128, 128)}
@@ -149,16 +158,19 @@ def flash_tiles(dtype: torch.dtype,
                 causal: bool = True,
                 seq_q: Optional[int] = None) -> Tuple[int, int]:
     """The kernel's ``(block_q, block_k)`` for a call of ``dtype`` (at
-    ``head_dims`` ``(D, Dv)``, where :data:`FLASH_TILES_BY_HEAD_DIMS` and,
-    for a non-causal call, :data:`NONCAUSAL_FLASH_TILES` name some; a
-    non-causal bf16 query of ``seq_q <= SHORT_QUERY_BLOCK_Q`` rows in q
-    tiles of that many rows), at every length: the kernel masks a ragged
-    last tile (and a tile longer than the sequence). A dtype the kernel
-    does not take gets the default tiles, and the kernel's wrapper refuses
-    it."""
+    ``head_dims`` ``(D, Dv)``, whose head-dim class
+    :data:`FLASH_TILES_BY_HEAD_DIMS` and, for a non-causal call,
+    :data:`NONCAUSAL_FLASH_TILES` may name; a non-causal bf16 query of
+    ``seq_q <= SHORT_QUERY_BLOCK_Q`` rows in q tiles of that many rows), at
+    every length: the kernel masks a ragged last tile (and a tile longer
+    than the sequence). For every pair ``1 <= D, Dv <= 256`` of a dtype the
+    kernels take, ``fa.unsupported`` accepts the tile. A dtype or head dims
+    the kernels do not take get the default tiles, and the kernel's wrapper
+    refuses them."""
     tiles = FLASH_TILES.get(dtype, (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K))
-    if head_dims is not None:
-        key = (dtype, *head_dims)
+    cls = None if head_dims is None else fa.head_dim_class(*head_dims)
+    if cls is not None:
+        key = (dtype, *cls)
         tiles = FLASH_TILES_BY_HEAD_DIMS.get(key, tiles)
         if not causal:
             tiles = NONCAUSAL_FLASH_TILES.get(key, tiles)

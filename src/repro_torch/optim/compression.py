@@ -25,8 +25,12 @@ def quantize_int8(g: torch.Tensor, absmax: Optional[torch.Tensor] = None
     if absmax is None:
         absmax = torch.max(torch.abs(gf))
     scale = absmax / 127.0 + 1e-12
-    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    q = torch.clamp(torch.round(gf / scale), -127, 127)
+    # the f32 quotient can land on the wrong side of a half step: take the
+    # neighbouring level toward g where it dequantizes nearer to g
+    alt = torch.clamp(q + torch.sign(gf - q * scale), -127, 127)
+    q = torch.where((alt * scale - gf).abs() < (q * scale - gf).abs(), alt, q)
+    return q.to(torch.int8), scale
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

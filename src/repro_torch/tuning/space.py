@@ -434,18 +434,24 @@ class FlashAttentionSpace(KernelSpace):
     The reference prunes blocks that are not multiples of the TPU's 128-wide
     matrix unit and blocks whose q/k/v/o blocks and scratch overflow VMEM.
     The card's rules replace both, read from
-    ``flash_attention.unsupported``: a tile must be one the kernel is
-    instantiated for (``BLOCK_Q_OPTIONS`` x ``BLOCK_K_OPTIONS``, at a head
-    dim in ``HEAD_DIMS``), its shared memory (Q split into two TF32 parts
-    and the K and V slots; ``flash_attention.smem_bytes``) must fit in the
-    227 KB a block can have; and ``min(block, S)`` must divide the sequence.
+    ``flash_attention.unsupported``: the head dims must be in the kernels'
+    range (``1 <= D, Dv <= 256``, any such pair, as the reference takes
+    any; the kernel runs at their head-dim class,
+    ``flash_attention.head_dim_class``), a tile must be one the kernel is
+    instantiated for (``BLOCK_Q_OPTIONS`` x ``BLOCK_K_OPTIONS``), its shared
+    memory at the class (Q split into two TF32 parts and the K and V slots;
+    ``flash_attention.smem_bytes``) must fit in the 227 KB a block can
+    have; and ``min(block, S)`` must divide the sequence. So the space
+    keeps candidates at every head dim the reference tunes at, 96 too.
 
     The analytic cost describes what the kernel does. Causal attention
     skips the kv tiles that lie wholly above a q tile's diagonal (exact:
     they contribute ``exp(-1e30 - m) = 0``), so flops count only the
     (q tile, kv tile) pairs the kernel visits, ``2 * (D + Dv)`` a score
     entry, where the reference counts the full rectangle. Traffic: q and o
-    move once, K and V once per visited pair, in the inputs' itemsize.
+    move once, K and V once per visited pair, in the inputs' itemsize. Both
+    count the true head dims, as the reference's do, not the class's: a
+    class's padded columns show as a lower achieved share, not as work.
     ``vmem_bytes`` is the block's shared memory; ``grid_steps`` the visited
     tile pairs, the counterpart of the reference's grid steps.
     """

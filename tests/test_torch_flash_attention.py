@@ -142,6 +142,31 @@ def test_plain_at_dv_ne_d_matches_reference_kernel(Sq, Hq, Hkv, D, Dv, bq,
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (32, 32), (96, 96), (24, 16),
+                                  (128, 64), (192, 128), (256, 256)])
+def test_op_at_any_head_dim_matches_reference_kernel(D, Dv, causal, dtype):
+    """At head dims the kernels take only since they take any (each runs at
+    its head-dim class), the op against the reference's
+    ``ops.flash_attention_op`` (interpret mode) on the same numpy inputs,
+    GQA over 4 q heads and 2 kv heads, 2e-5 in f32 and 2e-2 in bf16. On the
+    CPU the op runs the kernels' plain version; ``chip_smoke.py`` holds the
+    CUDA kernels against that plain version at these head dims."""
+    arrays = [_normal(3 * D + Dv + i, 2, 128, h, w) for i, (h, w) in
+              enumerate(((4, D), (2, D), (2, Dv)))]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in arrays)
+    want = ref_ops.flash_attention_op(jq, jk, jv, causal=causal, block_q=64,
+                                      block_k=64)
+    tiles = attn.flash_tiles(getattr(torch, dtype), (D, Dv), causal, 128)
+    assert fa.unsupported(tq.element_size(), D, Dv, *tiles) is None
+    got = ops.flash_attention_op(tq, tk, tv, causal=causal, block_q=tiles[0],
+                                 block_k=tiles[1])
+    assert got.shape == want.shape == (2, 128, 4, Dv)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
 def test_flash_noncausal_matches_reference_kernel():
     q, k, v = (_normal(70 + i, 1, 128, 2, 32) for i in range(3))
     want = ref_ops.flash_attention_op(q, k, v, causal=False, block_q=64,
@@ -378,48 +403,118 @@ def test_plain_causal_skip_is_exact(q_offset, window):
     (4, 160, 160, 64, 128, "smem-overflow"),  # Q split in two does not fit
     (4, 160, 160, 128, 64, "smem-overflow"),
     (4, 64, 64, 128, 128, None),
-    (4, 96, 96, 64, 64, "not-instantiated"),
-    (4, 128, 64, 64, 64, "not-instantiated"),
+    (4, 96, 96, 64, 64, None),               # the (96, 96) class
+    (4, 128, 64, 64, 64, None),              # Dv != D: the (128, 128) class
     (4, 64, 64, 16, 64, "not-instantiated"),
     (2, 128, 128, 32, 64, "not-instantiated"),   # bf16: 64 rows a warpgroup
     (2, 128, 128, 128, 256, "not-instantiated"),
-    # MLA prefill: q/k of 192, v of 128, bf16 only, at every tile
+    # MLA prefill: q/k of 192, v of 128, at every tile that fits
     (2, 192, 128, 128, 64, None),
     (2, 192, 128, 128, 128, None),
     (2, 192, 128, 64, 64, None),
     (2, 192, 128, 64, 128, None),
-    (4, 192, 128, 64, 64, "queue B"),        # f32 at Dv != D: later work
-    (2, 192, 192, 64, 64, "not-instantiated"),
-    (2, 128, 192, 64, 64, "not-instantiated"),
-    (2, 128, 64, 64, 64, "not-instantiated"),
-    # RecurrentGemma's local attention: head dim 256, bf16 only; the 128-row
-    # kv tiles overflow shared memory even with two stages, and 128 x 64
-    # fits but spills registers, so 64 x 64 is the one tile built
+    (4, 192, 128, 64, 64, None),             # f32 at Dv != D
+    (4, 192, 128, 64, 128, "smem-overflow"),
+    (2, 192, 192, 64, 64, None),             # the (192, 192) class
+    (2, 192, 192, 128, 128, "smem-overflow"),
+    (2, 128, 192, 64, 64, None),             # runs at (192, 192)
+    (2, 128, 64, 64, 64, None),              # runs at (128, 128)
+    # RecurrentGemma's local attention: head dim 256; the 128-row kv tiles
+    # overflow shared memory even with two stages, and bf16's 128 x 64
+    # fits but spills registers, so 64 x 64 is the one bf16 tile built
     (2, 256, 256, 128, 64, "spills"),
     (2, 256, 256, 64, 64, None),
     (2, 256, 256, 128, 128, "smem-overflow"),
     (2, 256, 256, 64, 128, "smem-overflow"),
-    (4, 256, 256, 32, 64, "queue B"),        # f32 at head dim 256: later
-    (2, 256, 128, 64, 64, "not-instantiated"),
+    (4, 256, 256, 32, 64, None),             # f32: 32 x 64 alone fits
+    (4, 256, 256, 64, 64, "smem-overflow"),
+    (2, 256, 128, 64, 64, None),             # runs at (256, 256)
+    (2, 200, 200, 128, 64, "spills"),        # (256, 256)'s rule
+    # wider than the TPU kernel's widest model head: ROADMAP queue B
+    (2, 257, 64, 64, 64, "queue B"),
+    (4, 64, 300, 32, 64, "queue B"),
+    (4, 0, 64, 32, 64, "head-dim-range"),
 ])
 def test_support_rules(itemsize, D, Dv, bq, bk, why):
     got = fa.unsupported(itemsize, D, Dv, bq, bk)
     assert got is None if why is None else why in got
     q_opts, k_opts = fa.tile_options(itemsize)
-    assert (got is None) == ((D, Dv) in fa.head_dims(itemsize)
+    cls = fa.head_dim_class(D, Dv)
+    assert (got is None) == (cls is not None
                              and bq in q_opts and bk in k_opts
                              and fa.smem_bytes(itemsize, D, bq, bk, Dv)
                              <= fa.SMEM_LIMIT_BYTES
-                             and not (itemsize == 2 and (D, Dv, bq, bk)
+                             and not (itemsize == 2 and (*cls, bq, bk)
                                       in fa.BF16_SPILLING_TILES))
 
 
 def test_head_dims_by_kernel():
-    """f32 takes the head dims of HEAD_DIMS with Dv == D; bf16 those,
-    MLA's (192, 128) and RecurrentGemma's (256, 256)."""
-    assert fa.head_dims(4) == ((64, 64), (128, 128), (160, 160))
-    assert fa.head_dims(2) == fa.head_dims(4) + ((192, 128), (256, 256))
-    assert fa.unsupported(4, 128, 64, 64, 64).startswith("not-instantiated")
+    """Both kernels are built at the same head-dim classes: the squares of
+    HEAD_DIMS and MLA's (192, 128). A width runs at the least class that
+    holds it; a pair that is not built runs at the square class of its
+    larger width; 0 and widths above 256 have no class."""
+    assert fa.HEAD_DIMS == (32, 64, 96, 128, 160, 192, 256)
+    assert fa.HEAD_DIM_PAIRS == \
+        tuple((d, d) for d in fa.HEAD_DIMS) + ((192, 128),)
+    assert fa.head_dim_class(1, 1) == (32, 32)
+    assert fa.head_dim_class(24, 16) == (32, 32)
+    assert fa.head_dim_class(33, 33) == (64, 64)
+    assert fa.head_dim_class(128, 64) == (128, 128)
+    assert fa.head_dim_class(150, 100) == (160, 160)
+    assert fa.head_dim_class(170, 100) == (192, 128)
+    assert fa.head_dim_class(192, 128) == (192, 128)
+    assert fa.head_dim_class(100, 170) == (192, 192)
+    assert fa.head_dim_class(200, 1) == (256, 256)
+    assert fa.head_dim_class(0, 64) is None
+    assert fa.head_dim_class(64, 257) is None
+    # the built dims are their own class
+    for pair in fa.HEAD_DIM_PAIRS:
+        assert fa.head_dim_class(*pair) == pair
+
+
+#: (D, Dv) of the grid the kernel contract is held at: every kind of class
+#: and its edges, Dv != D both ways
+_GRID = (1, 8, 16, 20, 24, 32, 80, 96, 100, 200, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", _GRID)
+@pytest.mark.parametrize("Dv", _GRID)
+def test_flash_tiles_are_built_at_every_head_dim(dtype, D, Dv):
+    """For every (dtype, D, Dv) with 1 <= D, Dv <= 256, causal or not, at a
+    long and at a one-row query, the model's tile is one ``unsupported``
+    accepts: the kernels take every head dim the TPU kernel's models
+    have."""
+    for causal, seq_q in ((True, 1024), (False, 1024), (False, 1)):
+        tiles = attn.flash_tiles(dtype, (D, Dv), causal, seq_q)
+        assert fa.unsupported(dtype.itemsize, D, Dv, *tiles) is None
+
+
+def test_flash_tiles_are_built_at_every_pair_of_head_dims():
+    """The contract over the whole range, every (D, Dv) pair of 1..256."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in range(1, fa.MAX_HEAD_DIM + 1):
+            for Dv in range(1, fa.MAX_HEAD_DIM + 1):
+                assert fa.unsupported(dtype.itemsize, D, Dv, *attn.flash_tiles(
+                    dtype, (D, Dv))) is None, (dtype, D, Dv)
+
+
+def test_wider_heads_and_float16_are_refused_by_name():
+    """Above 256 and in float16 the wrapper refuses, naming ROADMAP queue
+    B, on any device that is not the CPU (whose tensors take the plain
+    version)."""
+    for shape, dtype in (((1, 16, 2, 264), torch.bfloat16),
+                         ((1, 16, 2, 64), torch.float16)):
+        meta = torch.empty(shape, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="queue B"):
+            ops.flash_attention_op(meta, meta, meta)
+    assert fa.copy_rule_holds(torch.zeros((1, 8, 2, 64)))
+    assert not fa.copy_rule_holds(torch.zeros((1, 8, 1, 20),
+                                              dtype=torch.bfloat16))
+    assert not fa.copy_rule_holds(torch.zeros((1, 8, 2, 64))[..., 1:9])
+    padded = fa._padded(torch.ones((1, 8, 1, 20), dtype=torch.bfloat16))
+    assert padded.shape == (1, 8, 1, 24) and fa.copy_rule_holds(padded)
+    assert float(padded[..., 20:].abs().sum()) == 0.0
 
 
 @pytest.mark.parametrize("Sq,Skv,bq,bk", [(256, 256, 64, 64),
@@ -474,12 +569,20 @@ def test_shared_memory_formula():
     assert fa.bf16_stages(160, 128, 128) == 2
     assert fa.smem_bytes(2, 160, 128, 128) == 205864 <= fa.SMEM_LIMIT_BYTES
     assert fa.bf16_stages(160, 128, 64) == 3
-    # every bf16 tile fits up to head dim 192; at 256 only the 64-row kv
-    # tiles do (test_shared_memory_formula_at_head_dim_256)
+    # every bf16 tile fits up to head dim 160 and at (192, 128); at (192,
+    # 192) all but 128 x 128; at 256 only the 64-row kv tiles do
+    # (test_shared_memory_formula_at_head_dim_256)
     assert all(fa.smem_bytes(2, D, bq, bk, Dv) <= fa.SMEM_LIMIT_BYTES
-               for D, Dv in fa.BF16_HEAD_DIMS if D < 256
+               for D, Dv in fa.HEAD_DIM_PAIRS if D <= 160 or Dv < D
                for bq in fa.BF16_BLOCK_Q_OPTIONS
                for bk in fa.BF16_BLOCK_K_OPTIONS)
+    assert [(bq, bk) for bq in fa.BF16_BLOCK_Q_OPTIONS
+            for bk in fa.BF16_BLOCK_K_OPTIONS
+            if fa.smem_bytes(2, 192, bq, bk) > fa.SMEM_LIMIT_BYTES] == \
+        [(128, 128)]
+    # a call's head dims are priced at their class: D = 100 at (128, 128)
+    assert fa.smem_bytes(2, 100, 128, 64) == fa.smem_bytes(2, 128, 128, 64)
+    assert fa.smem_bytes(4, 20, 32, 64, 12) == fa.smem_bytes(4, 32, 32, 64)
 
 
 def test_shared_memory_formula_at_head_dim_256():
@@ -562,11 +665,11 @@ def recorded(monkeypatch):
 
 
 def test_prefill_case_goes_to_the_kernel_and_others_do_not(recorded):
-    q, k, v = (torch.from_numpy(_normal(40 + i, 1, 64, 4, 16))
+    q, k, v = (torch.from_numpy(_normal(40 + i, 1, 64, 4, 264))
                for i in range(3))
     kv = k[:, :, :2], v[:, :, :2]
-    with pytest.raises(ValueError, match="not-instantiated"):
-        attn.chunked_attention(q, *kv)       # head dim 16: raises, no plain
+    with pytest.raises(ValueError, match="queue B"):
+        attn.chunked_attention(q, *kv)       # head dim 264: raises, no plain
     q, k, v = (torch.from_numpy(_normal(40 + i, 1, 64, 4, 64))
                for i in range(3))
     kv = k[:, :, :2], v[:, :, :2]

@@ -247,48 +247,52 @@ def test_dry_run_modules_import_no_jax_and_no_reference():
     assert lines[-1] == "PROCESS_GROUP False"
 
 
-#: public names of a ported reference module that its counterpart does not
-#: have yet, each with the ROADMAP queue A item that brings it
-STILL_MISSING = {
-    "repro.power": {},
-    "repro.core.hlo_cost": {},
-    "repro.core.roofline": {},
-    "repro.core.governor": {},
-    "repro.launch.dryrun": {},
-    "repro.power.chip": {},
-    "repro.power.jobs": {},
-    "repro.power.fleet": {},
-    "repro.power.scenarios": {},
-    "repro.power.stream": {},
-    "repro.power.broker": {},
-    "repro.core.telemetry": {},
-    "repro.optim.adamw": {},
-    "repro.optim.compression": {},
-    "repro.data.synthetic": {},
-    "repro.checkpoint.checkpointer": {},
-    "repro.launch.steps": {},
-    "repro.launch.train": {},
-    "repro.models.model": {},
-    "repro.parallel.executor": {},
-    "repro.parallel.sharding": {},
-    "repro.launch.mesh": {},
-    "repro.launch.elastic": {},
-    "repro.models.common": {},
-    "repro.models.decode": {},
-    "repro.models.moe": {},
-    "repro.models.attention": {},
-    "repro.parallel": {},
-    "repro.optim": {},
-}
+def _reference_modules():
+    """Every module of the reference package, from its files: the port has
+    a counterpart of each (``repro.x.y`` -> ``repro_torch.x.y``)."""
+    from pathlib import Path
+    root = Path(ROOT, "src")
+    names = []
+    for path in sorted((root / "repro").rglob("*.py")):
+        parts = path.relative_to(root).with_suffix("").parts
+        names.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                              else parts))
+    return names
+
+
+#: every module of the reference package
+REFERENCE_MODULES = _reference_modules()
+
+#: public names of each reference module that its counterpart does not
+#: have yet, each with the ROADMAP queue A item that brings it: none, the
+#: port has them all
+STILL_MISSING = {name: {} for name in REFERENCE_MODULES}
 
 
 #: public names of a ported reference module that have no counterpart by
 #: design, each with its reason (``STILL_MISSING`` is what is still to come)
+_UNREAD_FIELD = "a field the reference declares and never reads"
 NOT_APPLICABLE = {
     "repro.core.hlo_cost": dict.fromkeys(
         ("Instr", "HloCostModel", "analyze_hlo"),
         "no HLO in the port: repro_torch.core.hlo_cost counts dispatched "
         "ops (CostCounter, analyze_step)"),
+    "repro.tuning.space": {
+        "MXU": "the TPU's 128-wide matrix unit, which the reference's "
+               "flash space aligns blocks to; the card's tiles are "
+               "flash_attention.tile_options and unsupported",
+        "SUBLANE_F32": "the TPU's f32 sublane tile, which the reference's "
+                       "membw space aligns chunks to; the port's spaces "
+                       "prune by the thread-block step instead"},
+    "repro.tuning.calibrate": {
+        "CHIPS": "an import the reference's module never reads; the table "
+                 "is repro_torch.core.hardware.CHIPS"},
+    "repro.models.transformer": {
+        "StackedMaker": "a ParamMaker view for layers stacked on a leading "
+                        "axis, which jax.lax.scan walks; the port keeps a "
+                        "list of per-layer parameters and loops over it",
+        "Runtime.max_decode_len": _UNREAD_FIELD},
+    "repro.models": {"Runtime.max_decode_len": _UNREAD_FIELD},
 }
 
 #: reference modules whose import changes the process (the dry run sets
@@ -297,12 +301,18 @@ _IMPORT_ELSEWHERE = ("repro.launch.dryrun",)
 
 
 def _public(mod):
+    """A module's ``__all__``, or its own public names; a package without
+    ``__all__`` also names the classes and functions it re-exports from
+    its own modules."""
     import inspect
     names = getattr(mod, "__all__", None)
     if names is None:
         names = [n for n, v in vars(mod).items()
                  if not n.startswith("_") and not inspect.ismodule(v)
-                 and getattr(v, "__module__", mod.__name__) == mod.__name__]
+                 and (getattr(v, "__module__", mod.__name__) == mod.__name__
+                      or (hasattr(mod, "__path__")
+                          and (inspect.isclass(v) or inspect.isfunction(v))
+                          and v.__module__.startswith(mod.__name__ + ".")))]
     return set(names)
 
 
@@ -320,16 +330,19 @@ def _public_in_subprocess(ref_name):
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("ref_name", sorted(STILL_MISSING))
+@pytest.mark.parametrize("ref_name", REFERENCE_MODULES)
 def test_public_names_of_ported_modules_resolve(ref_name):
-    """Every public name of a ported reference module resolves in its
-    counterpart, except the listed ones still to come; so do the methods
-    of the counterpart's classes that the reference has."""
+    """Every public name of every reference module resolves in its
+    counterpart, except those NOT_APPLICABLE names with their reasons (and
+    any still to come); so do the methods and fields of the counterpart's
+    classes that the reference has (``"Class.attr"`` in NOT_APPLICABLE
+    for one that does not apply)."""
     import importlib
     port = importlib.import_module(ref_name.replace("repro", "repro_torch",
                                                     1))
-    absent = set(STILL_MISSING[ref_name]) | set(NOT_APPLICABLE.get(ref_name,
-                                                                   {}))
+    absent = {n for n in set(STILL_MISSING[ref_name])
+              | set(NOT_APPLICABLE.get(ref_name, {})) if "." not in n}
+    absent_attrs = {n for n in NOT_APPLICABLE.get(ref_name, {}) if "." in n}
     if ref_name in _IMPORT_ELSEWHERE:
         names = _public_in_subprocess(ref_name)
         assert sorted(n for n in names if not hasattr(port, n)) == sorted(
@@ -341,6 +354,10 @@ def test_public_names_of_ported_modules_resolve(ref_name):
     for n in sorted(_public(ref) - absent):
         r, p = getattr(ref, n), getattr(port, n)
         if isinstance(r, type) and isinstance(p, type):
-            lost = {a for a in vars(r) if not a.startswith("_")} \
-                - set(dir(p))
+            lost = {a for a in vars(r) if not a.startswith("_")
+                    and f"{n}.{a}" not in absent_attrs} - set(dir(p))
             assert not lost, (n, sorted(lost))
+    for na in sorted(absent_attrs):
+        cls, attr = na.split(".")
+        assert hasattr(getattr(ref, cls), attr)
+        assert not hasattr(getattr(port, cls), attr)

@@ -201,8 +201,16 @@ def test_build_raises_where_there_is_no_compiler(monkeypatch, tmp_path):
     with pytest.raises(build.KernelCompileError, match="nvcc not found"):
         build.build_probe(probe)
     assert [s.name for s in build.sources()] == [
-        "flash_attention.cu", "flash_attention_sm90.cu", "membw.cu",
-        "vai.cu"]
+        "flash_attention.cu", "flash_attention_f32_mid.cu",
+        "flash_attention_f32_wide.cu", "flash_attention_sm90.cu",
+        "flash_attention_sm90_wide.cu",
+        "membw.cu", "vai.cu"]
+    # the flash kernels' headers, each included by the sources that build
+    # its instantiations, are hashed into the library's name with them
+    assert [h.name for h in build.headers()] == [
+        "flash_attention_f32.cuh", "flash_attention_sm90.cuh"]
+    assert build.library_path() != build.build_dir() / (
+        f"librepro_torch_kernels_{build._digest(build.sources())}.so")
 
 
 @pytest.mark.parametrize("chunk_rows,n_iters", [

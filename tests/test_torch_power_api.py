@@ -212,3 +212,54 @@ def test_validate_main_runs_all_three_legs(capsys):
                       (ci.hi, 9.063787830984879),
                       (ci.value, 8.484124251644447)):
         assert math.isclose(got, want, rel_tol=1e-10)
+
+
+#: the reference's deprecated chip-threaded functions of
+#: ``repro.core.power_model``, each with the arguments it is called with
+#: here (the default chip, the TPU v5e, where the call gives none)
+_SHIMS = {
+    "step_time": lambda prof, chip: ((prof, 0.7), {}),
+    "utilizations": lambda prof, chip: ((prof, 0.55), {}),
+    "power_w": lambda prof, chip: ((prof, 0.8), {"chip": chip}),
+    "energy_j": lambda prof, chip: ((prof, 0.9), {"chip": chip}),
+    "freq_for_power_cap": lambda prof, chip: ((prof, 150.0),
+                                              {"chip": chip, "grid": 32}),
+    "classify_mode": lambda prof, chip: ((prof,), {"chip": chip,
+                                                   "freq_frac": 0.6}),
+    "classify_mode_from_power": lambda prof, chip: ((140.0,),
+                                                    {"chip": chip}),
+    "vai_profile": lambda prof, chip: ((3.0, 1 << 20, 16), {"chip": chip}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SHIMS))
+@pytest.mark.parametrize("chip_name", [None, "h100-sxm", "mi250x-gcd"])
+def test_deprecated_power_model_shims_match_the_reference(name, chip_name):
+    """The eight shims give the reference's values (rtol 1e-12; modes and
+    profiles equal) at its defaults and at a given chip, and warn that
+    they are deprecated, naming the port's ChipModel."""
+    import repro.core.hardware as ref_hw
+    import repro.core.power_model as ref_pm
+    import repro_torch.core.hardware as hw
+    import repro_torch.core.power_model as pm
+    ref_prof = ref_pm.StepProfile(2e-3, 1.5e-3, 2e-4)
+    prof = pm.StepProfile(2e-3, 1.5e-3, 2e-4)
+    ref_args, ref_kw = _SHIMS[name](ref_prof, ref_hw.CHIPS.get(chip_name))
+    args, kw = _SHIMS[name](prof, hw.CHIPS.get(chip_name))
+    if chip_name is None:
+        ref_kw.pop("chip", None)
+        kw.pop("chip", None)
+    with pytest.warns(DeprecationWarning, match="ChipModel"):
+        want = getattr(ref_pm, name)(*ref_args, **ref_kw)
+    with pytest.warns(DeprecationWarning,
+                      match=rf"repro_torch\.core\.power_model\.ChipModel\."
+                            rf"{name}"):
+        got = getattr(pm, name)(*args, **kw)
+    if name in ("classify_mode", "classify_mode_from_power"):
+        import dataclasses
+        assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    elif name == "vai_profile":
+        _close([got.compute_s, got.memory_s, got.collective_s],
+               [want.compute_s, want.memory_s, want.collective_s])
+    else:
+        _close(got, want)

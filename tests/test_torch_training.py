@@ -401,6 +401,20 @@ def test_quantize_bounded_error(seed, scale):
     assert err <= float(s) * 0.5 + 1e-9   # half-ulp of the quantizer
 
 
+@pytest.mark.parametrize("seed, scale", [(600, 45.0), (600, 91.0), (5, 1.0)])
+def test_quantize_takes_the_nearest_level(seed, scale):
+    """No neighbouring level dequantizes nearer to g than the one taken;
+    at (600, 45.0) the f32 quotient of element 62 rounds onto the half
+    step 24.5 though g lies past it, toward 25."""
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(64)
+                         .astype(np.float32)) * scale
+    q, s = comp.quantize_int8(g)
+    err = (comp.dequantize(q, s) - g).abs()
+    for step in (-1, 1):
+        other = torch.clamp(q.float() + step, -127, 127) * s
+        assert bool((err <= (other - g).abs()).all())
+
+
 def test_error_feedback_accumulates_unbiased():
     """Sum of compressed grads -> sum of true grads (EF telescoping)."""
     gen = torch.Generator().manual_seed(0)

@@ -416,9 +416,14 @@ def test_flash_space_rules_of_the_card():
     (cfg, why), = big.enumerate_all()[1]
     assert "smem-overflow" in why
     assert fa.smem_bytes(4, 128, 128, 128) > fa.SMEM_LIMIT_BYTES
+    # any head dim runs at its class, so head dim 96 keeps every tile
+    # that fits there, as head dim 128 does but 128 x 128
     odd, _ = _flash_spaces(head_dim=96)
-    assert not odd.candidates()
-    assert all("head dims" in why for _, why in odd.enumerate_all()[1])
+    assert [c.config_dict for c in odd.candidates()] == \
+        [dict(block_k=k, block_q=q) for q in (32, 64, 128) for k in (64, 128)]
+    wide, _ = _flash_spaces(head_dim=264)
+    assert not wide.candidates()
+    assert all("queue B" in why for _, why in wide.enumerate_all()[1])
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -465,6 +470,36 @@ def test_flash_tune_under_the_simulated_backend():
         assert prof.memory_s == c.hbm_bytes / H100_SXM.hbm_bw
     cal = calibrate(meas)
     assert set(cal.tables.vai) == set(cal.tables.mb)
+
+
+@pytest.mark.parametrize("dims", [(32, 32), (96, 96), (256, 256),
+                                  (192, 128)])
+def test_flash_tune_at_any_head_dim_matches_the_reference(dims):
+    """tune() over the tiles at head dims the kernels take only since they
+    take any returns a result, as the reference's does; every kept
+    candidate's output (on the CPU its plain version; chip_smoke.py runs
+    the kernel) is within 2e-5 of the reference's Pallas kernel (interpret
+    mode) on the same numpy inputs."""
+    import jax.numpy as jnp
+    from repro.kernels import flash_attention as ref_fa
+    D, Dv = dims
+    space, ref = _flash_spaces(head_dim=D, value_dim=Dv)
+    result = tune(space, SimulatedBackend(H100_SXM, device="cpu"),
+                  validate=True)
+    rresult = ref_tuning.tune(ref, ref_tuning.SimulatedBackend(
+        _ref_chip("h100-sxm")), validate=False)
+    assert result.measurement.candidates and rresult.measurement.candidates
+    assert max(result.measurement.validation_err) <= space.tol
+    rng = np.random.default_rng(D + Dv)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((2, 256, D), (2, 256, D), (2, 256, Dv)))
+    want = np.asarray(ref_fa.flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=True, block_q=128,
+        block_k=128, interpret=True))
+    space._qkv = tuple(torch.from_numpy(x) for x in (q, k, v))
+    for c in result.measurement.candidates:
+        got = space._run(c).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
 
 
 def test_flash_validation_catches_a_wrong_kernel(monkeypatch):
