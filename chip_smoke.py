@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
 Builds the four CUDA kernels from the sources in this checkout (vai, membw,
-and flash attention in f32 and in bf16, the bf16 one also at MLA's head
-dims (192, 128) and RecurrentGemma's (256, 256), and non-causal at the
-VLM's and enc-dec's shapes), holds each against its
+and flash attention in f32 and in bf16 and f16, the bf16 one also at MLA's
+head dims (192, 128) and RecurrentGemma's (256, 256), and non-causal at the
+VLM's and enc-dec's shapes; both flash kernels also at head dims above
+256, on their chunked instantiations), holds each against its
 plain PyTorch version on the card, tunes the f32 flash-attention tiles and runs
 the model's f32 prefill route through the f32 kernel, then drives the
 port's paths once at full size through the entry points a user would
@@ -79,6 +80,11 @@ call:
       the plain route's with p rounded and outside it on a kernel with a
       wrong softmax scale, and a second frontend must move the logits by
       more than the two attention routes differ
+    float16: the served model (qwen2.5-14b, full width, 12 of 48 layers)
+      in ModelConfig(dtype="float16"), its kernel-route prefill launching
+      the f16 flash kernel once a layer, greedy tokens against the plain
+      route by margin, logits finite; the six reduced configs served in
+      float16 as in bf16
     training: the attention's gradients under autograd (the FlashAttention
       Function, plain f32, no kernel) against autograd through dense f64
       attention on the card, causal at stablelm-12b's head dims and MLA's
@@ -223,9 +229,16 @@ VAI_SHAPES = ("1024x4", "512x2")
 MEMBW_RTOL, MEMBW_ATOL = 1e-5, 1e-4     # the order of the sum differs
 MEMBW_TOL_SHAPES = ((4, 64, 9), (8, 32, 16), (2, 256, 5))
 #: (atol, rtol) of a flash kernel against its plain version, which rounds
-#: p to bf16 for p.v as the kernels do: f32 differs in the order of its
-#: sums; bf16 also by one bf16 step of the output (at most 2**-7 of it)
-FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-3, 1e-2)}
+#: p to v's dtype for p.v as the kernels do: f32 differs in the order of its
+#: sums; bf16 also by one bf16 step of the output (at most 2**-7 of it). f16:
+#: twice bf16's limit scaled by f16's 8x finer step (2**-11 against 2**-8),
+#: two f16 steps of the output: the scores' f32 sums run in another order,
+#: so a p can round to f16 one step apart, and the output rounds once more
+#: (the served shape at its ragged length, 1000 tokens, reached 1.19 of the
+#: limit of one step, 2.5e-4 + 1.25e-3 |plain|: an error of 2**-10 at
+#: |plain| ~ 0.5)
+FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-3, 1e-2),
+             torch.float16: (5e-4, 2.5e-3)}
 #: about 25 ms at the card's clock: time for the host to queue a timed run
 QUEUE_SLEEP_CYCLES = 50_000_000
 SERVE_ARCH = "qwen2.5-14b"     # the reference serve CLI's default --arch
@@ -245,10 +258,10 @@ MOE_SERVE = (
 MLA_HEAD_DIMS = (192, 128)
 #: q/k and v head dims of RecurrentGemma's local attention
 RG_HEAD_DIMS = (256, 256)
-#: check_flash's head-dim sweep, in f32 and bf16: (D, Dv) pairs whose
-#: widths round up to every kind of head-dim class (the kernels take any
-#: 1 <= D, Dv <= 256), each causal over a ragged length and non-causal
-#: with Sq != Skv; in f32 also MLA's and RecurrentGemma's pairs
+#: check_flash's head-dim sweep, in f32, bf16 and f16: (D, Dv) pairs whose
+#: widths round up to every kind of head-dim class, each causal over a
+#: ragged length and non-causal with Sq != Skv; in f32 also MLA's and
+#: RecurrentGemma's pairs
 FLASH_SWEEP_DIMS = ((16, 16), (32, 32), (80, 80), (96, 96), (200, 200),
                     (24, 16), (128, 64))
 FLASH_SWEEP_F32_DIMS = (MLA_HEAD_DIMS, RG_HEAD_DIMS)
@@ -259,6 +272,14 @@ FLASH_PADDED_DIMS = (20, 20)
 #: ``flash_class`` (batch, tokens, heads), causal: (dtype, width)
 FLASH_CLASS_ROWS = (("bf16", 32), ("bf16", 96), ("bf16", 192), ("f32", 32),
                     ("f32", 96), ("f32", 192))
+#: head dims above 256 (the chunked kernels), checked in f32, bf16 and f16
+#: as the sweep is: every slice class (64, 128, 256), D or Dv alone wide,
+#: up to (1024, 1024)
+FLASH_WIDE_DIMS = ((257, 257), (300, 64), (64, 300), (320, 320), (512, 512),
+                   (576, 512), (1024, 1024))
+#: the wide pair timed in each dtype at ``flash_wide`` (batch, tokens,
+#: heads), causal
+FLASH_WIDE_TIMED = (512, 512)
 #: the flash cases timed (every tile, beside the plain version and SDPA)
 TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16",
                      "rg_local_prefill_served_bf16", "rg_local_prefill_bf16",
@@ -267,11 +288,17 @@ TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16",
                      "encdec_self_prefill_bf16", "encdec_cross_prefill_bf16",
                      "encdec_cross_decode_bf16", "mla_prefill_f32",
                      "rg_local_prefill_served_f32",
-                     *(f"class_{w}_{dt}" for dt, w in FLASH_CLASS_ROWS))
+                     *(f"class_{w}_{dt}" for dt, w in FLASH_CLASS_ROWS),
+                     "model_prefill_f16", "mla_prefill_f16",
+                     "rg_local_prefill_served_f16",
+                     *(f"wide_{FLASH_WIDE_TIMED[0]}x{FLASH_WIDE_TIMED[1]}_"
+                       f"{dt}" for dt in ("f32", "bf16", "f16")))
 #: check_flash's cases at head dims the kernels take since they take any
-ANY_HEAD_DIM_CASES = ("sweep_", "class_", "padded_")
-#: the f32 tuning spaces beside SPACES' head dim 128: (D, Dv)
-TUNE_HEAD_DIMS = ((32, 32), (96, 96), (256, 256), (192, 128))
+ANY_HEAD_DIM_CASES = ("sweep_", "class_", "padded_", "wide_")
+#: the f32 tuning spaces beside SPACES' head dim 128: (D, Dv); the last
+#: three above 256, on the chunked kernel
+TUNE_HEAD_DIMS = ((32, 32), (96, 96), (256, 256), (192, 128), (320, 320),
+                  (512, 512), (576, 512))
 #: the models whose f32 prefill attends at head dims the f32 kernel now
 #: takes, at full width: (arch, the config's cuts, why)
 F32_PREFILL = (
@@ -382,7 +409,13 @@ BROKER_N_NODES = 10_000
 BROKER_BENCH = dict(budget_mw=2.0, arrival_gap_s=130.0)
 
 
+#: when the script started: each phase line carries its seconds since
+_STARTED = time.perf_counter()
+
+
 def emit(**obj) -> None:
+    if "phase" in obj:
+        obj["elapsed_s"] = time.perf_counter() - _STARTED
     print(json.dumps(obj), flush=True)
 
 
@@ -1527,22 +1560,42 @@ def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, itemsize, causal, Dv=None):
             "bytes" if by_bytes >= by_ops else "operations", flops, byts)
 
 
+#: the flash kernels' instantiations as the compiler names them: the f32
+#: kernel over (D, Dv, block_q, block_k), the wgmma kernel over (element
+#: type, D, Dv, block_q, block_k), and their chunked kernels over (slice
+#: class, block_q, block_k) (the wgmma one after its element type)
+_FLASH_NAME = (r"flash_fwd_(f32|sm90)_(chunked_)?kernelI"
+               r"(?:\w*?Elem(Bf16|F16)E)?((?:Li\d+E)+)")
+
+
+def flash_key(mangled: str):
+    """The key of a flash instantiation in a mangled name, or None: ``"f32
+    D<D>_<Dv>_<block_q>x<block_k>"``, ``"sm90 ..."`` (bf16) or ``"sm90_f16
+    ..."``; the chunked kernels ``"<f32|sm90|sm90_f16>_chunked
+    DV<slice class>_<block_q>x<block_k>"``."""
+    import re
+    m = re.search(_FLASH_NAME, mangled)
+    if m is None:
+        return None
+    ints = re.findall(r"Li(\d+)E", m[4])
+    tag = m[1] + ("_f16" if m[3] == "F16" else "")
+    if m[2]:
+        return f"{tag}_chunked DV{ints[0]}_{ints[1]}x{ints[2]}"
+    return f"{tag} D{ints[0]}_{ints[1]}_{ints[2]}x{ints[3]}"
+
+
 def ptxas_facts(log: str, kernel: str) -> dict:
     """Registers and spill bytes ``ptxas -v`` gave each instantiation of
-    ``kernel`` (a template over head dim, block_q and block_k, keyed
-    ``D<d>_<block_q>x<block_k>``; or over head dims D and Dv, block_q and
-    block_k, keyed ``D<d>_<dv>_<block_q>x<block_k>``)."""
+    the kernels whose name holds ``kernel``, keyed as :func:`flash_key`
+    keys them (``kernel`` a flash kernel), else by the mangled name."""
     import re
     facts, name = {}, None
     for line in log.splitlines():
-        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
-                      line)
         if "Compiling entry function" in line:
-            if m and m[4]:
-                name = f"D{m[1]}_{m[2]}_{m[3]}x{m[4]}"
-            else:
-                name = f"D{m[1]}_{m[2]}x{m[3]}" if m else None
-            if name:
+            m = re.search(r"'(\w+)'", line)
+            name = None
+            if m and kernel in m[1]:
+                name = flash_key(m[1]) or m[1]
                 facts[name] = {}
         elif name and "spill stores" in line:
             st = re.search(r"(\d+) bytes spill stores", line)
@@ -1557,31 +1610,36 @@ def ptxas_facts(log: str, kernel: str) -> dict:
 
 def flash_sass_by_instantiation(build) -> dict:
     """The tensor-core products in the SASS of every instantiation of both
-    flash kernels (HMMA for the f32 kernel, HGMMA for the bf16 one), keyed
-    ``"<f32|sm90> D<class D>_<class Dv>_<block_q>x<block_k>"``, from one
-    disassembly of the library."""
-    import re
+    flash kernels (HMMA for the f32 kernel, HGMMA for the bf16 and f16
+    one), keyed as :func:`flash_key` keys them, from one disassembly of the
+    library."""
     out = {}
     for chunk in build.sass("flash_fwd_").split("Function : ")[1:]:
-        m = re.search(r"flash_fwd_(f32|sm90)_kernelILi(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d+)E", chunk.split("\n", 1)[0])
-        if m:
-            out[f"{m[1]} D{m[2]}_{m[3]}_{m[4]}x{m[5]}"] = chunk.count(
-                "HMMA" if m[1] == "f32" else "HGMMA")
+        key = flash_key(chunk.split("\n", 1)[0])
+        if key:
+            out[key] = chunk.count("HMMA" if key.startswith("f32")
+                                   else "HGMMA")
     return out
 
 
 def flash_instantiations() -> list:
     """The keys of flash_sass_by_instantiation that the kernels' rules
-    (``fa.unsupported``) say are built: every tile at every class pair."""
+    (``fa.unsupported``) say are built: every tile at every class pair, in
+    f32, bf16 and f16, and every tile of the chunked kernels at every slice
+    class."""
     from repro_torch.kernels import flash_attention as fa
     keys = []
-    for tag, itemsize in (("f32", 4), ("sm90", 2)):
+    for tag, itemsize in (("f32", 4), ("sm90", 2), ("sm90_f16", 2)):
         q_opts, k_opts = fa.tile_options(itemsize)
         for D, Dv in fa.HEAD_DIM_PAIRS:
             keys += [f"{tag} D{D}_{Dv}_{bq}x{bk}" for bq in q_opts
                      for bk in k_opts
                      if fa.unsupported(itemsize, D, Dv, bq, bk) is None]
+        for cls in fa.WIDE_SLICE_CLASSES:
+            wide = 2 * fa.MAX_CLASS_DIM     # a pair of this slice class
+            keys += [f"{tag}_chunked DV{cls}_{bq}x{bk}"
+                     for bq, bk in fa.WIDE_TILES[itemsize]
+                     if fa.unsupported(itemsize, wide, cls, bq, bk) is None]
     return keys
 
 
@@ -1627,13 +1685,18 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     ragged length with GQA and non-causal with Sq != Skv; and a bf16 shape
     whose rows break the 16-byte copy rule, which the wrapper copies
     (every case's copies are counted against the tensors that break the
-    rule). Returns the kernels-line entries of the bf16 kernel at D = Dv =
-    128, at (192, 128) and at (256, 256), and of the f32 kernel, each from
-    the first timed case at its head dims (the rows of the VLM and enc-dec
+    rule). float16 on the wgmma kernel as bf16: at the served shape (timed,
+    every tile), ragged, Sq < Skv, non-causal, under one tile, at MLA's and
+    RecurrentGemma's head dims (timed) and ragged; the sweep in f16 too;
+    and in every dtype the chunked kernels' head dims above 256
+    (FLASH_WIDE_DIMS in the sweep, FLASH_WIDE_TIMED timed). Returns the
+    kernels-line entries of the bf16 kernel at D = Dv = 128, at (192, 128)
+    and at (256, 256), of the f32 kernel and of the f16 one, each from the
+    first timed case at its head dims (the rows of the VLM and enc-dec
     paths and of any head dim apart), then one for each class a path of
-    this run reaches at head dims taken since the kernels take any, then
-    one entry for each row of the VLM and enc-dec paths
-    (CROSS_FLASH_ROWS)."""
+    this run reaches at head dims taken since the kernels take any (the
+    chunked f32 kernel's among them), then one entry for each row of the
+    VLM and enc-dec paths (CROSS_FLASH_ROWS)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
@@ -1644,7 +1707,7 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
         return torch.randn(shape, generator=g, device=device,
                            dtype=torch.float32).to(dtype)
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     bh, seq, hd = sizes["flash_space"]
     mseq, mhq, mhkv, mhd = sizes["flash_model"]
     ragged = sizes["flash_ragged"]
@@ -1655,6 +1718,7 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     eb, es, ef, eh, ehd = sizes["flash_encdec"]
     tiles = attn.flash_tiles(bf16)
     tiles_f32 = attn.flash_tiles(f32)
+    tiles_f16 = attn.flash_tiles(f16)
     tiles_rg = attn.flash_tiles(bf16, RG_HEAD_DIMS)
     # (name, B, Sq, Skv, Hq, Hkv, D or (D, Dv), dtype, causal, block_q,
     #  block_k)
@@ -1754,6 +1818,29 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
         ("rg_local_prefill_served_f32", REC_REQUESTS, rec_seq, rec_seq,
          rg_heads, rg_kv, RG_HEAD_DIMS, f32, True,
          *attn.flash_tiles(f32, RG_HEAD_DIMS)),
+        # float16 on the wgmma kernel, as bf16: the served shape (timed,
+        # every tile), ragged, Sq < Skv with GQA, non-causal over a ragged
+        # kv length, a prompt under one tile, MLA's (192, 128) and
+        # RecurrentGemma's (256, 256) (both timed, every tile) and ragged
+        ("model_prefill_f16", 1, mseq, mseq, mhq, mhkv, mhd, f16, True,
+         *tiles_f16),
+        ("model_prefill_ragged_f16", 1, ragged, ragged, mhq, mhkv, mhd, f16,
+         True, *tiles_f16),
+        ("sq_lt_skv_f16", 2, seq // 4, seq // 2, 8, 2, hd, f16, True,
+         *tiles_f16),
+        ("noncausal_f16", 2, seq // 2, seq // 2 - 40, 4, 4, hd, f16, False,
+         *attn.flash_tiles(f16, (hd, hd), False, seq // 2)),
+        ("short_prompt_f16", 1, 16, 16, mhq, mhkv, mhd, f16, True,
+         *tiles_f16),
+        ("mla_prefill_f16", 1, mla_seq, mla_seq, mla_heads, mla_heads,
+         MLA_HEAD_DIMS, f16, True, *tiles_f16),
+        ("mla_prefill_ragged_f16", 1, ragged, ragged, mla_heads, mla_heads,
+         MLA_HEAD_DIMS, f16, True, *tiles_f16),
+        ("rg_local_prefill_served_f16", REC_REQUESTS, rec_seq, rec_seq,
+         rg_heads, rg_kv, RG_HEAD_DIMS, f16, True,
+         *attn.flash_tiles(f16, RG_HEAD_DIMS)),
+        ("rg_local_prefill_ragged_f16", 1, ragged, ragged, rg_heads, rg_kv,
+         RG_HEAD_DIMS, f16, True, *attn.flash_tiles(f16, RG_HEAD_DIMS)),
     ]
     # the head-dim classes added for any head dim, timed; the sweep over
     # head dims of every kind of class, causal and ragged, non-causal with
@@ -1764,10 +1851,13 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
         cases.append((f"class_{w}_{dname}", cb, cs_, cs_, ch, ch, w, dt,
                       True, *attn.flash_tiles(dt, (w, w))))
     sw_s, sw_q, sw_kv = sizes["flash_sweep"]
-    for dt in (f32, bf16):
-        dname = "f32" if dt == f32 else "bf16"
-        for dims in FLASH_SWEEP_DIMS + (FLASH_SWEEP_F32_DIMS if dt == f32
-                                        else ()):
+    wb, ws, wh = sizes["flash_wide"]
+    for dt, dname in ((f32, "f32"), (bf16, "bf16"), (f16, "f16")):
+        cases.append((f"wide_{FLASH_WIDE_TIMED[0]}x{FLASH_WIDE_TIMED[1]}_"
+                      f"{dname}", wb, ws, ws, wh, wh, FLASH_WIDE_TIMED, dt,
+                      True, *attn.flash_tiles(dt, FLASH_WIDE_TIMED)))
+        for dims in (FLASH_SWEEP_DIMS + (FLASH_SWEEP_F32_DIMS if dt == f32
+                                         else ()) + FLASH_WIDE_DIMS):
             tag = "x".join(map(str, dims))
             cases.append((f"sweep_causal_{tag}_{dname}", 1, sw_s, sw_s, 4,
                           2, dims, dt, True,
@@ -1818,9 +1908,12 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
                 q, k, v, causal=causal, block_q=bq, block_k=bk,
                 round_p=True), reps=3)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv),
-                reps=10, queued=True)
+            try:
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv),
+                    reps=10, queued=True)
+            except RuntimeError:        # no backend of SDPA takes the shape
+                lib_ms = None
             del qt, kt, vt
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=by, tflops=flops / ms / 1e9,
@@ -1828,7 +1921,7 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
             # every instantiated tile that fits, at this shape, each held
             # against the plain version: what the model's FLASH_TILES are
             # chosen from
-            q_opts, k_opts = fa.tile_options(q.element_size())
+            q_opts, k_opts = fa.tile_options(q.element_size(), D, Dv)
             by_tile, err_by_tile, share_by_tile = {}, {}, {}
             for tq in q_opts:
                 for tk in k_opts:
@@ -1873,8 +1966,8 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "share_of_limit": max(r["share_of_limit"] for r in mine),
             "tolerance": f"{flash_tolerance(dt)} against the plain version"
-                         + (" (p rounded to bf16 for p.v, as in the kernel)"
-                            if dt == bf16 else ""),
+                         + (f" (p rounded to {main['dtype']} for p.v, as in "
+                            f"the kernel)" if dt != f32 else ""),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "library": library,
@@ -1894,7 +1987,9 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
              "(recurrentgemma-2b's local-attention prefill as served, "
              "head dim 256)"),
             ("flash_attention_f32", f32, None, "flash_attention_f32.cuh",
-             "(the tuning space's shape, the model's f32 tiles)")):
+             "(the tuning space's shape, the model's f32 tiles)"),
+            ("flash_attention_f16", f16, None, "flash_attention_sm90.cuh",
+             "(the served model's prefill in float16)")):
         mine = [r for r in rows
                 if r["dtype"] == str(dt).replace("torch.", "")
                 and r["case"] not in cross_cases
@@ -1925,6 +2020,16 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
         entries.append(entry(name, dt, main, mine,
                              "flash_attention_f32.cuh" if dt == f32
                              else "flash_attention_sm90.cuh", what))
+    # the chunked f32 kernel (head dims above 256, the path: tuning at
+    # TUNE_HEAD_DIMS' wide pairs): its rows are every f32 case above 256
+    main = next(r for r in rows if r["case"] == f"wide_{FLASH_WIDE_TIMED[0]}"
+                f"x{FLASH_WIDE_TIMED[1]}_f32")
+    entries.append(entry(
+        "flash_attention_f32_wide", f32, main,
+        [r for r in rows if r["dtype"] == "float32"
+         and fa.is_wide(*r["head_dims"])], "flash_attention_f32.cuh",
+        "(head dims above 256, the chunked kernel: tuning at 320, 512 and "
+        "(576, 512))"))
     for e in entries:
         if "f32" in e["name"]:
             e.update(
@@ -2090,10 +2195,64 @@ def f32_model_prefills(device, sizes: dict) -> dict:
     return out
 
 
-def serve_reduced_configs(device, sizes: dict) -> dict:
+#: the served model in float16 (ModelConfig(dtype="float16"), the
+#: reference's dtype strings): its config's cut, and why
+SERVE_F16_CUTS = {"n_layers": 12}
+SERVE_F16_WHY = ("time: the float16 pass repeats the bf16 serve phase's "
+                 "model in another dtype; 12 of 48 layers (one launch of the "
+                 "f16 kernel each) keep it near a minute")
+
+
+def serve_f16(device, sizes: dict) -> dict:
+    """The served model (SERVE_ARCH) at full width in float16, cut in depth
+    (SERVE_F16_CUTS), seeded random weights: end_to_end_check's prompt
+    through prefill on the kernel and the plain route, then greedy decode
+    steps, tokens equal wherever the top-2 margin allows, logits finite
+    (f16 overflows at 65504: their largest magnitude is reported). The
+    kernel-route prefill launches the f16 kernel once a layer at the
+    served head dims, counted by call shape from just before to just
+    after; the plain route and decode launch none."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import Runtime
+    cfg, reduced = serve_config(sizes, SERVE_ARCH, SERVE_F16_CUTS,
+                                SERVE_F16_WHY)
+    cfg = dataclasses.replace(cfg, dtype="float16")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1616)
+    params = model_mod.init_params(cfg, Runtime(tp=1), gen, device=device)
+    ops.reset_launch_counts()
+    e2e = end_to_end_check(device, cfg, params, sizes)
+    by_shape = dict(fa.LAUNCHES_BY_SHAPE)
+    del params
+    S = sizes["e2e_prompt_len"]
+    key = fa.launch_key(*_attention_dims(cfg), True, S, S)
+    expected = cfg.n_layers if device.type == "cuda" else 0
+    check(by_shape.get(key, 0) == expected
+          and sum(by_shape.values()) == expected,
+          f"{SERVE_ARCH} f16: the kernel-route prefill launched the flash "
+          f"kernel {by_shape}, not {expected} times at {key}")
+    check(e2e["logits_finite"] and e2e["tokens_compared"] > 0,
+          f"{SERVE_ARCH} f16: logits not finite, or no greedy token could "
+          f"be compared: {e2e}")
+    return {"arch": SERVE_ARCH, "dtype": cfg.dtype, "reduced": reduced,
+            "n_layers": cfg.n_layers,
+            "head_dims": list(_attention_dims(cfg)),
+            "blocks": list(attn.flash_tiles(torch.float16)),
+            "flash_launches_by_shape": by_shape,
+            "flash_launches_expected": {key: expected}, **e2e}
+
+
+def serve_reduced_configs(device, sizes: dict,
+                          dtype: str = "bfloat16") -> dict:
     """The reduced() config of each attention family (REDUCED_SERVE: dense,
     MoE, MLA, hybrid, VLM, enc-dec; head dim 16, MLA's (24, 16), the
-    (32, 32) class), in bf16 with random weights from a seed (the VLM's
+    (32, 32) class), in ``dtype`` (bf16, and f16 in a second pass) with
+    random weights from a seed (the VLM's
     gates drawn non-zero): ServeEngine.generate on REDUCED_REQUESTS greedy
     requests (with a frontend in ``extra_batch`` for the VLM and the
     enc-dec; no longer than the hybrid's local window, which would mask
@@ -2114,8 +2273,7 @@ def serve_reduced_configs(device, sizes: dict) -> dict:
     prompt, new, max_len = sizes["reduced_serve"]
     out = {}
     for arch in REDUCED_SERVE:
-        cfg = dataclasses.replace(get_config(arch).reduced(),
-                                  dtype="bfloat16")
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
         S = min(prompt, cfg.local_window or prompt)
         gen = torch.Generator(device=device)
         gen.manual_seed(99)
@@ -2507,6 +2665,8 @@ def end_to_end_check(device, cfg, params, sizes: dict,
         runs[impl] = (seq_logits, seq_toks)
         del state
     (lk, tk), (lp, tp) = runs["kernel"], runs["plain"]
+    logits_max_abs = max(float(x.abs().max()) for x in lk + lp)
+    logits_finite = all(bool(torch.isfinite(x).all()) for x in lk + lp)
     diffs, margins, compared = [], [], 0
     for i in range(steps):
         diff = float((lk[i] - lp[i]).abs().max())
@@ -2577,6 +2737,7 @@ def end_to_end_check(device, cfg, params, sizes: dict,
               f"{MOE_ROUTING_AGREEMENT} needed on {same}, less on the "
               f"broken kernel")
     return {"prompt_len": S, "steps": steps, **out,
+            "logits_max_abs": logits_max_abs, "logits_finite": logits_finite,
             "prefill_logits_max_abs_diff": diffs[0],
             "step_logit_diffs": diffs, "plain_top2_margins": margins,
             "tokens_compared": compared, "kernel_tokens": tk,
@@ -3622,7 +3783,8 @@ def _dryrun_real_step(device, trainer) -> dict:
 
 
 def _dtype_of(cfg) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    from repro_torch.models.common import torch_dtype
+    return torch_dtype(cfg.dtype)
 
 
 def _dryrun_prefill_routes(device, sizes: dict) -> dict:
@@ -6168,6 +6330,7 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             # the new classes' timed (batch, tokens, heads); the reduced
             # configs' (prompt, new tokens, max_len)
             flash_sweep=(300, 200, 333), flash_class=(4, 1024, 16),
+            flash_wide=(1, 1024, 16),
             reduced_serve=(40, 6, 64),
             serve_reduced=False,
             serve_max_len=2048, serve_new_tokens=32,
@@ -6223,6 +6386,7 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
            flash_ragged=61, flash_mla=(64, 4), flash_rg=(64, 2, 1),
            flash_sweep=(40, 24, 37), flash_class=(1, 64, 2),
+           flash_wide=(1, 64, 2),
            reduced_serve=(12, 3, 24),
            serve_reduced=True,
            serve_max_len=256, serve_new_tokens=6,
@@ -6282,11 +6446,9 @@ def main() -> int:
         counts = {"vai_fma_kernel_ffma_in_sass": ("vai_fma_kernel",
                                                   "FFMA"),
                   "flash_f32_hmma_in_sass": ("flash_fwd_f32", "HMMA"),
-                  "flash_bf16_hgmma_in_sass": ("flash_fwd_sm90", "HGMMA"),
-                  "flash_bf16_utmaldg_in_sass": ("flash_fwd_sm90",
-                                                 "UTMALDG"),
-                  "flash_bf16_256x256_hgmma_in_sass": (
-                      "flash_fwd_sm90_kernelILi256ELi256E", "HGMMA")}
+                  "flash_sm90_hgmma_in_sass": ("flash_fwd_sm90", "HGMMA"),
+                  "flash_sm90_utmaldg_in_sass": ("flash_fwd_sm90",
+                                                 "UTMALDG")}
         in_sass = dict.fromkeys(counts)
         vai_banks, flash_sass = {}, {}
         try:
@@ -6298,6 +6460,16 @@ def main() -> int:
             flash_sass = flash_sass_by_instantiation(build)
         except (OSError, subprocess.CalledProcessError) as exc:
             print(f"chip_smoke: cuobjdump not usable: {exc}", file=sys.stderr)
+        # the tensor-core products of the bf16 kernel at (256, 256), and of
+        # every f16 and every chunked (head dims above 256) instantiation
+        in_sass["flash_bf16_256x256_hgmma_in_sass"] = flash_sass.get(
+            "sm90 D256_256_64x64", 0)
+        for tag, sel in (("f16", lambda k: k.startswith("sm90_f16")),
+                         ("chunked", lambda k: "_chunked " in k)):
+            mine = {k: v for k, v in flash_sass.items() if sel(k)}
+            in_sass[f"flash_{tag}_instantiations"] = len(mine)
+            in_sass[f"flash_{tag}_tensor_core_products_least"] = min(
+                mine.values(), default=0)
         print(build.build_log(), file=sys.stderr)
         emit(phase="build", setup_seconds=time.perf_counter() - t0,
              nvcc_seconds=build.build_seconds,
@@ -6305,8 +6477,12 @@ def main() -> int:
              vai_fma_kernel_sass=vai_banks,
              flash_f32_ptxas=ptxas_facts(build.build_log(),
                                          "flash_fwd_f32_kernel"),
-             flash_bf16_ptxas=ptxas_facts(build.build_log(),
+             flash_f32_chunked_ptxas=ptxas_facts(
+                 build.build_log(), "flash_fwd_f32_chunked_kernel"),
+             flash_sm90_ptxas=ptxas_facts(build.build_log(),
                                           "flash_fwd_sm90_kernel"),
+             flash_sm90_chunked_ptxas=ptxas_facts(
+                 build.build_log(), "flash_fwd_sm90_chunked_kernel"),
              flash_tensor_core_products_by_instantiation=flash_sass)
         built = flash_instantiations()
         check(all(flash_sass.get(key, 0) > 0 for key in built)
@@ -6315,11 +6491,14 @@ def main() -> int:
               f"holds other instantiations than the rules build: "
               f"{sorted(set(built) ^ set(flash_sass))}, "
               f"{[k for k in built if not flash_sass.get(k)]}")
-        check(bool(in_sass["flash_bf16_hgmma_in_sass"])
-              and bool(in_sass["flash_bf16_utmaldg_in_sass"])
-              and bool(in_sass["flash_bf16_256x256_hgmma_in_sass"]),
-              f"the bf16 flash kernel shows no HGMMA or UTMALDG (or its "
-              f"256x256 instantiation no HGMMA): {in_sass}")
+        check(bool(in_sass["flash_sm90_hgmma_in_sass"])
+              and bool(in_sass["flash_sm90_utmaldg_in_sass"])
+              and bool(in_sass["flash_bf16_256x256_hgmma_in_sass"])
+              and in_sass["flash_f16_tensor_core_products_least"] > 0
+              and in_sass["flash_chunked_tensor_core_products_least"] > 0,
+              f"the wgmma flash kernel shows no HGMMA or UTMALDG (or its "
+              f"bf16 256x256 instantiation, an f16 or a chunked one no "
+              f"tensor-core product): {in_sass}")
         check(bool(in_sass["flash_f32_hmma_in_sass"]),
               f"the f32 flash kernel shows no HMMA: {in_sass}")
         check(set(vai_banks) == set(VAI_SHAPES) and all(
@@ -6446,6 +6625,18 @@ def main() -> int:
         torch.cuda.empty_cache()
     reduced_serve = serve_reduced_configs(device, sizes)
     emit(phase="serve_reduced", models=reduced_serve)
+    # float16: the served model at full width (cut in depth), then the
+    # reduced configs again, each with the counts set to 0 just before it
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    f16_serve = serve_f16(device, sizes)
+    f16_launches = ops.launch_counts()["flash_attention"]
+    emit(phase="serve_f16", **f16_serve, launches=f16_launches)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    reduced_f16 = serve_reduced_configs(device, sizes, "float16")
+    emit(phase="serve_reduced_f16", models=reduced_f16)
     # training, one phase after another, each with the counts set to 0
     # just before it: no kernel of the port's may launch (the reference's
     # training never reaches its Pallas kernel; the flash kernel has no
@@ -6517,6 +6708,10 @@ def main() -> int:
                         "flash_launches_by_shape"].values())
                     + tuning_dims["256x256"]["launches"],
                 "flash_attention_f32_96x96": tuning_dims["96x96"]["launches"],
+                "flash_attention_f32_wide": sum(
+                    tuning_dims[f"{D}x{Dv}"]["launches"]
+                    for D, Dv in TUNE_HEAD_DIMS if fa.is_wide(D, Dv)),
+                "flash_attention_f16": f16_launches,
                 "flash_attention_f32_32x32": tuning_dims["32x32"]["launches"],
                 "flash_attention_32x32": sum(
                     sum(r["flash_launches_by_head_dims"].values())
@@ -6526,6 +6721,9 @@ def main() -> int:
     emit(phase="launches", **launches,
          flash_attention_sampled_generate=sampled_launches,
          flash_attention_f32_tuning=tuning_launches,
+         flash_attention_f16_reduced_by_head_dims={
+             a: r["flash_launches_by_head_dims"]
+             for a, r in reduced_f16.items()},
          flash_attention_f32_model_dispatch=dispatch_f32,
          flash_attention_by_path={SERVE_ARCH: serve_counts["flash_attention"],
                                   **{a: c["flash_attention"]
@@ -6559,6 +6757,10 @@ def main() -> int:
     check(all(launches[name] > 0 for name, _, _, _ in CROSS_FLASH_ROWS),
           f"a call of the VLM or enc-dec path never reached the bf16 flash "
           f"kernel at the shape its kernels row was checked at: {launches}")
+    check(f16_launches == f16_serve["n_layers"],
+          f"the float16 served model launched the f16 flash kernel "
+          f"{f16_launches} times, not once for each of its "
+          f"{f16_serve['n_layers']} layers")
     check(tuning_launches > 0 and dispatch_f32 == 1,
           f"the f32 path launched the f32 flash kernel {tuning_launches} "
           f"times in tuning and {dispatch_f32} in the model's dispatch")

@@ -2,14 +2,15 @@
 // f32 inputs on the tensor cores (3xTF32 mma.sync): the kernel, included by
 // flash_attention.cu (the C entry point of both paths, and the narrow
 // head-dim classes), flash_attention_f32_mid.cu and
-// flash_attention_f32_wide.cu (the wider ones), files that nvcc builds in
-// parallel.
+// flash_attention_f32_wide.cu (the wider ones), and
+// flash_attention_f32_chunked.cu (head dims above 256), files that nvcc
+// builds in parallel.
 //
 // Replaces: src/repro/kernels/flash_attention.py, functions `_flash_kernel` /
 // `flash_attention` (the Pallas kernel of the reference package), and the
-// GQA expansion of its wrapper `ops.flash_attention_op`. bf16 inputs go to
-// the wgmma kernel of flash_attention_sm90.cu (`repro_flash_attention_sm90`);
-// this file holds the f32 kernel.
+// GQA expansion of its wrapper `ops.flash_attention_op`. bf16 and f16 inputs
+// go to the wgmma kernel of flash_attention_sm90.cu
+// (`repro_flash_attention_sm90`); this file holds the f32 kernel.
 //
 // What it computes, per (batch, q head) and query row:
 //   s = (q . k^T) * scale            (f32 operands, f32 sums)
@@ -107,8 +108,8 @@
 // 256-thread block needs 200-255 registers a thread, so an SM holds one
 // block, two warps a sub-partition, to hide those latencies.
 //
-// Head dims. The reference takes any D and DV; so does this kernel, for 1
-// <= D, DV <= 256, through head-dim classes (head_dim_class, below; the
+// Head dims. The reference takes any D and DV; so does this kernel: for 1
+// <= D, DV <= 256 through head-dim classes (head_dim_class, below; the
 // bf16 kernel uses the same): D and DV are separate template parameters,
 // the class widths (32, 32), (64, 64), (96, 96), (128, 128), (160, 160),
 // (192, 192), (256, 256) and (192, 128), and Params carries the true d and
@@ -122,6 +123,19 @@
 // one column at a time. At (256, 256) only 32 x 64 fits in 227 KB (201728
 // B), at (192, 192) 32 x 64 and 64 x 64, at (192, 128) those and 32 x 128;
 // the accumulator of a thread is DV / 2 registers (128 at 256).
+//
+// Head dims above 256 run on the chunked kernel (flash_fwd_f32_chunked_kernel,
+// kernels/flash_attention.py:wide_split): S is summed over chunks of
+// kChunk = 128 columns of q and k (TilesF32's D), Q staged and split again
+// for each chunk of each kv tile and the next chunk of K copied once every
+// warp is done with this one; each chunk's products are summed on their own
+// and then added to S (a chain of 1024 columns' products in one f32
+// accumulator missed the 2e-5 contract at (1024, 1024)). v's columns are
+// split into slices of DV (64, 128 or 256) along the grid's x axis, each
+// slice's clusters after the previous slice's; every slice's block sums the
+// same chunks in the same order, so all compute the same S, m and l. The
+// slice of 256 spills (its accumulator is 128 registers a thread); the merge
+// may need more shared memory than the tiles there (TilesF32::kSmem).
 //
 // block_q and block_k are template parameters: every (block_q, block_k)
 // pair in {32, 64, 128} x {64, 128} whose shared memory fits in 227 KB is
@@ -166,12 +180,18 @@ struct TilesF32 {
       4ull * (2 * BQ * D + BK * kPitch + BK * kVPitch);
   static constexpr size_t kMergeBytes =
       4ull * (kWarps * 16 * (kOPitch + 4) + BQ);
+  // the block's shared memory: the tiles, or the merge where it is larger
+  // (the chunked kernel's narrow Q and K at a wide V slice)
+  static constexpr size_t kSmem = kBytes > kMergeBytes ? kBytes : kMergeBytes;
   static_assert(BQ % 16 == 0 && kWarps % kGroups == 0 && kCols % 8 == 0,
                 "tiles must give every warp 16 rows and 8k columns");
   static_assert(D % 16 == 0 && DV % 16 == 0,
                 "head-dim classes must be multiples of 16");
-  static_assert(kMergeBytes <= kBytes, "the merge must fit in the tiles");
 };
+
+// The chunked kernel (a head dim above 256): q and k in chunks of kChunk
+// columns (TilesF32's D), v in slices (its DV), one slice a block.
+constexpr int kChunk = 128;
 
 struct Params {
   int hq, hkv, sq, skv;
@@ -182,6 +202,7 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale_log2;  // scale * log2(e)
   int causal;
+  int o_vec4;  // o's rows start 16-byte aligned: stored in 16-byte chunks
 };
 
 // ---------------------------------------------------------------- helpers
@@ -266,11 +287,98 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
   }
 }
 
+// Q rows [q0, q0 + BQ) at columns [0, D) from qc (a row's column 0 of this
+// chunk; rows q_ss apart), split into Q_big and Q_small and stored as A
+// fragments: the fragment of row group rg, columns 16 kk .. 16 kk + 15, k8
+// step st (columns 4t + 2st and 4t + 2st + 1 of each 16) and lane 4g + t is
+// the 4 floats at (((rg * D / 16 + kk) * 2 + st) * 32 + lane) * 4: rows g
+// and g + 8 at the first column, then at the second. Rows past sq and
+// columns past `width` are zero.
+template <int D, int BQ>
+__device__ __forceinline__ void stage_q(float* sQb, float* sQs,
+                                        const float* __restrict__ qc,
+                                        long long q_ss, int q0, int sq,
+                                        int width, int tid) {
+  static_assert(BQ * D / 4 % kThreads == 0, "whole passes");
+#pragma unroll
+  for (int pass = 0; pass < BQ * D / 4 / kThreads; ++pass) {
+    const int i = pass * kThreads + tid;
+    const int r = i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < sq && c < width) {
+      const float* src = qc + static_cast<long long>(q0 + r) * q_ss + c;
+      if (c + 4 <= width) {
+        x = *reinterpret_cast<const float4*>(src);
+      } else {  // the row's last, partial chunk
+        x.x = src[0];
+        if (c + 1 < width) x.y = src[1];
+        if (c + 2 < width) x.z = src[2];
+      }
+    }
+    const int half = (r % 16) / 8;  // row g (0) or g + 8 (1)
+    const int lane_of = 4 * (r % 8) + (c % 16) / 4;
+    const int f0 = (((r / 16) * (D / 16) + c / 16) * 2 * 32 + lane_of) * 4;
+    const int f1 = f0 + 32 * 4;  // the second k8 step
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const int at[4] = {f0 + half, f0 + 2 + half, f1 + half, f1 + 2 + half};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t big, small;
+      split(xs[e], big, small);
+      reinterpret_cast<uint32_t*>(sQb)[at[e]] = big;
+      reinterpret_cast<uint32_t*>(sQs)[at[e]] = small;
+    }
+  }
+}
+
+// sa += this warp's Q K^T over the D staged columns. Each product waits for
+// the one before it on the same accumulator (about 30 cycles): the k8 steps
+// rotate over kAcc accumulators a slice, so that a warp has at least 4
+// chains in flight, summed by the caller
+template <int D, int kNT, int kAcc, int kPitch>
+__device__ __forceinline__ void qk_products(float (&sa)[kAcc][kNT][4],
+                                            const uint4* qb_frag,
+                                            const uint4* qs_frag,
+                                            const float* k_row) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // A fragments (rows g, g + 8; logical columns t, t + 4) of the two
+    // k8 steps
+    const uint4 qb0 = qb_frag[kk * 64];
+    const uint4 qb1 = qb_frag[kk * 64 + 32];
+    const uint4 qs0 = qs_frag[kk * 64];
+    const uint4 qs1 = qs_frag[kk * 64 + 32];
+    const uint32_t ab0[4] = {qb0.x, qb0.y, qb0.z, qb0.w};
+    const uint32_t as0[4] = {qs0.x, qs0.y, qs0.z, qs0.w};
+    const uint32_t ab1[4] = {qb1.x, qb1.y, qb1.z, qb1.w};
+    const uint32_t as1[4] = {qs1.x, qs1.y, qs1.z, qs1.w};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const float4 kx =
+          *reinterpret_cast<const float4*>(k_row + 8 * j * kPitch + 16 * kk);
+      uint32_t kbig[4], ksmall[4];
+      split(kx.x, kbig[0], ksmall[0]);
+      split(kx.y, kbig[1], ksmall[1]);
+      split(kx.z, kbig[2], ksmall[2]);
+      split(kx.w, kbig[3], ksmall[3]);
+      mma_3xtf32(sa[(2 * kk) % kAcc][j], ab0, as0, kbig[0], kbig[1],
+                 ksmall[0], ksmall[1]);
+      mma_3xtf32(sa[(2 * kk + 1) % kAcc][j], ab1, as1, kbig[2], kbig[3],
+                 ksmall[2], ksmall[3]);
+    }
+  }
+}
+
 // One walk over kv tiles [t_begin, t_end) of the q tile at q0: Q staged and
 // split, then for each kv tile S = Q K^T, the online softmax and acc += P V
 // for this warp's 16 rows and kv columns. Leaves this thread's share of the
 // warp's (acc, m, l) in registers; no kv tile is in flight at the end.
-template <int D, int DV, int BQ, int BK>
+// kChunked (the chunked kernel, D its chunk): S is summed over the chunks
+// of D columns of q and k, Q staged and split again for each chunk of each
+// kv tile, the next chunk of K copied once every warp is done with this
+// one; V's copy is issued with the last chunk.
+template <int D, int DV, int BQ, int BK, bool kChunked>
 __device__ __forceinline__ void walk_kv(
     const float* __restrict__ qb, const float* __restrict__ kb,
     const float* __restrict__ vb, const Params& p, float* smem, int q0,
@@ -293,6 +401,8 @@ __device__ __forceinline__ void walk_kv(
   const int sp = warp / T::kGroups;             // this warp's kv split
   const int row_lo = (warp % T::kGroups) * 16;  // and its rows in the tile
   const int col0 = sp * T::kCols;  // its first column of a kv tile
+  // chunks of q's and k's columns: the whole class at once, unless chunked
+  const int n_ch = kChunked ? (p.d + D - 1) / D : 1;
 
 #pragma unroll
   for (int n = 0; n < kNO; ++n) {
@@ -305,44 +415,7 @@ __device__ __forceinline__ void walk_kv(
 
   copy_tile<D, BK, kPitch>(sK, kb, p.k_ss, t_begin * BK, p.skv, p.d, tid);
   cp_async_commit();
-
-  // Q, split once into Q_big and Q_small, stored as A fragments: the
-  // fragment of row group rg, columns 16 kk .. 16 kk + 15, k8 step st
-  // (columns 4t + 2st and 4t + 2st + 1 of each 16) and lane 4g + t is the 4
-  // floats at (((rg * D / 16 + kk) * 2 + st) * 32 + lane) * 4: rows g and g
-  // + 8 at the first column, then at the second. Rows past Sq and columns
-  // past the true head dim are zero.
-  static_assert(BQ * D / 4 % kThreads == 0, "whole passes");
-#pragma unroll
-  for (int pass = 0; pass < BQ * D / 4 / kThreads; ++pass) {
-    const int i = pass * kThreads + tid;
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (q0 + r < p.sq && c < p.d) {
-      const float* src = qb + static_cast<long long>(q0 + r) * p.q_ss + c;
-      if (c + 4 <= p.d) {
-        x = *reinterpret_cast<const float4*>(src);
-      } else {  // the row's last, partial chunk
-        x.x = src[0];
-        if (c + 1 < p.d) x.y = src[1];
-        if (c + 2 < p.d) x.z = src[2];
-      }
-    }
-    const int half = (r % 16) / 8;  // row g (0) or g + 8 (1)
-    const int lane_of = 4 * (r % 8) + (c % 16) / 4;
-    const int f0 = (((r / 16) * (D / 16) + c / 16) * 2 * 32 + lane_of) * 4;
-    const int f1 = f0 + 32 * 4;  // the second k8 step
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-    const int at[4] = {f0 + half, f0 + 2 + half, f1 + half, f1 + 2 + half};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t big, small;
-      split(xs[e], big, small);
-      reinterpret_cast<uint32_t*>(sQb)[at[e]] = big;
-      reinterpret_cast<uint32_t*>(sQs)[at[e]] = small;
-    }
-  }
+  if (!kChunked) stage_q<D, BQ>(sQb, sQs, qb, p.q_ss, q0, p.sq, p.d, tid);
 
   const int row_a = q0 + row_lo + g;  // this thread's rows: row_a, row_a + 8
   // this thread's operands: its A fragments of Q; 4 consecutive floats of K
@@ -354,6 +427,7 @@ __device__ __forceinline__ void walk_kv(
       reinterpret_cast<const uint4*>(sQs) + row_lo / 16 * D / 16 * 64 + lane;
   const float* k_row = sK + (col0 + g) * kPitch + 4 * t;
   const float* v_row = sV + (col0 + 2 * t) * kVPitch + g;
+  constexpr int kAcc = kNT >= 4 ? 1 : 4 / kNT;
 
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int k0 = tile * BK;
@@ -365,64 +439,56 @@ __device__ __forceinline__ void walk_kv(
     const bool masked = c_lo + T::kCols > p.skv ||
                         (p.causal && c_lo + T::kCols - 1 > row_a - g);
 
-    cp_async_wait_all();  // K(tile) has landed (and Q is written) ...
-    __syncthreads();      // ... for every thread; the V slot is free
-    copy_tile<DV, BK, kVPitch>(sV, vb, p.v_ss, k0, p.skv, p.dv, tid);
-    cp_async_commit();
-
+    // S = Q K^T over this warp's columns: each chunk's products summed on
+    // their own (over kAcc chains), then added to s, so that no chain runs
+    // longer than one chunk's
     float s[kNT][4];
-    if (active) {
-      // S = Q K^T over this warp's columns. Each product waits for the one
-      // before it on the same accumulator (about 30 cycles): the k8 steps
-      // rotate over kAcc accumulators a slice, so that a warp has at least 4
-      // chains in flight, summed at the end
-      constexpr int kAcc = kNT >= 4 ? 1 : 4 / kNT;
-      float sa[kAcc][kNT][4];
+    for (int ch = 0; ch < n_ch; ++ch) {
+      if (kChunked) {
+        stage_q<D, BQ>(sQb, sQs, qb + ch * D, p.q_ss, q0, p.sq, p.d - ch * D,
+                       tid);
+      }
+      cp_async_wait_all();  // K(tile) has landed (and Q is written) ...
+      __syncthreads();      // ... for every thread; the V slot is free
+      if (ch == n_ch - 1) {
+        copy_tile<DV, BK, kVPitch>(sV, vb, p.v_ss, k0, p.skv, p.dv, tid);
+        cp_async_commit();
+      }
+      if (active) {
+        float sa[kAcc][kNT][4];
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a) {
+        for (int a = 0; a < kAcc; ++a) {
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sa[a][j][i] = 0.0f;
+          }
+        }
+        qk_products<D, kNT, kAcc, kPitch>(sa, qb_frag, qs_frag, k_row);
 #pragma unroll
         for (int j = 0; j < kNT; ++j) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) sa[a][j][i] = 0.0f;
+          for (int i = 0; i < 4; ++i) {
+            float x = sa[0][j][i];
+#pragma unroll
+            for (int a = 1; a < kAcc; ++a) x += sa[a][j][i];
+            if (ch == 0) {
+              s[j][i] = x;
+            } else {
+              s[j][i] += x;
+            }
+          }
         }
       }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // A fragments (rows g, g + 8; logical columns t, t + 4) of the two
-        // k8 steps
-        const uint4 qb0 = qb_frag[kk * 64];
-        const uint4 qb1 = qb_frag[kk * 64 + 32];
-        const uint4 qs0 = qs_frag[kk * 64];
-        const uint4 qs1 = qs_frag[kk * 64 + 32];
-        const uint32_t ab0[4] = {qb0.x, qb0.y, qb0.z, qb0.w};
-        const uint32_t as0[4] = {qs0.x, qs0.y, qs0.z, qs0.w};
-        const uint32_t ab1[4] = {qb1.x, qb1.y, qb1.z, qb1.w};
-        const uint32_t as1[4] = {qs1.x, qs1.y, qs1.z, qs1.w};
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const float4 kx = *reinterpret_cast<const float4*>(
-              k_row + 8 * j * kPitch + 16 * kk);
-          uint32_t kbig[4], ksmall[4];
-          split(kx.x, kbig[0], ksmall[0]);
-          split(kx.y, kbig[1], ksmall[1]);
-          split(kx.z, kbig[2], ksmall[2]);
-          split(kx.w, kbig[3], ksmall[3]);
-          mma_3xtf32(sa[(2 * kk) % kAcc][j], ab0, as0, kbig[0], kbig[1],
-                     ksmall[0], ksmall[1]);
-          mma_3xtf32(sa[(2 * kk + 1) % kAcc][j], ab1, as1, kbig[2], kbig[3],
-                     ksmall[2], ksmall[3]);
-        }
+      if (ch + 1 < n_ch) {
+        __syncthreads();  // every warp is done with this chunk of Q and K
+        copy_tile<D, BK, kPitch>(sK, kb + (ch + 1) * D, p.k_ss, k0, p.skv,
+                                 p.d - (ch + 1) * D, tid);
+        cp_async_commit();
       }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[j][i] = sa[0][j][i];
-#pragma unroll
-          for (int a = 1; a < kAcc; ++a) s[j][i] += sa[a][j][i];
-        }
-      }
+    }
 
+    if (active) {
       // online softmax in registers: s[j][2r + c] is row g + 8r, column
       // c_lo + 8j + 2t + c
       float mx[2] = {kNegInf, kNegInf};
@@ -601,7 +667,7 @@ struct Merge {
       }
       const float den = sDen[r];
       float* dst = ob + static_cast<long long>(q0 + r) * p.o_ss + c4;
-      if (p.dv % 4 == 0) {  // whole 16-byte chunks of 16-byte aligned rows
+      if (p.o_vec4) {  // whole 16-byte chunks of 16-byte aligned rows
         *reinterpret_cast<float4*>(dst) =
             make_float4(sum.x / den, sum.y / den, sum.z / den, sum.w / den);
       } else {  // the first dv columns, one by one
@@ -624,7 +690,7 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0) {
   return (k_end + BK - 1) / BK;
 }
 
-// The grid is (2 * ceil(n_q / 2), Hq, B) blocks in clusters of two along x.
+// One block's work, the q tiles of cluster `pair` as its block `rank`.
 // Causal: cluster c takes the light q tile c and the heavy q tile n_q - 1 -
 // c, whose kv tiles sum to about the same for every c; rank 0 walks the
 // first half of that sum (the heavy tile's first kv tiles), rank 1 the light
@@ -632,15 +698,15 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0) {
 // tile's partials through distributed shared memory, each storing half of
 // its rows. A middle tile (odd n_q) is its own pair and is split the same
 // way. Not causal: every q tile has the same work; each block takes one.
-template <int D, int DV, int BQ, int BK>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
-    flash_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         const Params p) {
+// v and o point at the block's first column of v and of the output (its
+// slice's, in the chunked kernel), p.dv is its number of columns.
+template <int D, int DV, int BQ, int BK, bool kChunked>
+__device__ __forceinline__ void attend(const float* __restrict__ q,
+                                       const float* __restrict__ k,
+                                       const float* __restrict__ v,
+                                       float* __restrict__ o, const Params& p,
+                                       int pair, int rank) {
   extern __shared__ __align__(16) float smem[];
-  const int pair = blockIdx.x / 2;
-  const int rank = blockIdx.x % 2;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.hq / p.hkv);
@@ -687,8 +753,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     float acc[DV / 8][4];
     float m[2], l[2];
     if (sg > 0) __syncthreads();  // the last merge is done with the tiles
-    walk_kv<D, DV, BQ, BK>(qb, kb, vb, p, smem, q0, seg_begin[sg],
-                           seg_end[sg], acc, m, l);
+    walk_kv<D, DV, BQ, BK, kChunked>(qb, kb, vb, p, smem, q0, seg_begin[sg],
+                                     seg_end[sg], acc, m, l);
     __syncthreads();  // every warp is done with the tiles
     mine.store(acc, m, l);
     if (!seg_pair[sg]) {
@@ -708,10 +774,50 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   }
 }
 
+// Blocks an SM the compiler leaves registers for: two at the narrowest
+// class's smallest tile, 32 x 64 at (32, 32), whose thread fits in 128
+// registers (two 256-thread blocks fill the register file; at 134 it ran
+// one block an SM and 1.55x slower), one elsewhere.
+template <int D, int DV, int BQ, int BK>
+constexpr int kMinBlocks = D <= 32 && DV <= 32 && BQ == 32 && BK == 64 ? 2 : 1;
+
+// The grid is (2 * ceil(n_q / 2), Hq, B) blocks in clusters of two along x
+// (attend: cluster x / 2, rank x % 2).
+template <int D, int DV, int BQ, int BK>
+__global__ void __cluster_dims__(2, 1, 1)
+    __launch_bounds__(kThreads, (kMinBlocks<D, DV, BQ, BK>))
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         const Params p) {
+  attend<D, DV, BQ, BK, false>(q, k, v, o, p, blockIdx.x / 2, blockIdx.x % 2);
+}
+
+// The chunked kernel, for head dims above 256: q and k in chunks of kChunk
+// columns summed into S, v's columns in slices of DVS, one slice a block.
+// The grid is (2 * ceil(n_q / 2) * n_slices, Hq, B) blocks in clusters of
+// two along x, the clusters of slice i after those of slice i - 1. Every
+// slice's block sums the same chunks in the same order, so every slice
+// computes the same S, m and l, bit for bit.
+template <int DVS, int BQ, int BK>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+    flash_fwd_f32_chunked_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 float* __restrict__ o, const Params p_all) {
+  const int n_pairs = ((p_all.sq + BQ - 1) / BQ + 1) / 2;
+  const int slice = (blockIdx.x / 2) / n_pairs;
+  Params p = p_all;
+  p.dv = min(DVS, p_all.dv - slice * DVS);
+  attend<kChunk, DVS, BQ, BK, true>(q, k, v + slice * DVS, o + slice * DVS,
+                                    p, (blockIdx.x / 2) % n_pairs,
+                                    blockIdx.x % 2);
+}
+
 template <int D, int DV, int BQ, int BK>
 int launch(const float* q, const float* k, const float* v, float* o,
            const Params& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = TilesF32<D, DV, BQ, BK>::kBytes;
+  constexpr size_t smem = TilesF32<D, DV, BQ, BK>::kSmem;
   if constexpr (smem > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
@@ -725,6 +831,24 @@ int launch(const float* q, const float* k, const float* v, float* o,
     kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, p);
     return static_cast<int>(cudaGetLastError());
   }
+}
+
+template <int DVS, int BQ, int BK>
+int launch_chunked(const float* q, const float* k, const float* v, float* o,
+                   const Params& p, int batch, cudaStream_t stream) {
+  constexpr size_t smem = TilesF32<kChunk, DVS, BQ, BK>::kSmem;
+  static_assert(smem <= kSmemLimit, "tile does not fit in shared memory");
+  auto kernel = flash_fwd_f32_chunked_kernel<DVS, BQ, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_q = (p.sq + BQ - 1) / BQ;
+  const long long x = 2 * ((n_q + 1) / 2) * ((p.dv + DVS - 1) / DVS);
+  if (x > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(x), p.hq, batch);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DV>
@@ -761,5 +885,11 @@ int by_class_mid(int dc, int dvc, int block_q, int block_k, const float* q,
 int by_class_wide(int dc, int dvc, int block_q, int block_k, const float* q,
                   const float* k, const float* v, float* o, const Params& p,
                   int batch, cudaStream_t s);
+// The chunked kernel (flash_attention_f32_chunked.cu) at slice class dvs
+// (64, 128 or 256, kernels/flash_attention.py:wide_split), tiles 32 x 64
+// and 64 x 64.
+int by_slice_chunked(int dvs, int block_q, int block_k, const float* q,
+                     const float* k, const float* v, float* o,
+                     const Params& p, int batch, cudaStream_t s);
 
 }  // namespace repro_flash_f32

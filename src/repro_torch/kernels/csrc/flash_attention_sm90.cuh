@@ -1,27 +1,36 @@
-// Flash attention, forward, bf16 — tensor cores (wgmma) fed by TMA copies,
-// for Hopper (sm_90a): the kernel, included by flash_attention_sm90.cu (the
-// bf16 entry point and the narrow head-dim classes) and
-// flash_attention_sm90_wide.cu (the wide ones), two files that nvcc builds
-// in parallel.
+// Flash attention, forward, bf16 and f16 — tensor cores (wgmma) fed by TMA
+// copies, for Hopper (sm_90a): the kernel, included by the files that
+// instantiate it: flash_attention_sm90.cu (the 2-byte entry point and bf16
+// at the narrow head-dim classes), flash_attention_sm90_wide.cu (bf16 at
+// the wide ones), flash_attention_sm90_f16.cu and
+// flash_attention_sm90_f16_wide.cu (f16), flash_attention_sm90_chunked.cu
+// (head dims above 256, both types); nvcc builds them in parallel.
 //
 // Replaces: src/repro/kernels/flash_attention.py, functions `_flash_kernel` /
-// `flash_attention`, for bf16 inputs. f32 inputs go to the 3xTF32
-// tensor-core kernel (mma.sync) of flash_attention.cu, whose C entry point
-// `repro_flash_attention` sends bf16 calls to `repro_flash_attention_sm90`
-// (flash_attention_sm90.cu).
+// `flash_attention`, for bf16 and f16 inputs. f32 inputs go to the 3xTF32
+// tensor-core kernel (mma.sync) of flash_attention_f32.cuh, whose C entry
+// point `repro_flash_attention` (flash_attention.cu) sends 2-byte calls to
+// `repro_flash_attention_sm90` (flash_attention_sm90.cu).
+//
+// The element type E (ElemBf16, ElemF16) is a template parameter: its
+// storage type, its TMA data type, the rounding of f32 values to it (one by
+// one, or two to a register), and the PTX type name of every wgmma
+// (REPRO_SM90_WGMMA). Nothing else differs: both are 2-byte types with the
+// same tiles, swizzles and shared memory, and the tensor cores run both at
+// one rate.
 //
 // What it computes, per (batch, q head) and query row, as the reference, for
 // q and k of head dim D and v and out of head dim DV:
-//   s = (q . k^T) * scale     (bf16 products, f32 sums, on the tensor cores)
+//   s = (q . k^T) * scale     (E products, f32 sums, on the tensor cores)
 //   s = -1e30 where causal and kpos > qpos  (top-left aligned)
 //   online softmax with m, l and acc in f32; acc is rescaled by
-//   exp(m_prev - m_new) at every kv tile, acc += bf16(p) . v, l += sum(p)
-//   out = acc / max(l, 1e-30), stored as bf16
-// l sums the f32 p; p is rounded to bf16 only as the operand of p . v, which
+//   exp(m_prev - m_new) at every kv tile, acc += E(p) . v, l += sum(p)
+//   out = acc / max(l, 1e-30), stored as E
+// l sums the f32 p; p is rounded to E only as the operand of p . v, which
 // is the reference's `p.astype(v.dtype)`. GQA: the kv head of q head h is
 // h / (Hq / Hkv); K and V are indexed, never repeated.
 //
-// Head dims. The reference takes any D and DV; this kernel takes every
+// Head dims. The reference takes any D and DV; so does this kernel: every
 // 1 <= D, DV <= 256 through a few head-dim classes, the template's D and
 // DV: (32, 32), (64, 64), (96, 96), (128, 128), (160, 160), (192, 192),
 // (256, 256) and (192, 128) (flash_attention.cu:head_dim_class picks the
@@ -37,7 +46,23 @@
 // for each: 32, 96 and 192 join the built 64, 128, 160 and 256 (widths that
 // are multiples of 32 keep the 64- or 128-byte swizzle). A width pays for
 // its padded columns: above 32 at most 1.94x (D = 33), above 64 at most
-// 1.48x (D = 65).
+// 1.48x (D = 65). Wider pairs run on the chunked kernel, below.
+//
+// The chunked kernel (a head dim above 256; flash_fwd_sm90_chunked_kernel,
+// kernels/flash_attention.py:wide_split). A consumer warpgroup's O is 64 x
+// DV f32 (DV / 2 registers a thread), wgmma's N is at most 256, and Q with
+// the K/V stages must fit in 227 KB, so neither D nor DV can be one tile.
+// So S = Q K^T is summed over chunks of kChunk = 128 columns of Q and K, the
+// chunks streaming through a ring of stages with the V tile, and v's columns
+// are split into slices of DVS (64, 128 or 256) on the grid's x axis: each
+// slice's block recomputes S, m and l, summing the same chunks in the same
+// order, so every slice normalises by the same l, bit for bit. Q is
+// reloaded for every kv tile (it is held a chunk at a time); one consumer
+// warpgroup (64 rows) and one tile, 64 x 64 (its O at DVS = 256 is 128
+// registers a thread, as at (256, 256)). A chunk's products are one commit
+// group, waited for before its stage is released. Simple and right first:
+// S costs D x n_slices, where the function needs D, and the waits expose
+// wgmma's latency (PERF.md §6 has its times).
 //
 // Design. One thread block owns one (batch, q head, q tile of BQ rows) and
 // walks the kv tiles. It has BQ / 64 consumer warpgroups, each owning 64
@@ -106,6 +131,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -113,8 +139,34 @@
 
 namespace repro_flash_sm90 {
 
+// The element types, each with what the kernel needs of it: its storage
+// type, the TMA data type, and f32 values rounded to it (to nearest even),
+// two to a 32-bit register (the A fragment of P V, and the epilogue's
+// paired stores) or one by one. wgmma's PTX type name (bf16 / f16) is
+// given to REPRO_SM90_WGMMA below.
+struct ElemBf16 {
+  using T = __nv_bfloat16;
+  using T2 = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ T one(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
 
-using bf16 = __nv_bfloat16;
+struct ElemF16 {
+  using T = __half;
+  using T2 = __half2;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ T one(float x) {
+    return __float2half_rn(x);
+  }
+};
 
 constexpr int kWG = 128;         // threads in a warpgroup
 constexpr int kRowsPerWG = 64;   // wgmma's M: query rows of a consumer
@@ -151,12 +203,41 @@ struct SmemSm90 {
   static constexpr size_t kBytes = bytes(kStages);
 };
 
+// The chunked kernel (a head dim above 256): one ring of kStages stages,
+// each holding a chunk of kChunk columns of Q (BQ rows) and of K (BK rows),
+// or a slice of DVS columns of V (BK rows), two mbarriers a stage, and the
+// slack that aligns the stages. As many stages as fit in 227 KB, at most 8.
+// kernels/flash_attention.py:smem_bytes repeats this formula (WIDE_CHUNK).
+constexpr int kChunk = 128;
+
+template <int DVS, int BQ, int BK>
+struct SmemChunked {
+  static constexpr size_t kQ = 2ull * BQ * kChunk;
+  static constexpr size_t kK = 2ull * BK * kChunk;
+  static constexpr size_t kV = 2ull * BK * DVS;
+  static constexpr size_t kStage = kQ + kK > kV ? kQ + kK : kV;
+  static constexpr size_t kAlign = 1024;
+  static constexpr size_t bytes(int stages) {
+    return stages * kStage + 16 * stages + kAlign;
+  }
+  static constexpr int fit() {
+    int stages = 8;
+    while (stages > 0 && bytes(stages) > kSmemLimit) --stages;
+    return stages;
+  }
+  static constexpr int kStages = fit();
+  static constexpr size_t kBytes = bytes(kStages);
+  static_assert(kStage % kAlign == 0 && kQ % kAlign == 0,
+                "stages and the K chunk must keep the swizzle's alignment");
+};
+
 struct Params {
   int hq, hkv, sq, skv;
   int dv;                      // v's true head dim: the columns stored
   long long o_sb, o_ss, o_sh;  // output strides (elements)
   float scale_log2;            // scale * log2(e)
   int causal;
+  int d;                       // q's and k's true head dim
 };
 
 // ---------------------------------------------------------------- helpers
@@ -269,8 +350,10 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          (Swizzle<D>::kLayout << 62);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+// Two f32 values rounded to E, packed into one register (lo in the low half)
+template <class E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  typename E::T2 v = E::pair(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -279,12 +362,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 16 * warp + lane / 4 + 8 j, column 8 i + 2 (lane % 4) + c. The outputs are
 // write-only, so the registers of the previous tile's S are free while it
 // is not issued.
-template <int N>
+template <int N, class E>
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[N / 2], uint64_t da,
                                                uint64_t db);
 
 // D(64 x N, f32) += A(64 x 16) . B(16 x N), as wgmma_ss_first.
-template <int N>
+template <int N, class E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db);
 
@@ -292,356 +375,364 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 // memory, MN-major (transposed). A's registers a[r] hold the bf16 pairs of
 // row 16 * warp + lane / 4 + 8 (r % 2), columns 8 (r / 2) + 2 (lane % 4) +
 // {0, 1}: the layout of the accumulator above, two columns a register.
-template <int N>
+template <int N, class E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db);
 
-template <>
-__device__ __forceinline__ void wgmma_ss_first<64>(float (&d)[32],
-                                                    uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "l"(da), "l"(db), "r"(0));
+// Every wgmma of the kernel, for one element type E whose PTX type name
+// is AB ("bf16" or "f16"): the f32 accumulator, A and B of type AB.
+#define REPRO_SM90_WGMMA(E, AB) \
+template <> \
+__device__ __forceinline__ void wgmma_ss_first<64, E>(float (&d)[32], \
+                                                    uint64_t da, uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), \
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), \
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), \
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), \
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), \
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), \
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), \
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]) \
+      : "l"(da), "l"(db), "r"(0)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_ss_first<128, E>(float (&d)[64], \
+                                                    uint64_t da, uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+      "%60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), \
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), \
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), \
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), \
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), \
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), \
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), \
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), \
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), \
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), \
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), \
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), \
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), \
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), \
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), \
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63]) \
+      : "l"(da), "l"(db), "r"(0)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_ss<64, E>(float (&d)[32], uint64_t da, \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_ss<128, E>(float (&d)[64], uint64_t da, \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+      "%60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_rs<32, E>(float (&d)[16], \
+                                              const uint32_t (&a)[4], \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15" \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_rs<64, E>(float (&d)[32], \
+                                              const uint32_t (&a)[4], \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_rs<96, E>(float (&d)[48], \
+                                              const uint32_t (&a)[4], \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_rs<128, E>(float (&d)[64], \
+                                              const uint32_t (&a)[4], \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+      "%60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_rs<160, E>(float (&d)[80], \
+                                              const uint32_t (&a)[4], \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71," \
+      "%72, %73, %74, %75, %76, %77, %78, %79" \
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_rs<192, E>(float (&d)[96], \
+                                              const uint32_t (&a)[4], \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71," \
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83," \
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_rs<256, E>(float (&d)[128], \
+                                              const uint32_t (&a)[4], \
+                                              uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71," \
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83," \
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107," \
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119," \
+      "%120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss_first<128>(float (&d)[64],
-                                                    uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
-        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
-        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
-        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
-        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79"
-      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+REPRO_SM90_WGMMA(ElemBf16, "bf16")
+REPRO_SM90_WGMMA(ElemF16, "f16")
+#undef REPRO_SM90_WGMMA
 
 // ------------------------------------------------------------------ kernel
 // S = Q K^T for the K tile at k_base: one wgmma per 16 columns of D, in one
 // commit group. K-major operands: 8-row groups are 8 box rows apart; the 16
 // columns of step kk lie in box kk * 16 / kCols, at byte (kk * 16 % kCols) * 2
-// of a row.
-template <int D, int BQ, int BK>
+// of a row. kAccumulate adds to s (a later chunk of the chunked kernel);
+// else the first product writes s without reading it.
+template <int D, int BQ, int BK, class E, bool kAccumulate = false>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_base,
                                         uint32_t k_base) {
   using Sw = Swizzle<D>;
@@ -653,10 +744,10 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_base,
         make_desc<D>(q_base + box * BQ * Sw::kBytes + off, 16, 8 * Sw::kBytes);
     const uint64_t db =
         make_desc<D>(k_base + box * BK * Sw::kBytes + off, 16, 8 * Sw::kBytes);
-    if (kk == 0) {
-      wgmma_ss_first<BK>(s, da, db);
+    if (kk == 0 && !kAccumulate) {
+      wgmma_ss_first<BK, E>(s, da, db);
     } else {
-      wgmma_ss<BK>(s, da, db);
+      wgmma_ss<BK, E>(s, da, db);
     }
   }
   wgmma_commit();
@@ -665,16 +756,16 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_base,
 // O += P V for the V tile at v_base, in one commit group. V is MN-major:
 // its boxes of DV columns are BK rows apart (the leading offset), its 8-row
 // groups of kv rows 8 box rows apart (the stride offset).
-template <int DV, int BK>
+template <int DV, int BK, class E>
 __device__ __forceinline__ void issue_pv(float (&acc)[DV / 2],
                                         const uint32_t (&a)[BK / 16][4],
                                         uint32_t v_base) {
   using Sw = Swizzle<DV>;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    wgmma_rs<DV>(acc, a[kk],
-                 make_desc<DV>(v_base + kk * 16 * Sw::kBytes, BK * Sw::kBytes,
-                               8 * Sw::kBytes));
+    wgmma_rs<DV, E>(acc, a[kk],
+                    make_desc<DV>(v_base + kk * 16 * Sw::kBytes,
+                                  BK * Sw::kBytes, 8 * Sw::kBytes));
   }
   wgmma_commit();
 }
@@ -732,15 +823,15 @@ __device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&m)[2],
 }
 
 // P as the A fragments of P V: the S fragment of columns 16 kk .. 16 kk + 15
-// is the A fragment of step kk, rounded to bf16.
-template <int BK>
+// is the A fragment of step kk, rounded to E.
+template <int BK, class E>
 __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
                                        uint32_t (&a)[BK / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack2<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
     }
   }
 }
@@ -769,16 +860,57 @@ __device__ __forceinline__ int active_tiles(const Params& p, int row_lo,
   return p.causal ? min(n_tiles, row_hi / BK + 1) : n_tiles;
 }
 
+// The epilogue of a consumer thread: its rows r0 and r0 + 8 of acc / l,
+// the first `width` of its DV columns, into o (o points at the block's
+// first column of head h, batch b): in pairs where `pairs` (the block's
+// columns all stored and every row 4-byte aligned), else one by one (a row
+// may start odd).
+template <int DV, class E>
+__device__ __forceinline__ void store_rows(const float (&acc)[DV / 2],
+                                           float (&l)[2],
+                                           typename E::T* __restrict__ o,
+                                           const Params& p, int r0, int col,
+                                           int h, int b, int width,
+                                           bool pairs) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+    const int row = r0 + 8 * j;
+    if (row >= p.sq) continue;
+    const float den = fmaxf(l[j], 1e-30f);
+    typename E::T* orow = o + b * p.o_sb +
+                          static_cast<long long>(row) * p.o_ss + h * p.o_sh;
+    if (pairs) {
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i) {
+        *reinterpret_cast<typename E::T2*>(orow + 8 * i + col) =
+            E::pair(acc[4 * i + 2 * j] / den, acc[4 * i + 2 * j + 1] / den);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (8 * i + col + c < width) {
+            orow[8 * i + col + c] = E::one(acc[4 * i + 2 * j + c] / den);
+          }
+        }
+      }
+    }
+  }
+}
+
 // A consumer warpgroup: 64 query rows from row_lo on. Per active kv tile:
 // Q K^T, the softmax, P V, one after the other; the tiles above its diagonal
 // are released unread.
-template <int D, int DV, int BQ, int BK, int kStages>
-__device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
-                                        const bf16* sV, uint64_t* full,
+template <int D, int DV, int BQ, int BK, int kStages, class E>
+__device__ __forceinline__ void consume(uint32_t q_base, uint32_t k_ring,
+                                        uint32_t v_ring, uint64_t* full,
                                         uint64_t* empty, uint64_t* q_full,
-                                        bf16* __restrict__ o, const Params& p,
-                                        int row_lo, int h, int b,
-                                        int n_tiles) {
+                                        typename E::T* __restrict__ o,
+                                        const Params& p, int row_lo, int h,
+                                        int b, int n_tiles) {
   const int tid = threadIdx.x % kWG;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -800,17 +932,17 @@ __device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
     const int st = t % kStages;
     mbar_wait(&full[st], (t / kStages) & 1);
     wgmma_fence();
-    issue_qk<D, BQ, BK>(s, q_base, smem_u32(sK + st * BK * D));
+    issue_qk<D, BQ, BK, E>(s, q_base, k_ring + st * 2 * BK * D);
     wgmma_wait<0>();
     fence_operands(s);
     softmax<BK>(s, m, l, corr, p, t * BK, r0, col,
                 p.causal && (t + 1) * BK - 1 > row_lo);
     rescale<DV>(acc, corr);
-    pack_p<BK>(s, a);
+    pack_p<BK, E>(s, a);
     fence_operands(a);
     fence_operands(acc);
     wgmma_fence();
-    issue_pv<DV, BK>(acc, a, smem_u32(sV + st * BK * DV));
+    issue_pv<DV, BK, E>(acc, a, v_ring + st * 2 * BK * DV);
     wgmma_wait<0>();
     fence_operands(acc);
     mbar_arrive(&empty[st]);
@@ -819,45 +951,17 @@ __device__ __forceinline__ void consume(uint32_t q_base, const bf16* sK,
     mbar_wait(&full[t % kStages], (t / kStages) & 1);
     mbar_arrive(&empty[t % kStages]);
   }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
-    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
-    const int row = r0 + 8 * j;
-    if (row >= p.sq) continue;
-    const float den = fmaxf(l[j], 1e-30f);
-    bf16* orow = o + b * p.o_sb + static_cast<long long>(row) * p.o_ss +
-                 h * p.o_sh;
-    if (p.dv == DV) {  // v is as wide as its class: every column, in pairs
-#pragma unroll
-      for (int i = 0; i < DV / 8; ++i) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + col) =
-            __floats2bfloat162_rn(acc[4 * i + 2 * j] / den,
-                                  acc[4 * i + 2 * j + 1] / den);
-      }
-    } else {  // the first dv columns, one by one (a row may start odd)
-#pragma unroll
-      for (int i = 0; i < DV / 8; ++i) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (8 * i + col + c < p.dv) {
-            orow[8 * i + col + c] =
-                __float2bfloat16_rn(acc[4 * i + 2 * j + c] / den);
-          }
-        }
-      }
-    }
-  }
+  // v as wide as its class: every column, in pairs
+  store_rows<DV, E>(acc, l, o, p, r0, col, h, b, p.dv, p.dv == DV);
 }
 
 // One block: BQ / 64 consumer warpgroups, then the producer warpgroup.
-template <int D, int DV, int BQ, int BK>
+template <class E, int D, int DV, int BQ, int BK>
 __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          bf16* __restrict__ o, const Params p) {
+                          typename E::T* __restrict__ o, const Params p) {
   constexpr int kConsumers = BQ / kRowsPerWG;
   using Sw = Swizzle<D>;    // Q and K
   using SwV = Swizzle<DV>;  // V
@@ -867,9 +971,9 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem =
       smem_raw + ((Sm::kAlign - (raw & (Sm::kAlign - 1))) & (Sm::kAlign - 1));
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + Sm::kQ);
-  bf16* sV = reinterpret_cast<bf16*>(smem + Sm::kQ + kStages * Sm::kK);
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + Sm::kQ;
+  unsigned char* sV = smem + Sm::kQ + kStages * Sm::kK;
   uint64_t* full = reinterpret_cast<uint64_t*>(
       smem + Sm::kQ + kStages * (Sm::kK + Sm::kV));
   uint64_t* empty = full + kStages;
@@ -901,7 +1005,7 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
       const int hk = h / (p.hq / p.hkv);
       mbar_expect_tx(q_full, static_cast<uint32_t>(Sm::kQ));
       for (int c = 0; c < Sw::kBoxes; ++c) {
-        tma_load(sQ + c * BQ * Sw::kCols, &tq, q_full, c * Sw::kCols, h, q0,
+        tma_load(sQ + c * BQ * Sw::kBytes, &tq, q_full, c * Sw::kCols, h, q0,
                  b);
       }
       for (int t = 0; t < n_tiles; ++t) {
@@ -909,11 +1013,11 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
         if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
         mbar_expect_tx(&full[st], static_cast<uint32_t>(Sm::kK + Sm::kV));
         for (int c = 0; c < Sw::kBoxes; ++c) {
-          tma_load(sK + st * BK * D + c * BK * Sw::kCols, &tk, &full[st],
+          tma_load(sK + st * Sm::kK + c * BK * Sw::kBytes, &tk, &full[st],
                    c * Sw::kCols, hk, t * BK, b);
         }
         for (int c = 0; c < SwV::kBoxes; ++c) {
-          tma_load(sV + st * BK * DV + c * BK * SwV::kCols, &tv, &full[st],
+          tma_load(sV + st * Sm::kV + c * BK * SwV::kBytes, &tv, &full[st],
                    c * SwV::kCols, hk, t * BK, b);
         }
       }
@@ -922,9 +1026,159 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
     // the producer's registers, handed over: 128 x (168 - 40) = 2 x 128 x
     // (232 - 168)
     if constexpr (kConsumers > 1) setmaxnreg_inc<232>();
-    consume<D, DV, BQ, BK, kStages>(
-        smem_u32(sQ) + wg * kRowsPerWG * Sw::kBytes, sK, sV, full, empty,
-        q_full, o, p, q0 + wg * kRowsPerWG, h, b, n_tiles);
+    consume<D, DV, BQ, BK, kStages, E>(
+        smem_u32(sQ) + wg * kRowsPerWG * Sw::kBytes, smem_u32(sK),
+        smem_u32(sV), full, empty, q_full, o, p, q0 + wg * kRowsPerWG, h, b,
+        n_tiles);
+  }
+}
+
+// The chunked kernel's consumer warpgroup (64 query rows from row_lo on):
+// per active kv tile, S summed over the chunks of Q and K as their stages
+// land (each stage released once its products are done), the softmax, and
+// P V over this block's slice of V; the tiles above its diagonal are
+// released unread. Every slice's block sums the same chunks in the same
+// order, so every slice computes the same S, m and l, bit for bit.
+template <int DVS, int BQ, int BK, int kStages, class E>
+__device__ __forceinline__ void consume_chunked(
+    uint32_t ring, uint64_t* full, uint64_t* empty,
+    typename E::T* __restrict__ o, const Params& p, int row_lo, int h, int b,
+    int width, int n_tiles, int n_chunks) {
+  using Sm = SmemChunked<DVS, BQ, BK>;
+  const int tid = threadIdx.x % kWG;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r0 = row_lo + warp * 16 + lane / 4;
+  const int col = 2 * (lane % 4);
+  const int n_act = active_tiles<BK>(p, row_lo, n_tiles);
+
+  float acc[DVS / 2];
+#pragma unroll
+  for (int i = 0; i < DVS / 2; ++i) acc[i] = 0.0f;
+  float s[BK / 2];
+  uint32_t a[BK / 16][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  float corr[2];
+
+  int item = 0;  // the ring's items: n_chunks chunks of Q and K, then V
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t >= n_act) {  // above the diagonal
+      for (int c = 0; c <= n_chunks; ++c, ++item) {
+        mbar_wait(&full[item % kStages], (item / kStages) & 1);
+        mbar_arrive(&empty[item % kStages]);
+      }
+      continue;
+    }
+    for (int c = 0; c < n_chunks; ++c, ++item) {
+      const int st = item % kStages;
+      const uint32_t stage = ring + st * Sm::kStage;
+      mbar_wait(&full[st], (item / kStages) & 1);
+      wgmma_fence();
+      if (c == 0) {
+        issue_qk<kChunk, BQ, BK, E>(s, stage, stage + Sm::kQ);
+      } else {
+        issue_qk<kChunk, BQ, BK, E, true>(s, stage, stage + Sm::kQ);
+      }
+      wgmma_wait<0>();
+      fence_operands(s);
+      mbar_arrive(&empty[st]);
+    }
+    softmax<BK>(s, m, l, corr, p, t * BK, r0, col,
+                p.causal && (t + 1) * BK - 1 > row_lo);
+    rescale<DVS>(acc, corr);
+    pack_p<BK, E>(s, a);
+    fence_operands(a);
+    fence_operands(acc);
+    const int st = item % kStages;
+    mbar_wait(&full[st], (item / kStages) & 1);
+    wgmma_fence();
+    issue_pv<DVS, BK, E>(acc, a, ring + st * Sm::kStage);
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(&empty[st]);
+    ++item;
+  }
+  store_rows<DVS, E>(acc, l, o, p, r0, col, h, b, width,
+                     width == DVS && p.dv % 2 == 0);
+}
+
+// The chunked kernel, for head dims above 256: one block owns one (batch,
+// q head, slice of DVS columns of v, q tile of 64 rows), one consumer
+// warpgroup and the producer warpgroup. For each kv tile the producer loads
+// the chunks of kChunk columns of Q and K, then the block's slice of V,
+// each into the next stage of one ring; Q is loaded again for every kv tile
+// (it is held a chunk at a time). The grid runs heads fastest, then the
+// slices, and the q tiles from the last to the first.
+template <class E, int DVS, int BQ, int BK>
+__global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
+    flash_fwd_sm90_chunked_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  typename E::T* __restrict__ o,
+                                  const Params p) {
+  static_assert(BQ == kRowsPerWG, "the chunked kernel has one consumer");
+  using SwC = Swizzle<kChunk>;  // chunks of Q and K
+  using SwV = Swizzle<DVS>;     // the slice of V
+  using Sm = SmemChunked<DVS, BQ, BK>;
+  constexpr int kStages = Sm::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* ring =
+      smem_raw + ((Sm::kAlign - (raw & (Sm::kAlign - 1))) & (Sm::kAlign - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * Sm::kStage);
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.x % p.hq;
+  const int slice = blockIdx.x / p.hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = blockIdx.z;
+  const int q_last = min(q0 + BQ, p.sq) - 1;
+  const int k_end = p.causal ? min(p.skv, q_last + 1) : p.skv;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const int n_chunks = (p.d + kChunk - 1) / kChunk;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWG) {  // the producer warpgroup: one thread copies
+    if (threadIdx.x == kWG) {
+      const int hk = h / (p.hq / p.hkv);
+      int item = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int c = 0; c <= n_chunks; ++c, ++item) {
+          const int st = item % kStages;
+          if (item >= kStages) mbar_wait(&empty[st], (item / kStages - 1) & 1);
+          unsigned char* dst = ring + st * Sm::kStage;
+          if (c < n_chunks) {
+            mbar_expect_tx(&full[st], static_cast<uint32_t>(Sm::kQ + Sm::kK));
+            for (int x = 0; x < SwC::kBoxes; ++x) {
+              const int c0 = c * kChunk + x * SwC::kCols;
+              tma_load(dst + x * BQ * SwC::kBytes, &tq, &full[st], c0, h, q0,
+                       b);
+              tma_load(dst + Sm::kQ + x * BK * SwC::kBytes, &tk, &full[st],
+                       c0, hk, t * BK, b);
+            }
+          } else {
+            mbar_expect_tx(&full[st], static_cast<uint32_t>(Sm::kV));
+            for (int x = 0; x < SwV::kBoxes; ++x) {
+              tma_load(dst + x * BK * SwV::kBytes, &tv, &full[st],
+                       slice * DVS + x * SwV::kCols, hk, t * BK, b);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    consume_chunked<DVS, BQ, BK, kStages, E>(
+        smem_u32(ring), full, empty, o + slice * DVS, p, q0, h, b,
+        min(DVS, p.dv - slice * DVS), n_tiles, n_chunks);
   }
 }
 
@@ -957,11 +1211,12 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map (width, H, S, B) over a [B, S, H, width] bf16 tensor with the
+// A 4-D map (width, H, S, B) over a [B, S, H, width] tensor of E with the
 // given strides (elements), box [rows, kCols] of one head; the swizzle and
-// the box are those of the class D >= width, and the columns of a box past
-// `width` are zero-filled.
-template <int D>
+// the box are those of the class D (of a chunk or a slice of the width, in
+// the chunked kernel), and the columns of a box past `width` are
+// zero-filled.
+template <int D, class E>
 bool make_map(CUtensorMap* map, const void* base, int width, int heads,
               int seq, int batch, long long s_b, long long s_s,
               long long s_h, int rows) {
@@ -980,9 +1235,8 @@ bool make_map(CUtensorMap* map, const void* base, int width, int heads,
   const CUtensorMapSwizzle swizzle = Swizzle<D>::kBytes == 128
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
                                          : CU_TENSOR_MAP_SWIZZLE_64B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  return encode(map, E::kTma, 4, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -990,27 +1244,27 @@ bool make_map(CUtensorMap* map, const void* base, int width, int heads,
 struct Call {
   const void *q, *k, *v;
   void* o;
-  int batch, d;  // d: q's and k's true head dim (v's is p.dv)
+  int batch;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  Params p;
+  Params p;  // p.d, p.dv: the true head dims
 };
 
-template <int D, int DV, int BQ, int BK>
+template <class E, int D, int DV, int BQ, int BK>
 int launch(const Call& c, cudaStream_t stream) {
   constexpr size_t smem = SmemSm90<D, DV, BQ, BK>::kBytes;
   static_assert(smem <= kSmemLimit, "tile does not fit in shared memory");
   CUtensorMap tq, tk, tv;
   const Params& p = c.p;
-  if (!make_map<D>(&tq, c.q, c.d, p.hq, p.sq, c.batch, c.q_sb, c.q_ss,
-                   c.q_sh, BQ) ||
-      !make_map<D>(&tk, c.k, c.d, p.hkv, p.skv, c.batch, c.k_sb, c.k_ss,
-                   c.k_sh, BK) ||
-      !make_map<DV>(&tv, c.v, p.dv, p.hkv, p.skv, c.batch, c.v_sb, c.v_ss,
-                    c.v_sh, BK)) {
+  if (!make_map<D, E>(&tq, c.q, p.d, p.hq, p.sq, c.batch, c.q_sb, c.q_ss,
+                      c.q_sh, BQ) ||
+      !make_map<D, E>(&tk, c.k, p.d, p.hkv, p.skv, c.batch, c.k_sb, c.k_ss,
+                      c.k_sh, BK) ||
+      !make_map<DV, E>(&tv, c.v, p.dv, p.hkv, p.skv, c.batch, c.v_sb, c.v_ss,
+                       c.v_sh, BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_fwd_sm90_kernel<D, DV, BQ, BK>;
-  static bool configured = false;  // the attribute outlives the launch
+  auto kernel = flash_fwd_sm90_kernel<E, D, DV, BQ, BK>;
+  static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1020,8 +1274,45 @@ int launch(const Call& c, cudaStream_t stream) {
   }
   const dim3 grid(p.hq, (p.sq + BQ - 1) / BQ, c.batch);
   const int threads = (BQ / kRowsPerWG + 1) * kWG;
-  kernel<<<grid, threads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(c.o),
-                                          p);
+  kernel<<<grid, threads, smem, stream>>>(
+      tq, tk, tv, static_cast<typename E::T*>(c.o), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunked kernel at slice class DVS: Q and K mapped in boxes of a
+// chunk's swizzle, V in its slice's; one block a (head, slice) on x.
+template <class E, int DVS, int BQ, int BK>
+int launch_chunked(const Call& c, cudaStream_t stream) {
+  using Sm = SmemChunked<DVS, BQ, BK>;
+  static_assert(Sm::kStages >= 2, "the ring needs two stages");
+  constexpr size_t smem = Sm::kBytes;
+  CUtensorMap tq, tk, tv;
+  const Params& p = c.p;
+  if (!make_map<kChunk, E>(&tq, c.q, p.d, p.hq, p.sq, c.batch, c.q_sb,
+                           c.q_ss, c.q_sh, BQ) ||
+      !make_map<kChunk, E>(&tk, c.k, p.d, p.hkv, p.skv, c.batch, c.k_sb,
+                           c.k_ss, c.k_sh, BK) ||
+      !make_map<DVS, E>(&tv, c.v, p.dv, p.hkv, p.skv, c.batch, c.v_sb,
+                        c.v_ss, c.v_sh, BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_fwd_sm90_chunked_kernel<E, DVS, BQ, BK>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const long long slices = (p.dv + DVS - 1) / DVS;
+  if (slices * p.hq > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(slices * p.hq), (p.sq + BQ - 1) / BQ,
+                  c.batch);
+  kernel<<<grid, 2 * kWG, smem, stream>>>(
+      tq, tk, tv, static_cast<typename E::T*>(c.o), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1036,12 +1327,12 @@ template <int D, int DV, int BQ, int BK>
 constexpr bool kBuilt = SmemSm90<D, DV, BQ, BK>::bytes(2) <= kSmemLimit &&
                         !(D == 256 && DV == 256 && BQ == 128);
 
-template <int D, int DV>
+template <class E, int D, int DV>
 int by_tile(int block_q, int block_k, const Call& c, cudaStream_t s) {
 #define REPRO_FLASH_SM90_TILE(BQ, BK)                          \
   if constexpr (kBuilt<D, DV, BQ, BK>) {                       \
     if (block_q == BQ && block_k == BK) {                      \
-      return launch<D, DV, BQ, BK>(c, s);                      \
+      return launch<E, D, DV, BQ, BK>(c, s);                   \
     }                                                          \
   }
   REPRO_FLASH_SM90_TILE(64, 64)
@@ -1052,13 +1343,61 @@ int by_tile(int block_q, int block_k, const Call& c, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The head-dim classes, split over two files: by_class_narrow
-// (flash_attention_sm90.cu) takes the squares 32 to 160, by_class_wide
-// (flash_attention_sm90_wide.cu) 192, (192, 128) and 256. Each returns
-// cudaErrorInvalidValue for a class or tile it does not build.
+// The head-dim classes of one element type, in two halves: by_class_narrow
+// the squares 32 to 160, by_class_wide 192, (192, 128) and 256. Each is
+// instantiated in a .cu file of its own (the extern declarations below keep
+// every other file from instantiating it), so that nvcc builds them in
+// parallel: bf16 in flash_attention_sm90.cu and flash_attention_sm90_wide.cu,
+// f16 in flash_attention_sm90_f16.cu and flash_attention_sm90_f16_wide.cu.
+// Each returns cudaErrorInvalidValue for a class or tile it does not build.
+#define REPRO_FLASH_SM90_CLASS(D, DV) \
+  if (dc == D && dvc == DV) return by_tile<E, D, DV>(block_q, block_k, c, s);
+
+template <class E>
 int by_class_narrow(int dc, int dvc, int block_q, int block_k, const Call& c,
-                    cudaStream_t s);
+                    cudaStream_t s) {
+  REPRO_FLASH_SM90_CLASS(32, 32)
+  REPRO_FLASH_SM90_CLASS(64, 64)
+  REPRO_FLASH_SM90_CLASS(96, 96)
+  REPRO_FLASH_SM90_CLASS(128, 128)
+  REPRO_FLASH_SM90_CLASS(160, 160)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class E>
 int by_class_wide(int dc, int dvc, int block_q, int block_k, const Call& c,
-                  cudaStream_t s);
+                  cudaStream_t s) {
+  REPRO_FLASH_SM90_CLASS(192, 192)
+  REPRO_FLASH_SM90_CLASS(192, 128)
+  REPRO_FLASH_SM90_CLASS(256, 256)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#undef REPRO_FLASH_SM90_CLASS
+
+// The chunked kernel at its one tile, 64 x 64, for slice class dvs (64, 128
+// or 256, kernels/flash_attention.py:wide_split), both element types in
+// flash_attention_sm90_chunked.cu.
+template <class E>
+int by_slice_chunked(int dvs, int block_q, int block_k, const Call& c,
+                     cudaStream_t s) {
+  if (block_q != 64 || block_k != 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dvs == 64) return launch_chunked<E, 64, 64, 64>(c, s);
+  if (dvs == 128) return launch_chunked<E, 128, 64, 64>(c, s);
+  if (dvs == 256) return launch_chunked<E, 256, 64, 64>(c, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#define REPRO_FLASH_SM90_EXTERN(E)                                          \
+  extern template int by_class_narrow<E>(int, int, int, int, const Call&,   \
+                                         cudaStream_t);                     \
+  extern template int by_class_wide<E>(int, int, int, int, const Call&,     \
+                                       cudaStream_t);                       \
+  extern template int by_slice_chunked<E>(int, int, int, const Call&,       \
+                                          cudaStream_t);
+REPRO_FLASH_SM90_EXTERN(ElemBf16)
+REPRO_FLASH_SM90_EXTERN(ElemF16)
+#undef REPRO_FLASH_SM90_EXTERN
 
 }  // namespace repro_flash_sm90

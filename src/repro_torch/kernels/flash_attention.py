@@ -16,24 +16,31 @@ It also takes query offsets, local windows and kv masks, and is the model's
 plain attention route. Any other tensor goes to a hand-written kernel, or
 the call raises: f32 to the tensor-core kernel of
 ``csrc/flash_attention_f32.cuh`` (3xTF32 products on ``mma.sync``, K/V
-through a ring of ``cp.async`` copies), bf16 to the tensor-core kernel of
-``csrc/flash_attention_sm90.cuh`` (wgmma fed by TMA copies), both behind
-the C entry point ``repro_flash_attention`` of ``csrc/flash_attention.cu``
-(each kernel's instantiations are split over two ``.cu`` files that
-``nvcc`` builds in parallel).
+through a ring of ``cp.async`` copies), bf16 and f16 to the tensor-core
+kernel of ``csrc/flash_attention_sm90.cuh`` (wgmma fed by TMA copies, its
+element type a template parameter), both behind the C entry point
+``repro_flash_attention`` of ``csrc/flash_attention.cu`` (the
+instantiations are spread over ``.cu`` files that ``nvcc`` builds in
+parallel).
 
 ``block_q`` / ``block_k`` are the kernel's tiles. The ``[B, S, H, D]`` form
 takes any sequence lengths: a ragged last tile runs masked. The
 reference-signature :func:`flash_attention` keeps the reference's rule that
 ``min(block, S)`` divides the sequence (``ValueError`` otherwise). Both
-kernels take every pair of head dims ``1 <= D, Dv <= 256``, as the
-reference's kernel takes any: each call runs at its head-dim class
-(:func:`head_dim_class`: each width rounded up to one of
+kernels take every pair of head dims ``D, Dv >= 1``, as the reference's
+kernel takes any. Up to :data:`MAX_CLASS_DIM` each call runs at its
+head-dim class (:func:`head_dim_class`: each width rounded up to one of
 :data:`HEAD_DIMS`, the pair to the square class of the larger where the
 pair is not one of :data:`HEAD_DIM_PAIRS`), its padded columns zero, its
-scale and its cost those of the true dims. What the kernels are built for
-— that range, the tiles of :func:`tile_options` at each class, and the
-shared memory and registers a block may have — is stated once, in
+scale and its cost those of the true dims. Wider pairs run on the chunked
+instantiations (:func:`wide_split`): S is summed over chunks of
+:data:`WIDE_CHUNK` columns of q and k, and v's columns are split into
+slices on a grid axis, each slice's block recomputing the same S in the
+same order, so every slice normalises by the same ``l``. The widest pair
+held against the plain version on the card is (1024, 1024), in f32, bf16
+and f16 (``chip_smoke.py``'s ``check_flash``). What the kernels are built
+for — the tiles of :func:`tile_options` at each class, and the shared
+memory and registers a block may have — is stated once, in
 :func:`unsupported`; a tile longer than the sequence runs with its tail
 masked. A tensor that breaks the kernels' 16-byte copy rule (a base that
 is not 16-byte aligned, a stride that is not a multiple of 16 bytes, a
@@ -53,27 +60,42 @@ NEG_INF = -1e30
 #: rows and 128 / BQ kv splits
 BLOCK_Q_OPTIONS = (32, 64, 128)
 BLOCK_K_OPTIONS = (64, 128)
-#: bf16 tiles (the tensor-core kernel): 64 query rows a consumer warpgroup
+#: bf16 and f16 tiles (the wgmma kernel): 64 query rows a consumer
+#: warpgroup
 BF16_BLOCK_Q_OPTIONS = (64, 128)
 BF16_BLOCK_K_OPTIONS = (64, 128)
 #: the head-dim classes of both kernels: a width ``1..256`` runs at the
-#: least of these that holds it (multiples of 32: the bf16 kernel's 64- and
-#: 128-byte swizzles, the f32 kernel's 16-column steps)
+#: least of these that holds it (multiples of 32: the wgmma kernel's 64-
+#: and 128-byte swizzles, the f32 kernel's 16-column steps)
 HEAD_DIMS = (32, 64, 96, 128, 160, 192, 256)
-#: the widest head dim either kernel takes; wider ones are ROADMAP queue B
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+#: the widest class; a pair with a wider head dim runs on the chunked
+#: instantiations of both kernels (:func:`wide_split`), at any width
+MAX_CLASS_DIM = HEAD_DIMS[-1]
 #: ``(D, Dv)`` class pairs both kernels are instantiated for: the squares
 #: of HEAD_DIMS and MLA's prefill (q/k of qk_nope + qk_rope = 192, v of
 #: v_head_dim = 128); any other pair runs at the square class of its
 #: larger width (:func:`head_dim_class`)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
-#: ``(D, Dv, block_q, block_k)`` class pairs and tiles of the bf16 kernel
+#: the chunked kernels (a head dim above MAX_CLASS_DIM): S = Q K^T summed
+#: over chunks of this many columns of q and k; the output's columns in
+#: slices of at most MAX_CLASS_DIM on a grid axis, each slice at the least
+#: of WIDE_SLICE_CLASSES that holds it, its block recomputing the same S
+WIDE_CHUNK = 128
+WIDE_SLICE_CLASSES = (64, 128, 256)
+#: the chunked kernels' tiles, by element size: f32 (4) at 32 and 64 query
+#: rows, bf16 and f16 (2) at one consumer warpgroup (its O of a 256-column
+#: slice is 128 registers a thread)
+WIDE_TILES = {4: ((32, 64), (64, 64)), 2: ((64, 64),)}
+#: the most stages of the chunked wgmma kernel's ring (each stage holds a
+#: chunk of Q and of K, or a slice of V)
+WIDE_MAX_STAGES = 8
+#: ``(D, Dv, block_q, block_k)`` class pairs and tiles of the wgmma kernel
 #: that fit in shared memory but are not built (``kBuilt`` in the source):
 #: at (256, 256), 128 x 64 spills 216 bytes of registers (a 384-thread
 #: block leaves a thread 168 at compile time) and ran 2.2x slower than 64 x
 #: 64 (PERF.md §6)
 BF16_SPILLING_TILES = frozenset({(256, 256, 128, 64)})
-#: stages of the bf16 kernel's K/V ring: three where they fit in shared
+#: stages of the wgmma kernel's K/V ring: three where they fit in shared
 #: memory, else two (``SmemSm90::kStages`` in the source)
 BF16_MAX_STAGES = 3
 DEFAULT_BLOCK_Q = 64
@@ -81,7 +103,8 @@ DEFAULT_BLOCK_K = 64
 #: shared memory one thread block may use on an H100 (227 KB)
 SMEM_LIMIT_BYTES = 232448
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry point's ``dtype`` codes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: kernel launches made by the wrappers (only where they launch): in all,
 #: and by call shape (:func:`launch_key`; ``ops.flash_launches_by_head_dims``
@@ -100,9 +123,37 @@ def launch_key(D: int, Dv: int, causal: bool, Sq: int, Skv: int) -> str:
     return f"{D}x{Dv}{'' if causal else '/noncausal'} q{Sq} kv{Skv}"
 
 
-def tile_options(itemsize: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+def is_wide(head_dim: int, value_dim: int) -> bool:
+    """Whether ``(D, Dv)`` runs on the chunked kernels: a width above
+    :data:`MAX_CLASS_DIM`."""
+    return max(head_dim, value_dim) > MAX_CLASS_DIM
+
+
+def wide_split(head_dim: int, value_dim: int) -> Tuple[int, int, int]:
+    """How the chunked kernels take ``(D, Dv)``: ``(chunks of q and k,
+    slice class, slices of v)``: ``ceil(D / WIDE_CHUNK)`` chunks summed
+    into S; ``n = ceil(Dv / 256)`` slices of v's columns, each at the least
+    of :data:`WIDE_SLICE_CLASSES` that holds ``ceil(Dv / n)`` (the last
+    slice holds what is left). ``wide_slice_class`` of
+    ``csrc/flash_attention.cu`` states the same rule."""
+    n_slices = -(-value_dim // MAX_CLASS_DIM)
+    width = -(-value_dim // n_slices)
+    cls = next(c for c in WIDE_SLICE_CLASSES if width <= c)
+    return -(-head_dim // WIDE_CHUNK), cls, -(-value_dim // cls)
+
+
+def tile_options(itemsize: int, head_dim: Optional[int] = None,
+                 value_dim: Optional[int] = None
+                 ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """``(block_q options, block_k options)`` the kernel of this element
-    size is instantiated for: bf16 (2 bytes) or f32 (4)."""
+    size is instantiated for: f32 (4 bytes) or bf16 / f16 (2); at head dims
+    that run on the chunked kernels (:func:`is_wide`), theirs
+    (:data:`WIDE_TILES`)."""
+    if head_dim is not None and is_wide(
+            head_dim, head_dim if value_dim is None else value_dim):
+        tiles = WIDE_TILES[itemsize]
+        return (tuple(sorted({bq for bq, _ in tiles})),
+                tuple(sorted({bk for _, bk in tiles})))
     if itemsize == 2:
         return BF16_BLOCK_Q_OPTIONS, BF16_BLOCK_K_OPTIONS
     return BLOCK_Q_OPTIONS, BLOCK_K_OPTIONS
@@ -115,15 +166,19 @@ def _width_class(x: int) -> Optional[int]:
 def head_dim_class(head_dim: int, value_dim: int
                    ) -> Optional[Tuple[int, int]]:
     """The class pair a call at head dims ``(D, Dv)`` runs at, or ``None``
-    outside ``1..MAX_HEAD_DIM``: each width rounded up to the least of
-    :data:`HEAD_DIMS`; a pair that is not one of :data:`HEAD_DIM_PAIRS`
-    takes the square class of its larger width. ``head_dim_class`` of
-    ``csrc/flash_attention.cu`` states the same rule."""
+    for a width below 1. Up to :data:`MAX_CLASS_DIM`: each width rounded up
+    to the least of :data:`HEAD_DIMS`; a pair that is not one of
+    :data:`HEAD_DIM_PAIRS` takes the square class of its larger width.
+    Wider (:func:`is_wide`): the widths the chunked kernels compute, q and
+    k's in whole chunks, v's in whole slices (:func:`wide_split`).
+    ``head_dim_class`` of ``csrc/flash_attention.cu`` states the same
+    rule."""
     if head_dim < 1 or value_dim < 1:
         return None
+    if is_wide(head_dim, value_dim):
+        chunks, cls, slices = wide_split(head_dim, value_dim)
+        return WIDE_CHUNK * chunks, cls * slices
     dc, dvc = _width_class(head_dim), _width_class(value_dim)
-    if dc is None or dvc is None:
-        return None
     if (dc, dvc) not in HEAD_DIM_PAIRS:
         dc = dvc = max(dc, dvc)
     return dc, dvc
@@ -146,13 +201,26 @@ def _bf16_smem(head_dim: int, block_q: int, block_k: int, stages: int,
 
 def bf16_stages(head_dim: int, block_q: int, block_k: int,
                 value_dim: Optional[int] = None) -> int:
-    """Stages of the bf16 kernel's K/V ring at these tiles and the class of
-    these head dims: three where they fit in a block's shared memory, else
-    two."""
+    """Stages of the wgmma kernel's K/V ring at these tiles and the class
+    of these head dims: three where they fit in a block's shared memory,
+    else two."""
     dc, dvc = _class_dims(head_dim, value_dim)
     fits = _bf16_smem(dc, block_q, block_k, BF16_MAX_STAGES,
                       dvc) <= SMEM_LIMIT_BYTES
     return BF16_MAX_STAGES if fits else 2
+
+
+def _wide_stage(block_q: int, block_k: int, slice_cls: int) -> int:
+    return 2 * max((block_q + block_k) * WIDE_CHUNK, block_k * slice_cls)
+
+
+def wide_stages(block_q: int, block_k: int, slice_cls: int) -> int:
+    """Stages of the chunked wgmma kernel's ring: as many as fit in a
+    block's shared memory, at most :data:`WIDE_MAX_STAGES`
+    (``SmemChunked::kStages`` in the source)."""
+    stage = _wide_stage(block_q, block_k, slice_cls)
+    return max(0, min(WIDE_MAX_STAGES,
+                      (SMEM_LIMIT_BYTES - 1024) // (stage + 16)))
 
 
 def smem_bytes(itemsize: int, head_dim: int, block_q: int,
@@ -165,12 +233,30 @@ def smem_bytes(itemsize: int, head_dim: int, block_q: int,
     Q_big and Q_small (stored as the mma's A fragments), the K slot in rows of
     ``D + 16`` floats and the V slot in rows of ``Dv + 4`` (the pitches
     that keep the fragment loads free of bank conflicts); the merge of the
-    kv splits reuses the same bytes. bf16 (``SmemSm90`` of
+    kv splits reuses the same bytes. bf16 and f16 (``SmemSm90`` of
     ``csrc/flash_attention_sm90.cuh``): the Q tile, :func:`bf16_stages` K
     and V tiles, ``2 * stages + 1`` 8-byte mbarriers and 1024 bytes of slack
     that align the swizzled tiles: ``2 (D (bq + stages bk) + Dv stages bk)
-    + 8 (2 stages + 1) + 1024``."""
-    dc, dvc = _class_dims(head_dim, value_dim)
+    + 8 (2 stages + 1) + 1024``.
+
+    The chunked kernels (:func:`is_wide`) hold one chunk of D and one
+    slice of Dv at a time (:func:`wide_split`): f32 as above at D =
+    WIDE_CHUNK and Dv the slice class, or the merge's ``8 warps x 16 rows
+    of Dv + 12`` floats and ``bq`` more where that is larger (at 32 x 64
+    and a slice of 256); bf16 and f16 a ring of :func:`wide_stages` stages
+    of ``2 max((bq + bk) WIDE_CHUNK, bk Dv)`` bytes (a chunk of Q and of K,
+    or a slice of V), two mbarriers a stage and the 1024 bytes of slack."""
+    dv = head_dim if value_dim is None else value_dim
+    if is_wide(head_dim, dv):
+        _, cls, _ = wide_split(head_dim, dv)
+        if itemsize == 2:
+            stages = wide_stages(block_q, block_k, cls)
+            return (stages * _wide_stage(block_q, block_k, cls)
+                    + 16 * stages + 1024)
+        return 4 * max(2 * block_q * WIDE_CHUNK
+                       + block_k * (WIDE_CHUNK + 16) + block_k * (cls + 4),
+                       8 * 16 * (cls + 12) + block_q)
+    dc, dvc = _class_dims(head_dim, dv)
     if itemsize == 2:
         return _bf16_smem(dc, block_q, block_k,
                           bf16_stages(dc, block_q, block_k, dvc), dvc)
@@ -205,16 +291,36 @@ def flash_attention_cost(batch_heads: int, seq_q: int, seq_kv: int,
     """``(flops, bytes)`` the kernel does over ``batch_heads`` (batch x q
     heads) at these tiles (:func:`flash_attention_work`): ``2 (D + Dv)``
     flops an evaluated score entry; q read and o written once, and each kv
-    row a q tile visits read for it. The tuner's candidates and the cost
-    counter's charge for a launch."""
+    row a q tile visits read for it. The chunked kernels (:func:`is_wide`)
+    recompute S for each slice of v (:func:`wide_split`): ``2 (D n_slices
+    + Dv)`` flops an entry, and q and k read once a slice, q once for each
+    kv tile it visits (they hold a chunk of it at a time). The tuner's
+    candidates and the cost counter's charge for a launch."""
     entries, kv_rows, _ = flash_attention_work(
         seq_q, seq_kv, causal=causal, block_q=block_q, block_k=block_k)
-    flops = 2.0 * batch_heads * entries * (head_dim + value_dim)
-    byts = float(itemsize * batch_heads * (seq_q * head_dim
+    slices, q_rows = 1, seq_q
+    if is_wide(head_dim, value_dim):
+        slices = wide_split(head_dim, value_dim)[2]
+        q_rows = _q_rows_visited(seq_q, seq_kv, causal=causal,
+                                 block_q=block_q, block_k=block_k)
+    flops = 2.0 * batch_heads * entries * (head_dim * slices + value_dim)
+    byts = float(itemsize * batch_heads * (q_rows * head_dim * slices
                                            + seq_q * value_dim
-                                           + kv_rows * (head_dim
+                                           + kv_rows * (head_dim * slices
                                                         + value_dim)))
     return flops, byts
+
+
+def _q_rows_visited(seq_q: int, seq_kv: int, *, causal: bool, block_q: int,
+                    block_k: int) -> int:
+    """Query rows read by a kernel that reads a q tile again for every kv
+    tile it visits: each tile's rows times its visited kv tiles."""
+    rows_read = 0
+    for q0 in range(0, seq_q, block_q):
+        rows = min(block_q, seq_q - q0)
+        k_end = min(seq_kv, q0 + rows) if causal else seq_kv
+        rows_read += rows * -(-k_end // block_k)
+    return rows_read
 
 
 def attention_entries(seq_q: int, seq_kv: int, causal: bool) -> int:
@@ -380,36 +486,42 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
                 block_k: int) -> Optional[str]:
     """Why the kernel is not built for these head dims and tiles, or
     ``None`` when it is: the one statement of what the f32 kernel
-    (``csrc/flash_attention_f32.cuh``, ``itemsize`` 4) and the bf16 kernel
-    (``csrc/flash_attention_sm90.cuh``, ``itemsize`` 2) instantiate, read
-    by the wrapper and by the tuning space's prune. Head dims
-    ``1..MAX_HEAD_DIM`` run at their class (:func:`head_dim_class`), whose
-    tiles and shared memory are checked. The f32 kernel's tiles are built
-    wherever they fit, some spilling registers (its only tile at (256,
-    256), 32 x 64, spills 168 bytes); the bf16 kernel's but
+    (``csrc/flash_attention_f32.cuh``, ``itemsize`` 4) and the wgmma kernel
+    (``csrc/flash_attention_sm90.cuh``, ``itemsize`` 2: bf16 and f16)
+    instantiate, read by the wrapper and by the tuning space's prune. Any
+    head dims of at least 1 run: up to :data:`MAX_CLASS_DIM` at their class
+    (:func:`head_dim_class`), whose tiles and shared memory are checked;
+    wider on the chunked instantiations at :data:`WIDE_TILES`. The f32
+    kernel's tiles are built wherever they fit, some spilling registers
+    (its only tile at (256, 256), 32 x 64, spills ~130 bytes; the chunked
+    one's 256-column slices 1.1–1.5 KB); the wgmma kernel's but
     :data:`BF16_SPILLING_TILES`."""
     cls = head_dim_class(head_dim, value_dim)
     if cls is None:
-        return (f"head-dim-range (the kernels take head dims 1 <= D, Dv <= "
-                f"{MAX_HEAD_DIM}; got D {head_dim}, Dv {value_dim}: wider "
-                f"heads are ROADMAP queue B, still to port)")
-    head_dim, value_dim = cls
+        return (f"head-dim-range (the kernels take head dims D, Dv >= 1; "
+                f"got D {head_dim}, Dv {value_dim})")
+    wide = is_wide(head_dim, value_dim)
     q_opts, k_opts = tile_options(itemsize)
-    if block_q not in q_opts or block_k not in k_opts:
+    if wide:
+        built = (block_q, block_k) in WIDE_TILES[itemsize]
+        tiles = f"tiles {WIDE_TILES[itemsize]} at head dims above 256"
+    else:
+        built = block_q in q_opts and block_k in k_opts
+        tiles = f"block_q in {q_opts}, block_k in {k_opts}"
+    if not built:
         return (f"not-instantiated (the {itemsize}-byte kernel is built for "
-                f"block_q in {q_opts}, block_k in {k_opts}; got "
-                f"({block_q}, {block_k}))")
+                f"{tiles}; got ({block_q}, {block_k}))")
     smem = smem_bytes(itemsize, head_dim, block_q, block_k, value_dim)
-    if smem > SMEM_LIMIT_BYTES:
+    if smem > SMEM_LIMIT_BYTES or (wide and itemsize == 2 and wide_stages(
+            block_q, block_k, wide_split(head_dim, value_dim)[1]) < 2):
         return (f"smem-overflow (tiles ({block_q}, {block_k}) need {smem} B "
                 f"of shared memory at {itemsize}-byte elements, head-dim "
-                f"class ({head_dim}, {value_dim}); a block has "
-                f"{SMEM_LIMIT_BYTES} B)")
-    if itemsize == 2 and (head_dim, value_dim, block_q,
-                          block_k) in BF16_SPILLING_TILES:
+                f"class {cls}; a block has {SMEM_LIMIT_BYTES} B)")
+    if (not wide and itemsize == 2
+            and (*cls, block_q, block_k) in BF16_SPILLING_TILES):
         return (f"spills (tiles ({block_q}, {block_k}) at head-dim class "
-                f"({head_dim}, {value_dim}) spill registers and are not "
-                f"built; see BF16_SPILLING_TILES)")
+                f"{cls} spill registers and are not built; see "
+                f"BF16_SPILLING_TILES)")
     return None
 
 
@@ -429,9 +541,8 @@ def _refusal(q, k, v, block_q: int, block_k: int) -> Optional[str]:
     """Why the CUDA kernel does not take these ``[B, S, H, D]`` tensors and
     tiles, or ``None`` when it does."""
     if q.dtype not in _DTYPE_CODES:
-        return (f"the kernel takes float32 or bfloat16, got {q.dtype}"
-                + ("; float16 attention is ROADMAP queue B, still to port"
-                   if q.dtype == torch.float16 else ""))
+        return (f"the kernel takes float32, bfloat16 or float16, got "
+                f"{q.dtype}")
     why = unsupported(q.element_size(), q.shape[-1], v.shape[-1], block_q,
                       block_k)
     if why is None and not q.is_cuda:

@@ -35,9 +35,10 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import decode as decode_mod
 from repro_torch.models import model as model_mod
 from repro_torch.models.common import (ShardingRules, default_rules,
-                                       sharding_ctx, torch_dtype)
+                                       sharding_ctx)
 from repro_torch.models.transformer import Runtime
 from repro_torch.optim import OptConfig, apply_updates
+from repro_torch.optim.adamw import moment_torch_dtype
 from repro_torch.optim.compression import compress_grads
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (NamedSharding, P, entry_axes,
@@ -179,7 +180,7 @@ def init_train_state(cfg: ModelConfig, rt: Runtime, params: Any,
     device."""
     plan, _, batch_axes = _zero1_plan(cfg, rt, _rules_for(rt, rules), zero1)
     dp = rt.mesh.axis_size(batch_axes) if batch_axes else 1
-    dt = torch_dtype(moment_dtype)
+    dt = moment_torch_dtype(moment_dtype)
 
     def zeros(p: torch.Tensor, pl: _Leaf) -> torch.Tensor:
         shape = list(p.shape)
@@ -369,7 +370,7 @@ def abstract_state(cfg: ModelConfig, rt: Runtime, mesh,
         batch_axes = (("pod", "data") if "pod" in mesh.axis_names
                       else ("data",))
         m_specs = zero1_specs(p_specs, p_structs, mesh, batch_axes)
-    mdt = torch_dtype(moment_dtype)
+    mdt = moment_torch_dtype(moment_dtype)
     mom = tree_map(lambda s, sp: _sds(s.shape, mdt, mesh, sp), p_structs,
                    m_specs)
     opt = {"m": mom, "v": mom, "step": _sds((), torch.int32, mesh, P())}

@@ -22,9 +22,10 @@ farthest key a query at offset 0 must reach is ``Sq - 1`` positions back
 window). At ``Sq > w`` it masks keys, which the kernel does not do, and the
 call takes the plain route; so do query offsets and kv masks (the decode
 self-attention over a cache of written rows). That is the kernel's
-contract, not a fallback on failure: what the kernels are not built for
-(head dims above 256, float16) raises in their wrapper; every head dim up
-to 256 runs at its head-dim class. Every call on CPU tensors takes
+contract, not a fallback on failure: the kernels take f32, bf16 and f16 at
+any head dims (up to 256 at a head-dim class, wider on their chunked
+instantiations), and what they do not take (another dtype) raises in their
+wrapper. Every call on CPU tensors takes
 the plain blocked online softmax,
 :func:`repro_torch.kernels.flash_attention.flash_attention_plain`.
 
@@ -114,8 +115,9 @@ NEG_INF = -1e30
 #: fastest tile of the 3xTF32 kernel at the SPACES shape, both on the H100
 #: (PERF.md); the f32 tile is the one that fits at every head-dim class (at
 #: (256, 256) it is the only one), the bf16 tile at every class but (256,
-#: 256)
-FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 64)}
+#: 256). float16 runs on the same wgmma kernel as bf16, at bf16's tiles
+FLASH_TILES = {torch.bfloat16: (128, 64), torch.float16: (128, 64),
+               torch.float32: (32, 64)}
 #: the tiles at a head-dim class ``(D, Dv)`` (``fa.head_dim_class``) where
 #: FLASH_TILES' are not built, or are slower: at (256, 256) the bf16 kernel
 #: has 64 x 64 only (its 128 x 64 would spill, ``fa.BF16_SPILLING_TILES``);
@@ -123,6 +125,7 @@ FLASH_TILES = {torch.bfloat16: (128, 64), torch.float32: (32, 64)}
 #: (1.40x 32 x 64) and (192, 192) (1.17x), and at MLA's prefill (1.21x),
 #: on the H100 (tools/flash_head_dims_check.py; PERF.md §6)
 FLASH_TILES_BY_HEAD_DIMS = {(torch.bfloat16, 256, 256): (64, 64),
+                            (torch.float16, 256, 256): (64, 64),
                             (torch.float32, 96, 96): (128, 64),
                             (torch.float32, 192, 192): (64, 64),
                             (torch.float32, 192, 128): (64, 64)}
@@ -132,8 +135,10 @@ FLASH_TILES_BY_HEAD_DIMS = {(torch.bfloat16, 256, 256): (64, 64),
 #: on the H100 (the VLM's cross-attention at prefill by 7.2 %, the enc-dec's
 #: encoder by 5.2 %; PERF.md §6)
 NONCAUSAL_FLASH_TILES = {(torch.bfloat16, 128, 128): (128, 128),
-                         (torch.bfloat16, 64, 64): (128, 128)}
-#: a non-causal bf16 call whose query fits in this many rows (a decode
+                         (torch.bfloat16, 64, 64): (128, 128),
+                         (torch.float16, 128, 128): (128, 128),
+                         (torch.float16, 64, 64): (128, 128)}
+#: a non-causal bf16 or f16 call whose query fits in this many rows (a decode
 #: step's cross-attention, Sq = 1) takes q tiles of this many rows: a
 #: 128-row tile runs its second consumer warpgroup on zero rows (64 x 128
 #: beat 128 x 64 by 10.6 % / 18 % at the VLM's / enc-dec's decode step)
@@ -160,22 +165,27 @@ def flash_tiles(dtype: torch.dtype,
     """The kernel's ``(block_q, block_k)`` for a call of ``dtype`` (at
     ``head_dims`` ``(D, Dv)``, whose head-dim class
     :data:`FLASH_TILES_BY_HEAD_DIMS` and, for a non-causal call,
-    :data:`NONCAUSAL_FLASH_TILES` may name; a non-causal bf16 query of
-    ``seq_q <= SHORT_QUERY_BLOCK_Q`` rows in q tiles of that many rows), at
+    :data:`NONCAUSAL_FLASH_TILES` may name; a non-causal bf16 or f16 query
+    of ``seq_q <= SHORT_QUERY_BLOCK_Q`` rows in q tiles of that many rows), at
     every length: the kernel masks a ragged last tile (and a tile longer
-    than the sequence). For every pair ``1 <= D, Dv <= 256`` of a dtype the
-    kernels take, ``fa.unsupported`` accepts the tile. A dtype or head dims
-    the kernels do not take get the default tiles, and the kernel's wrapper
-    refuses them."""
+    than the sequence). At head dims above 256 (``fa.is_wide``) the
+    chunked kernels' tile of the dtype's size (``fa.WIDE_TILES``): the
+    dtype's own where it is one of them. For every pair ``D, Dv >= 1`` of a
+    dtype the kernels take, ``fa.unsupported`` accepts the tile. A dtype
+    the kernels do not take gets the default tiles, and the kernel's
+    wrapper refuses it."""
     tiles = FLASH_TILES.get(dtype, (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K))
+    if head_dims is not None and fa.is_wide(*head_dims):
+        wide = fa.WIDE_TILES.get(dtype.itemsize)
+        return tiles if wide is None or tiles in wide else wide[-1]
     cls = None if head_dims is None else fa.head_dim_class(*head_dims)
     if cls is not None:
         key = (dtype, *cls)
         tiles = FLASH_TILES_BY_HEAD_DIMS.get(key, tiles)
         if not causal:
             tiles = NONCAUSAL_FLASH_TILES.get(key, tiles)
-    if (dtype == torch.bfloat16 and not causal and seq_q is not None
-            and seq_q <= SHORT_QUERY_BLOCK_Q):
+    if (dtype in (torch.bfloat16, torch.float16) and not causal
+            and seq_q is not None and seq_q <= SHORT_QUERY_BLOCK_Q):
         tiles = (SHORT_QUERY_BLOCK_Q, tiles[1])
     return tiles
 
@@ -385,9 +395,14 @@ def _qkv(p: Dict, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None,
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matrix product."""
+    """einsum("bshk,hkd->bsd") as one matrix product, in ``wo``'s dtype:
+    a decode step of a float16 model attends over its f32 cache (the
+    reference's ``init_decode_state`` keeps it f32 for any dtype but
+    bfloat16), whose rows hold the f16 values written, and its output
+    returns to the model's dtype here."""
     h, hd, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return (out.reshape(*out.shape[:-2], h * hd).to(wo.dtype)
+            @ wo.reshape(h * hd, d))
 
 
 def self_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -451,8 +466,12 @@ def decode_cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     rank's q heads pick theirs."""
     grp, sel = head_split(cfg)
     q = _proj(x, p["wq"])
-    out = chunked_attention(q, _pick(cache["k"], sel), _pick(cache["v"], sel),
-                            causal=False, impl=impl)
+    # the cache in the model's dtype, as the reference's prefill cache gives
+    # it: a float16 model's cache is f32 (the reference's
+    # init_decode_state), its rows the f16 values written, and the kernel
+    # takes one dtype
+    k, v = (_pick(cache[n], sel).to(q.dtype) for n in ("k", "v"))
+    out = chunked_attention(q, k, v, causal=False, impl=impl)
     return coll.reduce_from(_out_proj(out, p["wo"]), grp)
 
 
@@ -787,7 +806,11 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
         mask = (kv_pos < valid)[None, None, None]
     s = torch.where(mask, s, NEG_INF)
     a = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", a.to(ck.dtype), ck)
+    # a and the cache in the model's dtype, as the reference's prefill cache
+    # (in the model's dtype) gives them: a float16 model's cache is f32 (the
+    # reference's init_decode_state), its rows the f16 values written
+    dt = q_lat.dtype
+    o_lat = torch.einsum("bhst,btr->bshr", a.to(dt), ck.to(dt))
     out = torch.einsum("bshr,rhk->bshk", o_lat, p["wv_b"])
     y = coll.reduce_from(_out_proj(out, p["wo"]), grp)
     return y, {"c_kv": ck, "k_rope": kr}

@@ -38,7 +38,8 @@ from repro_torch.parallel.sharding import NamedSharding, P, entry_axes
 
 AxisName = Union[str, Tuple[str, ...], None]
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 #: the most elements a normal leaf draws in one f32 temporary (1 GiB)
 SLAB_ELEMS = 2 ** 28
 

@@ -16,7 +16,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import torch_dtype
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -47,11 +46,18 @@ def lr_schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
+def moment_torch_dtype(moment_dtype: str) -> torch.dtype:
+    """The moments' dtype for ``moment_dtype``, as the reference's
+    ``init_opt_state`` picks it: bf16 for ``"bfloat16"``, f32 for any
+    other name (``"float16"`` too)."""
+    return torch.bfloat16 if moment_dtype == "bfloat16" else torch.float32
+
+
 def init_opt_state(params: Any, moment_dtype: str = "float32") -> Dict:
     """Zero moments ``m`` and ``v`` shaped as ``params`` (in
-    ``moment_dtype``, on each leaf's device) and ``step`` 0, an int32 0-d
-    tensor."""
-    dt = torch_dtype(moment_dtype)
+    :func:`moment_torch_dtype`, on each leaf's device) and ``step`` 0, an
+    int32 0-d tensor."""
+    dt = moment_torch_dtype(moment_dtype)
     zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
     device = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),

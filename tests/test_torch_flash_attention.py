@@ -430,21 +430,28 @@ def test_plain_causal_skip_is_exact(q_offset, window):
     (4, 256, 256, 64, 64, "smem-overflow"),
     (2, 256, 128, 64, 64, None),             # runs at (256, 256)
     (2, 200, 200, 128, 64, "spills"),        # (256, 256)'s rule
-    # wider than the TPU kernel's widest model head: ROADMAP queue B
-    (2, 257, 64, 64, 64, "queue B"),
-    (4, 64, 300, 32, 64, "queue B"),
+    # wider than the widest class: the chunked kernels, at their tiles
+    (2, 257, 64, 64, 64, None),
+    (4, 64, 300, 32, 64, None),
+    (2, 300, 64, 128, 64, "not-instantiated"),
+    (4, 1024, 1024, 64, 64, None),
+    (4, 512, 512, 128, 64, "not-instantiated"),
     (4, 0, 64, 32, 64, "head-dim-range"),
 ])
 def test_support_rules(itemsize, D, Dv, bq, bk, why):
     got = fa.unsupported(itemsize, D, Dv, bq, bk)
     assert got is None if why is None else why in got
-    q_opts, k_opts = fa.tile_options(itemsize)
+    q_opts, k_opts = fa.tile_options(itemsize, D, Dv)
     cls = fa.head_dim_class(D, Dv)
+    wide = cls is not None and fa.is_wide(D, Dv)
     assert (got is None) == (cls is not None
                              and bq in q_opts and bk in k_opts
+                             and (not wide or (bq, bk)
+                                  in fa.WIDE_TILES[itemsize])
                              and fa.smem_bytes(itemsize, D, bq, bk, Dv)
                              <= fa.SMEM_LIMIT_BYTES
-                             and not (itemsize == 2 and (*cls, bq, bk)
+                             and not (itemsize == 2 and not wide
+                                      and (*cls, bq, bk)
                                       in fa.BF16_SPILLING_TILES))
 
 
@@ -452,7 +459,8 @@ def test_head_dims_by_kernel():
     """Both kernels are built at the same head-dim classes: the squares of
     HEAD_DIMS and MLA's (192, 128). A width runs at the least class that
     holds it; a pair that is not built runs at the square class of its
-    larger width; 0 and widths above 256 have no class."""
+    larger width; 0 has no class; a pair with a width above 256 runs on
+    the chunked kernels at whole chunks of q / k and slices of v."""
     assert fa.HEAD_DIMS == (32, 64, 96, 128, 160, 192, 256)
     assert fa.HEAD_DIM_PAIRS == \
         tuple((d, d) for d in fa.HEAD_DIMS) + ((192, 128),)
@@ -466,7 +474,9 @@ def test_head_dims_by_kernel():
     assert fa.head_dim_class(100, 170) == (192, 192)
     assert fa.head_dim_class(200, 1) == (256, 256)
     assert fa.head_dim_class(0, 64) is None
-    assert fa.head_dim_class(64, 257) is None
+    assert fa.head_dim_class(64, 257) == (128, 512)
+    assert fa.head_dim_class(300, 64) == (384, 64)
+    assert fa.head_dim_class(1024, 1024) == (1024, 1024)
     # the built dims are their own class
     for pair in fa.HEAD_DIM_PAIRS:
         assert fa.head_dim_class(*pair) == pair
@@ -474,40 +484,48 @@ def test_head_dims_by_kernel():
 
 #: (D, Dv) of the grid the kernel contract is held at: every kind of class
 #: and its edges, Dv != D both ways
-_GRID = (1, 8, 16, 20, 24, 32, 80, 96, 100, 200, 256)
+_GRID = (1, 8, 16, 20, 24, 32, 80, 96, 100, 200, 256, 257, 300)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("D", _GRID)
 @pytest.mark.parametrize("Dv", _GRID)
 def test_flash_tiles_are_built_at_every_head_dim(dtype, D, Dv):
-    """For every (dtype, D, Dv) with 1 <= D, Dv <= 256, causal or not, at a
+    """For every (dtype, D, Dv) of the grid, up to 300, causal or not, at a
     long and at a one-row query, the model's tile is one ``unsupported``
-    accepts: the kernels take every head dim the TPU kernel's models
-    have."""
+    accepts: the kernels take every head dim the TPU kernel takes."""
     for causal, seq_q in ((True, 1024), (False, 1024), (False, 1)):
         tiles = attn.flash_tiles(dtype, (D, Dv), causal, seq_q)
         assert fa.unsupported(dtype.itemsize, D, Dv, *tiles) is None
 
 
 def test_flash_tiles_are_built_at_every_pair_of_head_dims():
-    """The contract over the whole range, every (D, Dv) pair of 1..256."""
-    for dtype in (torch.float32, torch.bfloat16):
-        for D in range(1, fa.MAX_HEAD_DIM + 1):
-            for Dv in range(1, fa.MAX_HEAD_DIM + 1):
+    """The contract over the classes' whole range, every (D, Dv) pair of
+    1..256, in every dtype."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for D in range(1, fa.MAX_CLASS_DIM + 1):
+            for Dv in range(1, fa.MAX_CLASS_DIM + 1):
                 assert fa.unsupported(dtype.itemsize, D, Dv, *attn.flash_tiles(
                     dtype, (D, Dv))) is None, (dtype, D, Dv)
 
 
 def test_wider_heads_and_float16_are_refused_by_name():
-    """Above 256 and in float16 the wrapper refuses, naming ROADMAP queue
-    B, on any device that is not the CPU (whose tensors take the plain
-    version)."""
+    """Head dims above 256 and float16 are the kernels' now: on a device
+    that is neither the CPU (whose tensors take the plain version) nor the
+    card, the wrapper refuses them for the device alone. A dtype the
+    kernels do not take, float64, is still refused by name."""
     for shape, dtype in (((1, 16, 2, 264), torch.bfloat16),
-                         ((1, 16, 2, 64), torch.float16)):
+                         ((1, 16, 2, 64), torch.float16),
+                         ((1, 16, 2, 1024), torch.float16),
+                         ((1, 16, 2, 320), torch.float32)):
         meta = torch.empty(shape, dtype=dtype, device="meta")
-        with pytest.raises(ValueError, match="queue B"):
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
             ops.flash_attention_op(meta, meta, meta)
+    meta = torch.empty((1, 16, 2, 64), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16, "
+                                         "got torch.float64"):
+        ops.flash_attention_op(meta, meta, meta)
     assert fa.copy_rule_holds(torch.zeros((1, 8, 2, 64)))
     assert not fa.copy_rule_holds(torch.zeros((1, 8, 1, 20),
                                               dtype=torch.bfloat16))
@@ -668,8 +686,13 @@ def test_prefill_case_goes_to_the_kernel_and_others_do_not(recorded):
     q, k, v = (torch.from_numpy(_normal(40 + i, 1, 64, 4, 264))
                for i in range(3))
     kv = k[:, :, :2], v[:, :, :2]
-    with pytest.raises(ValueError, match="queue B"):
-        attn.chunked_attention(q, *kv)       # head dim 264: raises, no plain
+    out = attn.chunked_attention(q, *kv)     # head dim 264: the kernel op,
+    assert len(recorded) == 1                # at the chunked kernel's tile
+    assert (recorded[0]["block_q"], recorded[0]["block_k"]) == \
+        attn.flash_tiles(torch.float32, (264, 264))
+    np.testing.assert_allclose(
+        out.numpy(), attn.chunked_attention(q, *kv, impl="plain").numpy(),
+        rtol=2e-5, atol=2e-5)
     q, k, v = (torch.from_numpy(_normal(40 + i, 1, 64, 4, 64))
                for i in range(3))
     kv = k[:, :, :2], v[:, :, :2]

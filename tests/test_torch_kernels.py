@@ -201,8 +201,10 @@ def test_build_raises_where_there_is_no_compiler(monkeypatch, tmp_path):
     with pytest.raises(build.KernelCompileError, match="nvcc not found"):
         build.build_probe(probe)
     assert [s.name for s in build.sources()] == [
-        "flash_attention.cu", "flash_attention_f32_mid.cu",
-        "flash_attention_f32_wide.cu", "flash_attention_sm90.cu",
+        "flash_attention.cu", "flash_attention_f32_chunked.cu",
+        "flash_attention_f32_mid.cu", "flash_attention_f32_wide.cu",
+        "flash_attention_sm90.cu", "flash_attention_sm90_chunked.cu",
+        "flash_attention_sm90_f16.cu", "flash_attention_sm90_f16_wide.cu",
         "flash_attention_sm90_wide.cu",
         "membw.cu", "vai.cu"]
     # the flash kernels' headers, each included by the sources that build

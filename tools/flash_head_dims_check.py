@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Both flash kernels at every head-dim class: what the compiler made of
 each instantiation, every built tile against the plain version at head
-dims from 1 to 256, and one timed shape a class.
+dims from 1 to 1024, and one timed shape a class.
 
 Builds the kernels and prints ``nvcc``'s seconds, what ``ptxas`` said
-about every instantiation of the f32 kernel (``flash_fwd_f32_kernel``) and
-the bf16 kernel (``flash_fwd_sm90_kernel``): registers and spill bytes, and
-their SASS counts of tensor-core products (HMMA for f32, HGMMA for bf16),
-keyed ``D<class D>_<class Dv>_<block_q>x<block_k>``. Then, in f32 and in
-bf16, at head dims ``(D, Dv)`` that cover every class and its edges
-(:data:`SWEEP`, with ``Dv != D`` and widths that break the 16-byte copy
-rule, which the wrapper copies into padded buffers), holds every tile the
-kernel is built for at the class against the plain version
+about every instantiation of the f32 kernel (``flash_fwd_f32_kernel``,
+``flash_fwd_f32_chunked_kernel``) and the wgmma kernel
+(``flash_fwd_sm90_kernel``, ``flash_fwd_sm90_chunked_kernel``, bf16 and
+f16): registers and spill bytes, and their SASS counts of tensor-core
+products (HMMA for f32, HGMMA for bf16 and f16), keyed as
+``chip_smoke.flash_key`` keys them. Then, in f32, bf16 and f16, at head
+dims ``(D, Dv)`` that cover every class and its edges and the chunked
+kernels' widths above 256 (:data:`SWEEP`, with ``Dv != D`` and widths that
+break the 16-byte copy rule, which the wrapper copies into padded
+buffers), holds every tile the kernel is built for at the class against
+the plain version
 (``chip_smoke.py``'s tolerance, p rounded as in the kernel), causal over a
 ragged length with GQA and non-causal with ``Sq != Skv``. Last, one shape
 a class (:data:`TIMED`) at the model's tile, every built tile and
@@ -40,22 +43,31 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 3
-#: (D, Dv) checked in both dtypes: each class, its edges, Dv != D, and
-#: widths whose rows break the 16-byte rule (1, 8 in f32, 20, 100)
+#: (D, Dv) checked in every dtype: each class, its edges, Dv != D, widths
+#: whose rows break the 16-byte rule (1, 8 in f32, 20, 100), and the
+#: chunked kernels' widths above 256 (each slice class, D or Dv alone
+#: wide, up to (1024, 1024))
 SWEEP = ((1, 1), (8, 8), (16, 16), (20, 20), (24, 16), (32, 32), (33, 33),
          (48, 40), (80, 80), (96, 96), (100, 100), (128, 64), (150, 100),
          (160, 160), (170, 100), (192, 128), (192, 192), (200, 200),
-         (64, 256), (256, 1), (256, 256))
-#: (name, B, S, Hq, Hkv, D, Dv) timed causal, at the model's tile and
-#: every built one: a class of each width at 4 x 1024 tokens of 16 heads,
-#: MLA's prefill and RecurrentGemma's as served
+         (64, 256), (256, 1), (256, 256), (257, 257), (300, 64), (64, 300),
+         (320, 320), (512, 128), (512, 512), (576, 512), (1000, 20),
+         (1024, 1024))
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: (name, B, S, Hq, Hkv, D, Dv) timed causal in every dtype, at the model's
+#: tile and every built one: a class of each width at 4 x 1024 tokens of 16
+#: heads, MLA's prefill and RecurrentGemma's as served, and one pair of
+#: each slice class of the chunked kernels
 TIMED = (("32", 4, 1024, 16, 16, 32, 32),
          ("96", 4, 1024, 16, 16, 96, 96),
          ("192", 4, 1024, 16, 16, 192, 192),
          ("16 (class 32)", 4, 1024, 16, 16, 16, 16),
          ("200 (class 256)", 4, 1024, 10, 1, 200, 200),
          ("mla", 1, 1024, 128, 128, 192, 128),
-         ("rg", 4, 1024, 10, 1, 256, 256))
+         ("rg", 4, 1024, 10, 1, 256, 256),
+         ("300x64 (slice 64)", 4, 1024, 16, 16, 300, 64),
+         ("512x128 (slice 128)", 4, 1024, 16, 16, 512, 128),
+         ("512 (slice 256)", 4, 1024, 16, 16, 512, 512))
 
 
 def main() -> int:
@@ -78,10 +90,14 @@ def main() -> int:
     no_product = sorted(k for k in built if not sass.get(k))
     cs.emit(phase="build", nvcc_seconds=build.build_seconds,
             f32_ptxas=cs.ptxas_facts(log, "flash_fwd_f32_kernel"),
-            bf16_ptxas=cs.ptxas_facts(log, "flash_fwd_sm90_kernel"),
+            f32_chunked_ptxas=cs.ptxas_facts(log,
+                                             "flash_fwd_f32_chunked_kernel"),
+            sm90_ptxas=cs.ptxas_facts(log, "flash_fwd_sm90_kernel"),
+            sm90_chunked_ptxas=cs.ptxas_facts(
+                log, "flash_fwd_sm90_chunked_kernel"),
             sass=sass, instantiations=len(sass),
             without_tensor_core_products=no_product)
-    bad = len(no_product)
+    bad = list(no_product)
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -89,7 +105,7 @@ def main() -> int:
     def rnd(shape, dt):
         return torch.randn(shape, generator=g, device=dev).to(dt)
 
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in DTYPES:
         it = dt.itemsize
         for D, Dv in SWEEP:
             dc, dvc = fa.head_dim_class(D, Dv)
@@ -98,7 +114,7 @@ def main() -> int:
                                                 (False, 2, 200, 333, 4, 4)):
                 q = rnd((B, Sq, Hq, D), dt)
                 k, v = rnd((B, Skv, Hkv, D), dt), rnd((B, Skv, Hkv, Dv), dt)
-                q_opts, k_opts = fa.tile_options(it)
+                q_opts, k_opts = fa.tile_options(it, D, Dv)
                 for bq in q_opts:
                     for bk in k_opts:
                         if fa.unsupported(it, D, Dv, bq, bk):
@@ -112,8 +128,10 @@ def main() -> int:
                             round_p=True)
                         _, share = cs.flash_error(got, want)
                         ok = share <= 1.0 and bool(torch.isfinite(got).all())
-                        bad += not ok
-                        shares[f"{'c' if causal else 'nc'} {bq}x{bk}"] = share
+                        tile = f"{'c' if causal else 'nc'} {bq}x{bk}"
+                        if not ok:
+                            bad.append(f"{dt} {D}x{Dv} {tile}: {share}")
+                        shares[tile] = share
             torch.cuda.synchronize()
             cs.emit(phase="sweep", dtype=str(dt).replace("torch.", ""),
                     head_dims=[D, Dv], head_dim_class=[dc, dvc],
@@ -121,16 +139,16 @@ def main() -> int:
                     share_of_limit_by_tile=shares,
                     tolerance=cs.flash_tolerance(dt))
     if args.no_time:
-        cs.emit(phase="done", failures=bad)
+        cs.emit(phase="done", failures=len(bad), failed=bad)
         return 1 if bad else 0
 
     timer = cs.Timer(dev)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in DTYPES:
         for name, B, S, Hq, Hkv, D, Dv in TIMED:
             q = rnd((B, S, Hq, D), dt)
             k, v = rnd((B, S, Hkv, D), dt), rnd((B, S, Hkv, Dv), dt)
             runs = {}
-            q_opts, k_opts = fa.tile_options(dt.itemsize)
+            q_opts, k_opts = fa.tile_options(dt.itemsize, D, Dv)
             for bq in q_opts:
                 for bk in k_opts:
                     if not fa.unsupported(dt.itemsize, D, Dv, bq, bk):
@@ -164,7 +182,7 @@ def main() -> int:
                     tflops=flops / med[model] / 1e9,
                     device=torch.cuda.get_device_name(0))
             del q, k, v, qt, kt, vt
-    cs.emit(phase="done", failures=bad)
+    cs.emit(phase="done", failures=len(bad), failed=bad)
     return 1 if bad else 0
 
 
