@@ -280,6 +280,11 @@ FLASH_WIDE_DIMS = ((257, 257), (300, 64), (64, 300), (320, 320), (512, 512),
 #: the wide pair timed in each dtype at ``flash_wide`` (batch, tokens,
 #: heads), causal
 FLASH_WIDE_TIMED = (512, 512)
+#: DeepSeek-V3's MLA attention in absorbed form (latent 512 + rope 64, v
+#: 512): checked in every dtype as a decode step (one query row over
+#: ``flash_wide_decode``'s kv length, one kv head), and the model's bf16 and
+#: f16 attention route at head dims above 256 runs at it
+WIDE_MLA_DIMS = (576, 512)
 #: the flash cases timed (every tile, beside the plain version and SDPA)
 TIMED_FLASH_CASES = ("space_f32", "model_prefill_bf16", "mla_prefill_bf16",
                      "rg_local_prefill_served_bf16", "rg_local_prefill_bf16",
@@ -1689,14 +1694,16 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
     every tile), ragged, Sq < Skv, non-causal, under one tile, at MLA's and
     RecurrentGemma's head dims (timed) and ragged; the sweep in f16 too;
     and in every dtype the chunked kernels' head dims above 256
-    (FLASH_WIDE_DIMS in the sweep, FLASH_WIDE_TIMED timed). Returns the
+    (FLASH_WIDE_DIMS in the sweep, FLASH_WIDE_TIMED timed, and
+    WIDE_MLA_DIMS as a decode step: one query row over a long kv length).
+    Returns the
     kernels-line entries of the bf16 kernel at D = Dv = 128, at (192, 128)
     and at (256, 256), of the f32 kernel and of the f16 one, each from the
     first timed case at its head dims (the rows of the VLM and enc-dec
     paths and of any head dim apart), then one for each class a path of
     this run reaches at head dims taken since the kernels take any (the
-    chunked f32 kernel's among them), then one entry for each row of the
-    VLM and enc-dec paths (CROSS_FLASH_ROWS)."""
+    chunked f32 and wgmma kernels' among them), then one entry for each row
+    of the VLM and enc-dec paths (CROSS_FLASH_ROWS)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
@@ -1852,10 +1859,15 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
                       True, *attn.flash_tiles(dt, (w, w))))
     sw_s, sw_q, sw_kv = sizes["flash_sweep"]
     wb, ws, wh = sizes["flash_wide"]
+    db, dkv, dh = sizes["flash_wide_decode"]
     for dt, dname in ((f32, "f32"), (bf16, "bf16"), (f16, "f16")):
         cases.append((f"wide_{FLASH_WIDE_TIMED[0]}x{FLASH_WIDE_TIMED[1]}_"
                       f"{dname}", wb, ws, ws, wh, wh, FLASH_WIDE_TIMED, dt,
                       True, *attn.flash_tiles(dt, FLASH_WIDE_TIMED)))
+        # one query row in a tile of 64 (32 in f32) over a long kv length
+        cases.append((f"wide_decode_{WIDE_MLA_DIMS[0]}x{WIDE_MLA_DIMS[1]}_"
+                      f"{dname}", db, 1, dkv, dh, 1, WIDE_MLA_DIMS, dt,
+                      False, *attn.flash_tiles(dt, WIDE_MLA_DIMS, False, 1)))
         for dims in (FLASH_SWEEP_DIMS + (FLASH_SWEEP_F32_DIMS if dt == f32
                                          else ()) + FLASH_WIDE_DIMS):
             tag = "x".join(map(str, dims))
@@ -2030,6 +2042,22 @@ def check_flash(device, timer: Timer, sizes: dict) -> dict:
          and fa.is_wide(*r["head_dims"])], "flash_attention_f32.cuh",
         "(head dims above 256, the chunked kernel: tuning at 320, 512 and "
         "(576, 512))"))
+    # the chunked wgmma kernel (the path: the model's bf16 attention route
+    # at WIDE_MLA_DIMS): its rows are every bf16 case above 256
+    main = next(r for r in rows if r["case"] == f"wide_{FLASH_WIDE_TIMED[0]}"
+                f"x{FLASH_WIDE_TIMED[1]}_bf16")
+    entries.append(entry(
+        "flash_attention_bf16_wide", bf16, main,
+        [r for r in rows if r["dtype"] == "bfloat16"
+         and fa.is_wide(*r["head_dims"])], "flash_attention_sm90.cuh",
+        "(head dims above 256, the chunked wgmma kernel: the model's "
+        "attention route at (576, 512))"))
+    for e in entries[-2:]:
+        # the previous design is not built by this run; the tool builds it
+        # from an earlier commit's sources and times it beside this one
+        e.update(previous_design_ms=None,
+                 previous_design="tools/flash_head_dims_check.py "
+                                 "--baseline-src (the parent's csrc/)")
     for e in entries:
         if "f32" in e["name"]:
             e.update(
@@ -2102,6 +2130,45 @@ def model_prefill_f32(device, sizes: dict) -> dict:
             "causal": True, "blocks": list(attn.flash_tiles(torch.float32)),
             "max_abs_err": err, "share_of_limit": share,
             "tolerance": flash_tolerance(torch.float32)}
+
+
+def model_prefill_wide(device, sizes: dict) -> dict:
+    """The model's attention route at head dims above 256 in bf16 and f16:
+    a causal ``chunked_attention`` at WIDE_MLA_DIMS and ``flash_wide``'s
+    (batch, tokens, heads). On the card it goes to the chunked wgmma kernel
+    at the model's tile; its output is held against the plain version at
+    that tile (p rounded as in the kernel). The kernel's launches of each
+    dtype, counted from just before to just after its route's call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    B, S, H = sizes["flash_wide"]
+    D, Dv = WIDE_MLA_DIMS
+    g = torch.Generator(device=device)
+    g.manual_seed(15)
+    out = {}
+    for dt in (torch.bfloat16, torch.float16):
+        q, k = (torch.randn((B, S, H, D), generator=g, device=device).to(dt)
+                for _ in range(2))
+        v = torch.randn((B, S, H, Dv), generator=g, device=device).to(dt)
+        ops.reset_launch_counts()
+        got = attn.chunked_attention(q, k, v)
+        launches = ops.launch_counts()["flash_attention"]
+        bq, bk = attn.flash_tiles(dt, (D, Dv))
+        want = fa.flash_attention_plain(q, k, v, causal=True, block_q=bq,
+                                        block_k=bk, round_p=True)
+        err, share = flash_error(got, want)
+        name = str(dt).replace("torch.", "")
+        check(share <= 1.0 and bool(torch.isfinite(got).all()),
+              f"chunked_attention {name} at head dims {WIDE_MLA_DIMS} "
+              f"differs from the plain version by {err}")
+        out[name] = {"q": list(q.shape), "kv": list(k.shape),
+                     "v": list(v.shape), "causal": True,
+                     "blocks": [bq, bk], "max_abs_err": err,
+                     "share_of_limit": share,
+                     "tolerance": flash_tolerance(dt), "launches": launches}
+        del q, k, v, got, want
+    return out
 
 
 def tune_flash_head_dims(device, sizes: dict) -> dict:
@@ -6331,6 +6398,8 @@ FULL = dict(vai_elems=2 ** 28, membw_small_rows=65536,       # 32 MiB
             # configs' (prompt, new tokens, max_len)
             flash_sweep=(300, 200, 333), flash_class=(4, 1024, 16),
             flash_wide=(1, 1024, 16),
+            # the wide decode-shaped call: (batch, kv length, q heads)
+            flash_wide_decode=(4, 4096, 16),
             reduced_serve=(40, 6, 64),
             serve_reduced=False,
             serve_max_len=2048, serve_new_tokens=32,
@@ -6386,7 +6455,7 @@ TOY = dict(vai_elems=2 ** 16, membw_small_rows=256, membw_big_rows=2048,
            flash_space=(2, 128, 64), flash_model=(64, 4, 2, 64),
            flash_ragged=61, flash_mla=(64, 4), flash_rg=(64, 2, 1),
            flash_sweep=(40, 24, 37), flash_class=(1, 64, 2),
-           flash_wide=(1, 64, 2),
+           flash_wide=(1, 64, 2), flash_wide_decode=(1, 128, 2),
            reduced_serve=(12, 3, 24),
            serve_reduced=True,
            serve_max_len=256, serve_new_tokens=6,
@@ -6484,6 +6553,13 @@ def main() -> int:
              flash_sm90_chunked_ptxas=ptxas_facts(
                  build.build_log(), "flash_fwd_sm90_chunked_kernel"),
              flash_tensor_core_products_by_instantiation=flash_sass)
+        chunked = {k: f for name in ("flash_fwd_f32_chunked_kernel",
+                                     "flash_fwd_sm90_chunked_kernel")
+                   for k, f in ptxas_facts(build.build_log(), name).items()}
+        check(bool(chunked) and all(
+            f.get("spill_stores") == 0 and f.get("spill_loads") == 0
+            for f in chunked.values()),
+              f"a chunked flash instantiation spills registers: {chunked}")
         built = flash_instantiations()
         check(all(flash_sass.get(key, 0) > 0 for key in built)
               and len(flash_sass) == len(built),
@@ -6537,6 +6613,10 @@ def main() -> int:
     # tune() at other head dims, each space's launches counted on its own
     tuning_dims = tune_flash_head_dims(device, sizes)
     emit(phase="flash_attention_tuning_head_dims", spaces=tuning_dims)
+    # the chunked wgmma kernel's path: the model's attention route at head
+    # dims above 256, each dtype's launches counted on its own
+    wide_route = model_prefill_wide(device, sizes)
+    emit(phase="model_dispatch_wide", **wide_route)
 
     ops.reset_launch_counts()
     report, jobs_raw = main_path(device, sizes)
@@ -6711,6 +6791,8 @@ def main() -> int:
                 "flash_attention_f32_wide": sum(
                     tuning_dims[f"{D}x{Dv}"]["launches"]
                     for D, Dv in TUNE_HEAD_DIMS if fa.is_wide(D, Dv)),
+                "flash_attention_bf16_wide":
+                    wide_route["bfloat16"]["launches"],
                 "flash_attention_f16": f16_launches,
                 "flash_attention_f32_32x32": tuning_dims["32x32"]["launches"],
                 "flash_attention_32x32": sum(
@@ -6725,6 +6807,8 @@ def main() -> int:
              a: r["flash_launches_by_head_dims"]
              for a, r in reduced_f16.items()},
          flash_attention_f32_model_dispatch=dispatch_f32,
+         flash_attention_f16_wide_model_dispatch=wide_route["float16"][
+             "launches"],
          flash_attention_by_path={SERVE_ARCH: serve_counts["flash_attention"],
                                   **{a: c["flash_attention"]
                                      for a, c in {**moe_counts,
@@ -6764,6 +6848,11 @@ def main() -> int:
     check(tuning_launches > 0 and dispatch_f32 == 1,
           f"the f32 path launched the f32 flash kernel {tuning_launches} "
           f"times in tuning and {dispatch_f32} in the model's dispatch")
+    check(all(wide_route[name]["launches"] == 1
+              for name in ("bfloat16", "float16")),
+          f"the model's attention route at head dims {WIDE_MLA_DIMS} did not "
+          f"launch the chunked wgmma kernel once in each of bf16 and f16: "
+          f"{ {n: r['launches'] for n, r in wide_route.items()} }")
     check(all(launches[k["name"]] > 0 for k in kernels),
           f"a kernel of the kernels line was not launched on its path: "
           f"{launches}")

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -70,38 +70,50 @@ def find_nvcc() -> str:
         "on this host")
 
 
-def _digest(srcs: List[Path]) -> str:
+def _digest(srcs: List[Path], flags: Sequence[str] = ()) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + list(flags)).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return build_dir() / (f"librepro_torch_kernels_"
-                          f"{_digest(sources() + headers())}.so")
+def library_path(csrc: Optional[Path] = None,
+                 bdir: Optional[Path] = None,
+                 flags: Sequence[str] = ()) -> Path:
+    csrc = CSRC if csrc is None else Path(csrc)
+    files = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    return (build_dir() if bdir is None else Path(bdir)) / (
+        f"librepro_torch_kernels_{_digest(files, flags)}.so")
 
 
-def build() -> Path:
+def build(csrc: Optional[Path] = None, bdir: Optional[Path] = None,
+          flags: Sequence[str] = ()) -> Path:
     """Compile and link the kernels if their library is not there yet;
-    returns the library's path."""
+    returns the library's path. ``csrc`` and ``bdir`` default to this
+    package's sources and :func:`build_dir`; another pair builds another
+    copy of the sources (an earlier commit's, to time beside these) into
+    its own directory, with its own ``build.log``. ``flags`` are added to
+    every ``nvcc`` of the sources (``-DREPRO_FLASH_PHASES``: the chunked
+    flash kernel's phase probes)."""
     global build_seconds
-    srcs = sources()
+    csrc = CSRC if csrc is None else Path(csrc)
+    srcs = sorted(csrc.glob("*.cu"))
     if not srcs:
-        raise KernelCompileError(f"no CUDA sources under {CSRC}")
-    out = library_path()
+        raise KernelCompileError(f"no CUDA sources under {csrc}")
+    out = library_path(csrc, bdir, flags)
     if out.exists():
         return out
     nvcc = find_nvcc()
-    bdir = build_dir()
+    bdir = build_dir() if bdir is None else Path(bdir)
     bdir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     tag = out.stem.rsplit("_", 1)[-1]
     objs = [bdir / f"{s.stem}_{tag}.o" for s in srcs]
     procs = [subprocess.Popen(
-        [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+        [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *flags, "-c", str(s), "-o",
+         str(o)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for s, o in zip(srcs, objs)]
     log, failed = [], []
@@ -147,33 +159,39 @@ def build_probe(src: Path) -> Path:
     return out
 
 
-def build_log() -> str:
-    """What ``nvcc -Xptxas -v`` said in the last build (registers, shared
-    memory and spills of every kernel)."""
-    path = build_dir() / "build.log"
+def build_log(bdir: Optional[Path] = None) -> str:
+    """What ``nvcc -Xptxas -v`` said in the last build into ``bdir``
+    (:func:`build_dir` by default): registers, shared memory and spills of
+    every kernel."""
+    path = (build_dir() if bdir is None else Path(bdir)) / "build.log"
     return path.read_text() if path.exists() else ""
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a kernels' library and set the argument types of every exported
+    function: a pointer or a stream passed without them would be cut to 32
+    bits."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.repro_vai_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+    lib.repro_vai_f32.restype = i32
+    lib.repro_membw_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64,
+                                    i64, ptr]
+    lib.repro_membw_f32.restype = i32
+    lib.repro_flash_attention.argtypes = (
+        [i32, ptr, ptr, ptr, ptr] + [i32] * 7 + [i64] * 12
+        + [i32, ctypes.c_float, i32, i32, ptr])
+    lib.repro_flash_attention.restype = i32
+    lib.repro_error_string.argtypes = [i32]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built at first use. Sets the argument
-    types of every exported function: a pointer or a stream passed without
-    them would be cut to 32 bits."""
+    """The kernels' shared library, built at first use (:func:`bind`)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.repro_vai_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-        lib.repro_vai_f32.restype = i32
-        lib.repro_membw_f32.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64,
-                                        i64, ptr]
-        lib.repro_membw_f32.restype = i32
-        lib.repro_flash_attention.argtypes = (
-            [i32, ptr, ptr, ptr, ptr] + [i32] * 7 + [i64] * 12
-            + [i32, ctypes.c_float, i32, i32, ptr])
-        lib.repro_flash_attention.restype = i32
-        lib.repro_error_string.argtypes = [i32]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 

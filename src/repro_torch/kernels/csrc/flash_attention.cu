@@ -49,13 +49,16 @@ void head_dim_class(int d, int dv, int* dc, int* dvc) {
 }
 
 // A pair with a width above 256 runs on the chunked kernels: q and k in
-// chunks (of 128 columns), v in n = ceil(DV / 256) slices, each at the
-// least slice class of 64, 128 and 256 that holds ceil(DV / n) columns.
-// kernels/flash_attention.py:wide_split states the same rule.
+// chunks (of 128 columns), v in n = ceil(DV / 512) slices, each at the
+// least slice class of 128, 256 and 512 that holds ceil(DV / n) columns (a
+// block holds every column of its slice). kernels/flash_attention.py:
+// wide_split states the same rule.
+constexpr int kMaxSlice = 512;
+
 int wide_slice_class(int dv) {
-  const int n = (dv + kMaxClass - 1) / kMaxClass;
+  const int n = (dv + kMaxSlice - 1) / kMaxSlice;
   const int width = (dv + n - 1) / n;
-  return width <= 64 ? 64 : width <= 128 ? 128 : 256;
+  return width <= 128 ? 128 : width <= 256 ? 256 : 512;
 }
 
 }  // namespace

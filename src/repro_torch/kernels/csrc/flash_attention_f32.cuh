@@ -125,17 +125,16 @@
 // the accumulator of a thread is DV / 2 registers (128 at 256).
 //
 // Head dims above 256 run on the chunked kernel (flash_fwd_f32_chunked_kernel,
-// kernels/flash_attention.py:wide_split): S is summed over chunks of
-// kChunk = 128 columns of q and k (TilesF32's D), Q staged and split again
-// for each chunk of each kv tile and the next chunk of K copied once every
-// warp is done with this one; each chunk's products are summed on their own
-// and then added to S (a chain of 1024 columns' products in one f32
-// accumulator missed the 2e-5 contract at (1024, 1024)). v's columns are
-// split into slices of DV (64, 128 or 256) along the grid's x axis, each
-// slice's clusters after the previous slice's; every slice's block sums the
-// same chunks in the same order, so all compute the same S, m and l. The
-// slice of 256 spills (its accumulator is 128 registers a thread); the merge
-// may need more shared memory than the tiles there (TilesF32::kSmem).
+// kernels/flash_attention.py:wide_split, below): one block owns a q tile and
+// every column of v up to 512; its 8 warps compute S once a kv tile
+// together, summed over chunks of kChunk = 128 columns of q and k, each
+// chunk's products summed on their own and then added to S (a chain of 1024
+// columns' products in one f32 accumulator missed the 2e-5 contract at
+// (1024, 1024)); P goes once through shared memory, split into its TF32
+// parts, and each warp adds P V for its eighth of O's columns over every
+// row of the tile. Q is held in shared memory for the whole kv walk where
+// it fits (WideLayout), K chunks and V pieces stream through one cp.async
+// ring. No instantiation spills.
 //
 // block_q and block_k are template parameters: every (block_q, block_k)
 // pair in {32, 64, 128} x {64, 128} whose shared memory fits in 227 KB is
@@ -181,17 +180,12 @@ struct TilesF32 {
   static constexpr size_t kMergeBytes =
       4ull * (kWarps * 16 * (kOPitch + 4) + BQ);
   // the block's shared memory: the tiles, or the merge where it is larger
-  // (the chunked kernel's narrow Q and K at a wide V slice)
   static constexpr size_t kSmem = kBytes > kMergeBytes ? kBytes : kMergeBytes;
   static_assert(BQ % 16 == 0 && kWarps % kGroups == 0 && kCols % 8 == 0,
                 "tiles must give every warp 16 rows and 8k columns");
   static_assert(D % 16 == 0 && DV % 16 == 0,
                 "head-dim classes must be multiples of 16");
 };
-
-// The chunked kernel (a head dim above 256): q and k in chunks of kChunk
-// columns (TilesF32's D), v in slices (its DV), one slice a block.
-constexpr int kChunk = 128;
 
 struct Params {
   int hq, hkv, sq, skv;
@@ -374,11 +368,7 @@ __device__ __forceinline__ void qk_products(float (&sa)[kAcc][kNT][4],
 // split, then for each kv tile S = Q K^T, the online softmax and acc += P V
 // for this warp's 16 rows and kv columns. Leaves this thread's share of the
 // warp's (acc, m, l) in registers; no kv tile is in flight at the end.
-// kChunked (the chunked kernel, D its chunk): S is summed over the chunks
-// of D columns of q and k, Q staged and split again for each chunk of each
-// kv tile, the next chunk of K copied once every warp is done with this
-// one; V's copy is issued with the last chunk.
-template <int D, int DV, int BQ, int BK, bool kChunked>
+template <int D, int DV, int BQ, int BK>
 __device__ __forceinline__ void walk_kv(
     const float* __restrict__ qb, const float* __restrict__ kb,
     const float* __restrict__ vb, const Params& p, float* smem, int q0,
@@ -401,8 +391,6 @@ __device__ __forceinline__ void walk_kv(
   const int sp = warp / T::kGroups;             // this warp's kv split
   const int row_lo = (warp % T::kGroups) * 16;  // and its rows in the tile
   const int col0 = sp * T::kCols;  // its first column of a kv tile
-  // chunks of q's and k's columns: the whole class at once, unless chunked
-  const int n_ch = kChunked ? (p.d + D - 1) / D : 1;
 
 #pragma unroll
   for (int n = 0; n < kNO; ++n) {
@@ -415,7 +403,7 @@ __device__ __forceinline__ void walk_kv(
 
   copy_tile<D, BK, kPitch>(sK, kb, p.k_ss, t_begin * BK, p.skv, p.d, tid);
   cp_async_commit();
-  if (!kChunked) stage_q<D, BQ>(sQb, sQs, qb, p.q_ss, q0, p.sq, p.d, tid);
+  stage_q<D, BQ>(sQb, sQs, qb, p.q_ss, q0, p.sq, p.d, tid);
 
   const int row_a = q0 + row_lo + g;  // this thread's rows: row_a, row_a + 8
   // this thread's operands: its A fragments of Q; 4 consecutive floats of K
@@ -439,52 +427,33 @@ __device__ __forceinline__ void walk_kv(
     const bool masked = c_lo + T::kCols > p.skv ||
                         (p.causal && c_lo + T::kCols - 1 > row_a - g);
 
-    // S = Q K^T over this warp's columns: each chunk's products summed on
-    // their own (over kAcc chains), then added to s, so that no chain runs
-    // longer than one chunk's
+    cp_async_wait_all();  // K(tile) has landed (and Q is written) ...
+    __syncthreads();      // ... for every thread; the V slot is free
+    copy_tile<DV, BK, kVPitch>(sV, vb, p.v_ss, k0, p.skv, p.dv, tid);
+    cp_async_commit();
+
+    // S = Q K^T over this warp's columns, its products over kAcc chains
     float s[kNT][4];
-    for (int ch = 0; ch < n_ch; ++ch) {
-      if (kChunked) {
-        stage_q<D, BQ>(sQb, sQs, qb + ch * D, p.q_ss, q0, p.sq, p.d - ch * D,
-                       tid);
-      }
-      cp_async_wait_all();  // K(tile) has landed (and Q is written) ...
-      __syncthreads();      // ... for every thread; the V slot is free
-      if (ch == n_ch - 1) {
-        copy_tile<DV, BK, kVPitch>(sV, vb, p.v_ss, k0, p.skv, p.dv, tid);
-        cp_async_commit();
-      }
-      if (active) {
-        float sa[kAcc][kNT][4];
+    if (active) {
+      float sa[kAcc][kNT][4];
 #pragma unroll
-        for (int a = 0; a < kAcc; ++a) {
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) sa[a][j][i] = 0.0f;
-          }
-        }
-        qk_products<D, kNT, kAcc, kPitch>(sa, qb_frag, qs_frag, k_row);
+      for (int a = 0; a < kAcc; ++a) {
 #pragma unroll
         for (int j = 0; j < kNT; ++j) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float x = sa[0][j][i];
-#pragma unroll
-            for (int a = 1; a < kAcc; ++a) x += sa[a][j][i];
-            if (ch == 0) {
-              s[j][i] = x;
-            } else {
-              s[j][i] += x;
-            }
-          }
+          for (int i = 0; i < 4; ++i) sa[a][j][i] = 0.0f;
         }
       }
-      if (ch + 1 < n_ch) {
-        __syncthreads();  // every warp is done with this chunk of Q and K
-        copy_tile<D, BK, kPitch>(sK, kb + (ch + 1) * D, p.k_ss, k0, p.skv,
-                                 p.d - (ch + 1) * D, tid);
-        cp_async_commit();
+      qk_products<D, kNT, kAcc, kPitch>(sa, qb_frag, qs_frag, k_row);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = sa[0][j][i];
+#pragma unroll
+          for (int a = 1; a < kAcc; ++a) x += sa[a][j][i];
+          s[j][i] = x;
+        }
       }
     }
 
@@ -698,9 +667,7 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0) {
 // tile's partials through distributed shared memory, each storing half of
 // its rows. A middle tile (odd n_q) is its own pair and is split the same
 // way. Not causal: every q tile has the same work; each block takes one.
-// v and o point at the block's first column of v and of the output (its
-// slice's, in the chunked kernel), p.dv is its number of columns.
-template <int D, int DV, int BQ, int BK, bool kChunked>
+template <int D, int DV, int BQ, int BK>
 __device__ __forceinline__ void attend(const float* __restrict__ q,
                                        const float* __restrict__ k,
                                        const float* __restrict__ v,
@@ -753,8 +720,8 @@ __device__ __forceinline__ void attend(const float* __restrict__ q,
     float acc[DV / 8][4];
     float m[2], l[2];
     if (sg > 0) __syncthreads();  // the last merge is done with the tiles
-    walk_kv<D, DV, BQ, BK, kChunked>(qb, kb, vb, p, smem, q0, seg_begin[sg],
-                                     seg_end[sg], acc, m, l);
+    walk_kv<D, DV, BQ, BK>(qb, kb, vb, p, smem, q0, seg_begin[sg],
+                           seg_end[sg], acc, m, l);
     __syncthreads();  // every warp is done with the tiles
     mine.store(acc, m, l);
     if (!seg_pair[sg]) {
@@ -790,28 +757,437 @@ __global__ void __cluster_dims__(2, 1, 1)
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          const Params p) {
-  attend<D, DV, BQ, BK, false>(q, k, v, o, p, blockIdx.x / 2, blockIdx.x % 2);
+  attend<D, DV, BQ, BK>(q, k, v, o, p, blockIdx.x / 2, blockIdx.x % 2);
 }
 
-// The chunked kernel, for head dims above 256: q and k in chunks of kChunk
-// columns summed into S, v's columns in slices of DVS, one slice a block.
-// The grid is (2 * ceil(n_q / 2) * n_slices, Hq, B) blocks in clusters of
-// two along x, the clusters of slice i after those of slice i - 1. Every
-// slice's block sums the same chunks in the same order, so every slice
-// computes the same S, m and l, bit for bit.
+// ------------------------------------------------------ the chunked kernel
+// Head dims above 256 (kernels/flash_attention.py:wide_split, wide_layout).
+// q and k in chunks of kChunk columns, v in slices of DVS (128, 256 or 512)
+// columns, one slice a block (one slice up to DV = 512).
+constexpr int kChunk = 128;
+constexpr int kWidePitch = kChunk + 16;  // rows of Q and K chunks (floats)
+constexpr int kPiecePitch = kChunk + 4;  // rows of V pieces
+
+// The shape of one block's work at tiles BQ x BK. S: 8 warps in kGroups row
+// groups of 16 rows x kColGroups column groups of kCols kv columns; P V:
+// each warp a range of DVS / 8 columns of O for all BQ rows. Bytes of a
+// ring stage (BK rows of a K chunk, or of a 128-column V piece), a Q chunk
+// (BQ rows), P (its two TF32 parts as the mma's A fragments) and the
+// softmax's row statistics (each column group's max and sum, the rescale
+// factor and the running sum of every row).
+template <int BQ, int BK>
+struct WideF32 {
+  static constexpr int kGroups = BQ / 16;
+  static constexpr int kColGroups = kWarps / kGroups;
+  static constexpr int kCols = BK / kColGroups;
+  static constexpr int kNT = kCols / 8;
+  static constexpr size_t kSlot = 4ull * BK * kWidePitch;
+  static constexpr size_t kQChunk = 4ull * BQ * kWidePitch;
+  static constexpr size_t kP = 4ull * 2 * BQ * BK;
+  static constexpr size_t kStats = 4ull * (2 * kColGroups + 2) * BQ;
+  static_assert(BQ % 16 == 0 && kWarps % kGroups == 0 && kCols % 8 == 0,
+                "tiles must give every warp 16 rows and 8k columns");
+};
+
+// A block's shared memory at (d, DVS): the ring of n_v + 2 stages (a tile
+// holds n_v V pieces), P and the statistics; Q's chunks held for the whole
+// walk where they fit in 227 KB, else two chunk buffers that Q streams
+// through beside K. kernels/flash_attention.py:wide_layout states the same.
+struct WideLayout {
+  int chunks, n_v, stages;
+  bool q_held;
+  size_t bytes;
+  template <int BQ, int BK>
+  __host__ __device__ static WideLayout of(int d, int dvs) {
+    using W = WideF32<BQ, BK>;
+    WideLayout m;
+    m.chunks = (d + kChunk - 1) / kChunk;
+    m.n_v = dvs / kChunk;
+    m.stages = m.n_v + 2;
+    const size_t rest = W::kSlot * m.stages + W::kP + W::kStats;
+    m.q_held = rest + W::kQChunk * m.chunks <= kSmemLimit;
+    m.bytes = rest + W::kQChunk * (m.q_held ? m.chunks : 2);
+    return m;
+  }
+};
+
+// Wait until at most n of this thread's cp.async groups are in flight (n
+// above 6 waits for 6).
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
+
+// The chunked kernel, for head dims above 256. One block owns one (batch,
+// q head, slice of DVS columns of v, q tile of BQ rows) and walks the kv
+// tiles of BK rows: for each, S = Q K^T once, by all 8 warps together
+// (each chunk's products summed on their own over kAcc chains, then added
+// to S in chunk order: one chain over 1024 columns missed 2e-5), the
+// online softmax across the warps of a row group through the row
+// statistics, P split once into its TF32 parts and stored as the mma's A
+// fragments, then acc += P V, each warp its DVS / 8 columns of O for all BQ
+// rows (64 registers a thread at 32 x 32 and DVS = 512). K chunks and V
+// pieces stream through one ring of cp.async copies, issued as far ahead
+// as the ring has free stages; Q's chunks are copied once and held where
+// they fit (WideLayout), else each is copied again beside its chunk of K,
+// one chunk ahead. The grid runs heads and slices fastest and the q tiles
+// from the last (the most causal work) to the first.
 template <int DVS, int BQ, int BK>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_f32_chunked_kernel(const float* __restrict__ q,
                                  const float* __restrict__ k,
                                  const float* __restrict__ v,
-                                 float* __restrict__ o, const Params p_all) {
-  const int n_pairs = ((p_all.sq + BQ - 1) / BQ + 1) / 2;
-  const int slice = (blockIdx.x / 2) / n_pairs;
-  Params p = p_all;
-  p.dv = min(DVS, p_all.dv - slice * DVS);
-  attend<kChunk, DVS, BQ, BK, true>(q, k, v + slice * DVS, o + slice * DVS,
-                                    p, (blockIdx.x / 2) % n_pairs,
-                                    blockIdx.x % 2);
+                                 float* __restrict__ o, const Params p) {
+  using W = WideF32<BQ, BK>;
+  constexpr int kNT = W::kNT;
+  constexpr int kAcc = kNT >= 4 ? 1 : 4 / kNT;
+  constexpr int kCw = DVS / kWarps;   // O columns a warp
+  constexpr int kNO = kCw / 8;        // their n8 slices
+  constexpr int kNH = kNO < 4 ? kNO : 4;
+  constexpr int kCG = W::kColGroups;
+  const WideLayout m = WideLayout::of<BQ, BK>(p.d, DVS);
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sRing = sQ + (m.q_held ? m.chunks : 2) * BQ * kWidePitch;
+  uint4* sPb = reinterpret_cast<uint4*>(sRing + m.stages * BK * kWidePitch);
+  uint4* sPs = sPb + BQ * BK / 4;
+  float* sMax = reinterpret_cast<float*>(sPs + BQ * BK / 4);
+  float* sSum = sMax + kCG * BQ;
+  float* sCorr = sSum + kCG * BQ;
+  float* sL = sCorr + BQ;
+
+  const int h = blockIdx.x % p.hq;
+  const int slice = blockIdx.x / p.hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const float* qb = q + b * p.q_sb + h * p.q_sh;
+  const float* kb = k + b * p.k_sb + hk * p.k_sh;
+  const float* vb = v + b * p.v_sb + hk * p.v_sh + slice * DVS;
+  float* ob = o + b * p.o_sb + h * p.o_sh + slice * DVS;
+  const int width_v = p.dv - slice * DVS;  // this slice's columns of v
+  const int q_last = min(q0 + BQ, p.sq) - 1;
+  const int k_end = p.causal ? min(p.skv, q_last + 1) : p.skv;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const int per_tile = m.chunks + m.n_v;  // ring items a kv tile
+  const int n_items = n_tiles * per_tile;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;   // the mma's group: rows g, g + 8; column g of B
+  const int tq = lane % 4;  // its thread in the group
+  const int rg = warp % W::kGroups;  // S: this warp's row group ...
+  const int cg = warp / W::kGroups;  // ... and column group
+
+  // the ring: item i (K chunk c of tile t, or V piece) in stage i % stages;
+  // every thread issues its share of every item as one commit group. A
+  // cursor walks the items by steps (no division by the run-time counts)
+  struct Cursor {
+    int t, j, st;  // kv tile, item of the tile, stage
+  };
+  auto step = [&](Cursor& x) {
+    if (++x.j == per_tile) {
+      x.j = 0;
+      ++x.t;
+    }
+    if (++x.st == m.stages) x.st = 0;
+  };
+  auto issue = [&](const Cursor& x) {
+    float* slot = sRing + x.st * BK * kWidePitch;
+    if (x.j < m.chunks) {
+      copy_tile<kChunk, BK, kWidePitch>(slot, kb + x.j * kChunk, p.k_ss,
+                                        x.t * BK, p.skv, p.d - x.j * kChunk,
+                                        tid);
+      if (!m.q_held) {
+        copy_tile<kChunk, BQ, kWidePitch>(
+            sQ + ((x.t * m.chunks + x.j) & 1) * BQ * kWidePitch,
+            qb + x.j * kChunk, p.q_ss, q0, p.sq, p.d - x.j * kChunk, tid);
+      }
+    } else {
+      const int c0 = (x.j - m.chunks) * kChunk;
+      copy_tile<kChunk, BK, kPiecePitch>(slot, vb + c0, p.v_ss, x.t * BK,
+                                         p.skv, width_v - c0, tid);
+    }
+    cp_async_commit();
+  };
+  // issue items while a stage is free (every item before `consumed` is
+  // done with) and, where Q streams, its chunk buffer is free (the chunk
+  // two before it is done with)
+  int issued = 0;
+  Cursor next = {0, 0, 0};
+  auto fill = [&](int consumed, int chunks_done) {
+    while (issued < n_items && issued < consumed + m.stages) {
+      if (!m.q_held && next.j < m.chunks &&
+          next.t * m.chunks + next.j > chunks_done + 1) {
+        break;
+      }
+      issue(next);
+      step(next);
+      ++issued;
+    }
+  };
+
+  if (m.q_held) {
+    for (int c = 0; c < m.chunks; ++c) {
+      copy_tile<kChunk, BQ, kWidePitch>(sQ + c * BQ * kWidePitch,
+                                        qb + c * kChunk, p.q_ss, q0, p.sq,
+                                        p.d - c * kChunk, tid);
+    }
+    cp_async_commit();
+  }
+  if (tid < BQ) sL[tid] = 0.0f;
+  fill(0, 0);
+
+  float acc[W::kGroups][kNO][4];
+#pragma unroll
+  for (int r = 0; r < W::kGroups; ++r) {
+#pragma unroll
+    for (int n = 0; n < kNO; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][n][i] = 0.0f;
+    }
+  }
+  float m_row[2] = {kNegInf, kNegInf};  // rows g, g + 8 of rg, log2 units
+  const int row_a = rg * 16 + g;        // this thread's S rows in the tile
+  // P V: this warp's O columns, their V piece and column in it
+  const int piece = warp * kCw / kChunk;
+  const int col_in = warp * kCw % kChunk;
+
+  int st = 0;  // the stage of the next item to consume
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    const int item0 = t * per_tile;
+    float s[kNT][4];
+    for (int c = 0; c < m.chunks; ++c) {
+      cp_async_wait_pending(issued - 1 - (item0 + c));
+      __syncthreads();  // chunk c has landed; every warp is done before it
+      fill(item0 + c, t * m.chunks + c);
+      const float* qc = m.q_held
+                            ? sQ + c * BQ * kWidePitch
+                            : sQ + ((t * m.chunks + c) & 1) * BQ * kWidePitch;
+      const float* q_a = qc + row_a * kWidePitch + 4 * tq;
+      const float* k_row = sRing + st * BK * kWidePitch +
+                           (cg * W::kCols + g) * kWidePitch + 4 * tq;
+      if (++st == m.stages) st = 0;
+      float sa[kAcc][kNT][4];
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sa[a][j][i] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        // A fragments of the two k8 steps (rows g, g + 8; logical columns
+        // t, t + 4 = columns 4t, 4t + 1, then 4t + 2, 4t + 3 of the 16)
+        const float4 xa = *reinterpret_cast<const float4*>(q_a + 16 * kk);
+        const float4 xb = *reinterpret_cast<const float4*>(
+            q_a + 8 * kWidePitch + 16 * kk);
+        uint32_t ab0[4], as0[4], ab1[4], as1[4];
+        split(xa.x, ab0[0], as0[0]);
+        split(xb.x, ab0[1], as0[1]);
+        split(xa.y, ab0[2], as0[2]);
+        split(xb.y, ab0[3], as0[3]);
+        split(xa.z, ab1[0], as1[0]);
+        split(xb.z, ab1[1], as1[1]);
+        split(xa.w, ab1[2], as1[2]);
+        split(xb.w, ab1[3], as1[3]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float4 kx = *reinterpret_cast<const float4*>(
+              k_row + 8 * j * kWidePitch + 16 * kk);
+          uint32_t kbig[4], ksmall[4];
+          split(kx.x, kbig[0], ksmall[0]);
+          split(kx.y, kbig[1], ksmall[1]);
+          split(kx.z, kbig[2], ksmall[2]);
+          split(kx.w, kbig[3], ksmall[3]);
+          mma_3xtf32(sa[(2 * kk) % kAcc][j], ab0, as0, kbig[0], kbig[1],
+                     ksmall[0], ksmall[1]);
+          mma_3xtf32(sa[(2 * kk + 1) % kAcc][j], ab1, as1, kbig[2], kbig[3],
+                     ksmall[2], ksmall[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = sa[0][j][i];
+#pragma unroll
+          for (int a = 1; a < kAcc; ++a) x += sa[a][j][i];
+          s[j][i] = c == 0 ? x : s[j][i] + x;
+        }
+      }
+    }
+
+    // the online softmax: s[j][2r + c] is row row_a + 8r, kv column
+    // k0 + cg kCols + 8j + 2t + c; a row's max over this warp's columns,
+    // then over the row group's column groups through sMax
+    const bool masked = k0 + BK > p.skv || (p.causal && k0 + BK - 1 > q0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[j][2 * r + c] * p.scale_log2;
+          if (masked) {
+            const int kpos = k0 + cg * W::kCols + 8 * j + 2 * tq + c;
+            if (kpos >= p.skv) {
+              x = -INFINITY;  // past the sequence: no weight
+            } else if (p.causal && kpos > q0 + row_a + 8 * r) {
+              x = kNegInf;
+            }
+          }
+          s[j][2 * r + c] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if (tq == 0) sMax[cg * BQ + row_a + 8 * r] = mx[r];
+    }
+    __syncthreads();  // every column group's max is written; every K chunk
+                      // of this tile is done with
+    fill(item0 + m.chunks, (t + 1) * m.chunks);
+    float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m_new = m_row[r];
+#pragma unroll
+      for (int x = 0; x < kCG; ++x) {
+        m_new = fmaxf(m_new, sMax[x * BQ + row_a + 8 * r]);
+      }
+      corr[r] = exp2f(m_row[r] - m_new);
+      m_row[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = exp2f(s[j][2 * r + c] - m_row[r]);
+          s[j][2 * r + c] = e;
+          sum[r] += e;
+        }
+      }
+      // P's A fragment of kv step cg kNT + j for row group rg: rows g, g +
+      // 8 at logical columns t, t + 4 = kv columns 2t, 2t + 1
+      uint4 pb, ps;
+      split(s[j][0], pb.x, ps.x);
+      split(s[j][2], pb.y, ps.y);
+      split(s[j][1], pb.z, ps.z);
+      split(s[j][3], pb.w, ps.w);
+      const int at = (rg * (BK / 8) + cg * kNT + j) * 32 + lane;
+      sPb[at] = pb;
+      sPs[at] = ps;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      if (tq == 0) {
+        sSum[cg * BQ + row_a + 8 * r] = sum[r];
+        if (cg == 0) sCorr[row_a + 8 * r] = corr[r];
+      }
+    }
+    cp_async_wait_pending(issued - per_tile - item0);  // this tile's V
+    __syncthreads();  // P, the statistics and the V pieces are written
+    if (tid < BQ) {
+      float l = sL[tid] * sCorr[tid];
+#pragma unroll
+      for (int x = 0; x < kCG; ++x) l += sSum[x * BQ + tid];
+      sL[tid] = l;
+    }
+
+    // acc += P V over this warp's columns: V rows 2t and 2t + 1 of each
+    // 8-row step, column 8n + g, split once for every row group
+    const int v_st = st + piece < m.stages ? st + piece
+                                           : st + piece - m.stages;
+    const float* v_row = sRing + v_st * BK * kWidePitch +
+                         2 * tq * kPiecePitch + col_in + g;
+    st = st + m.n_v < m.stages ? st + m.n_v : st + m.n_v - m.stages;
+#pragma unroll
+    for (int r = 0; r < W::kGroups; ++r) {
+      const float c0 = sCorr[r * 16 + g];
+      const float c1 = sCorr[r * 16 + g + 8];
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        acc[r][n][0] *= c0;
+        acc[r][n][1] *= c0;
+        acc[r][n][2] *= c1;
+        acc[r][n][3] *= c1;
+      }
+    }
+    // one 8-row step at a time (unrolled, the steps' loads are hoisted
+    // ahead of their products and spill at 64 x 32 and DVS = 512)
+#pragma unroll 1
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      const float* vr = v_row + 8 * ks * kPiecePitch;
+      // V's fragments of kNH n8 slices at a time, each used by every row
+      // group (at 64 x 32 and DVS = 512 all eight at once would spill)
+#pragma unroll
+      for (int n0 = 0; n0 < kNO; n0 += kNH) {
+        uint32_t vb0[kNH], vs0[kNH], vb1[kNH], vs1[kNH];
+#pragma unroll
+        for (int n = 0; n < kNH; ++n) {
+          split(vr[8 * (n0 + n)], vb0[n], vs0[n]);
+          split(vr[kPiecePitch + 8 * (n0 + n)], vb1[n], vs1[n]);
+        }
+#pragma unroll
+        for (int r = 0; r < W::kGroups; ++r) {
+          const uint4 pb = sPb[(r * (BK / 8) + ks) * 32 + lane];
+          const uint4 ps = sPs[(r * (BK / 8) + ks) * 32 + lane];
+          const uint32_t a_big[4] = {pb.x, pb.y, pb.z, pb.w};
+          const uint32_t a_small[4] = {ps.x, ps.y, ps.z, ps.w};
+#pragma unroll
+          for (int n = 0; n < kNH; ++n) {
+            mma_3xtf32(acc[r][n0 + n], a_big, a_small, vb0[n], vb1[n],
+                       vs0[n], vs1[n]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every row's sum is final
+
+  // this warp's columns of every row: acc / l
+#pragma unroll
+  for (int r = 0; r < W::kGroups; ++r) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r * 16 + g + 8 * half;
+      if (q0 + row >= p.sq) continue;
+      const float den = fmaxf(sL[row], 1e-30f);
+      float* orow = ob + static_cast<long long>(q0 + row) * p.o_ss;
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        const int c = warp * kCw + 8 * n + 2 * tq;
+        const float x0 = acc[r][n][2 * half] / den;
+        const float x1 = acc[r][n][2 * half + 1] / den;
+        if (p.o_vec4 && c + 1 < width_v) {
+          *reinterpret_cast<float2*>(orow + c) = make_float2(x0, x1);
+        } else {
+          if (c < width_v) orow[c] = x0;
+          if (c + 1 < width_v) orow[c + 1] = x1;
+        }
+      }
+    }
+  }
 }
 
 template <int D, int DV, int BQ, int BK>
@@ -836,18 +1212,21 @@ int launch(const float* q, const float* k, const float* v, float* o,
 template <int DVS, int BQ, int BK>
 int launch_chunked(const float* q, const float* k, const float* v, float* o,
                    const Params& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = TilesF32<kChunk, DVS, BQ, BK>::kSmem;
-  static_assert(smem <= kSmemLimit, "tile does not fit in shared memory");
+  const WideLayout m = WideLayout::of<BQ, BK>(p.d, DVS);
+  if (m.bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  // set at every launch, as launch() does
   auto kernel = flash_fwd_f32_chunked_kernel<DVS, BQ, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(kSmemLimit));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_q = (p.sq + BQ - 1) / BQ;
-  const long long x = 2 * ((n_q + 1) / 2) * ((p.dv + DVS - 1) / DVS);
-  if (x > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(x), p.hq, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, p);
+  const long long x = static_cast<long long>(p.hq) * ((p.dv + DVS - 1) / DVS);
+  const int n_q = (p.sq + BQ - 1) / BQ;
+  if (x > 0x7fffffffLL || n_q > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(x), n_q, batch);
+  kernel<<<grid, kThreads, m.bytes, stream>>>(q, k, v, o, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -886,8 +1265,8 @@ int by_class_wide(int dc, int dvc, int block_q, int block_k, const float* q,
                   const float* k, const float* v, float* o, const Params& p,
                   int batch, cudaStream_t s);
 // The chunked kernel (flash_attention_f32_chunked.cu) at slice class dvs
-// (64, 128 or 256, kernels/flash_attention.py:wide_split), tiles 32 x 64
-// and 64 x 64.
+// (128, 256 or 512, kernels/flash_attention.py:wide_split), tiles 32 x 32
+// and 64 x 32.
 int by_slice_chunked(int dvs, int block_q, int block_k, const float* q,
                      const float* k, const float* v, float* o,
                      const Params& p, int batch, cudaStream_t s);

@@ -49,20 +49,24 @@
 // 1.48x (D = 65). Wider pairs run on the chunked kernel, below.
 //
 // The chunked kernel (a head dim above 256; flash_fwd_sm90_chunked_kernel,
-// kernels/flash_attention.py:wide_split). A consumer warpgroup's O is 64 x
-// DV f32 (DV / 2 registers a thread), wgmma's N is at most 256, and Q with
-// the K/V stages must fit in 227 KB, so neither D nor DV can be one tile.
-// So S = Q K^T is summed over chunks of kChunk = 128 columns of Q and K, the
-// chunks streaming through a ring of stages with the V tile, and v's columns
-// are split into slices of DVS (64, 128 or 256) on the grid's x axis: each
-// slice's block recomputes S, m and l, summing the same chunks in the same
-// order, so every slice normalises by the same l, bit for bit. Q is
-// reloaded for every kv tile (it is held a chunk at a time); one consumer
-// warpgroup (64 rows) and one tile, 64 x 64 (its O at DVS = 256 is 128
-// registers a thread, as at (256, 256)). A chunk's products are one commit
-// group, waited for before its stage is released. Simple and right first:
-// S costs D x n_slices, where the function needs D, and the waits expose
-// wgmma's latency (PERF.md §6 has its times).
+// kernels/flash_attention.py:wide_split). wgmma's N is at most 256 and a
+// consumer's O is 64 x DV f32 (DV / 2 registers a thread), so neither D nor
+// DV can be one tile. One block owns a q tile of 64 rows and every column
+// of v up to 512 (wider v is cut into slices of at most 512 on the grid's
+// x axis, and only there is S computed again): S = Q K^T is computed once a
+// kv tile, summed over chunks of kChunk = 128 columns of Q and K, by
+// warpgroup 0; P is written once to shared memory in E (wgmma's 128-byte
+// swizzle), and each of the two warpgroups adds P V for half of the
+// columns, reading P as its A operand: 128 registers of O a thread at 512
+// columns, the split FlashMLA makes at DeepSeek-V3's absorbed (576, 512).
+// Q is loaded once and held in shared memory for the whole kv walk where
+// it fits beside two K stages and the V tile (up to D = 896 at a slice of
+// 512, 1152 at 256, 1280 at 128: SmemChunked); wider, each chunk of Q
+// streams through the K ring beside its chunk of K, once a kv tile. A
+// chunk's products are one commit group, waited for once the next chunk is
+// issued, and its stage is refilled as soon as they are done; warpgroup 0's
+// P V stays in flight under the next tile's Q K^T, and warpgroup 1's runs
+// under warpgroup 0's Q K^T and softmax. PERF.md §6 has its times.
 //
 // Design. One thread block owns one (batch, q head, q tile of BQ rows) and
 // walks the kv tiles. It has BQ / 64 consumer warpgroups, each owning 64
@@ -203,32 +207,85 @@ struct SmemSm90 {
   static constexpr size_t kBytes = bytes(kStages);
 };
 
-// The chunked kernel (a head dim above 256): one ring of kStages stages,
-// each holding a chunk of kChunk columns of Q (BQ rows) and of K (BK rows),
-// or a slice of DVS columns of V (BK rows), two mbarriers a stage, and the
-// slack that aligns the stages. As many stages as fit in 227 KB, at most 8.
-// kernels/flash_attention.py:smem_bytes repeats this formula (WIDE_CHUNK).
+// The chunked kernel (a head dim above 256): its shared memory, from the
+// 1024-aligned base: Q held (`chunks` stages, where it fits), a ring of
+// `stages` stages for the chunks of K (and of Q, where it is not held), the
+// V tiles (one stage for each 128-column piece of the slice; two tiles,
+// the next loading under this one, where they fit beside three K stages,
+// four where Q streams), P (64 x 64 of E, in wgmma's 128-byte swizzle), the
+// rows' rescale factors and sums (64 floats each) and 512 bytes of
+// mbarriers. A stage is 64 rows x kChunk columns of E.
+// kernels/flash_attention.py:wide_layout states the same layout.
 constexpr int kChunk = 128;
+constexpr size_t kSlot = 2ull * 64 * kChunk;
 
-template <int DVS, int BQ, int BK>
+// Phase probes of the chunked kernel (tools/flash_chunked_phases.py builds
+// the sources with -DREPRO_FLASH_PHASES): each warpgroup times phases of its
+// kv walk with clock64, in slots 0-6 of its own (REPRO_PHASE), its whole
+// walk in slot 7, and its first thread adds them over every block to
+// g_phase_cycles[8 * warpgroup + slot], which repro_flash_phases of
+// flash_attention_sm90_chunked.cu reads. Without the macro a probe is its
+// statement alone.
+constexpr int kPhaseSlots = 8;
+#ifdef REPRO_FLASH_PHASES
+// 2 * kPhaseSlots, as a literal: nvcc's host-side copy of a __device__
+// array is declared outside this namespace
+static __device__ unsigned long long g_phase_cycles[16];
+static_assert(2 * kPhaseSlots == 16, "g_phase_cycles holds both warpgroups");
+#define REPRO_PHASES_START \
+  long long phase_[kPhaseSlots] = {}; \
+  const long long walk_ = clock64()
+#define REPRO_PHASE(slot, ...) \
+  do { \
+    const long long t_ = clock64(); \
+    __VA_ARGS__; \
+    phase_[slot] += clock64() - t_; \
+  } while (0)
+#define REPRO_PHASES_FLUSH(first_thread, wg) \
+  do { \
+    phase_[kPhaseSlots - 1] = clock64() - walk_; \
+    for (int i_ = 0; (first_thread) && i_ < kPhaseSlots; ++i_) { \
+      atomicAdd(&g_phase_cycles[(wg) * kPhaseSlots + i_], \
+                static_cast<unsigned long long>(phase_[i_])); \
+    } \
+  } while (0)
+#else
+#define REPRO_PHASES_START
+#define REPRO_PHASE(slot, ...) \
+  do { \
+    __VA_ARGS__; \
+  } while (0)
+#define REPRO_PHASES_FLUSH(first_thread, wg)
+#endif
+constexpr int kWideMaxStages = 8;
+constexpr size_t kPBytes = 2ull * 64 * 64;
+
 struct SmemChunked {
-  static constexpr size_t kQ = 2ull * BQ * kChunk;
-  static constexpr size_t kK = 2ull * BK * kChunk;
-  static constexpr size_t kV = 2ull * BK * DVS;
-  static constexpr size_t kStage = kQ + kK > kV ? kQ + kK : kV;
-  static constexpr size_t kAlign = 1024;
-  static constexpr size_t bytes(int stages) {
-    return stages * kStage + 16 * stages + kAlign;
+  int chunks;      // chunks of kChunk columns of Q and K
+  int n_v;         // 128-column pieces of V in a tile (the slice / 128)
+  bool q_held;     // Q loaded once and held for the whole kv walk
+  int n_vb;        // V tiles in shared memory (1 or 2)
+  int stages;      // the K ring
+  size_t q_bytes;  // of the held Q (0 where it streams)
+  size_t bytes;    // the block's dynamic shared memory
+  __host__ __device__ static SmemChunked of(int d, int dvs) {
+    SmemChunked m;
+    m.chunks = (d + kChunk - 1) / kChunk;
+    m.n_v = dvs / kChunk;
+    const size_t fixed = 1024 + kPBytes + 2 * 64 * 4 + 512;
+    const size_t v = kSlot * m.n_v;
+    m.q_held = fixed + v + kSlot * (m.chunks + 2) <= kSmemLimit;
+    m.q_bytes = m.q_held ? kSlot * m.chunks : 0;
+    m.n_vb = fixed + 2 * v + m.q_bytes + kSlot * (m.q_held ? 3 : 4) <=
+                     kSmemLimit
+                 ? 2
+                 : 1;
+    const int fit = static_cast<int>(
+        (kSmemLimit - fixed - m.n_vb * v - m.q_bytes) / kSlot);
+    m.stages = fit < kWideMaxStages ? fit : kWideMaxStages;
+    m.bytes = fixed + m.n_vb * v + m.q_bytes + kSlot * m.stages;
+    return m;
   }
-  static constexpr int fit() {
-    int stages = 8;
-    while (stages > 0 && bytes(stages) > kSmemLimit) --stages;
-    return stages;
-  }
-  static constexpr int kStages = fit();
-  static constexpr size_t kBytes = bytes(kStages);
-  static_assert(kStage % kAlign == 0 && kQ % kAlign == 0,
-                "stages and the K chunk must keep the swizzle's alignment");
 };
 
 struct Params {
@@ -298,6 +355,41 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same three, done by the threads where `pred` holds: predicated, not
+// branched, so that a warpgroup issuing wgmma between them takes no
+// divergent path (ptxas serializes every wgmma of a function whose
+// warpgroup arrives on one).
+__device__ __forceinline__ void mbar_expect_tx_if(bool pred, uint64_t* bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_if(bool pred, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_if(bool pred, void* dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
@@ -328,6 +420,12 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int P, int N>
+__device__ __forceinline__ void fence_operands(float (&d)[P][N]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) fence_operands(d[i]);
 }
 
 template <int N>
@@ -370,6 +468,13 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[N / 2], uint64_t da,
 template <int N, class E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db);
+
+// D(64 x N, f32) += A(64 x 16) . B(16 x N): A from shared memory, K-major
+// (P of the chunked kernel), B from shared memory, MN-major (transposed: a
+// V tile), the accumulator as wgmma_ss's.
+template <int N, class E>
+__device__ __forceinline__ void wgmma_ss_vt(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db);
 
 // D(64 x N, f32) += A(64 x 16, bf16 registers) . B(16 x N): B from shared
 // memory, MN-major (transposed). A's registers a[r] hold the bf16 pairs of
@@ -469,6 +574,59 @@ __device__ __forceinline__ void wgmma_ss<128, E>(float (&d)[64], uint64_t da, \
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
       "%60, %61, %62, %63" \
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_ss_vt<64, E>(float (&d)[32], \
+                                                 uint64_t da, uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(1)); \
+} \
+ \
+template <> \
+__device__ __forceinline__ void wgmma_ss_vt<128, E>(float (&d)[64], \
+                                                  uint64_t da, uint64_t db) { \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35," \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+      "%60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -730,9 +888,8 @@ REPRO_SM90_WGMMA(ElemF16, "f16")
 // S = Q K^T for the K tile at k_base: one wgmma per 16 columns of D, in one
 // commit group. K-major operands: 8-row groups are 8 box rows apart; the 16
 // columns of step kk lie in box kk * 16 / kCols, at byte (kk * 16 % kCols) * 2
-// of a row. kAccumulate adds to s (a later chunk of the chunked kernel);
-// else the first product writes s without reading it.
-template <int D, int BQ, int BK, class E, bool kAccumulate = false>
+// of a row. The first product writes s without reading it.
+template <int D, int BQ, int BK, class E>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_base,
                                         uint32_t k_base) {
   using Sw = Swizzle<D>;
@@ -744,7 +901,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_base,
         make_desc<D>(q_base + box * BQ * Sw::kBytes + off, 16, 8 * Sw::kBytes);
     const uint64_t db =
         make_desc<D>(k_base + box * BK * Sw::kBytes + off, 16, 8 * Sw::kBytes);
-    if (kk == 0 && !kAccumulate) {
+    if (kk == 0) {
       wgmma_ss_first<BK, E>(s, da, db);
     } else {
       wgmma_ss<BK, E>(s, da, db);
@@ -1033,152 +1190,431 @@ __global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
   }
 }
 
-// The chunked kernel's consumer warpgroup (64 query rows from row_lo on):
-// per active kv tile, S summed over the chunks of Q and K as their stages
-// land (each stage released once its products are done), the softmax, and
-// P V over this block's slice of V; the tiles above its diagonal are
-// released unread. Every slice's block sums the same chunks in the same
-// order, so every slice computes the same S, m and l, bit for bit.
-template <int DVS, int BQ, int BK, int kStages, class E>
-__device__ __forceinline__ void consume_chunked(
-    uint32_t ring, uint64_t* full, uint64_t* empty,
-    typename E::T* __restrict__ o, const Params& p, int row_lo, int h, int b,
-    int width, int n_tiles, int n_chunks) {
-  using Sm = SmemChunked<DVS, BQ, BK>;
-  const int tid = threadIdx.x % kWG;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int r0 = row_lo + warp * 16 + lane / 4;
-  const int col = 2 * (lane % 4);
-  const int n_act = active_tiles<BK>(p, row_lo, n_tiles);
+// The chunked kernel's pieces. Named barriers among the two consumer
+// warpgroups (256 threads): P written (kBarPFull), P read by warpgroup 1
+// (kBarPFree), the rows' sums written (kBarLFull).
+constexpr int kBarPFull = 1;
+constexpr int kBarPFree = 2;
+constexpr int kBarLFull = 3;
+constexpr int kBarKFree = 4;  // warpgroup 0 alone (128 threads)
 
-  float acc[DVS / 2];
-#pragma unroll
-  for (int i = 0; i < DVS / 2; ++i) acc[i] = 0.0f;
-  float s[BK / 2];
-  uint32_t a[BK / 16][4];
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-  float corr[2];
-
-  int item = 0;  // the ring's items: n_chunks chunks of Q and K, then V
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t >= n_act) {  // above the diagonal
-      for (int c = 0; c <= n_chunks; ++c, ++item) {
-        mbar_wait(&full[item % kStages], (item / kStages) & 1);
-        mbar_arrive(&empty[item % kStages]);
-      }
-      continue;
-    }
-    for (int c = 0; c < n_chunks; ++c, ++item) {
-      const int st = item % kStages;
-      const uint32_t stage = ring + st * Sm::kStage;
-      mbar_wait(&full[st], (item / kStages) & 1);
-      wgmma_fence();
-      if (c == 0) {
-        issue_qk<kChunk, BQ, BK, E>(s, stage, stage + Sm::kQ);
-      } else {
-        issue_qk<kChunk, BQ, BK, E, true>(s, stage, stage + Sm::kQ);
-      }
-      wgmma_wait<0>();
-      fence_operands(s);
-      mbar_arrive(&empty[st]);
-    }
-    softmax<BK>(s, m, l, corr, p, t * BK, r0, col,
-                p.causal && (t + 1) * BK - 1 > row_lo);
-    rescale<DVS>(acc, corr);
-    pack_p<BK, E>(s, a);
-    fence_operands(a);
-    fence_operands(acc);
-    const int st = item % kStages;
-    mbar_wait(&full[st], (item / kStages) & 1);
-    wgmma_fence();
-    issue_pv<DVS, BK, E>(acc, a, ring + st * Sm::kStage);
-    wgmma_wait<0>();
-    fence_operands(acc);
-    mbar_arrive(&empty[st]);
-    ++item;
-  }
-  store_rows<DVS, E>(acc, l, o, p, r0, col, h, b, width,
-                     width == DVS && p.dv % 2 == 0);
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
 }
 
-// The chunked kernel, for head dims above 256: one block owns one (batch,
-// q head, slice of DVS columns of v, q tile of 64 rows), one consumer
-// warpgroup and the producer warpgroup. For each kv tile the producer loads
-// the chunks of kChunk columns of Q and K, then the block's slice of V,
-// each into the next stage of one ring; Q is loaded again for every kv tile
-// (it is held a chunk at a time). The grid runs heads fastest, then the
-// slices, and the q tiles from the last to the first.
+__device__ __forceinline__ void named_sync_wg(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (the wgmma that reads P).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// This thread's share of P (rows r and r + 8 of the tile, row r = 16 warp +
+// lane / 4) into sP, 64 x 64 of E in the 128-byte swizzle that wgmma's
+// K-major A descriptor reads (a row's 16-byte chunk i at chunk i ^ (row %
+// 8)); the four threads of a row write its 32 four-byte pairs, eight rows
+// a store on 32 different banks.
+template <class E>
+__device__ __forceinline__ void store_p(const float (&s)[32],
+                                        unsigned char* sP, int warp,
+                                        int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = 16 * warp + lane / 4 + 8 * j;
+    unsigned char* base = sP + row * 128 + (lane % 4) * 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      *reinterpret_cast<uint32_t*>(base + ((i ^ (row % 8)) * 16)) =
+          pack2<E>(s[4 * i + 2 * j], s[4 * i + 2 * j + 1]);
+    }
+  }
+}
+
+// acc += P V for the columns of this warpgroup's piece: P (64 x 64, sP)
+// K-major, the V piece MN-major at v_base (N of 64 or 128 columns, boxes
+// of 64 columns 64 x 128 bytes apart), one wgmma a 16-row step of kv.
+// The descriptors of each step are the first one's plus the step's byte
+// offset / 16 (its address field), so each chunk or piece computes one.
+template <int N, class E>
+__device__ __forceinline__ void issue_pv_ss(float (&acc)[N / 2],
+                                           uint64_t p_desc,
+                                           uint32_t v_base) {
+  const uint64_t v_desc = make_desc<128>(v_base, 64 * 128, 8 * 128);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss_vt<N, E>(acc, p_desc + kk * 32 / 16,
+                      v_desc + kk * 16 * 128 / 16);
+  }
+}
+
+// S (+)= Q K^T over one chunk of kChunk columns, as issue_qk, in one commit
+// group.
+template <int BQ, int BK, class E>
+__device__ __forceinline__ void issue_qk_chunk(float (&s)[BK / 2],
+                                               uint32_t q_base,
+                                               uint32_t k_base) {
+  using Sw = Swizzle<kChunk>;
+  const uint64_t da = make_desc<kChunk>(q_base, 16, 8 * Sw::kBytes);
+  const uint64_t db = make_desc<kChunk>(k_base, 16, 8 * Sw::kBytes);
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk) {
+    const int box = kk * 16 / Sw::kCols;
+    const int off = (kk * 16 % Sw::kCols) * 2;
+    wgmma_ss<BK, E>(s, da + (box * BQ * Sw::kBytes + off) / 16,
+                    db + (box * BK * Sw::kBytes + off) / 16);
+  }
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void rescale_rows(float (&acc)[N / 2], float c0,
+                                             float c1) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    acc[4 * i] *= c0;
+    acc[4 * i + 1] *= c0;
+    acc[4 * i + 2] *= c1;
+    acc[4 * i + 3] *= c1;
+  }
+}
+
+// The epilogue of one piece: this thread's rows r0 and r0 + 8 of acc /
+// den, the first `width` of the piece's N columns, into o (the piece's
+// first column of head h, batch b): in pairs where `pairs`, else one by one.
+template <int N, class E>
+__device__ __forceinline__ void store_piece(const float (&acc)[N / 2],
+                                            const float (&den)[2],
+                                            typename E::T* __restrict__ o,
+                                            const Params& p, int r0, int col,
+                                            int h, int b, int width,
+                                            bool pairs) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = r0 + 8 * j;
+    if (row >= p.sq || width <= 0) continue;
+    typename E::T* orow = o + b * p.o_sb +
+                          static_cast<long long>(row) * p.o_ss + h * p.o_sh;
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const float lo = acc[4 * i + 2 * j] / den[j];
+      const float hi = acc[4 * i + 2 * j + 1] / den[j];
+      const int c = 8 * i + col;
+      if (pairs) {
+        *reinterpret_cast<typename E::T2*>(orow + c) = E::pair(lo, hi);
+      } else {
+        if (c < width) orow[c] = E::one(lo);
+        if (c + 1 < width) orow[c + 1] = E::one(hi);
+      }
+    }
+  }
+}
+
+// The chunked kernel, for head dims above 256 (kernels/flash_attention.py:
+// wide_split): one block owns one (batch, q head, slice of up to DVS = 512
+// columns of v, q tile of 64 rows) and has two warpgroups, each of which
+// issues its own TMA copies (one thread does): warpgroup 0 Q, and each next
+// chunk of K into the stage it has just freed; warpgroup 1 the next V tile
+// once both are done with this one. Warpgroup 0 computes S = Q K^T once a
+// kv tile (one commit group a chunk of kChunk columns, the group before
+// waited for once the next is issued, each chunk's stages freed as soon as
+// its products are done), the online softmax, and writes P once to shared
+// memory; each warpgroup then adds P V for its half of the slice's columns
+// (64 rows x DVS / 2 of O: 128 registers a thread at DVS = 512), both
+// reading P as wgmma's A operand from shared memory. Warpgroup 0 leaves
+// its P V in flight under the next tile's Q K^T, and warpgroup 1's P V
+// runs under warpgroup 0's next Q K^T and softmax. No producer warpgroup:
+// a 256-thread block leaves a thread 255 registers, where a third
+// warpgroup would leave 168 at compile time (setmaxnreg moves registers
+// when the block runs, but ptxas compiled the consumers at 168 and spilled
+// 928 bytes at DVS = 512).
 template <class E, int DVS, int BQ, int BK>
-__global__ void __launch_bounds__((BQ / kRowsPerWG + 1) * kWG, 1)
+__global__ void __launch_bounds__(2 * kWG, 1)
     flash_fwd_sm90_chunked_kernel(const __grid_constant__ CUtensorMap tq,
                                   const __grid_constant__ CUtensorMap tk,
                                   const __grid_constant__ CUtensorMap tv,
                                   typename E::T* __restrict__ o,
                                   const Params p) {
-  static_assert(BQ == kRowsPerWG, "the chunked kernel has one consumer");
-  using SwC = Swizzle<kChunk>;  // chunks of Q and K
-  using SwV = Swizzle<DVS>;     // the slice of V
-  using Sm = SmemChunked<DVS, BQ, BK>;
-  constexpr int kStages = Sm::kStages;
+  static_assert(BQ == kRowsPerWG && BK == 64,
+                "the chunked kernel's tile is 64 x 64");
+  static_assert(DVS == 128 || DVS == 256 || DVS == 512, "slice class");
+  constexpr int kDVW = DVS / 2;                 // a warpgroup's columns
+  constexpr int kN = kDVW < 128 ? kDVW : 128;   // P V's N
+  constexpr int kNP = kDVW / kN;                // its pieces
+  constexpr uint32_t kBox = 64 * 128;           // 64 rows x 64 columns of E
+  const SmemChunked m = SmemChunked::of(p.d, DVS);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  unsigned char* ring =
-      smem_raw + ((Sm::kAlign - (raw & (Sm::kAlign - 1))) & (Sm::kAlign - 1));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * Sm::kStage);
-  uint64_t* empty = full + kStages;
+  unsigned char* sQ = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  unsigned char* sK = sQ + m.q_bytes;
+  unsigned char* sV = sK + kSlot * m.stages;
+  unsigned char* sP = sV + kSlot * m.n_v * m.n_vb;
+  float* sCorr = reinterpret_cast<float*>(sP + kPBytes);
+  float* sL = sCorr + 64;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(sL + 64);
+  uint64_t* v_full = k_full + m.stages;  // a V tile's pieces, tile t in
+  uint64_t* v_empty = v_full + m.n_v * m.n_vb;  // buffer t % n_vb
+  uint64_t* q_full = v_empty + m.n_v * m.n_vb;
 
   const int h = blockIdx.x % p.hq;
   const int slice = blockIdx.x / p.hq;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
   const int q_last = min(q0 + BQ, p.sq) - 1;
   const int k_end = p.causal ? min(p.skv, q_last + 1) : p.skv;
   const int n_tiles = (k_end + BK - 1) / BK;
-  const int n_chunks = (p.d + kChunk - 1) / kChunk;
+  const int wg = threadIdx.x / kWG;
+  const int per_chunk = m.q_held ? 1 : 2;  // K ring items a chunk
+
+  // The K ring's items are the chunks of each kv tile in order, each its
+  // chunk of Q (where Q streams) and then of K; item i lies in stage i %
+  // stages. Every index below advances by one step (no division by the
+  // run-time ring size: with two warps an SM sub-partition, a division's
+  // latency is paid in full). A cursor (tile, chunk, part) walks the items;
+  // issue_k copies its item into stage `st`, on the threads where `lead`.
+  struct Cursor {
+    int t, c, part;
+  };
+  auto advance = [&](Cursor& x) {
+    if (++x.part == per_chunk) {
+      x.part = 0;
+      if (++x.c == m.chunks) {
+        x.c = 0;
+        ++x.t;
+      }
+    }
+  };
+  auto issue_k = [&](bool lead, int st, const Cursor& x) {
+    if (x.t >= n_tiles) return;
+    const bool is_q = per_chunk == 2 && x.part == 0;
+    mbar_expect_tx_if(lead, &k_full[st], static_cast<uint32_t>(kSlot));
+    for (int i = 0; i < 2; ++i) {
+      tma_load_if(lead, sK + st * kSlot + i * kBox, is_q ? &tq : &tk,
+                  &k_full[st], x.c * kChunk + i * 64, is_q ? h : hk,
+                  is_q ? q0 : x.t * BK, b);
+    }
+  };
+  // a kv tile's V buffer (t % n_vb, n_vb 1 or 2) and its fill's parity
+  auto v_at = [&](int t) { return (m.n_vb == 2 ? t & 1 : 0) * m.n_v; };
+  auto v_parity = [&](int t) {
+    return static_cast<uint32_t>((m.n_vb == 2 ? t >> 1 : t) & 1);
+  };
+  auto issue_v = [&](bool lead, int t) {
+    for (int i = 0; i < m.n_v; ++i) {
+      const int at = v_at(t) + i;
+      mbar_expect_tx_if(lead, &v_full[at], static_cast<uint32_t>(kSlot));
+      for (int x = 0; x < 2; ++x) {
+        tma_load_if(lead, sV + at * kSlot + x * kBox, &tv, &v_full[at],
+                    slice * DVS + i * kChunk + x * 64, hk, t * BK, b);
+      }
+    }
+  };
+  // the item the next refill copies: `stages` on from the first
+  Cursor refill = {0, 0, 0};
+  for (int i = 0; i < m.stages; ++i) advance(refill);
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], kWG);
+    for (int st = 0; st < m.stages; ++st) mbar_init(&k_full[st], 1);
+    for (int i = 0; i < m.n_v * m.n_vb; ++i) {
+      mbar_init(&v_full[i], 1);
+      mbar_init(&v_empty[i], 2 * kWG / 32);  // one arrival a warp
     }
+    mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= kWG) {  // the producer warpgroup: one thread copies
-    if (threadIdx.x == kWG) {
-      const int hk = h / (p.hq / p.hkv);
-      int item = 0;
-      for (int t = 0; t < n_tiles; ++t) {
-        for (int c = 0; c <= n_chunks; ++c, ++item) {
-          const int st = item % kStages;
-          if (item >= kStages) mbar_wait(&empty[st], (item / kStages - 1) & 1);
-          unsigned char* dst = ring + st * Sm::kStage;
-          if (c < n_chunks) {
-            mbar_expect_tx(&full[st], static_cast<uint32_t>(Sm::kQ + Sm::kK));
-            for (int x = 0; x < SwC::kBoxes; ++x) {
-              const int c0 = c * kChunk + x * SwC::kCols;
-              tma_load(dst + x * BQ * SwC::kBytes, &tq, &full[st], c0, h, q0,
-                       b);
-              tma_load(dst + Sm::kQ + x * BK * SwC::kBytes, &tk, &full[st],
-                       c0, hk, t * BK, b);
-            }
-          } else {
-            mbar_expect_tx(&full[st], static_cast<uint32_t>(Sm::kV));
-            for (int x = 0; x < SwV::kBoxes; ++x) {
-              tma_load(dst + x * BK * SwV::kBytes, &tv, &full[st],
-                       slice * DVS + x * SwV::kCols, hk, t * BK, b);
-            }
-          }
+    if (m.q_held) {
+      mbar_expect_tx(q_full, static_cast<uint32_t>(m.q_bytes));
+      for (int c = 0; c < m.chunks; ++c) {
+        for (int x = 0; x < 2; ++x) {
+          tma_load(sQ + c * kSlot + x * kBox, &tq, q_full,
+                   c * kChunk + x * 64, h, q0, b);
         }
       }
     }
+    Cursor x = {0, 0, 0};
+    for (int st = 0; st < m.stages; ++st, advance(x)) issue_k(true, st, x);
+    for (int t = 0; t < m.n_vb && t < n_tiles; ++t) issue_v(true, t);
+  }
+  __syncthreads();
+
+  // a consumer warpgroup: the block's 64 rows, its half of the columns
+  const int tid = threadIdx.x % kWG;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r0 = q0 + warp * 16 + lane / 4;  // this thread's rows r0, r0+8
+  const int col = 2 * (lane % 4);
+  const int lr = warp * 16 + lane / 4;       // r0's row in the tile
+  const uint64_t p_desc = make_desc<64>(smem_u32(sP), 16, 8 * 128);
+  float acc[kNP][kN / 2];
+#pragma unroll
+  for (int pp = 0; pp < kNP; ++pp) {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc[pp][i] = 0.0f;
+  }
+  // the V piece and 64-column box of each of this warpgroup's pieces, in
+  // the V tile of buffer 0 (buffer 1 lies n_v stages on)
+  uint32_t v_piece[kNP];
+#pragma unroll
+  for (int pp = 0; pp < kNP; ++pp) {
+    const int c0 = wg * kDVW + pp * kN;
+    v_piece[pp] = smem_u32(sV) + (c0 / kChunk) * kSlot +
+                  (c0 % kChunk) / 64 * kBox;
+  }
+  float den[2];
+
+  if (wg == 0) {
+    // the K ring's next item to wait for: its stage and phase's parity
+    int st = 0;
+    uint32_t phase = 0;
+    auto next_stage = [&]() {
+      if (++st == m.stages) {
+        st = 0;
+        phase ^= 1;
+      }
+    };
+    // a chunk's stages done with: once every warp of the warpgroup is past
+    // its products, thread 0 refills each with the item `stages` on (the
+    // barrier also keeps the four warps in step for the next wgmma: without
+    // it the kernel ran about 14 % slower at (512, 512))
+    int freed[2] = {0, 0};  // the stages of the chunk before
+    auto free_k = [&]() {
+      named_sync_wg(kBarKFree);
+      for (int i = 0; i < per_chunk; ++i) {
+        issue_k(tid == 0, freed[i], refill);
+        advance(refill);
+      }
+    };
+    float s[BK / 2];
+    float m_row[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};
+    float corr[2];
+    if (m.q_held) mbar_wait(q_full, 0);
+    REPRO_PHASES_START;
+    for (int t = 0; t < n_tiles; ++t) {
+      // S = Q K^T, one commit group a chunk, each waited for once the next
+      // is issued (the first wait finds the previous tile's P V done). S is
+      // zeroed and every product accumulates: no branch between two kinds
+      // of wgmma, which ptxas would serialize
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
+      for (int c = 0; c < m.chunks; ++c) {
+        // this chunk's stages: Q's (where Q streams), then K's
+        int now[2] = {0, 0};
+        REPRO_PHASE(0, for (int i = 0; i < per_chunk; ++i) {
+          mbar_wait(&k_full[st], phase);
+          now[i] = st;
+          next_stage();
+        });
+        const uint32_t q_base = smem_u32(m.q_held ? sQ + c * kSlot
+                                                  : sK + now[0] * kSlot);
+        wgmma_fence();
+        issue_qk_chunk<BQ, BK, E>(s, q_base,
+                                  smem_u32(sK + now[per_chunk - 1] * kSlot));
+        // the group before this chunk's is done
+        REPRO_PHASE(1, wgmma_wait<1>());
+        if (c > 0) {
+          REPRO_PHASE(2, free_k());
+        } else if (t > 0) {  // the previous tile's P V: its V tile
+          for (int i = 0; i < m.n_v; ++i) {
+            mbar_arrive_if(lane == 0, &v_empty[v_at(t - 1) + i]);
+          }
+        }
+        freed[0] = now[0];
+        freed[1] = now[1];
+      }
+      REPRO_PHASE(3, wgmma_wait<0>());
+      fence_operands(s);
+      free_k();
+      REPRO_PHASE(4, softmax<BK>(s, m_row, l, corr, p, t * BK, r0, col,
+                                 p.causal && (t + 1) * BK - 1 > q0));
+      // warpgroup 1 is done with P
+      REPRO_PHASE(5, if (t > 0) named_sync(kBarPFree));
+      store_p<E>(s, sP, warp, lane);
+      sCorr[lr] = corr[0];  // the four threads of a row store the same
+      sCorr[lr + 8] = corr[1];
+      fence_proxy_async();
+      named_arrive(kBarPFull);
+      fence_operands(acc);
+#pragma unroll
+      for (int pp = 0; pp < kNP; ++pp) {
+        rescale_rows<kN>(acc[pp], corr[0], corr[1]);
+      }
+      REPRO_PHASE(6, for (int i = 0; i < m.n_v; ++i) {
+        mbar_wait(&v_full[v_at(t) + i], v_parity(t));
+      });
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int pp = 0; pp < kNP; ++pp) {
+        issue_pv_ss<kN, E>(acc[pp], p_desc,
+                           v_piece[pp] + v_at(t) * kSlot);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+      den[j] = fmaxf(l[j], 1e-30f);
+    }
+    sL[lr] = den[0];
+    sL[lr + 8] = den[1];
+    REPRO_PHASES_FLUSH(tid == 0, 0);
+    named_arrive(kBarLFull);
   } else {
-    consume_chunked<DVS, BQ, BK, kStages, E>(
-        smem_u32(ring), full, empty, o + slice * DVS, p, q0, h, b,
-        min(DVS, p.dv - slice * DVS), n_tiles, n_chunks);
+    REPRO_PHASES_START;
+    for (int t = 0; t < n_tiles; ++t) {
+      REPRO_PHASE(0, named_sync(kBarPFull));
+      const float c0 = sCorr[lr];
+      const float c1 = sCorr[lr + 8];
+#pragma unroll
+      for (int pp = 0; pp < kNP; ++pp) rescale_rows<kN>(acc[pp], c0, c1);
+      REPRO_PHASE(1, for (int i = 0; i < m.n_v; ++i) {
+        mbar_wait(&v_full[v_at(t) + i], v_parity(t));
+      });
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int pp = 0; pp < kNP; ++pp) {
+        issue_pv_ss<kN, E>(acc[pp], p_desc,
+                           v_piece[pp] + v_at(t) * kSlot);
+      }
+      wgmma_commit();
+      REPRO_PHASE(2, wgmma_wait<0>());
+      fence_operands(acc);
+      for (int i = 0; i < m.n_v; ++i) {
+        mbar_arrive_if(lane == 0, &v_empty[v_at(t) + i]);
+      }
+      // once both warpgroups are done with this V tile (warpgroup 0 is,
+      // early in the next tile's Q K^T), the tile n_vb on into its buffer
+      REPRO_PHASE(3, if (t + m.n_vb < n_tiles) {
+        for (int i = 0; i < m.n_v; ++i) {
+          mbar_wait(&v_empty[v_at(t) + i], v_parity(t));
+        }
+        issue_v(tid == 0, t + m.n_vb);
+      });
+      if (t + 1 < n_tiles) named_arrive(kBarPFree);
+    }
+    REPRO_PHASES_FLUSH(tid == 0, 1);
+    named_sync(kBarLFull);
+    den[0] = sL[lr];
+    den[1] = sL[lr + 8];
+  }
+  // each warpgroup's columns of the slice, the first `width` of them
+  const int width = min(DVS, p.dv - slice * DVS);
+#pragma unroll
+  for (int pp = 0; pp < kNP; ++pp) {
+    const int c0 = wg * kDVW + pp * kN;
+    store_piece<kN, E>(acc[pp], den, o + slice * DVS + c0, p, r0, col, h, b,
+                       width - c0, width - c0 >= kN && p.dv % 2 == 0);
   }
 }
 
@@ -1279,39 +1715,40 @@ int launch(const Call& c, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chunked kernel at slice class DVS: Q and K mapped in boxes of a
-// chunk's swizzle, V in its slice's; one block a (head, slice) on x.
+// The chunked kernel at slice class DVS: Q, K and V mapped in boxes of 64
+// columns (the 128-byte swizzle), 64 rows; one block a (head, slice) on x.
 template <class E, int DVS, int BQ, int BK>
 int launch_chunked(const Call& c, cudaStream_t stream) {
-  using Sm = SmemChunked<DVS, BQ, BK>;
-  static_assert(Sm::kStages >= 2, "the ring needs two stages");
-  constexpr size_t smem = Sm::kBytes;
-  CUtensorMap tq, tk, tv;
   const Params& p = c.p;
+  const SmemChunked m = SmemChunked::of(p.d, DVS);
+  if (m.bytes > kSmemLimit || m.stages < (m.q_held ? 2 : 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tq, tk, tv;
   if (!make_map<kChunk, E>(&tq, c.q, p.d, p.hq, p.sq, c.batch, c.q_sb,
                            c.q_ss, c.q_sh, BQ) ||
       !make_map<kChunk, E>(&tk, c.k, p.d, p.hkv, p.skv, c.batch, c.k_sb,
                            c.k_ss, c.k_sh, BK) ||
-      !make_map<DVS, E>(&tv, c.v, p.dv, p.hkv, p.skv, c.batch, c.v_sb,
-                        c.v_ss, c.v_sh, BK)) {
+      !make_map<kChunk, E>(&tv, c.v, p.dv, p.hkv, p.skv, c.batch, c.v_sb,
+                           c.v_ss, c.v_sh, BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // set at every launch: a function-local static flag would be one symbol
+  // for every library that instantiates this template in the process (an
+  // earlier build's, loaded beside this one), so one library's flag would
+  // skip another's setting
   auto kernel = flash_fwd_sm90_chunked_kernel<E, DVS, BQ, BK>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemLimit));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long slices = (p.dv + DVS - 1) / DVS;
-  if (slices * p.hq > 0x7fffffffLL) {
+  if (slices * p.hq > 0x7fffffffLL || (p.sq + BQ - 1) / BQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>(slices * p.hq), (p.sq + BQ - 1) / BQ,
                   c.batch);
-  kernel<<<grid, 2 * kWG, smem, stream>>>(
+  kernel<<<grid, 2 * kWG, m.bytes, stream>>>(
       tq, tk, tv, static_cast<typename E::T*>(c.o), p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1374,8 +1811,8 @@ int by_class_wide(int dc, int dvc, int block_q, int block_k, const Call& c,
 }
 #undef REPRO_FLASH_SM90_CLASS
 
-// The chunked kernel at its one tile, 64 x 64, for slice class dvs (64, 128
-// or 256, kernels/flash_attention.py:wide_split), both element types in
+// The chunked kernel at its one tile, 64 x 64, for slice class dvs (128,
+// 256 or 512, kernels/flash_attention.py:wide_split), both element types in
 // flash_attention_sm90_chunked.cu.
 template <class E>
 int by_slice_chunked(int dvs, int block_q, int block_k, const Call& c,
@@ -1383,9 +1820,9 @@ int by_slice_chunked(int dvs, int block_q, int block_k, const Call& c,
   if (block_q != 64 || block_k != 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dvs == 64) return launch_chunked<E, 64, 64, 64>(c, s);
   if (dvs == 128) return launch_chunked<E, 128, 64, 64>(c, s);
   if (dvs == 256) return launch_chunked<E, 256, 64, 64>(c, s);
+  if (dvs == 512) return launch_chunked<E, 512, 64, 64>(c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

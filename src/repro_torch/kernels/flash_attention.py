@@ -23,24 +23,28 @@ element type a template parameter), both behind the C entry point
 instantiations are spread over ``.cu`` files that ``nvcc`` builds in
 parallel).
 
-``block_q`` / ``block_k`` are the kernel's tiles. The ``[B, S, H, D]`` form
-takes any sequence lengths: a ragged last tile runs masked. The
-reference-signature :func:`flash_attention` keeps the reference's rule that
-``min(block, S)`` divides the sequence (``ValueError`` otherwise). Both
+``block_q`` / ``block_k`` are the kernel's tiles; a tile the caller does
+not name is :func:`default_tiles`'s, built at every head dim. The
+``[B, S, H, D]`` form takes any sequence lengths: a ragged last tile runs
+masked. The reference-signature :func:`flash_attention` keeps the
+reference's rule that ``min(block, S)`` divides the sequence
+(``ValueError`` otherwise). Both
 kernels take every pair of head dims ``D, Dv >= 1``, as the reference's
 kernel takes any. Up to :data:`MAX_CLASS_DIM` each call runs at its
 head-dim class (:func:`head_dim_class`: each width rounded up to one of
 :data:`HEAD_DIMS`, the pair to the square class of the larger where the
 pair is not one of :data:`HEAD_DIM_PAIRS`), its padded columns zero, its
 scale and its cost those of the true dims. Wider pairs run on the chunked
-instantiations (:func:`wide_split`): S is summed over chunks of
-:data:`WIDE_CHUNK` columns of q and k, and v's columns are split into
-slices on a grid axis, each slice's block recomputing the same S in the
-same order, so every slice normalises by the same ``l``. The widest pair
-held against the plain version on the card is (1024, 1024), in f32, bf16
-and f16 (``chip_smoke.py``'s ``check_flash``). What the kernels are built
-for — the tiles of :func:`tile_options` at each class, and the shared
-memory and registers a block may have — is stated once, in
+kernels (:func:`wide_split`, :func:`wide_layout`): one block owns a q tile
+and every column of v up to :data:`WIDE_MAX_SLICE` (wider v is cut into
+slices of at most that, and only there is S computed again); it computes
+S once a kv tile, summed over chunks of :data:`WIDE_CHUNK` columns of q
+and k, with Q held in shared memory for the whole kv walk wherever it
+fits, and splits the output's columns over its math warps. The widest
+pair held against the plain version on the card is (1024, 1024), in f32,
+bf16 and f16 (``chip_smoke.py``'s ``check_flash``). What the kernels are
+built for — the tiles of :func:`tile_options` at each class, and the
+shared memory and registers a block may have — is stated once, in
 :func:`unsupported`; a tile longer than the sequence runs with its tail
 masked. A tensor that breaks the kernels' 16-byte copy rule (a base that
 is not 16-byte aligned, a stride that is not a multiple of 16 bytes, a
@@ -77,18 +81,27 @@ MAX_CLASS_DIM = HEAD_DIMS[-1]
 #: larger width (:func:`head_dim_class`)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 #: the chunked kernels (a head dim above MAX_CLASS_DIM): S = Q K^T summed
-#: over chunks of this many columns of q and k; the output's columns in
-#: slices of at most MAX_CLASS_DIM on a grid axis, each slice at the least
-#: of WIDE_SLICE_CLASSES that holds it, its block recomputing the same S
+#: over chunks of this many columns of q and k, once a (q tile, kv tile)
 WIDE_CHUNK = 128
-WIDE_SLICE_CLASSES = (64, 128, 256)
+#: the chunked kernels' slice classes: a block holds every column of v up
+#: to the last of them (its math warps split the columns), at the least
+#: class that holds an even share of v; wider v is cut into slices on a
+#: grid axis, each slice's block computing the same S again
+WIDE_SLICE_CLASSES = (128, 256, 512)
+WIDE_MAX_SLICE = WIDE_SLICE_CLASSES[-1]
 #: the chunked kernels' tiles, by element size: f32 (4) at 32 and 64 query
-#: rows, bf16 and f16 (2) at one consumer warpgroup (its O of a 256-column
-#: slice is 128 registers a thread)
-WIDE_TILES = {4: ((32, 64), (64, 64)), 2: ((64, 64),)}
-#: the most stages of the chunked wgmma kernel's ring (each stage holds a
-#: chunk of Q and of K, or a slice of V)
+#: rows over 32 kv rows (8 warps: S together, then each warp a range of O's
+#: columns for every row), bf16 and f16 (2) at 64 x 64 (two consumer
+#: warpgroups, each 64 rows x half the slice's columns of O)
+WIDE_TILES = {4: ((32, 32), (64, 32)), 2: ((64, 64),)}
+#: the most stages of the chunked wgmma kernel's K ring (each a chunk of K,
+#: or of Q where Q is not held)
 WIDE_MAX_STAGES = 8
+#: one stage of a chunked kernel's ring: 64 rows x WIDE_CHUNK columns of
+#: 2-byte elements (wgmma), or ``block_k`` rows of WIDE_CHUNK + 16 floats
+#: (f32; the 16 keep the fragment loads free of bank conflicts)
+WIDE_SLOT_BYTES = 2 * 64 * WIDE_CHUNK
+WIDE_F32_PITCH = WIDE_CHUNK + 16
 #: ``(D, Dv, block_q, block_k)`` class pairs and tiles of the wgmma kernel
 #: that fit in shared memory but are not built (``kBuilt`` in the source):
 #: at (256, 256), 128 x 64 spills 216 bytes of registers (a 384-thread
@@ -132,14 +145,66 @@ def is_wide(head_dim: int, value_dim: int) -> bool:
 def wide_split(head_dim: int, value_dim: int) -> Tuple[int, int, int]:
     """How the chunked kernels take ``(D, Dv)``: ``(chunks of q and k,
     slice class, slices of v)``: ``ceil(D / WIDE_CHUNK)`` chunks summed
-    into S; ``n = ceil(Dv / 256)`` slices of v's columns, each at the least
-    of :data:`WIDE_SLICE_CLASSES` that holds ``ceil(Dv / n)`` (the last
-    slice holds what is left). ``wide_slice_class`` of
+    into S; ``n = ceil(Dv / WIDE_MAX_SLICE)`` slices of v's columns, each at
+    the least of :data:`WIDE_SLICE_CLASSES` that holds ``ceil(Dv / n)``
+    (the last slice holds what is left). One slice up to Dv = 512: S is
+    computed once a (q tile, kv tile). ``wide_slice_class`` of
     ``csrc/flash_attention.cu`` states the same rule."""
-    n_slices = -(-value_dim // MAX_CLASS_DIM)
+    n_slices = -(-value_dim // WIDE_MAX_SLICE)
     width = -(-value_dim // n_slices)
     cls = next(c for c in WIDE_SLICE_CLASSES if width <= c)
     return -(-head_dim // WIDE_CHUNK), cls, -(-value_dim // cls)
+
+
+def wide_layout(itemsize: int, head_dim: int, value_dim: int,
+                block_q: int, block_k: int) -> Tuple[bool, int, int, int]:
+    """``(q held, ring stages, V tiles, shared memory bytes)`` of a chunked
+    kernel's block at ``(D, Dv)`` (:func:`is_wide`) and these tiles, byte
+    for byte with the source (``SmemChunked`` of
+    ``csrc/flash_attention_sm90.cuh``, ``WideLayout`` of
+    ``csrc/flash_attention_f32.cuh``).
+
+    bf16 and f16 (tiles 64 x 64; a stage is :data:`WIDE_SLOT_BYTES`, 64
+    rows x WIDE_CHUNK columns): 10240 fixed bytes (1024 of slack that
+    aligns the swizzled tiles, P's 64 x 64 in the element type, the rows'
+    rescale factors and sums, 64 floats each, and 512 of mbarriers); the
+    V tile (a stage for each 128-column piece of the slice), twice
+    where two tiles fit beside three K stages (four where Q streams); Q
+    (``chunks`` stages) held for the whole kv walk where it fits beside
+    one V tile and two K stages; the K ring as many stages as fit, at most
+    :data:`WIDE_MAX_STAGES`. Where Q does not fit (from 8 chunks at a slice
+    of 512, D > 896; 10 at 256; 11 at 128) each chunk of Q streams through
+    the ring beside its chunk of K, once a kv tile.
+
+    f32: the ring has ``n_v + 2`` stages of ``block_k`` rows of
+    :data:`WIDE_F32_PITCH` floats (a chunk of K, or a 128-column piece of V,
+    ``n_v = slice class / 128`` of them a tile: one V tile, in the ring),
+    P as the mma's A fragments split into two TF32 parts (``2 bq bk``
+    floats), and the softmax's row statistics (``(2 * 128 / bq + 2) bq``
+    floats); Q in chunks of ``bq`` rows of the same pitch, every chunk held
+    where they fit in 227 KB, else two chunk buffers that Q streams through
+    beside K, once a kv tile (at 32 x 32 from 7 chunks at a slice of 512,
+    D > 768; at 64 x 32 from 3, D > 256)."""
+    chunks, cls, _ = wide_split(head_dim, value_dim)
+    n_v = cls // WIDE_CHUNK
+    limit = SMEM_LIMIT_BYTES
+    if itemsize == 2:
+        fixed = 1024 + 2 * 64 * 64 + 2 * 64 * 4 + 512
+        v = WIDE_SLOT_BYTES * n_v
+        held = fixed + v + WIDE_SLOT_BYTES * (chunks + 2) <= limit
+        q_bytes = WIDE_SLOT_BYTES * chunks if held else 0
+        v_tiles = 2 if (fixed + 2 * v + q_bytes
+                        + WIDE_SLOT_BYTES * (3 if held else 4)) <= limit else 1
+        stages = min(WIDE_MAX_STAGES, (limit - fixed - v_tiles * v - q_bytes)
+                     // WIDE_SLOT_BYTES)
+        return (held, stages, v_tiles,
+                fixed + v_tiles * v + q_bytes + WIDE_SLOT_BYTES * stages)
+    stages = n_v + 2
+    q_chunk = 4 * block_q * WIDE_F32_PITCH
+    rest = (4 * stages * block_k * WIDE_F32_PITCH + 4 * 2 * block_q * block_k
+            + 4 * (2 * (128 // block_q) + 2) * block_q)
+    held = rest + chunks * q_chunk <= limit
+    return held, stages, 1, rest + (chunks if held else 2) * q_chunk
 
 
 def tile_options(itemsize: int, head_dim: Optional[int] = None,
@@ -157,6 +222,20 @@ def tile_options(itemsize: int, head_dim: Optional[int] = None,
     if itemsize == 2:
         return BF16_BLOCK_Q_OPTIONS, BF16_BLOCK_K_OPTIONS
     return BLOCK_Q_OPTIONS, BLOCK_K_OPTIONS
+
+
+def default_tiles(itemsize: int, head_dim: int, value_dim: int
+                  ) -> Tuple[int, int]:
+    """The tiles of a call whose caller names none: :data:`DEFAULT_BLOCK_Q`
+    x :data:`DEFAULT_BLOCK_K`, or, at head dims that run on the chunked
+    kernels (:func:`is_wide`) where that tile is not one of
+    :data:`WIDE_TILES`, the last of the element size's (f32: 64 x 32)."""
+    tiles = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)
+    wide = WIDE_TILES.get(itemsize)
+    if wide is not None and tiles not in wide and is_wide(head_dim,
+                                                          value_dim):
+        return wide[-1]
+    return tiles
 
 
 def _width_class(x: int) -> Optional[int]:
@@ -210,19 +289,6 @@ def bf16_stages(head_dim: int, block_q: int, block_k: int,
     return BF16_MAX_STAGES if fits else 2
 
 
-def _wide_stage(block_q: int, block_k: int, slice_cls: int) -> int:
-    return 2 * max((block_q + block_k) * WIDE_CHUNK, block_k * slice_cls)
-
-
-def wide_stages(block_q: int, block_k: int, slice_cls: int) -> int:
-    """Stages of the chunked wgmma kernel's ring: as many as fit in a
-    block's shared memory, at most :data:`WIDE_MAX_STAGES`
-    (``SmemChunked::kStages`` in the source)."""
-    stage = _wide_stage(block_q, block_k, slice_cls)
-    return max(0, min(WIDE_MAX_STAGES,
-                      (SMEM_LIMIT_BYTES - 1024) // (stage + 16)))
-
-
 def smem_bytes(itemsize: int, head_dim: int, block_q: int,
                block_k: int, value_dim: Optional[int] = None) -> int:
     """Shared memory of one thread block of the kernel, at the class
@@ -239,23 +305,12 @@ def smem_bytes(itemsize: int, head_dim: int, block_q: int,
     that align the swizzled tiles: ``2 (D (bq + stages bk) + Dv stages bk)
     + 8 (2 stages + 1) + 1024``.
 
-    The chunked kernels (:func:`is_wide`) hold one chunk of D and one
-    slice of Dv at a time (:func:`wide_split`): f32 as above at D =
-    WIDE_CHUNK and Dv the slice class, or the merge's ``8 warps x 16 rows
-    of Dv + 12`` floats and ``bq`` more where that is larger (at 32 x 64
-    and a slice of 256); bf16 and f16 a ring of :func:`wide_stages` stages
-    of ``2 max((bq + bk) WIDE_CHUNK, bk Dv)`` bytes (a chunk of Q and of K,
-    or a slice of V), two mbarriers a stage and the 1024 bytes of slack."""
+    The chunked kernels (:func:`is_wide`): :func:`wide_layout`'s bytes
+    (Q held where it fits, a ring of K chunks and V pieces, P and the
+    softmax's statistics)."""
     dv = head_dim if value_dim is None else value_dim
     if is_wide(head_dim, dv):
-        _, cls, _ = wide_split(head_dim, dv)
-        if itemsize == 2:
-            stages = wide_stages(block_q, block_k, cls)
-            return (stages * _wide_stage(block_q, block_k, cls)
-                    + 16 * stages + 1024)
-        return 4 * max(2 * block_q * WIDE_CHUNK
-                       + block_k * (WIDE_CHUNK + 16) + block_k * (cls + 4),
-                       8 * 16 * (cls + 12) + block_q)
+        return wide_layout(itemsize, head_dim, dv, block_q, block_k)[3]
     dc, dvc = _class_dims(head_dim, dv)
     if itemsize == 2:
         return _bf16_smem(dc, block_q, block_k,
@@ -292,17 +347,20 @@ def flash_attention_cost(batch_heads: int, seq_q: int, seq_kv: int,
     heads) at these tiles (:func:`flash_attention_work`): ``2 (D + Dv)``
     flops an evaluated score entry; q read and o written once, and each kv
     row a q tile visits read for it. The chunked kernels (:func:`is_wide`)
-    recompute S for each slice of v (:func:`wide_split`): ``2 (D n_slices
-    + Dv)`` flops an entry, and q and k read once a slice, q once for each
-    kv tile it visits (they hold a chunk of it at a time). The tuner's
-    candidates and the cost counter's charge for a launch."""
+    compute S once for each slice of v (:func:`wide_split`; one slice up to
+    Dv = 512): ``2 (D n_slices + Dv)`` flops an entry and q and k read once
+    a slice; q is read once where the block holds it (:func:`wide_layout`),
+    else once for each kv tile it visits. The tuner's candidates and the
+    cost counter's charge for a launch."""
     entries, kv_rows, _ = flash_attention_work(
         seq_q, seq_kv, causal=causal, block_q=block_q, block_k=block_k)
     slices, q_rows = 1, seq_q
     if is_wide(head_dim, value_dim):
         slices = wide_split(head_dim, value_dim)[2]
-        q_rows = _q_rows_visited(seq_q, seq_kv, causal=causal,
-                                 block_q=block_q, block_k=block_k)
+        if not wide_layout(itemsize, head_dim, value_dim, block_q,
+                           block_k)[0]:
+            q_rows = _q_rows_visited(seq_q, seq_kv, causal=causal,
+                                     block_q=block_q, block_k=block_k)
     flops = 2.0 * batch_heads * entries * (head_dim * slices + value_dim)
     byts = float(itemsize * batch_heads * (q_rows * head_dim * slices
                                            + seq_q * value_dim
@@ -359,9 +417,11 @@ def _positive(name: str, value) -> int:
     return value
 
 
-def _check_bshd(q, k, v, block_q, block_k) -> Tuple[int, int]:
+def _check_bshd(q, k, v, block_q: Optional[int], block_k: Optional[int]
+                ) -> Tuple[int, int, int, int]:
     """Shapes, dtypes and blocks of the ``[B, S, H, D]`` form; returns the
-    clamped blocks ``(min(block_q, Sq), min(block_k, Skv))``. Any lengths
+    blocks (one that is ``None`` taken from :func:`default_tiles`) and
+    their clamps ``(min(block_q, Sq), min(block_k, Skv))``. Any lengths
     are taken: a ragged last block runs masked."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
@@ -381,8 +441,10 @@ def _check_bshd(q, k, v, block_q, block_k) -> Tuple[int, int]:
                          f"{k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
-    return (min(_positive("block_q", block_q), Sq),
-            min(_positive("block_k", block_k), k.shape[1]))
+    dq, dk = default_tiles(q.element_size(), D, v.shape[3])
+    block_q = _positive("block_q", dq if block_q is None else block_q)
+    block_k = _positive("block_k", dk if block_k is None else block_k)
+    return block_q, block_k, min(block_q, Sq), min(block_k, k.shape[1])
 
 
 def _block_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -493,9 +555,10 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
     (:func:`head_dim_class`), whose tiles and shared memory are checked;
     wider on the chunked instantiations at :data:`WIDE_TILES`. The f32
     kernel's tiles are built wherever they fit, some spilling registers
-    (its only tile at (256, 256), 32 x 64, spills ~130 bytes; the chunked
-    one's 256-column slices 1.1–1.5 KB); the wgmma kernel's but
-    :data:`BF16_SPILLING_TILES`."""
+    (its only tile at (256, 256), 32 x 64, spills ~130 bytes); the wgmma
+    kernel's but :data:`BF16_SPILLING_TILES`. The chunked kernels' tiles
+    fit at every width (:func:`wide_layout`: Q streams where it is not
+    held) and spill nothing."""
     cls = head_dim_class(head_dim, value_dim)
     if cls is None:
         return (f"head-dim-range (the kernels take head dims D, Dv >= 1; "
@@ -512,8 +575,7 @@ def unsupported(itemsize: int, head_dim: int, value_dim: int, block_q: int,
         return (f"not-instantiated (the {itemsize}-byte kernel is built for "
                 f"{tiles}; got ({block_q}, {block_k}))")
     smem = smem_bytes(itemsize, head_dim, block_q, block_k, value_dim)
-    if smem > SMEM_LIMIT_BYTES or (wide and itemsize == 2 and wide_stages(
-            block_q, block_k, wide_split(head_dim, value_dim)[1]) < 2):
+    if smem > SMEM_LIMIT_BYTES:
         return (f"smem-overflow (tiles ({block_q}, {block_k}) need {smem} B "
                 f"of shared memory at {itemsize}-byte elements, head-dim "
                 f"class {cls}; a block has {SMEM_LIMIT_BYTES} B)")
@@ -609,21 +671,24 @@ def _launch(q, k, v, causal: bool, scale: float, block_q: int,
     key = launch_key(D, Dv, causal, Sq, Skv)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     from repro_torch.core import hlo_cost
+    # the tiles as launched (a tile longer than the sequence visits what
+    # the clamped one would; the chunked kernels' layout is the tile's)
     hlo_cost.charge_kernel("flash_attention", lambda: flash_attention_cost(
         B * Hq, Sq, Skv, D, Dv, q.element_size(), causal=causal,
-        block_q=min(block_q, Sq), block_k=min(block_k, Skv)))
+        block_q=block_q, block_k=block_k))
     return out
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          scale: Optional[float] = None,
-                         block_q: int = DEFAULT_BLOCK_Q,
-                         block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+                         block_q: Optional[int] = None,
+                         block_k: Optional[int] = None) -> torch.Tensor:
     """q ``[B, Sq, Hq, D]``, k/v ``[B, Skv, Hkv, D/Dv]`` -> ``[B, Sq, Hq,
-    Dv]``; GQA by indexing. CPU tensors take the plain version; any other
+    Dv]``; GQA by indexing; tiles the caller does not name are
+    :func:`default_tiles`'s. CPU tensors take the plain version; any other
     tensor goes to the CUDA kernel, and what it does not take raises."""
-    bq, bk = _check_bshd(q, k, v, block_q, block_k)
+    block_q, block_k, bq, bk = _check_bshd(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=bq, block_k=bk, round_p=True)
@@ -639,16 +704,20 @@ def _as_bshd(x: torch.Tensor, name: str) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    block_q: int = DEFAULT_BLOCK_Q,
-                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """q: ``[BH, Sq, D]``, k/v: ``[BH, Skv, D/Dv]`` -> ``[BH, Sq, Dv]``.
 
     Batch and heads are folded into the leading dim, as in the reference
     (GQA lives in :func:`flash_attention_bshd`). As in the reference,
-    ``min(block, S)`` must divide the sequence (``ValueError``
-    otherwise)."""
+    ``min(block, S)`` must divide the sequence (``ValueError`` otherwise),
+    a block the caller does not name counted as :data:`DEFAULT_BLOCK_Q` /
+    :data:`DEFAULT_BLOCK_K`; the kernel then runs at
+    :func:`default_tiles`."""
     q4, k4, v4 = _as_bshd(q, "q"), _as_bshd(k, "k"), _as_bshd(v, "v")
-    bq, bk = _check_bshd(q4, k4, v4, block_q, block_k)
+    *_, bq, bk = _check_bshd(
+        q4, k4, v4, DEFAULT_BLOCK_Q if block_q is None else block_q,
+        DEFAULT_BLOCK_K if block_k is None else block_k)
     Sq, Skv = q.shape[1], k.shape[1]
     if Sq % bq or Skv % bk:
         raise ValueError(

@@ -24,14 +24,15 @@ def membw_op(x, *, n_chunks: int, n_iters: int):
 
 
 def flash_attention_op(q, k, v, *, causal: bool = True,
-                       block_q: int = fa.DEFAULT_BLOCK_Q,
-                       block_k: int = fa.DEFAULT_BLOCK_K,
+                       block_q: Optional[int] = None,
+                       block_k: Optional[int] = None,
                        scale: Optional[float] = None):
     """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D/Dv] -> [B, Sq, Hq, Dv].
     GQA by indexing kv head ``h // (Hq // Hkv)``; nothing is repeated or
     transposed. Any head dims ``D, Dv >= 1`` in f32, bf16 and f16, as the
     reference's op takes any (``fa.unsupported`` states the kernels'
-    rules; another dtype raises by name on the card).
+    rules; another dtype raises by name on the card); tiles the caller
+    does not name are ``fa.default_tiles``'s.
 
     The kernel has no backward: inputs that require grad while autograd
     records raise, on every device (the output would carry no ``grad_fn``

@@ -439,8 +439,9 @@ class FlashAttentionSpace(KernelSpace):
     ``flash_attention.head_dim_class``; wider on its chunked
     instantiations, ``flash_attention.wide_split``), a tile must be one the
     kernel is instantiated for (``BLOCK_Q_OPTIONS`` x ``BLOCK_K_OPTIONS``,
-    or ``WIDE_TILES`` above 256), its shared memory at the class (Q split
-    into two TF32 parts and the K and V slots;
+    or ``WIDE_TILES`` above 256: the default options are the kernel's
+    ``flash_attention.tile_options`` at the head dims), its shared memory
+    at the class (Q split into two TF32 parts and the K and V slots;
     ``flash_attention.smem_bytes``) must fit in the 227 KB a block can
     have; and ``min(block, S)`` must divide the sequence. So the space
     keeps candidates at every head dim the reference tunes at, 96 and
@@ -451,8 +452,8 @@ class FlashAttentionSpace(KernelSpace):
     they contribute ``exp(-1e30 - m) = 0``), so flops count only the
     (q tile, kv tile) pairs the kernel visits, ``2 * (D + Dv)`` a score
     entry (above 256, ``2 * (D * n_slices + Dv)``: the chunked kernel
-    recomputes S for each slice of v), where the reference counts the full
-    rectangle. Traffic: q and o
+    computes S once for each slice of v, one slice up to Dv = 512), where
+    the reference counts the full rectangle. Traffic: q and o
     move once, K and V once per visited pair, in the inputs' itemsize. Both
     count the true head dims, as the reference's do, not the class's: a
     class's padded columns show as a lower achieved share, not as work.
@@ -467,8 +468,8 @@ class FlashAttentionSpace(KernelSpace):
     def __init__(self, batch_heads: int = 4, seq_q: int = 1024,
                  seq_kv: Optional[int] = None, head_dim: int = 128,
                  value_dim: Optional[int] = None, causal: bool = True,
-                 block_q_options: Sequence[int] = (32, 64, 128),
-                 block_k_options: Sequence[int] = (64, 128),
+                 block_q_options: Optional[Sequence[int]] = None,
+                 block_k_options: Optional[Sequence[int]] = None,
                  chip: ChipSpec = H100_SXM,
                  vmem_limit_bytes: Optional[int] = None, seed: int = 0,
                  device=DEFAULT_DEVICE):
@@ -481,8 +482,13 @@ class FlashAttentionSpace(KernelSpace):
         self.value_dim = self.head_dim if value_dim is None \
             else _check_positive_int("value_dim", value_dim)
         self.causal = bool(causal)
-        self.block_q_options = tuple(int(b) for b in block_q_options)
-        self.block_k_options = tuple(int(b) for b in block_k_options)
+        # the kernel's instantiated tiles at these head dims by default
+        from repro_torch.kernels import flash_attention as fa
+        q_opts, k_opts = fa.tile_options(4, self.head_dim, self.value_dim)
+        self.block_q_options = tuple(int(b) for b in (
+            q_opts if block_q_options is None else block_q_options))
+        self.block_k_options = tuple(int(b) for b in (
+            k_opts if block_k_options is None else block_k_options))
         self.seed = seed
         self.itemsize = 4                          # f32 inputs
         self._qkv = None

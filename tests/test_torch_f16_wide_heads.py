@@ -114,16 +114,19 @@ def test_wide_op_matches_reference_kernel(D, Dv, dtype):
                                   (320, 384), (512, 512), (576, 512),
                                   (1024, 1024)])
 def test_wide_split_states_the_chunked_kernels(D, Dv):
-    """q and k in whole chunks of WIDE_CHUNK columns, v in slices of at
-    most 256 columns at the least slice class that holds an even share of
-    them; every dtype has a tile the model picks, and the class pair is the
-    widths the kernels compute."""
+    """q and k in whole chunks of WIDE_CHUNK columns; v in slices of at
+    most WIDE_MAX_SLICE = 512 columns (one slice up to Dv = 512, so S is
+    computed once a kv tile) at the least slice class that holds an even
+    share of them; every dtype has a tile the model picks, and the class
+    pair is the widths the kernels compute."""
     chunks, cls, slices = fa.wide_split(D, Dv)
     assert fa.is_wide(D, Dv)
+    assert fa.WIDE_SLICE_CLASSES == (128, 256, 512)
     assert (chunks - 1) * fa.WIDE_CHUNK < D <= chunks * fa.WIDE_CHUNK
     assert cls in fa.WIDE_SLICE_CLASSES and (slices - 1) * cls < Dv <= \
         slices * cls
-    assert slices == -(-Dv // fa.MAX_CLASS_DIM)
+    assert slices == -(-Dv // fa.WIDE_MAX_SLICE)
+    assert (slices == 1) == (Dv <= 512)
     assert fa.head_dim_class(D, Dv) == (chunks * fa.WIDE_CHUNK,
                                         slices * cls)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -134,41 +137,147 @@ def test_wide_split_states_the_chunked_kernels(D, Dv):
 
 
 def test_chunked_shared_memory_formula():
-    """The chunked kernels' shared memory: f32 the tiles at D = WIDE_CHUNK
-    and Dv the slice class, or the merge where that is larger (32 x 64 at
-    a slice of 256); bf16 / f16 a ring of as many 32 KB stages as fit (a
-    chunk of Q and of K at 64 x 64), two mbarriers each and the slack."""
-    assert fa.wide_split(512, 512) == (4, 256, 2)
-    tiles = 4 * (2 * 64 * 128 + 64 * 144 + 64 * 260)
-    assert fa.smem_bytes(4, 512, 64, 64, 512) == tiles == 168960
-    merge = 4 * (8 * 16 * (256 + 12) + 32)
-    assert fa.smem_bytes(4, 512, 32, 64, 512) == merge == 137344
-    assert fa.smem_bytes(4, 300, 32, 64, 64) == 4 * (
-        2 * 32 * 128 + 64 * 144 + 64 * 68)
-    assert fa.wide_stages(64, 64, 256) == 7
-    for dv in (64, 300, 1024):
-        assert fa.smem_bytes(2, 600, 64, 64, dv) == 7 * 32768 + 7 * 16 + 1024
-        assert fa.smem_bytes(2, 600, 64, 64, dv) <= fa.SMEM_LIMIT_BYTES
+    """The chunked kernels' shared memory, byte for byte with the sources'
+    SmemChunked / WideLayout. wgmma (64 x 64, stages of 16 KB): 10240
+    bytes of slack, P, the rows' factors and sums and the mbarriers; the V
+    tile (a stage a 128-column piece), twice where two fit beside three K
+    stages (four where Q streams); Q held (a stage a chunk) where it fits
+    beside one V tile and two K stages; the K ring as many stages as fit,
+    at most 8. f32: n_v + 2 stages of bk rows of 144 floats, P's two TF32
+    parts, the row statistics, and Q's chunks (bq rows of 144 floats) held
+    where they fit, else two chunk buffers."""
+    assert fa.wide_split(512, 512) == (4, 512, 1)
+    assert fa.wide_split(576, 512) == (5, 512, 1)
+    assert fa.wide_split(300, 64) == (3, 128, 1)
+    assert fa.wide_split(64, 300) == (1, 512, 1)
+    assert fa.wide_split(1024, 1024) == (8, 512, 2)
+    assert fa.wide_split(512, 640) == (4, 512, 2)
+    s_ = fa.WIDE_SLOT_BYTES
+    assert s_ == 16384
+    fixed = 1024 + 2 * 64 * 64 + 2 * 64 * 4 + 512
+    # (D, Dv): (q held, K stages, V tiles, bytes): Q + K ring + V tiles
+    want = {(512, 512): (True, 5, 1, fixed + (4 + 5 + 4) * s_),
+            (576, 512): (True, 4, 1, fixed + (5 + 4 + 4) * s_),
+            (896, 512): (True, 2, 1, fixed + (7 + 2 + 4) * s_),
+            (897, 512): (False, 5, 2, fixed + (5 + 8) * s_),
+            (1024, 1024): (False, 5, 2, fixed + (5 + 8) * s_),
+            (300, 64): (True, 8, 2, fixed + (3 + 8 + 2) * s_),
+            (64, 300): (True, 4, 2, fixed + (1 + 4 + 8) * s_),
+            (1281, 64): (False, 8, 2, fixed + (8 + 2) * s_)}
+    for (D, Dv), layout in want.items():
+        assert fa.wide_layout(2, D, Dv, 64, 64) == layout, (D, Dv)
+    stage, q32, q64 = 4 * 32 * 144, 4 * 32 * 144, 4 * 64 * 144
+    # six ring stages at a slice of 512
+    rest32 = 6 * stage + 4 * 2 * 32 * 32 + 4 * (2 * 4 + 2) * 32
+    assert fa.wide_layout(4, 512, 512, 32, 32) == (True, 6, 1,
+                                                   rest32 + 4 * q32)
+    assert fa.wide_layout(4, 768, 512, 32, 32)[0]
+    assert fa.wide_layout(4, 769, 512, 32, 32) == (False, 6, 1,
+                                                   rest32 + 2 * q32)
+    rest64 = 6 * stage + 4 * 2 * 64 * 32 + 4 * (2 * 2 + 2) * 64
+    assert fa.wide_layout(4, 512, 512, 64, 32) == (False, 6, 1,
+                                                   rest64 + 2 * q64)
+    assert fa.wide_layout(4, 300, 64, 64, 32) == (
+        True, 3, 1, 3 * stage + 4 * 2 * 64 * 32 + 4 * 6 * 64 + 3 * q64)
+    for it, bq, bk in ((2, 64, 64), (4, 32, 32), (4, 64, 32)):
+        for D, Dv in ((512, 512), (576, 512), (1024, 1024), (300, 64)):
+            assert fa.smem_bytes(it, D, bq, bk, Dv) == \
+                fa.wide_layout(it, D, Dv, bq, bk)[3] <= fa.SMEM_LIMIT_BYTES
+
+
+def test_every_wide_pair_has_a_tile_that_fits():
+    """Every wide pair chip_smoke.py holds on the card, in every dtype, has
+    a built tile (the model's among them) whose shared memory fits in the
+    227 KB a block can have; so does every width up to 2048 at every built
+    tile."""
+    import chip_smoke
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        it = dtype.itemsize
+        for D, Dv in chip_smoke.FLASH_WIDE_DIMS:
+            tiles = [t for t in fa.WIDE_TILES[it]
+                     if fa.unsupported(it, D, Dv, *t) is None]
+            assert attn.flash_tiles(dtype, (D, Dv)) in tiles
+            assert all(fa.smem_bytes(it, D, bq, bk, Dv)
+                       <= fa.SMEM_LIMIT_BYTES for bq, bk in tiles)
+        for w in range(257, 2049, 37):
+            for bq, bk in fa.WIDE_TILES[it]:
+                assert fa.unsupported(it, w, w, bq, bk) is None
+                assert fa.unsupported(it, w, 64, bq, bk) is None
+
+
+def _wide_dims():
+    import chip_smoke
+    return chip_smoke.FLASH_WIDE_DIMS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D,Dv", _wide_dims())
+def test_entry_points_take_their_default_tiles(D, Dv, dtype):
+    """A call that names no tile takes ``default_tiles``, built at every
+    wide pair chip_smoke.py holds on the card: the entry points refuse a
+    tensor on neither the CPU nor the card for its device alone, and on
+    the CPU they run the plain version at those tiles. The reference
+    signature's divisibility rule still counts 64 x 64 blocks."""
+    it = dtype.itemsize
+    tiles = fa.default_tiles(it, D, Dv)
+    assert fa.unsupported(it, D, Dv, *tiles) is None
+    assert tiles == ((64, 64) if (64, 64) in fa.WIDE_TILES[it]
+                     else fa.WIDE_TILES[it][-1])
+    assert fa.default_tiles(it, 128, 128) == (fa.DEFAULT_BLOCK_Q,
+                                              fa.DEFAULT_BLOCK_K)
+    meta = [torch.empty((1, 16, 2, w), dtype=dtype, device="meta")
+            for w in (D, D, Dv)]
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        ops.flash_attention_op(*meta)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        fa.flash_attention(*(t[:, :, 0] for t in meta))
+    q, k, v = (torch.from_numpy(_normal(70 + i, 1, 48, 1, w)).to(dtype)
+               for i, w in enumerate((D, D, Dv)))
+    want = fa.flash_attention_plain(q, k, v, block_q=tiles[0],
+                                    block_k=tiles[1], round_p=True)
+    assert torch.equal(ops.flash_attention_op(q, k, v), want)
+    assert torch.equal(fa.flash_attention(q[:, :, 0], k[:, :, 0],
+                                          v[:, :, 0]), want[:, :, 0])
 
 
 def test_cost_charges_s_recomputed_per_value_slice():
     """The chunked kernels' cost: 2 (D n_slices + Dv) flops a visited
-    entry, q and k read once a slice, q once for each kv tile it visits;
-    the function's need (the bound) stays 2 (D + Dv) an entry."""
-    bh, S, D, Dv, bq, bk = 8, 256, 512, 640, 64, 64
+    entry, where n_slices is 1 up to Dv = 512 (S computed once a kv tile)
+    and 2 at Dv = 640; q and k read once a slice, q once where the block
+    holds it and once for each kv tile it visits where it streams; the
+    function's need (the bound) stays 2 (D + Dv) an entry."""
+    bh, S, bq, bk = 8, 256, 64, 64
     entries, kv_rows, pairs = fa.flash_attention_work(
         S, S, causal=True, block_q=bq, block_k=bk)
-    _, _, slices = fa.wide_split(D, Dv)
-    assert slices == 3
-    flops, byts = fa.flash_attention_cost(bh, S, S, D, Dv, 2, causal=True,
-                                          block_q=bq, block_k=bk)
-    assert flops == 2.0 * bh * entries * (D * slices + Dv)
     q_rows = sum(bq * (i + 1) for i in range(S // bq))   # causal tiles
     assert q_rows == pairs * bq
-    assert byts == 2 * bh * (q_rows * D * slices + S * Dv
-                             + kv_rows * (D * slices + Dv))
-    need, _ = fa.attention_need(1, bh, bh, S, S, D, Dv, 2, True)
-    assert need == 2.0 * bh * S * (S + 1) // 2 * (D + Dv) < flops
+    for D, Dv in ((512, 512), (576, 512), (300, 64)):
+        assert fa.wide_split(D, Dv)[2] == 1
+        assert fa.wide_layout(2, D, Dv, bq, bk)[0]
+        flops, byts = fa.flash_attention_cost(bh, S, S, D, Dv, 2,
+                                              causal=True, block_q=bq,
+                                              block_k=bk)
+        assert flops == 2.0 * bh * entries * (D + Dv)
+        assert byts == 2 * bh * (S * D + S * Dv + kv_rows * (D + Dv))
+        need, _ = fa.attention_need(1, bh, bh, S, S, D, Dv, 2, True)
+        assert need == 2.0 * bh * S * (S + 1) // 2 * (D + Dv) < flops
+    # above 512 columns of v: two slices, each computing S
+    D, Dv = 512, 640
+    flops, byts = fa.flash_attention_cost(bh, S, S, D, Dv, 2, causal=True,
+                                          block_q=bq, block_k=bk)
+    assert flops == 2.0 * bh * entries * (2 * D + Dv)
+    assert byts == 2 * bh * (S * D * 2 + S * Dv + kv_rows * (2 * D + Dv))
+    # Q streamed (f32 at 64 x 32, D = 512): q once a visited kv tile
+    assert not fa.wide_layout(4, 512, 512, 64, 32)[0]
+    e32, kv32, _ = fa.flash_attention_work(S, S, causal=True, block_q=64,
+                                           block_k=32)
+    rows32 = sum(64 * (2 * i + 2) for i in range(S // 64))
+    flops, byts = fa.flash_attention_cost(bh, S, S, 512, 512, 4,
+                                          causal=True, block_q=64,
+                                          block_k=32)
+    assert flops == 2.0 * bh * e32 * 1024
+    assert byts == 4 * bh * (rows32 * 512 + S * 512 + kv32 * 1024)
     # at head dims up to 256 nothing changes: one slice, q read once
     flops, byts = fa.flash_attention_cost(bh, S, S, 128, 128, 2, causal=True,
                                           block_q=bq, block_k=bk)
@@ -179,15 +288,15 @@ def test_cost_charges_s_recomputed_per_value_slice():
 @pytest.mark.parametrize("head_dim", [320, 512, 1024])
 def test_flash_space_keeps_candidates_at_wide_head_dims(head_dim):
     """FlashAttentionSpace at head dims above 256 keeps the chunked f32
-    kernel's tiles, where the reference's space keeps candidates too, and
-    tune() validates them on the CPU against kernels.ref within the
-    space's 2e-5."""
+    kernel's tiles (its default options are the kernel's there), where the
+    reference's space keeps candidates too, and tune() validates them on
+    the CPU against kernels.ref within the space's 2e-5."""
     args = dict(batch_heads=2, seq_q=256, head_dim=head_dim)
     space = FlashAttentionSpace(chip=H100_SXM, device="cpu", **args)
     ref = ref_tuning.FlashAttentionSpace(chip=ref_hw.CHIPS["tpu-v5e"],
                                          **args)
     kept = [c.config_dict for c in space.candidates()]
-    assert kept == [dict(block_k=64, block_q=32), dict(block_k=64,
+    assert kept == [dict(block_k=32, block_q=32), dict(block_k=32,
                                                        block_q=64)]
     assert len(ref.candidates()) >= 1
     result = tune(space)

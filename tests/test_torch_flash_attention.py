@@ -432,9 +432,11 @@ def test_plain_causal_skip_is_exact(q_offset, window):
     (2, 200, 200, 128, 64, "spills"),        # (256, 256)'s rule
     # wider than the widest class: the chunked kernels, at their tiles
     (2, 257, 64, 64, 64, None),
-    (4, 64, 300, 32, 64, None),
+    (4, 64, 300, 32, 32, None),
+    (4, 64, 300, 32, 64, "not-instantiated"),
     (2, 300, 64, 128, 64, "not-instantiated"),
-    (4, 1024, 1024, 64, 64, None),
+    (4, 1024, 1024, 64, 32, None),
+    (4, 1024, 1024, 64, 64, "not-instantiated"),
     (4, 512, 512, 128, 64, "not-instantiated"),
     (4, 0, 64, 32, 64, "head-dim-range"),
 ])
@@ -475,7 +477,7 @@ def test_head_dims_by_kernel():
     assert fa.head_dim_class(200, 1) == (256, 256)
     assert fa.head_dim_class(0, 64) is None
     assert fa.head_dim_class(64, 257) == (128, 512)
-    assert fa.head_dim_class(300, 64) == (384, 64)
+    assert fa.head_dim_class(300, 64) == (384, 128)
     assert fa.head_dim_class(1024, 1024) == (1024, 1024)
     # the built dims are their own class
     for pair in fa.HEAD_DIM_PAIRS:

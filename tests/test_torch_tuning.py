@@ -421,13 +421,16 @@ def test_flash_space_rules_of_the_card():
     odd, _ = _flash_spaces(head_dim=96)
     assert [c.config_dict for c in odd.candidates()] == \
         [dict(block_k=k, block_q=q) for q in (32, 64, 128) for k in (64, 128)]
-    # above 256 the chunked kernel's tiles are kept, the others pruned as
-    # not built there
+    # above 256 the chunked kernel's tiles are the default options and
+    # kept; the narrow kernel's tiles are pruned as not built there
     wide, _ = _flash_spaces(head_dim=264)
     assert [c.config_dict for c in wide.candidates()] == \
-        [dict(block_k=64, block_q=32), dict(block_k=64, block_q=64)]
+        [dict(block_k=32, block_q=32), dict(block_k=32, block_q=64)]
+    narrow, _ = _flash_spaces(head_dim=264, block_q_options=(32, 64, 128),
+                              block_k_options=(64, 128))
+    assert narrow.candidates() == []
     assert all("not-instantiated" in why and "above 256" in why
-               for _, why in wide.enumerate_all()[1])
+               for _, why in narrow.enumerate_all()[1])
 
 
 @pytest.mark.parametrize("causal", [True, False])
